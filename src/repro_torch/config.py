@@ -1,0 +1,111 @@
+"""Model configuration for the PyTorch port.
+
+A copy of the model dataclasses of ``repro/config.py`` (the port imports
+nothing from ``repro``). Every ported architecture provides a module in
+``repro_torch.configs`` exposing ``CONFIG`` (full size) and
+``smoke_config()`` (reduced, CPU-runnable).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+
+# ---------------------------------------------------------------------------
+# Model configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings (None ⇒ dense FFN)."""
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0
+    expert_ff: int = 0              # per-expert intermediate size
+    router_aux_coef: float = 0.001  # load-balancing auxiliary loss
+    # First N layers stay dense (DeepSeek-V3 uses 3 dense layers).
+    first_dense_layers: int = 0
+    dense_ff: int = 0               # intermediate size of the dense layers
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2/V3)."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD settings."""
+    state_dim: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    conv_kernel: int = 4
+    chunk_size: int = 256
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block settings."""
+    slstm_every: int = 6        # every Nth block is an sLSTM; others mLSTM
+    mlstm_head_dim: int = 0     # 0 ⇒ d_model // num_heads
+    proj_factor: float = 2.0    # mLSTM up-projection factor
+    chunk_size: int = 256       # chunkwise-parallel training chunk
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style hybrid: SSM backbone + shared attention block."""
+    attn_every: int = 6         # shared transformer block applied every N layers
+    shared_lora_rank: int = 64  # per-invocation LoRA on the shared block
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"       # dense | moe | ssm | xlstm | hybrid | encdec | vlm
+    num_layers: int = 12
+    d_model: int = 768
+    num_heads: int = 12
+    num_kv_heads: int = 12
+    head_dim: int = 0           # 0 ⇒ d_model // num_heads
+    d_ff: int = 3072
+    vocab_size: int = 32000
+    max_seq_len: int = 8192
+    # activation / norm details
+    ffn_activation: str = "silu"   # silu (SwiGLU) | gelu (GeGLU)
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    rmsnorm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # attention flavor
+    attention: str = "gqa"         # gqa | mla
+    mla: Optional[MLAConfig] = None
+    # family-specific
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
+    hybrid: Optional[HybridConfig] = None
+    # enc-dec
+    num_encoder_layers: int = 0
+    # vlm / audio frontend stubs: number of prefix embedding positions fed by
+    # the (stubbed) modality encoder in train/prefill shapes.
+    num_prefix_embeddings: int = 0
+    # DeepSeek multi-token prediction depth (0 = off)
+    mtp_depth: int = 0
+    # logit softcap (gemma2-style, 0=off)
+    logit_softcap: float = 0.0
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+
+def replace(cfg, **kw):
+    """dataclasses.replace that works through our frozen configs."""
+    return dataclasses.replace(cfg, **kw)

@@ -1,0 +1,128 @@
+"""Wrapper of the CUDA ``int8_matmul`` kernel (``csrc/int8_matmul.cu``).
+
+``x (M, K) @ deq(q (K, N) int8, scale (K, N/256) f32) → (M, N) f32``: the
+port of ``repro/kernels/int8_matmul.py::int8_matmul``. For a CUDA tensor it
+launches the kernel; for a CPU tensor it runs the plain version
+(``ref.int8_matmul_ref``). It never falls back from a failed build or
+launch.
+
+:func:`plan` chooses the launch (path, row tile, K split) from the shapes
+alone, in Python, so the CPU tests reach it.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, build, ref
+
+GROUP = 256          # the kernel's quant block along N
+SMALL_M = 16         # largest M the small-M (weight-streaming) path takes
+TILE_N = 128         # tiled path output tile
+TILE_M = 128
+H100_SMS = 132
+
+
+class Plan(NamedTuple):
+    path: int        # 0: small-M stream, 1: tiled
+    m_tile: int      # rows per block on the small path (power of two)
+    kc: int          # K rows per split
+    splits: int      # K splits (> 1: partials + ordered reduction)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
+    """Launch plan for an (M, K) x (K, N) problem.
+
+    The small path has N/256 column groups; K is split until about two
+    blocks per SM are in flight, as long as the float32 partials stay
+    under a quarter of the code bytes (``splits * M * N * 4 <= K * N / 4``)
+    and each split keeps at least 64 rows. The tiled path splits K only
+    when its output tiles cannot fill one wave, with at least 256 rows a
+    split.
+    """
+    if M <= SMALL_M:
+        m_tile = 1
+        while m_tile < M:
+            m_tile *= 2
+        want = _cdiv(2 * sms, N // GROUP)
+        cap = max(1, min(K // (16 * m_tile), _cdiv(K, 64)))
+        splits = max(1, min(want, cap))
+        kc = _cdiv(_cdiv(K, splits), 8) * 8
+        return Plan(0, m_tile, kc, _cdiv(K, kc))
+    tiles = (N // TILE_N) * _cdiv(M, TILE_M)
+    want = _cdiv(sms, tiles)
+    splits = max(1, min(want, K // 256, 16))
+    kc = _cdiv(_cdiv(K, splits), 16) * 16
+    return Plan(1, 0, kc, _cdiv(K, kc))
+
+
+def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+           block: int) -> None:
+    if x.ndim != 2 or q.ndim != 2 or scale.ndim != 2:
+        raise ValueError(f"need 2-D x, q, scale; got {tuple(x.shape)}, "
+                         f"{tuple(q.shape)}, {tuple(scale.shape)}")
+    M, K = x.shape
+    Kq, N = q.shape
+    if K != Kq:
+        raise ValueError(f"x has K={K}, q has K={Kq}")
+    if block != GROUP or N % GROUP:
+        raise ValueError(f"need quant block {GROUP} and N % {GROUP} == 0, "
+                         f"got block={block}, N={N}")
+    if tuple(scale.shape) != (K, N // block):
+        raise ValueError(f"scale shape {tuple(scale.shape)} != "
+                         f"{(K, N // block)}")
+    if q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"need int8 codes and float32 scales, got "
+                        f"{q.dtype}, {scale.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if not (x.device == q.device == scale.device):
+        raise ValueError(f"x, q, scale on different devices: {x.device}, "
+                         f"{q.device}, {scale.device}")
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                block: int = GROUP) -> torch.Tensor:
+    """``x (M, K) @ deq(q, scale)`` → ``(M, N)`` float32, N the padded
+    width of ``q``."""
+    _check(x, q, scale, block)
+    if x.device.type == "cpu":
+        return ref.int8_matmul_ref(x, q, scale, block)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    for name, t in (("x", x), ("q", q), ("scale", scale)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    M, K = x.shape
+    N = q.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    p = plan(M, K, N, sms)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((p.splits, M, N), dtype=torch.float32,
+                      device=x.device) if p.splits > 1 else out)
+    fn = _entry()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    LAUNCHES["int8_matmul"] += 1
+    err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
+             scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, K, N,
+             p.path, p.m_tile, p.kc, p.splits, stream)
+    if err != 0:
+        raise RuntimeError(f"int8_matmul launch failed: CUDA error {err} "
+                           f"(M={M}, K={K}, N={N}, {p})")
+    return out
+
+
+def _entry():
+    lib = build.load("int8_matmul")
+    fn = lib.qgl_int8_matmul
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+        fn.restype = i
+    return fn

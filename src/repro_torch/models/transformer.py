@@ -1,0 +1,136 @@
+"""Dense decoder-only transformer (the LLaMA family): the counterpart of
+the dense GQA path of ``repro/models/transformer.py``."""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import attention, layers
+from repro_torch.models.base import ModelBundle, SegmentDef
+from repro_torch.models.layers import dense, dense_init, embed_init, \
+    ffn_apply, ffn_init, rmsnorm, rmsnorm_init, softcap
+
+
+Q_CHUNK = 1024      # query rows per attention score block (the JAX default)
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def block_apply(lp, carry, ctx, cfg: ModelConfig, *, dtype):
+    h = carry["h"]
+    x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
+    h = h + attention.gqa_apply(lp["attn"], x, cfg,
+                                positions=ctx["positions"],
+                                q_chunk=Q_CHUNK, dtype=dtype)
+    x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
+    return {**carry, "h": h + ffn_apply(lp["ffn"], x, dtype)}
+
+
+def block_prefill(lp, carry, ctx, cfg: ModelConfig, *, dtype):
+    h = carry["h"]
+    x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
+    a, cache = attention.gqa_prefill(lp["attn"], x, cfg,
+                                     positions=ctx["positions"],
+                                     q_chunk=Q_CHUNK, dtype=dtype)
+    if "max_len" in ctx:
+        # grow the cache to the serving window (time axis = 1)
+        pad = ctx["max_len"] - cache[0].shape[1]
+        cache = tuple(F.pad(c, (0, 0, 0, 0, 0, pad)) for c in cache)
+    h = h + a
+    x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
+    f = ffn_apply(lp["ffn"], x, dtype)
+    return {**carry, "h": h + f}, cache
+
+
+def block_decode(lp, carry, cache, ctx, cfg: ModelConfig, *, dtype):
+    """One token per row; the cache slices are written in place."""
+    h = carry["h"]                              # (B, 1, D)
+    x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
+    a, cache = attention.gqa_decode(lp["attn"], x, cfg, cache=cache,
+                                    length=ctx["length"], dtype=dtype)
+    h = h + a
+    x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
+    f = ffn_apply(lp["ffn"], x, dtype)
+    return {**carry, "h": h + f}, cache
+
+
+def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (shape, shape)
+
+
+def _head_logits(params, h, cfg: ModelConfig, dtype):
+    h = rmsnorm(h, params["final_norm"], cfg.rmsnorm_eps)
+    return softcap(dense(h, params["head"], dtype), cfg.logit_softcap)
+
+
+def build(cfg: ModelConfig, *, device: torch.device,
+          dtype=torch.bfloat16) -> ModelBundle:
+    """Dense LM bundle with one segment of ``cfg.num_layers`` blocks and
+    an untied head. ``device`` is where ``init_params`` puts the weights by
+    default and where the engine places its inputs."""
+    if cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"{cfg.name}: tied embeddings need the transposed INT8 matmul, "
+            "which is not ported yet")
+
+    def init_params(gen: torch.Generator, device_=None, leaf_fn=None):
+        """Float32 parameters drawn from ``gen`` (the JAX package's
+        distributions; its numbers cannot be reproduced).
+
+        ``leaf_fn`` (e.g. ``serve.params.quantize_leaf``) maps each leaf as
+        soon as its group is drawn, so the whole float tree never exists at
+        once on the device."""
+        dev = device if device_ is None else device_
+
+        def fin(tree):
+            return tree if leaf_fn is None else _map_leaves(tree, leaf_fn)
+
+        blocks = {
+            "attn_norm": fin(rmsnorm_init(cfg.d_model, num=cfg.num_layers,
+                                          device=dev)),
+            "attn": fin(attention.gqa_init(gen, cfg, num=cfg.num_layers,
+                                           device=dev)),
+            "ffn_norm": fin(rmsnorm_init(cfg.d_model, num=cfg.num_layers,
+                                         device=dev)),
+            "ffn": fin(ffn_init(gen, cfg.d_model, cfg.d_ff,
+                                num=cfg.num_layers, device=dev)),
+        }
+        return {
+            "embedding": fin(embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                        device=dev)),
+            "final_norm": fin(rmsnorm_init(cfg.d_model, device=dev)),
+            "head": fin(dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                   scale=1.0 / math.sqrt(cfg.d_model),
+                                   device=dev)),
+            "seg0_dense": blocks,
+        }
+
+    def embed(params, batch):
+        tokens = batch["tokens"]
+        h = layers.embed_lookup(params["embedding"], tokens, dtype)
+        B, S = h.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device)[None].expand(B, S)
+        return {"h": h}, {"positions": positions}
+
+    def head_logits(params, carry):
+        return _head_logits(params, carry["h"][:, -1:], cfg, dtype)
+
+    seg = SegmentDef(
+        name="dense", n_layers=cfg.num_layers,
+        apply=functools.partial(block_apply, cfg=cfg, dtype=dtype),
+        prefill=functools.partial(block_prefill, cfg=cfg, dtype=dtype),
+        decode=functools.partial(block_decode, cfg=cfg, dtype=dtype),
+        cache_shapes=functools.partial(_cache_shapes, cfg))
+    return ModelBundle(cfg=cfg, device=torch.device(device), dtype=dtype,
+                       init_params=init_params, embed=embed,
+                       segments=(seg,), head_logits=head_logits)

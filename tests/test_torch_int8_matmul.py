@@ -1,0 +1,125 @@
+"""The port's int8_matmul against the JAX package: the plain version
+against repro.kernels.ref and the Pallas kernel (interpret mode), the CPU
+model path against repro.kernels.ops.quantized_dense (ref backend), and
+the CUDA wrapper's launch planning and argument checks, which run here
+without a card or nvcc."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quant as jq
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.int8_matmul import int8_matmul as pallas_int8_matmul
+from repro_torch.core import quant as tq
+from repro_torch.kernels import LAUNCHES, build, ops, ref
+from repro_torch.kernels import int8_matmul as ti8
+
+
+def _problem(M, K, N, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    jt = jq.quantize_blockwise(jnp.asarray(w), 8, symmetric=True)
+    return x, jt, tq.from_numpy((np.asarray(jt.q), np.asarray(jt.scale),
+                                 None, 8, 256, N, "float32"))
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float32)
+    return np.abs(np.asarray(got, np.float32) - want).max() \
+        / max(np.abs(want).max(), 1e-30)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 64, 256), (5, 300, 512),
+                                   (64, 256, 768)])
+def test_ref_matches_jax_ref(M, K, N):
+    x, jt, tt = _problem(M, K, N)
+    want = jref.int8_matmul_ref(jnp.asarray(x), jt.q, jt.scale, 256)
+    got = ref.int8_matmul_ref(torch.from_numpy(x), tt.q, tt.scale, 256)
+    # 1e-5 relative to max|ref|: the same products, summed in another order
+    assert _rel(got.numpy(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 512, 256), (8, 256, 768)])
+def test_ref_matches_pallas_interpret(M, K, N):
+    """Kernel parity tolerance: 2e-2 relative to max|ref|
+    (docs/kernels.md, tests/test_kernels.py)."""
+    x, jt, tt = _problem(M, K, N, seed=1)
+    want = pallas_int8_matmul(jnp.asarray(x), jt.q, jt.scale, block=256,
+                              bm=min(128, M), interpret=True)
+    got = ref.int8_matmul_ref(torch.from_numpy(x), tt.q, tt.scale, 256)
+    assert _rel(got.numpy(), want) <= 2e-2
+
+
+@pytest.mark.parametrize("lead,K,N", [((1,), 64, 128), ((2, 3), 300, 300),
+                                      ((7,), 5461 // 43, 2048 // 8)])
+def test_quantized_dense_cpu_matches_jax_ref_backend(lead, K, N):
+    """M=1, ragged K and N not a multiple of 256: the CPU model path is
+    the JAX ref branch (dequantize, then one f32 matmul)."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(lead + (K,)).astype(np.float32)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    jt = jq.quantize_blockwise(jnp.asarray(w), 8, symmetric=True)
+    tt = tq.quantize_blockwise(torch.from_numpy(w), 8, symmetric=True)
+    want = jops.quantized_dense(jnp.asarray(x), jt, dtype=jnp.float32,
+                                backend="ref")
+    LAUNCHES.clear()
+    got = ops.quantized_dense(torch.from_numpy(x), tt, dtype=torch.float32)
+    assert tuple(got.shape) == lead + (N,)
+    assert _rel(got.numpy(), want) <= 1e-5
+    assert LAUNCHES["deq_matmul"] == 1 and LAUNCHES["int8_matmul"] == 0
+
+
+def test_wrapper_on_cpu_runs_plain_version():
+    x, _, tt = _problem(3, 300, 512, seed=3)
+    LAUNCHES.clear()
+    got = ti8.int8_matmul(torch.from_numpy(x), tt.q, tt.scale)
+    want = ref.int8_matmul_ref(torch.from_numpy(x), tt.q, tt.scale, 256)
+    assert torch.equal(got, want)
+    assert LAUNCHES["int8_matmul"] == 0
+    assert LAUNCHES["int8_matmul_ref"] == 2
+
+
+def test_wrapper_rejects_bad_arguments():
+    x, _, tt = _problem(2, 256, 256, seed=4)
+    xt = torch.from_numpy(x)
+    with pytest.raises(ValueError, match="K="):
+        ti8.int8_matmul(xt[:, :128], tt.q, tt.scale)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ti8.int8_matmul(xt.double(), tt.q, tt.scale)
+    with pytest.raises(TypeError, match="int8 codes"):
+        ti8.int8_matmul(xt, tt.q.to(torch.int16), tt.scale)
+    with pytest.raises(ValueError, match="quant block"):
+        ti8.int8_matmul(xt, tt.q, tt.scale, block=128)
+
+
+LLAMA_1B_KN = [(2048, 2048), (2048, 5632), (5461, 2048), (2048, 32000)]
+
+
+@pytest.mark.parametrize("K,N", LLAMA_1B_KN)
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 17, 64, 2048, 4096])
+def test_plan_covers_k_and_bounds_partials(M, K, N):
+    p = ti8.plan(M, K, N)
+    assert p.splits >= 1 and p.kc >= 1
+    assert (p.splits - 1) * p.kc < K <= p.splits * p.kc   # no empty split
+    if M <= ti8.SMALL_M:
+        assert p.path == 0 and M <= p.m_tile <= 16
+        assert p.m_tile & (p.m_tile - 1) == 0
+        assert p.kc % 8 == 0
+        if p.splits > 1:        # partials stay under 1/4 of the codes
+            assert p.splits * M * N * 4 <= K * N / 4
+    else:
+        assert p.path == 1 and p.kc % 16 == 0
+        assert p.splits <= 16
+
+
+def test_kernel_module_imports_without_nvcc():
+    """Importing the wrapper builds nothing; sources are found and the
+    library name follows the source hash into build/."""
+    assert "int8_matmul" in build.sources()
+    path = build.lib_path("int8_matmul")
+    assert path.parent == build.BUILD_DIR and path.suffix == ".so"
+    assert path == build.lib_path("int8_matmul")
+    assert "int8_matmul" not in build._LOADED
