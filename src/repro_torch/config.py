@@ -1,9 +1,11 @@
 """Model configuration for the PyTorch port.
 
-A copy of the model dataclasses of ``repro/config.py`` (the port imports
-nothing from ``repro``). Every ported architecture provides a module in
-``repro_torch.configs`` exposing ``CONFIG`` (full size) and
-``smoke_config()`` (reduced, CPU-runnable).
+A copy of the model, Q-GaLore, training and shape-cell dataclasses of
+``repro/config.py`` (the port imports nothing from ``repro``), without
+the fields of what is not ported (rank adaptation's knobs, distributed
+training, remat, LoRA, checkpoint cadence). Every
+ported architecture provides a module in ``repro_torch.configs`` exposing
+``CONFIG`` (full size) and ``smoke_config()`` (reduced, CPU-runnable).
 """
 from __future__ import annotations
 
@@ -109,3 +111,67 @@ class ModelConfig:
 def replace(cfg, **kw):
     """dataclasses.replace that works through our frozen configs."""
     return dataclasses.replace(cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Q-GaLore / optimizer configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class QGaLoreConfig:
+    """Everything controlling the paper's technique."""
+    enabled: bool = True
+    rank: int = 128                 # low-rank dimension r
+    scale: float = 0.25             # GaLore alpha
+    update_interval: int = 200      # initial SVD interval T
+    # adaptive lazy update
+    adaptive: bool = True
+    cos_threshold: float = 0.4      # paper's 40% threshold
+    adaptive_k: int = 3             # consecutive intervals above threshold
+    max_interval: int = 3200        # cap on doubled interval
+    # quantization
+    proj_bits: int = 4              # INT4 projection
+    weight_bits: int = 8            # INT8 weights (0 = keep bf16 weights)
+    quant_block: int = 256          # paper's block size
+    stochastic_rounding: bool = True
+    # inner optimizer
+    adam_bits: int = 8              # 8-bit Adam states (32 = fp32 states)
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    # dynamic rank adaptation is not ported: True raises
+    adaptive_rank: bool = False
+    # subspace method: "svd" (paper-faithful); "randomized" is not ported
+    subspace_method: str = "svd"
+    # which params get low-rank treatment
+    min_dim: int = 128              # both dims must be >= this
+    galore_embeddings: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    seed: int = 0
+    global_batch: int = 8
+    seq_len: int = 256
+    steps: int = 100
+    learning_rate: float = 1e-3
+    warmup_steps: int = 10
+    lr_schedule: str = "cosine"     # cosine | linear | constant
+    min_lr_ratio: float = 0.1
+    grad_clip: float = 1.0
+    # checkpoints are not ported: a checkpoint_dir raises
+    checkpoint_dir: str = ""
+    log_every: int = 10
+
+
+# ---------------------------------------------------------------------------
+# Input shape cells
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode

@@ -81,6 +81,10 @@ class QTensor:
     def ndim(self) -> int:
         return self.q.ndim
 
+    @property
+    def symmetric(self) -> bool:
+        return self.zero is None
+
     def map(self, fn) -> "QTensor":
         """Apply ``fn`` to every tensor (codes, scales, zeros)."""
         return QTensor(fn(self.q), fn(self.scale),
@@ -89,6 +93,33 @@ class QTensor:
 
     def to(self, device) -> "QTensor":
         return self.map(lambda t: t.to(device))
+
+
+@dataclass
+class QVirtual:
+    """A quantized weight paired with a gradient slot for its virtual value
+    (``repro/core/quant.py::QVirtual``).
+
+    The INT8 codes stay the compute format; ``shadow`` is a zeros tensor of
+    the virtual (dequantized, float32) shape with ``requires_grad``, never
+    read, onto which the model's ops route ``dL/dW``."""
+    qt: QTensor
+    shadow: torch.Tensor
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.qt.shape
+
+    @property
+    def ndim(self) -> int:
+        return self.qt.ndim
+
+
+def virtualize(qt: QTensor) -> QVirtual:
+    """Pair a QTensor with a zeros gradient slot of its virtual shape."""
+    shadow = torch.zeros(qt.shape, dtype=torch_dtype(qt.dtype),
+                         device=qt.q.device, requires_grad=True)
+    return QVirtual(qt, shadow)
 
 
 def gather_rows(qt: QTensor, idx: torch.Tensor) -> QTensor:
@@ -202,6 +233,17 @@ def dequantize(qt: QTensor, dtype=None) -> torch.Tensor:
     if x.shape[-1] != qt.orig_last:
         x = x[..., : qt.orig_last]
     return x.to(out_dtype)
+
+
+def requantize_sr(qt: QTensor, update: torch.Tensor,
+                  uniforms: torch.Tensor) -> QTensor:
+    """The Q-GaLore weight update ``W' = SR_quant(dequant(W) + update)``
+    (``repro/core/quant.py::requantize_sr``): per-block scales are
+    recomputed from the updated values, and ``uniforms`` (shaped like the
+    padded codes ``qt.q`` for INT8) drive the stochastic rounding."""
+    w = dequantize(qt, torch.float32) + update.to(torch.float32)
+    return quantize_blockwise(w, bits=qt.bits, block=qt.block,
+                              symmetric=qt.symmetric, uniforms=uniforms)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,11 @@
 (``ref``) and the model-facing wrappers (``ops``).
 
 ``LAUNCHES`` counts, per name, the calls that reached a kernel or a plain
-version on the model path, so a run can show which one it went through:
-``"int8_matmul"`` (the CUDA kernel, counted by its wrapper where it
-launches), ``"int8_matmul_ref"`` and ``"deq_matmul"`` (plain versions).
+version, so a run can show which one it went through. Kernels (counted by
+their wrappers where they launch): ``"int8_matmul"``, ``"int8_matmul_t"``,
+``"fused_qgalore_update"``. Plain versions: ``"int8_matmul_ref"``,
+``"int8_matmul_t_ref"``, ``"fused_qgalore_update_ref"``, and the CPU model
+path's ``"deq_matmul"`` and ``"deq_matmul_t"``.
 """
 from collections import Counter
 

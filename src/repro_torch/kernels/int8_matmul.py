@@ -1,10 +1,12 @@
-"""Wrapper of the CUDA ``int8_matmul`` kernel (``csrc/int8_matmul.cu``).
+"""Wrappers of the CUDA ``int8_matmul`` and ``int8_matmul_t`` kernels
+(``csrc/int8_matmul.cu``, ``csrc/int8_matmul_t.cu``).
 
-``x (M, K) @ deq(q (K, N) int8, scale (K, N/256) f32) → (M, N) f32``: the
-port of ``repro/kernels/int8_matmul.py::int8_matmul``. For a CUDA tensor it
-launches the kernel; for a CPU tensor it runs the plain version
-(``ref.int8_matmul_ref``). It never falls back from a failed build or
-launch.
+``x (M, K) @ deq(q (K, N) int8, scale (K, N/256) f32) → (M, N) f32`` and
+its transpose ``g (M, N) @ deq(q)^T → (M, K)`` over the same stored
+blocks: the ports of ``repro/kernels/int8_matmul.py``. For a CUDA tensor a
+wrapper launches its kernel; for a CPU tensor it runs the plain version
+(``ref.int8_matmul_ref``, ``ref.int8_matmul_t_ref``). Neither falls back
+from a failed build or launch.
 
 :func:`plan` chooses the launch (path, row tile, K split) from the shapes
 alone, in Python, so the CPU tests reach it.
@@ -63,14 +65,16 @@ def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
 
 
 def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-           block: int) -> None:
+           block: int, axis: int = 0) -> None:
+    """``x``'s last axis must match axis ``axis`` of ``q``: K for
+    :func:`int8_matmul`, the padded N for :func:`int8_matmul_t`."""
     if x.ndim != 2 or q.ndim != 2 or scale.ndim != 2:
         raise ValueError(f"need 2-D x, q, scale; got {tuple(x.shape)}, "
                          f"{tuple(q.shape)}, {tuple(scale.shape)}")
-    M, K = x.shape
-    Kq, N = q.shape
-    if K != Kq:
-        raise ValueError(f"x has K={K}, q has K={Kq}")
+    K, N = q.shape
+    if x.shape[1] != q.shape[axis]:
+        raise ValueError(f"x has {'KN'[axis]}={x.shape[1]}, q has shape "
+                         f"{tuple(q.shape)}")
     if block != GROUP or N % GROUP:
         raise ValueError(f"need quant block {GROUP} and N % {GROUP} == 0, "
                          f"got block={block}, N={N}")
@@ -85,6 +89,12 @@ def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if not (x.device == q.device == scale.device):
         raise ValueError(f"x, q, scale on different devices: {x.device}, "
                          f"{q.device}, {scale.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if x.device.type == "cuda":
+        for name, t in (("x", x), ("q", q), ("scale", scale)):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -94,11 +104,6 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     _check(x, q, scale, block)
     if x.device.type == "cpu":
         return ref.int8_matmul_ref(x, q, scale, block)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    for name, t in (("x", x), ("q", q), ("scale", scale)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     M, K = x.shape
     N = q.shape[1]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -124,5 +129,41 @@ def _entry():
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+        fn.restype = i
+    return fn
+
+
+def int8_matmul_t(g: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                  block: int = GROUP) -> torch.Tensor:
+    """``g (M, N) @ deq(q (K, N), scale)^T`` → ``(M, K)`` float32, N the
+    padded width of ``q`` (the port of ``repro/kernels/int8_matmul.py::
+    int8_matmul_t``, kernel ``csrc/int8_matmul_t.cu``). For a CUDA tensor
+    it launches the kernel; for a CPU tensor it runs
+    ``ref.int8_matmul_t_ref``."""
+    _check(g, q, scale, block, axis=1)
+    if g.device.type == "cpu":
+        return ref.int8_matmul_t_ref(g, q, scale, block)
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
+    M, N = g.shape
+    K = q.shape[0]
+    out = torch.empty((M, K), dtype=torch.float32, device=g.device)
+    fn = _entry_t()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    LAUNCHES["int8_matmul_t"] += 1
+    err = fn(g.data_ptr(), int(g.dtype == torch.bfloat16), q.data_ptr(),
+             scale.data_ptr(), out.data_ptr(), M, K, N, stream)
+    if err != 0:
+        raise RuntimeError(f"int8_matmul_t launch failed: CUDA error {err} "
+                           f"(M={M}, K={K}, N={N})")
+    return out
+
+
+def _entry_t():
+    lib = build.load("int8_matmul_t")
+    fn = lib.qgl_int8_matmul_t
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, i, vp, vp, vp, i, i, i, vp]
         fn.restype = i
     return fn

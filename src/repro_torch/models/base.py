@@ -1,5 +1,5 @@
-"""The model contract consumed by serving (the counterpart of
-``repro/models/base.py``)::
+"""The model contract consumed by serving and training (the counterpart
+of ``repro/models/base.py``)::
 
     embed → [segment_0 | segment_1 | ...] → head
 
@@ -17,7 +17,7 @@ from typing import Callable
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.quant import QTensor
+from repro_torch.core.quant import QTensor, QVirtual
 
 
 @dataclass(frozen=True)
@@ -43,17 +43,24 @@ class ModelBundle:
     embed: Callable                        # (params, batch) -> (carry, ctx)
     segments: tuple
     head_logits: Callable                  # (params, carry) -> logits (last pos)
+    head_loss: Callable                    # (params, carry, batch) -> (loss, metrics)
 
     def seg_key(self, i: int) -> str:
         return f"seg{i}_{self.segments[i].name}"
 
 
 def layer_params(tree, layer: int):
-    """Layer ``layer`` of a stacked parameter tree (views, no copies)."""
+    """Layer ``layer`` of a stacked parameter tree (views, no copies);
+    None leaves stay None, and a QVirtual's shadow is sliced with its
+    codes, so the layer's gradient lands in the stack's shadow."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: layer_params(v, layer) for k, v in tree.items()}
     if isinstance(tree, QTensor):
         return tree.map(lambda t: t[layer])
+    if isinstance(tree, QVirtual):
+        return QVirtual(layer_params(tree.qt, layer), tree.shadow[layer])
     return tree[layer]
 
 
@@ -64,3 +71,11 @@ def run_segments(bundle: ModelBundle, params, carry, ctx):
         for layer in range(seg.n_layers):
             carry = seg.apply(layer_params(stack, layer), carry, ctx)
     return carry
+
+
+def loss_fn(bundle: ModelBundle, params, batch):
+    """The training loss of the plain (whole-graph) path: the oracle of the
+    fused per-layer backward (``train/stack.py``)."""
+    carry, ctx = bundle.embed(params, batch)
+    carry = run_segments(bundle, params, carry, ctx)
+    return bundle.head_loss(params, carry, batch)

@@ -5,6 +5,11 @@ through ``kernels.ops.quantized_dense``; embedding tables are read through
 :func:`embed_lookup`, which gathers INT8 rows per token. Parameter trees
 are nested dicts with the JAX package's leaf names (wq/wk/wv/wo, wi/wg/wd,
 embedding, head, *_norm).
+
+For training a weight arrives as a ``QVirtual`` (codes plus a zeros
+``shadow`` that requires grad): matmuls route ``dL/dW`` to the shadow
+through ``quantized_dense``'s backward, an embedding lookup as a row
+scatter-add, and a materialized weight (norm scales) as the identity.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant
-from repro_torch.core.quant import QTensor
+from repro_torch.core.quant import QTensor, QVirtual
 from repro_torch.kernels import ops as kops
 
 
@@ -52,7 +57,10 @@ def rmsnorm_init(dim: int, *, num: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 def materialize(w, dtype=torch.bfloat16) -> torch.Tensor:
-    """Full-precision view of a (possibly quantized) weight."""
+    """Full-precision view of a (possibly quantized) weight; for a
+    QVirtual the gradient flows to its shadow (``+ shadow`` adds zeros)."""
+    if isinstance(w, QVirtual):
+        return (quant.dequantize(w.qt, torch.float32) + w.shadow).to(dtype)
     if isinstance(w, QTensor):
         return quant.dequantize(w, dtype)
     return w.to(dtype)
@@ -61,8 +69,9 @@ def materialize(w, dtype=torch.bfloat16) -> torch.Tensor:
 def dense(x: torch.Tensor, w, dtype=torch.bfloat16) -> torch.Tensor:
     """x (..., d) @ w (d, f); INT8 weights stream through the
     ``quantized_dense`` kernel (never materialized)."""
-    if isinstance(w, QTensor) and w.bits == 8 and w.zero is None \
-            and w.ndim == 2:
+    qt = w.qt if isinstance(w, QVirtual) else w
+    if isinstance(qt, QTensor) and qt.bits == 8 and qt.zero is None \
+            and qt.ndim == 2:
         return kops.quantized_dense(x, w, dtype=dtype)
     return torch.einsum("...d,df->...f", x.to(dtype), materialize(w, dtype))
 
@@ -70,7 +79,11 @@ def dense(x: torch.Tensor, w, dtype=torch.bfloat16) -> torch.Tensor:
 def embed_lookup(w, tokens: torch.Tensor, dtype=torch.bfloat16
                  ) -> torch.Tensor:
     """Embedding rows for ``tokens``. INT8 tables gather codes and scales
-    per token and dequantize only those rows."""
+    per token and dequantize only those rows; a QVirtual's gradient reaches
+    its shadow as a row scatter-add (the backward of ``shadow[tokens]``)."""
+    if isinstance(w, QVirtual) and w.ndim == 2:
+        rows = quant.dequantize(quant.gather_rows(w.qt, tokens))
+        return (rows + w.shadow[tokens.long()]).to(dtype)
     if isinstance(w, QTensor) and w.ndim == 2:
         return quant.dequantize(quant.gather_rows(w, tokens)).to(dtype)
     return materialize(w, dtype)[tokens.long()]
@@ -140,3 +153,18 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return logits
     return torch.tanh(logits / cap) * cap
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
+    """Token-mean cross-entropy in float32; labels == -1 are ignored.
+    Returns ``(loss, {"accuracy", "tokens"})``."""
+    lf = logits.to(torch.float32)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    denom = torch.clamp_min(valid.sum(), 1)
+    loss = nll.sum() / denom
+    acc = ((lf.argmax(-1) == safe) & valid).sum() / denom
+    return loss, {"accuracy": acc, "tokens": denom}

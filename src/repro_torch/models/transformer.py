@@ -125,6 +125,13 @@ def build(cfg: ModelConfig, *, device: torch.device,
     def head_logits(params, carry):
         return _head_logits(params, carry["h"][:, -1:], cfg, dtype)
 
+    def head_loss(params, carry, batch):
+        """Next-token loss: logits[t] predicts labels[t + 1]."""
+        logits = _head_logits(params, carry["h"], cfg, dtype)
+        loss, metrics = layers.cross_entropy(logits[:, :-1],
+                                             batch["labels"][:, 1:])
+        return loss, {**metrics, "ce_loss": loss}
+
     seg = SegmentDef(
         name="dense", n_layers=cfg.num_layers,
         apply=functools.partial(block_apply, cfg=cfg, dtype=dtype),
@@ -133,4 +140,5 @@ def build(cfg: ModelConfig, *, device: torch.device,
         cache_shapes=functools.partial(_cache_shapes, cfg))
     return ModelBundle(cfg=cfg, device=torch.device(device), dtype=dtype,
                        init_params=init_params, embed=embed,
-                       segments=(seg,), head_logits=head_logits)
+                       segments=(seg,), head_logits=head_logits,
+                       head_loss=head_loss)

@@ -4,7 +4,8 @@ the JAX package's parameters.
 ``prepare_params`` is the counterpart of ``repro/train/step.py::
 prepare_params`` for the default Q-GaLore recipe (INT8 symmetric weights,
 256-blocks); ``from_jax_params`` turns the JAX package's params, handed
-over as numpy, into the port's, so both packages compute on the same codes.
+over as numpy, into the port's, so both packages compute on the same codes;
+``from_jax_state`` does the same for a whole training state.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant
+from repro_torch.core.adam8bit import Adam8bitState
+from repro_torch.core.qgalore import QGaLoreState, flatten
 from repro_torch.device import resolve_device
 
 
@@ -59,3 +62,29 @@ def from_jax_params(tree, device=None):
         return torch.from_numpy(np.array(t)).to(dev)
 
     return walk(tree)
+
+
+def from_jax_state(state, device=None):
+    """The JAX package's ``TrainState`` as the port's
+    (``train.step.TrainState``), on ``device``.
+
+    ``state`` is a dict of numpy trees: ``params`` (as for
+    :func:`from_jax_params`), ``inner`` (a tree like ``params`` whose leaves
+    are ``(m, v)`` pairs, each a QTensor tuple or a float array), ``proj``
+    (QTensor tuples, float arrays or None per leaf) and ``count``."""
+    # train.step imports this module (quantize_leaf)
+    from repro_torch.train.step import TrainState
+    dev = resolve_device(device)
+
+    def one(t):
+        if t is None:
+            return None
+        if isinstance(t, tuple):
+            return quant.from_numpy(t, dev)
+        return torch.from_numpy(np.array(t)).to(dev)
+
+    inner = [Adam8bitState(one(m), one(v))
+             for _, (m, v) in flatten(state["inner"])]
+    proj = [one(p) for _, p in flatten(state["proj"])]
+    return TrainState(from_jax_params(state["params"], dev),
+                      QGaLoreState(inner, proj, int(state["count"])))

@@ -5,7 +5,7 @@ imports no JAX, so it also runs where JAX is not installed)."""
 import pytest
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import projector, quant
 from repro_torch.kernels import LAUNCHES, ops, ref
 from repro_torch.kernels import int8_matmul as ti8
 
@@ -69,3 +69,128 @@ def test_wrapper_rejects_non_contiguous(cuda):
     x = torch.randn((256, 4), device=cuda).t()
     with pytest.raises(ValueError, match="contiguous"):
         ti8.int8_matmul(x, qt.q, qt.scale)
+
+
+@pytest.mark.parametrize("M", [1, 17, 100, 300])
+@pytest.mark.parametrize("K,N", [(64, 256), (300, 512), (127, 768),
+                                 (5461, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_t_matches_plain(cuda, M, K, N, dtype):
+    """2e-2 of max|plain|; ragged K (the output width), row masking."""
+    g = torch.Generator(device=cuda).manual_seed(M * 11 + K)
+    qt = quant.quantize_blockwise(torch.randn((K, N), generator=g,
+                                              device=cuda), 8,
+                                  symmetric=True)
+    go = torch.randn((M, N), generator=g, device=cuda).to(dtype)
+    LAUNCHES.clear()
+    got = ti8.int8_matmul_t(go, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert LAUNCHES["int8_matmul_t"] == 1
+    want = ref.int8_matmul_t_ref(go, qt.q, qt.scale, 256)
+    assert got.shape == (M, K) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 2e-2
+
+
+def _fused_problem(dev, m, n, r, side, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qt = quant.quantize_blockwise(
+        torch.randn((m, n), generator=g, device=dev) * 0.02, 8,
+        symmetric=True)
+    d = n if side == "right" else m
+    P = torch.linalg.qr(torch.randn((d, r), generator=g, device=dev))[0]
+    qp = projector.quantize_projection(P, 4, 256)
+    low_shape = (m, r) if side == "right" else (r, n)
+    low = torch.randn(low_shape, generator=g, device=dev)
+    m32 = torch.randn(low_shape, generator=g, device=dev) * 0.1
+    v32 = (torch.randn(low_shape, generator=g, device=dev) * 0.01).abs()
+    u01 = torch.rand(qt.q.shape, generator=g, device=dev)
+    return qt, qp, low, m32, v32, u01
+
+
+@pytest.mark.parametrize("m,n,r,side", [
+    (512, 256, 32, "right"), (256, 512, 32, "left"),
+    (300, 200, 24, "right"), (200, 300, 24, "left"),
+    (5461 // 43, 2048 // 8, 64, "right"), (2048 // 8, 5461 // 43, 64, "left"),
+])
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+def test_fused_update_matches_plain(cuda, m, n, r, side, wd):
+    """The same uniforms: codes within one INT8 quantum (nearly all
+    equal), scales and moments within 1e-5 relative."""
+    qt, qp, low, m32, v32, u01 = _fused_problem(cuda, m, n, r, side, m + n)
+    kw = dict(side=side, gscale=0.25, weight_decay=wd)
+    LAUNCHES.clear()
+    got, mg, vg = ops.fused_qgalore_update(qt, low, m32, v32, qp, 3, 1e-2,
+                                           u01, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_qgalore_update"] == 1
+    assert LAUNCHES["fused_qgalore_update_ref"] == 0
+    cpu = lambda t: t.to("cpu")
+    want, mw, vw = ops.fused_qgalore_update(
+        qt.to("cpu"), cpu(low), cpu(m32), cpu(v32), qp.to("cpu"), 3, 1e-2,
+        cpu(u01), **kw)
+    dq_g = quant.dequantize(got.to("cpu"), torch.float32)
+    dq_w = quant.dequantize(want, torch.float32)
+    quantum = want.scale.max().item()
+    assert (dq_g - dq_w).abs().max().item() <= quantum + 1e-6
+    assert (got.q.cpu() == want.q)[:, :n].float().mean().item() > 0.999
+    for a, b in ((got.scale, want.scale), (mg, mw), (vg, vw)):
+        assert _rel(a.cpu(), b) <= 1e-5
+
+
+def test_training_steps_go_through_the_kernels(cuda):
+    """llama-60m smoke for one refresh and two steady steps on the card:
+    finite losses, the kernels launched and the plain versions not, and
+    the first loss equal to the CPU run's from the same state and
+    batches."""
+    from repro_torch.config import QGaLoreConfig, TrainConfig
+    from repro_torch.core.optimizers import preset
+    from repro_torch.models import model_zoo
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import Trainer
+
+    qcfg = preset("qgalore", QGaLoreConfig(rank=8, min_dim=32,
+                                           update_interval=4))
+    tcfg = TrainConfig(seed=0, global_batch=4, seq_len=32, steps=3,
+                       learning_rate=1e-2, warmup_steps=1, log_every=0)
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    lm = SyntheticLM(DataConfig(vocab_size=512, seq_len=32, global_batch=4))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        bundle = model_zoo.build_arch("llama-60m", smoke=True, device=dev,
+                                      dtype=torch.float32)
+        state = step_lib.init_state(
+            model_zoo.build_arch("llama-60m", smoke=True, device="cpu",
+                                 dtype=torch.float32), qcfg, seed=0)
+        state = _to(state, dev)
+        tr = Trainer(bundle, tcfg, qcfg, state=state, batches=lambda s: {
+            k: v.to(dev) for k, v in lm.batch_at(s).items()})
+        LAUNCHES.clear()
+        runs[dev] = ([h["loss"] for h in tr.run()], dict(LAUNCHES))
+    (l_cpu, n_cpu), (l_gpu, n_gpu) = runs["cpu"], runs["cuda"]
+    assert all(torch.isfinite(torch.tensor(l_gpu)))
+    assert abs(l_gpu[0] - l_cpu[0]) <= 1e-4 * abs(l_cpu[0])
+    per_step = 7 * 2 + 1
+    assert n_gpu["int8_matmul"] == 3 * (2 * per_step - 1)
+    assert n_gpu["int8_matmul_t"] == 3 * per_step
+    assert n_gpu["fused_qgalore_update"] == 2 * per_step
+    for name in ("int8_matmul_ref", "int8_matmul_t_ref", "deq_matmul",
+                 "deq_matmul_t", "fused_qgalore_update_ref"):
+        assert n_gpu.get(name, 0) == 0, name
+    assert n_cpu.get("int8_matmul", 0) == 0
+
+
+def _to(state, dev):
+    """A TrainState moved to ``dev``."""
+    from repro_torch.core.adam8bit import Adam8bitState
+    from repro_torch.core.qgalore import QGaLoreState
+    from repro_torch.train.step import TrainState
+
+    def mv(t):
+        if isinstance(t, dict):
+            return {k: mv(v) for k, v in t.items()}
+        return None if t is None else t.to(dev)
+    opt = state.opt
+    return TrainState(mv(state.params), QGaLoreState(
+        [Adam8bitState(mv(i.m), mv(i.v)) for i in opt.inner],
+        [mv(p) for p in opt.proj], opt.count))

@@ -1,0 +1,283 @@
+"""The training slice's kernels against the JAX package: the plain
+``int8_matmul_t`` against the JAX ref branch, the fused Q-GaLore update
+(plain version, through the port's padding wrapper) against the JAX op on
+its ``ref`` and ``pallas-interpret`` backends with the reference's own SR
+uniforms, and the gradients of ``quantized_dense`` and ``embed_lookup``
+against ``jax.vjp`` through a ``QVirtual``. Inputs come from numpy seeds."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import projector as jproj
+from repro.core import quant as jq
+from repro.kernels import ops as jops
+from repro.kernels.int8_matmul import int8_matmul_t as pallas_int8_matmul_t
+from repro.models import layers as jlayers
+from repro_torch.core import quant as tq
+from repro_torch.kernels import LAUNCHES, build, ops, ref
+from repro_torch.kernels import fused_update as tfu
+from repro_torch.kernels import int8_matmul as ti8
+from repro_torch.models import layers as tlayers
+
+
+def _t(jt) -> tq.QTensor:
+    """A JAX QTensor as the port's, the same codes."""
+    return tq.from_numpy((np.asarray(jt.q), np.asarray(jt.scale),
+                          None if jt.zero is None else np.asarray(jt.zero),
+                          jt.bits, jt.block, jt.orig_last, jt.dtype))
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float32)
+    return np.abs(np.asarray(got, np.float32) - want).max() \
+        / max(np.abs(want).max(), 1e-30)
+
+
+def _weight(K, N, seed, scale=1.0):
+    w = np.random.default_rng(seed).standard_normal((K, N)) * scale
+    return jq.quantize_blockwise(jnp.asarray(w, jnp.float32), 8,
+                                 symmetric=True)
+
+
+# ---------------------------------------------------------------------------
+# int8_matmul_t
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M,K,N", [
+    (7, 64, 256),          # one quant group
+    (33, 300, 512),        # ragged K (the output width)
+    (16, 127, 300),        # ragged K and N padded to 512
+    (5, 5461 // 43, 700),  # llama-1b's d_ff factor, N padded
+])
+def test_int8_matmul_t_plain_matches_jax_ref(M, K, N):
+    """1e-5 of max|ref|: the same products, summed in another order."""
+    jt = _weight(K, N, seed=M + K)
+    g = np.random.default_rng(N).standard_normal((M, N)).astype(np.float32)
+    want = jops._i8t_call("ref", jnp.asarray(g), jt.q, jt.scale, 256)
+    tt = _t(jt)
+    LAUNCHES.clear()
+    got = ops._dx(torch.from_numpy(g), tt)          # the CPU model path
+    assert got.shape == (M, K)
+    assert _rel(got.numpy(), want) <= 1e-5
+    # the wrapper on a CPU tensor: the plain version over zero-padded g
+    g_pad = torch.nn.functional.pad(torch.from_numpy(g),
+                                    (0, tt.q.shape[1] - N))
+    got_t = ti8.int8_matmul_t(g_pad, tt.q, tt.scale)
+    assert _rel(got_t.numpy(), want) <= 1e-5
+    assert LAUNCHES["int8_matmul_t"] == 0
+    assert LAUNCHES["int8_matmul_t_ref"] == 1
+    assert LAUNCHES["deq_matmul_t"] == 1
+
+
+def test_int8_matmul_t_plain_matches_pallas_interpret():
+    """The TPU kernel in interpret mode: 2e-2 of max|ref|, the kernel
+    tolerance of docs/kernels.md."""
+    M, K, N = 128, 256, 512
+    jt = _weight(K, N, seed=3)
+    g = np.random.default_rng(4).standard_normal((M, N)).astype(np.float32)
+    want = pallas_int8_matmul_t(jnp.asarray(g), jt.q, jt.scale, block=256,
+                                bm=128, bn=256, bk=128, interpret=True)
+    tt = _t(jt)
+    got = ref.int8_matmul_t_ref(torch.from_numpy(g), tt.q, tt.scale, 256)
+    assert _rel(got.numpy(), want) <= 2e-2
+
+
+def test_int8_matmul_t_wrapper_rejects_bad_arguments():
+    tt = _t(_weight(300, 300, seed=5))             # q (300, 512)
+    g = torch.zeros((4, 512))
+    with pytest.raises(ValueError, match="N="):
+        ti8.int8_matmul_t(g[:, :300], tt.q, tt.scale)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ti8.int8_matmul_t(g.double(), tt.q, tt.scale)
+    with pytest.raises(ValueError, match="quant block"):
+        ti8.int8_matmul_t(g, tt.q, tt.scale, block=128)
+
+
+# ---------------------------------------------------------------------------
+# fused_qgalore_update
+# ---------------------------------------------------------------------------
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def _fused_setup(m, n, r, side, seed=0, P=None):
+    rng = np.random.default_rng(seed)
+    qt = jq.quantize_blockwise(
+        jnp.asarray(rng.standard_normal((m, n)) * 0.02, jnp.float32), 8,
+        symmetric=True)
+    d = n if side == "right" else m
+    if P is None:
+        P = np.linalg.qr(rng.standard_normal((d, r)))[0]
+    qp = jproj.quantize_projection(jnp.asarray(P, jnp.float32), 4, 256)
+    low_shape = (m, r) if side == "right" else (r, n)
+    low = rng.standard_normal(low_shape).astype(np.float32)
+    m32 = (rng.standard_normal(low_shape) * 0.1).astype(np.float32)
+    v32 = np.abs(rng.standard_normal(low_shape) * 0.01).astype(np.float32)
+    return qt, qp, low, m32, v32
+
+
+def _check_fused(qt, qp, low, m32, v32, count, lr, side, backend, wd=0.0):
+    """The port (plain version, padded and cropped by ops) against the JAX
+    op on the same inputs and the same uniforms: codes within one INT8
+    quantum and nearly all equal, scales 1e-5 relative, moments 1e-6."""
+    key = jax.random.PRNGKey(42 + count)
+    want, m_ref, v_ref = jops.fused_qgalore_update(
+        qt, jnp.asarray(low), jnp.asarray(m32), jnp.asarray(v32), qp,
+        jnp.float32(count), lr, key, side=side, gscale=0.25,
+        weight_decay=wd, backend=backend)
+    u01 = torch.from_numpy(np.array(jax.random.uniform(key, qt.q.shape,
+                                                         jnp.float32)))
+    LAUNCHES.clear()
+    got, m_got, v_got = ops.fused_qgalore_update(
+        _t(qt), torch.from_numpy(low), torch.from_numpy(m32),
+        torch.from_numpy(v32), _t(qp), count, lr, u01, side=side,
+        gscale=0.25, weight_decay=wd)
+    assert LAUNCHES["fused_qgalore_update_ref"] == 1
+    assert LAUNCHES["fused_qgalore_update"] == 0
+    assert got.q.shape == qt.q.shape and got.orig_last == qt.orig_last
+    n = qt.orig_last
+    dq_w = np.asarray(jq.dequantize(want, jnp.float32))
+    dq_g = tq.dequantize(got, torch.float32).numpy()
+    quantum = float(np.asarray(want.scale).max())
+    assert np.isfinite(dq_g).all()
+    assert float(np.abs(dq_w - dq_g).max()) <= quantum + 1e-6
+    assert (got.q.numpy() == np.asarray(want.q))[:, :n].mean() > 0.999
+    np.testing.assert_allclose(got.scale.numpy(), np.asarray(want.scale),
+                               rtol=1e-5, atol=1e-12)
+    np.testing.assert_allclose(m_got.numpy(), np.asarray(m_ref), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(v_got.numpy(), np.asarray(v_ref), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("backend", ["ref", "pallas-interpret"])
+@pytest.mark.parametrize("m,n,r,side", [
+    (512, 256, 32, "right"),
+    (256, 512, 32, "left"),
+    (300, 200, 24, "right"),    # rows and columns off the block multiples
+    (200, 300, 24, "left"),
+])
+def test_fused_update_matches_jax(m, n, r, side, backend):
+    qt, qp, low, m32, v32 = _fused_setup(m, n, r, side)
+    _check_fused(qt, qp, low, m32, v32, 3, 1e-2, side, backend)
+
+
+@pytest.mark.parametrize("which", ["zeros", "constant", "half"])
+def test_fused_update_int4_zero_point_edges(which):
+    """Constant and all-zero projection blocks: the eps-clamped scale and
+    the zero point of the INT4 dequantization."""
+    m, n, r = 128, 256, 16
+    P = {"zeros": np.zeros((n, r)), "constant": np.full((n, r), 0.37),
+         "half": np.concatenate([np.zeros((n, r // 2)),
+                                 np.ones((n, r // 2))], axis=1)}[which]
+    qt, qp, low, m32, v32 = _fused_setup(m, n, r, "right", seed=1, P=P)
+    _check_fused(qt, qp, low, m32, v32, 1, 1e-2, "right", "ref")
+
+
+@pytest.mark.parametrize("side", ["right", "left"])
+def test_fused_update_weight_decay(side):
+    m, n = (256, 128) if side == "right" else (128, 300)
+    qt, qp, low, m32, v32 = _fused_setup(m, n, 16, side, seed=2)
+    _check_fused(qt, qp, low, m32, v32, 1, 1e-2, side, "ref", wd=0.1)
+
+
+def test_fused_wrapper_checks_and_counts():
+    qt, qp, low, m32, v32 = _fused_setup(64, 256, 8, "right", seed=3)
+    t_qt, t_qp = _t(qt), _t(qp)
+    # the kernel-level wrapper takes the padded layout only
+    g = torch.zeros((64, 16))
+    pq = torch.zeros((256, 8), dtype=torch.uint8)
+    ps = torch.zeros((256, 1))
+    u01 = torch.full((64, 256), 0.5)
+    args = (g, g, g, pq, ps, ps, t_qt.q, t_qt.scale, u01)
+    out = tfu.fused_qgalore_update(*args, 1, 1e-2, side="right", pblock=16)
+    assert [tuple(o.shape) for o in out] == [(64, 256), (64, 1), (64, 16),
+                                             (64, 16)]
+    with pytest.raises(ValueError, match="side"):
+        tfu.fused_qgalore_update(*args, 1, 1e-2, side="up", pblock=16)
+    with pytest.raises(ValueError, match="u01"):
+        tfu.fused_qgalore_update(*args[:-1], u01[:, :128], 1, 1e-2,
+                                 side="right", pblock=16)
+    with pytest.raises(ValueError, match="p_packed"):
+        tfu.fused_qgalore_update(g, g, g, pq.to(torch.int8), *args[4:], 1,
+                                 1e-2, side="right", pblock=16)
+    with pytest.raises(TypeError, match="INT4"):
+        ops.fused_qgalore_update(t_qt, torch.from_numpy(low),
+                                 torch.from_numpy(m32), torch.from_numpy(v32),
+                                 t_qt, 1, 1e-2, u01, side="right",
+                                 gscale=0.25)
+
+
+# ---------------------------------------------------------------------------
+# gradients through QVirtual
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lead,K,N", [((2, 17), 96, 300), ((40,), 300, 256)])
+def test_quantized_dense_grads_match_jax_vjp(lead, K, N):
+    """dL/dx (int8_matmul_t's plain version) and dL/dW (on the shadow)
+    against jax.vjp through a QVirtual: 1e-5 of max|ref|."""
+    rng = np.random.default_rng(K)
+    x = rng.standard_normal(lead + (K,)).astype(np.float32)
+    g_out = rng.standard_normal(lead + (N,)).astype(np.float32)
+    jt = _weight(K, N, seed=N, scale=0.1)
+
+    def f(shadow, xx):
+        return jops.quantized_dense(xx, jq.QVirtual(jt, shadow),
+                                    dtype=jnp.float32, backend="ref")
+
+    _, vjp = jax.vjp(f, jq.virtualize(jt).shadow, jnp.asarray(x))
+    dw_ref, dx_ref = vjp(jnp.asarray(g_out))
+
+    qv = tq.virtualize(_t(jt))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    LAUNCHES.clear()
+    out = ops.quantized_dense(xt, qv, dtype=torch.float32)
+    assert tuple(out.shape) == lead + (N,)
+    dw, dx = torch.autograd.grad(out, [qv.shadow, xt],
+                                 torch.from_numpy(g_out))
+    assert tuple(dw.shape) == (K, N) and tuple(dx.shape) == lead + (K,)
+    assert _rel(dw.numpy(), dw_ref) <= 1e-5
+    assert _rel(dx.numpy(), dx_ref) <= 1e-5
+    assert LAUNCHES["deq_matmul"] == 1 and LAUNCHES["deq_matmul_t"] == 1
+
+
+def test_quantized_dense_plain_qtensor_dx_only():
+    """A plain QTensor weight (serving) has no shadow; dL/dx still flows
+    when x requires grad, and without grad the forward keeps no graph."""
+    jt = _weight(64, 128, seed=7)
+    tt = _t(jt)
+    x = torch.randn((3, 64), requires_grad=True)
+    out = ops.quantized_dense(x, tt, dtype=torch.float32)
+    (dx,) = torch.autograd.grad(out.sum(), [x])
+    want = tq.dequantize(tt, torch.float32).sum(dim=1)
+    torch.testing.assert_close(dx, want.expand(3, -1), rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        assert ops.quantized_dense(x, tt).grad_fn is None
+
+
+def test_embed_lookup_grad_is_row_scatter_add():
+    """The embedding gradient reaches the shadow as a row scatter-add
+    (tests/test_quantized_dense.py's embed_lookup case): 1e-6."""
+    rng = np.random.default_rng(14)
+    jt = _weight(96, 300, seed=14, scale=0.1)
+    tok = rng.integers(0, 96, size=(2, 9)).astype(np.int32)
+
+    def f(shadow):
+        out = jlayers.embed_lookup(jq.QVirtual(jt, shadow), jnp.asarray(tok),
+                                   jnp.float32)
+        return jnp.sum(out ** 2)
+
+    want = jax.grad(f)(jq.virtualize(jt).shadow)
+    qv = tq.virtualize(_t(jt))
+    out = tlayers.embed_lookup(qv, torch.from_numpy(tok), torch.float32)
+    (got,) = torch.autograd.grad((out ** 2).sum(), [qv.shadow])
+    assert _rel(got.numpy(), want) <= 1e-6
+
+
+def test_new_kernel_sources_build_nothing_on_import():
+    assert {"int8_matmul", "int8_matmul_t", "fused_update"} <= set(
+        build.sources())
+    assert "int8_matmul_t" not in build._LOADED
+    assert "fused_update" not in build._LOADED
