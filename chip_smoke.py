@@ -36,11 +36,39 @@ Phases (any failure exits non-zero):
    run's own inputs (``int8_matmul_t``: 2e-2 of max|plain|; the fused
    update: codes within one INT8 quantum, scales and moments within 1e-5)
    and timed beside it.
+6. Flash-attention prefill at full width. (a) The kernel against its
+   plain version on the card at llama-1b's heads (H 32, d 64, bf16):
+   B in {1, 8}, S in {48, 128, 512, 2048}, causal, plus a non-causal, a
+   dv = 128 and an f32 case; pass if ``max|kernel - plain| / max|plain|``
+   is at most 2e-3 (f32 output) or 1e-2 (bf16 output); timed beside the
+   plain version, one ``scaled_dot_product_attention`` call (the
+   yardstick, never on the port's path) and the bound. (b) Phase 3's 16
+   requests through llama-1b built with ``flash_attention=True``: every
+   group prefill must launch ``flash_attention`` 24 times (once a layer),
+   run no chunked attention and no plain version; tokens/s, mean TTFT,
+   the time of the group prefills (each synchronised, so the host's
+   decode loop does not blur the route's effect) and the launches of
+   each prefill are printed beside phase 3's, and
+   every distinct (B, S) the kernel was launched with is held against
+   the plain version. (c) Phase 4's path parity with the flash route on
+   both sides (2 layers, f32): 2e-2 of max|logits|, equal greedy tokens,
+   4 flash launches on the card and 4 plain ones on the CPU.
+7. The unfused Q-GaLore update and the quantizer at llama-1b's shapes:
+   ``ops.unfused_qgalore_update`` (``int4_project`` → Adam →
+   back-projection → ``sr_requant_update``) for the right-side weights
+   2048 x 2048 and 5461 x 2048 at rank 512 must launch ``int4_matmul``
+   and ``sr_requant`` once each a weight; ``int4_matmul`` is held to 2e-2
+   of max|plain| and ``sr_requant`` to equal codes and scales within
+   1e-6 on the chain's own inputs (``sr_requant`` also at the other two
+   weight shapes); the chain is timed beside the fused path of phase 5's
+   kernel. ``quantize_int8`` of all 169 llama-1b weights must launch
+   ``blockwise_quant`` 169 times and equal ``core.quant.
+   quantize_blockwise`` bit for bit.
 
-The last three lines are the kernels JSON, the ``nvidia-smi`` name and
-power limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device,
-or without the repository's ``src/`` beside it, the script exits non-zero
-and prints no result.
+The last three lines are the kernels JSON (all seven kernels), the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or without the repository's ``src/``
+beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -220,15 +248,23 @@ def phase_kernels(seed: int):
     return rows, step, step_by, max_abs, max_rel
 
 
-def phase_serving(seed: int):
+def phase_serving(seed: int, flash: bool = False):
+    """Phase 3, or with ``flash`` phase 6's serving run: the same requests
+    through a bundle built with ``flash_attention=True``, where every
+    group prefill must launch ``flash_attention`` once a layer and never
+    the chunked attention or a plain version."""
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import flash_attention as tflash
     from repro_torch.kernels import int8_matmul as ti8
-    from repro_torch.models import model_zoo
+    from repro_torch.models import attention, model_zoo
     from repro_torch.serve.params import quantize_leaf
     from repro_torch.serve.scheduler import Request, Scheduler
-    log("== phase 3: llama-1b serving through the slot scheduler")
+    log("== phase 6b: llama-1b serving, prefill through flash_attention"
+        if flash else "== phase 3: llama-1b serving through the slot "
+        "scheduler")
     cfg = model_zoo.get_config("llama-1b")
-    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
+    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16,
+                             flash_attention=flash)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -274,6 +310,37 @@ def phase_serving(seed: int):
         return kernel(x, q, scale, block)
 
     ti8.int8_matmul = recording
+    # each prefill's time (synchronised: the route's own effect, apart
+    # from the host's decode loop), launches and chunked-attention blocks,
+    # and every distinct (B, S) the flash kernel is launched with
+    prefills, prefill_ms, flash_shapes, dense = [], [], set(), []
+    k_flash, k_dense, k_prefill = (tflash.flash_attention,
+                                   attention._attend_dense, sched._prefill)
+
+    def rec_flash(q, k, v, *, causal=True):
+        flash_shapes.add((q.shape[0], q.shape[1], q.shape[2], k.shape[2],
+                          q.shape[3], v.shape[3], causal, q.dtype))
+        return k_flash(q, k, v, causal=causal)
+
+    def rec_dense(*a, **k):
+        dense.append(1)
+        return k_dense(*a, **k)
+
+    def rec_prefill(*a):
+        before, n_dense = Counter(LAUNCHES), len(dense)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = k_prefill(*a)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        prefills.append(({n: LAUNCHES[n] - before[n] for n in LAUNCHES
+                          if LAUNCHES[n] != before[n]},
+                         len(dense) - n_dense))
+        return out
+
+    sched._prefill = rec_prefill
+    if flash:
+        tflash.flash_attention, attention._attend_dense = rec_flash, rec_dense
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
@@ -283,6 +350,8 @@ def phase_serving(seed: int):
         torch.cuda.synchronize()
     finally:
         ti8.int8_matmul = kernel
+        tflash.flash_attention, attention._attend_dense = k_flash, k_dense
+        sched._prefill = k_prefill
     wall = time.monotonic() - t0
     counts = dict(LAUNCHES)
     st = sched.stats
@@ -302,8 +371,18 @@ def phase_serving(seed: int):
     if launched != per_call * calls:
         problems.append(f"int8_matmul launches {launched}"
                         f" != {per_call} x {calls}")
-    if counts.get("int8_matmul_ref", 0) or counts.get("deq_matmul", 0):
+    if any(n.endswith("_ref") or n.startswith("deq_") for n in counts):
         problems.append(f"plain versions ran on the main path: {counts}")
+    if flash:
+        for i, (launches, n_dense) in enumerate(prefills):
+            if launches.get("flash_attention") != cfg.num_layers or n_dense:
+                problems.append(f"prefill {i}: launches {launches}, "
+                                f"{n_dense} chunked attention blocks")
+        if len(prefills) != st["prefills"]:
+            problems.append(f"{len(prefills)} prefills seen of "
+                            f"{st['prefills']}")
+    elif counts.get("flash_attention"):
+        problems.append(f"flash_attention ran with the route off: {counts}")
     n_tok = sum(len(c.tokens) for c in comps)
     result = {"tokens_per_s": n_tok / wall, "wall_s": wall,
               "tokens": n_tok,
@@ -311,14 +390,27 @@ def phase_serving(seed: int):
               "median_decode_step_ms": statistics.median(step_ms),
               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
               "stats": st, "launches": counts,
-              "launches_per_step": launched / max(calls, 1)}
+              "launches_per_step": launched / max(calls, 1),
+              "prefill_ms_total": sum(prefill_ms),
+              "median_prefill_ms": statistics.median(prefill_ms)}
+    if flash:
+        result["launches_per_prefill"] = [p[0] for p in prefills]
     log(f"  {n_req} requests, {slots} slots: {n_tok} tokens in {wall:.2f} s"
         f" -> {result['tokens_per_s']:.1f} tok/s; mean TTFT "
         f"{result['mean_ttft_s']:.3f} s; median decode step "
-        f"{result['median_decode_step_ms']:.2f} ms; peak "
+        f"{result['median_decode_step_ms']:.2f} ms; {len(prefill_ms)} "
+        f"prefills {result['prefill_ms_total']:.1f} ms in all (median "
+        f"{result['median_prefill_ms']:.2f} ms); peak "
         f"{result['peak_gib']:.2f} GiB; stats {st}; launches {counts}")
+    if flash:
+        log(f"  launches of each prefill: {result['launches_per_prefill']}")
     if problems:
         raise AssertionError("serving: " + "; ".join(problems))
+    if flash:
+        del sched, params
+        torch.cuda.empty_cache()
+        result.update(check_flash_shapes(flash_shapes, seed))
+        return result
     result.update(check_shapes(shapes, seed))
     result.update(profile_decode(sched, reqs[:slots]))
     del sched, params
@@ -406,16 +498,23 @@ def profile_decode(sched, reqs, steps: int = 5) -> dict:
             "device_idle_share": 1 - busy_ms / wall_ms}
 
 
-def phase_parity(seed: int):
+def phase_parity(seed: int, flash: bool = False):
+    """Phase 4, or with ``flash`` phase 6c: both bundles built with
+    ``flash_attention=True``, so the card's prefill runs the flash kernel
+    and the CPU's its plain version."""
     from repro_torch.config import replace
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import model_zoo
     from repro_torch.serve import engine
     from repro_torch.serve.params import quantize_leaf
-    log("== phase 4: path parity, card (kernel) against CPU (plain)")
+    log("== phase 6c: path parity of the flash route, card against CPU"
+        if flash else "== phase 4: path parity, card (kernel) against CPU "
+        "(plain)")
     cfg = replace(model_zoo.get_config("llama-1b"), num_layers=2)
-    gpu = model_zoo.build(cfg, device="cuda", dtype=torch.float32)
-    cpu = model_zoo.build(cfg, device="cpu", dtype=torch.float32)
+    gpu = model_zoo.build(cfg, device="cuda", dtype=torch.float32,
+                          flash_attention=flash)
+    cpu = model_zoo.build(cfg, device="cpu", dtype=torch.float32,
+                          flash_attention=flash)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     p_gpu = gpu.init_params(gen, leaf_fn=quantize_leaf)
 
@@ -449,6 +548,12 @@ def phase_parity(seed: int):
         raise AssertionError(f"card run did not go through the kernel: {n_g}")
     if not n_c.get("deq_matmul") or n_c.get("int8_matmul"):
         raise AssertionError(f"CPU run did not take the plain path: {n_c}")
+    # one prefill of ``build_prefill`` and one of ``generate``, 2 layers
+    want = {"flash_attention": 4} if flash else {}
+    if {n: c for n, c in n_g.items() if n.startswith("flash")} != want or \
+            n_c.get("flash_attention_ref", 0) != want.get("flash_attention",
+                                                          0):
+        raise AssertionError(f"flash launches: card {n_g}, CPU {n_c}")
     if rel > TOL or not torch.equal(t_c, t_g):
         raise AssertionError(f"path parity failed: rel {rel:.2e}, tokens "
                              f"{t_c.tolist()} vs {t_g.tolist()}")
@@ -750,6 +855,332 @@ def check_train_kernels(probs_t, probs_f, mult: dict) -> dict:
     return {"train_kernels": out, "train_kernel_step_sums": sums}
 
 
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 1e-2}
+
+
+def bound_flash(B, S, H, KH, d, dv, causal, itemsize):
+    """Least time (ms) of one attention call: q, k, v read once and o
+    written once, against the multiply-adds of the score and value
+    products over the (query, key) pairs the mask keeps, S(S+1)/2 a head
+    when causal, at the bf16 peak."""
+    nbytes = B * S * (H * d + KH * (d + dv) + H * dv) * itemsize
+    pairs = S * (S + 1) // 2 if causal else S * S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * B * H * pairs * (d + dv) / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_inputs(B, S, H, KH, d, dv, dtype, gen):
+    dev = torch.device("cuda")
+    return tuple(torch.randn(sh, generator=gen, device=dev).to(dtype)
+                 for sh in ((B, S, H, d), (B, S, KH, d), (B, S, KH, dv)))
+
+
+def flash_row(B, S, H, KH, d, dv, causal, dtype, gen, flush, timed=True):
+    """The kernel against its plain version on fresh inputs of one
+    problem; with ``timed``, its time beside the plain version's, the
+    library call's and the bound."""
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ref
+    q, k, v = flash_inputs(B, S, H, KH, d, dv, dtype, gen)
+    got = tflash.flash_attention(q, k, v, causal=causal).float()
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    abs_err = (got - want).abs().max().item()
+    rel = abs_err / max(want.abs().max().item(), 1e-30)
+    del got, want
+    row = {"B": B, "S": S, "H": H, "KH": KH, "d": d, "dv": dv,
+           "causal": causal, "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": abs_err, "rel_err": rel,
+           "ok": rel <= FLASH_TOL[dtype]}
+    if timed:
+        row["ms"] = time_ms(lambda: tflash.flash_attention(
+            q, k, v, causal=causal), flush)
+        row["plain_ms"] = time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal), flush)
+        # the yardstick: one library call on (B, H, S, d) views of the same
+        # tensors (H == KH here), never on the port's path
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), flush)
+        row["bound_ms"], row["bound_by"] = bound_flash(
+            B, S, H, KH, d, dv, causal, q.element_size())
+    del q, k, v
+    return row
+
+
+def phase_flash_kernels(seed: int):
+    """Phase 6a: the flash kernel against its plain version at llama-1b's
+    heads (32, d 64), bf16, timed beside the plain version, one
+    ``scaled_dot_product_attention`` call and the bound."""
+    log("== phase 6a: flash_attention against flash_attention_ref")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    probs = [(B, S, 32, 32, 64, 64, True, torch.bfloat16)
+             for B in (1, 8) for S in (48, 128, 512, 2048)]
+    probs += [(8, 512, 32, 32, 64, 64, False, torch.bfloat16),
+              (8, 512, 32, 32, 64, 128, True, torch.bfloat16),
+              (8, 512, 32, 32, 64, 64, True, torch.float32)]
+    rows, failed = [], []
+    for p in probs:
+        row = flash_row(*p, gen, flush)
+        rows.append(row)
+        if not row["ok"]:
+            failed.append(row)
+        log(f"  B={row['B']} S={row['S']:5d} d={row['d']} dv={row['dv']} "
+            f"causal={row['causal']!s:5s} {row['dtype']:8s} "
+            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} bound_ms="
+            f"{row['bound_ms']:.4f} ({row['bound_by']}) rel_err="
+            f"{row['rel_err']:.2e} {'ok' if row['ok'] else 'FAIL'}")
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version: {failed}")
+    return rows
+
+
+def check_flash_shapes(shapes, seed: int) -> dict:
+    """The flash kernel against its plain version at every distinct
+    problem the serving run launched it with, on fresh seeded inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    rows = [flash_row(B, S, H, KH, d, dv, causal, dt, gen, None,
+                      timed=False)
+            for B, S, H, KH, d, dv, causal, dt in sorted(
+                shapes, key=lambda t: t[:2])]
+    torch.cuda.empty_cache()
+    worst = max(r["rel_err"] for r in rows)
+    log(f"  {len(rows)} distinct flash problems of the run ((B, S) in "
+        f"{[(r['B'], r['S']) for r in rows]}) against the plain version: "
+        f"max rel err {worst:.2e}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version at serving problems: {bad}")
+    return {"flash_checked_problems": len(rows),
+            "flash_check_max_abs_err": max(r["max_abs_err"] for r in rows),
+            "flash_check_max_rel_err": worst}
+
+
+def bound_bytes(nbytes: int) -> tuple:
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def bound_int4(M, K, R, block, g_itemsize):
+    """g read once, packed P and its f32 scales and zeros read once, the
+    f32 output written once, against the multiply-adds at the bf16 peak."""
+    nbytes = (M * K * g_itemsize + K * R // 2 + 2 * K * (R // block) * 4
+              + M * R * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * M * K * R / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_unfused(seed: int):
+    """Phase 7: the unfused Q-GaLore update (``ops.unfused_qgalore_update``:
+    ``int4_project`` → Adam → back-projection → ``sr_requant_update``) for
+    llama-1b's right-side weights at rank 512, each kernel held against its
+    plain version on the chain's own inputs and timed; ``sr_requant`` and
+    ``blockwise_quant`` at all four weight shapes; and ``quantize_int8`` of
+    all 169 llama-1b weights against ``core.quant.quantize_blockwise``."""
+    from repro_torch.core import projector, quant
+    from repro_torch.kernels import LAUNCHES, ops, ref
+    from repro_torch.kernels import blockwise_quant as tbq
+    from repro_torch.kernels import int4_matmul as ti4
+    from repro_torch.kernels import sr_requant as tsr
+    log("== phase 7: the unfused update and the quantizer at llama-1b's "
+        "shapes")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rank, lr, kw = 512, 1e-3, dict(gscale=0.25)
+    layers = num_layers()
+    probs = {}
+    for m, n in ((2048, 2048), (5461, 2048)):
+        qt = quant.quantize_blockwise(
+            torch.randn((m, n), generator=gen, device=dev) * 0.02, 8,
+            symmetric=True)
+        P = torch.linalg.qr(torch.randn((n, rank), generator=gen,
+                                        device=dev))[0]
+        qp = projector.quantize_projection(P, 4, 256)
+        grad = torch.randn((m, n), generator=gen, device=dev) * 1e-2
+        m32 = torch.randn((m, rank), generator=gen, device=dev) * 1e-3
+        v32 = (torch.randn((m, rank), generator=gen, device=dev)
+               * 1e-4).abs()
+        u01 = torch.rand(qt.q.shape, generator=gen, device=dev)
+        probs[m, n] = (qt, qp, grad, m32, v32, u01)
+
+    # the path: one chain per weight, counted; the sr_requant inputs kept
+    sr_args, k_sr = {}, tsr.sr_requant
+
+    def rec_sr(q, scale, update, u01, block=256):
+        sr_args[tuple(q.shape)] = (q, scale, update.clone(), u01)
+        return k_sr(q, scale, update, u01, block)
+
+    tsr.sr_requant = rec_sr
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    try:
+        for qt, qp, grad, m32, v32, u01 in probs.values():
+            new, m_new, v_new = ops.unfused_qgalore_update(
+                qt, grad, m32, v32, qp, 1, lr, u01, **kw)
+        torch.cuda.synchronize()
+    finally:
+        tsr.sr_requant = k_sr
+    chain_counts = dict(LAUNCHES)
+    log(f"  unfused chain at {list(probs)}: launches {chain_counts}")
+    want = {"int4_matmul": len(probs), "sr_requant": len(probs)}
+    if chain_counts != want:
+        raise AssertionError(f"unfused chain launches {chain_counts} != "
+                             f"{want}")
+    if not (torch.isfinite(m_new).all() and torch.isfinite(v_new).all()
+            and torch.isfinite(new.scale).all()):
+        raise AssertionError("unfused chain: non-finite outputs")
+
+    failed, i4_rows, chain_rows = [], [], []
+    for (m, n), (qt, qp, grad, m32, v32, u01) in probs.items():
+        got = ti4.int4_matmul(grad, qp.q, qp.scale, qp.zero, qp.block)
+        want_ = ref.int4_matmul_ref(grad, qp.q, qp.scale, qp.zero, qp.block)
+        abs_err = (got - want_).abs().max().item()
+        rel = abs_err / max(want_.abs().max().item(), 1e-30)
+        p_deq = projector.maybe_dequantize(qp)
+        R = qp.q.shape[1] * 2
+        row = {"M": m, "K": n, "R": R, "g": "float32",
+               "ms": time_ms(lambda: ti4.int4_matmul(
+                   grad, qp.q, qp.scale, qp.zero, qp.block), flush),
+               "plain_ms": time_ms(lambda: ref.int4_matmul_ref(
+                   grad, qp.q, qp.scale, qp.zero, qp.block), flush),
+               "library_ms": time_ms(lambda: torch.matmul(grad, p_deq),
+                                     flush),
+               "max_abs_err": abs_err, "rel_err": rel}
+        row["bound_ms"], row["bound_by"] = bound_int4(m, n, R, qp.block, 4)
+        i4_rows.append(row)
+        if rel > TOL:
+            failed.append(("int4_matmul", row))
+        log(f"  int4_matmul M={m} K={n} R={R} ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} library_ms="
+            f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}) rel_err={rel:.2e} "
+            f"{'ok' if rel <= TOL else 'FAIL'}")
+        # the unfused chain beside the fused path of the same step (the
+        # reference's fused-vs-unfused ratio, benchmarks/kernels_bench.py):
+        # project through the dequantized P, then the fused kernel
+        low = projector.project(grad, p_deq, "right")
+        unf = time_ms(lambda: ops.unfused_qgalore_update(
+            qt, grad, m32, v32, qp, 1, lr, u01, **kw), flush)
+        fused_kernel = time_ms(lambda: ops.fused_qgalore_update(
+            qt, low, m32, v32, qp, 1, lr, u01, side="right", gscale=0.25),
+            flush)
+        fused = time_ms(lambda: ops.fused_qgalore_update(
+            qt, projector.project(grad, p_deq, "right"), m32, v32, qp, 1,
+            lr, u01, side="right", gscale=0.25), flush)
+        chain_rows.append({"M": m, "N": n, "r": rank, "unfused_ms": unf,
+                           "fused_ms": fused,
+                           "fused_kernel_ms": fused_kernel,
+                           "unfused_over_fused": unf / fused})
+        log(f"  chain M={m} N={n} r={rank}: unfused {unf:.4f} ms, fused "
+            f"(projection + kernel) {fused:.4f} ms, fused kernel alone "
+            f"{fused_kernel:.4f} ms; unfused / fused {unf / fused:.2f}")
+        del low, p_deq
+
+    # sr_requant: the chain's own inputs, then the other two weight shapes
+    sr_rows = []
+    shapes = [(2048, 2048), (5461, 2048), (2048, 5461), (2048, 32000)]
+    for m, n in shapes:
+        qt = probs[m, n][0] if (m, n) in probs else None
+        if qt is not None:
+            q, scale, update, u01 = sr_args[tuple(qt.q.shape)]
+        else:
+            qt = quant.quantize_blockwise(
+                torch.randn((m, n), generator=gen, device=dev) * 0.02, 8,
+                symmetric=True)
+            q, scale = qt.q, qt.scale
+            update = torch.randn(q.shape, generator=gen, device=dev) * 1e-5
+            u01 = torch.rand(q.shape, generator=gen, device=dev)
+        qk, sk = tsr.sr_requant(q, scale, update, u01)
+        qw, sw = ref.sr_requant_ref(q, scale, update, u01, 256)
+        same = torch.equal(qk, qw)
+        s_rel = ((sk - sw).abs().max() / sw.abs().max()).item()
+        w_err = (qk.float() * sk.repeat_interleave(256, dim=1)
+                 - qw.float() * sw.repeat_interleave(256, dim=1)
+                 ).abs().max().item()
+        row = {"R": q.shape[0], "C": q.shape[1], "n_real": n,
+               "on_path": (m, n) in probs,
+               "ms": time_ms(lambda: tsr.sr_requant(q, scale, update, u01),
+                             flush),
+               "plain_ms": time_ms(lambda: ref.sr_requant_ref(
+                   q, scale, update, u01, 256), flush),
+               "library_ms": None, "codes_equal": same,
+               "scale_rel_err": s_rel, "max_abs_err": w_err}
+        row["bound_ms"], row["bound_by"] = bound_bytes(
+            2 * q.numel() + 2 * scale.numel() * 4 + 2 * q.numel() * 4)
+        sr_rows.append(row)
+        ok = same and s_rel <= 1e-6
+        if not ok:
+            failed.append(("sr_requant", row))
+        log(f"  sr_requant R={row['R']} C={row['C']} ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f}"
+            f" codes equal {same} scale rel {s_rel:.2e} "
+            f"{'ok' if ok else 'FAIL'}")
+    del probs, sr_args
+    torch.cuda.empty_cache()
+
+    # quantize_int8 of every llama-1b weight (24 layers x 7 + the head),
+    # drawn one at a time, against core.quant.quantize_blockwise
+    per_layer = [(2048, 2048)] * 4 + [(2048, 5461)] * 2 + [(5461, 2048)]
+    weights = per_layer * layers + [(2048, 32000)]
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    mismatched = []
+    for i, (K, N) in enumerate(weights):
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.02
+        got = ops.quantize_int8(w)
+        want_ = quant.quantize_blockwise(w, 8, symmetric=True)
+        if not (torch.equal(got.q, want_.q)
+                and torch.equal(got.scale, want_.scale)
+                and got.orig_last == want_.orig_last):
+            mismatched.append((i, K, N))
+    torch.cuda.synchronize()
+    quant_counts = {n: c for n, c in LAUNCHES.items() if c}
+    log(f"  quantize_int8 of {len(weights)} llama-1b weights: launches "
+        f"{quant_counts}; {len(mismatched)} differ from quantize_blockwise")
+    if mismatched or quant_counts.get("blockwise_quant") != len(weights):
+        failed.append(("quantize_int8", {"mismatched": mismatched,
+                                         "launches": quant_counts}))
+    bq_rows = []
+    for K, N in sorted(set(weights)):
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.02
+        x = torch.nn.functional.pad(w, (0, -N % 256))
+        qk, sk = tbq.blockwise_quant(x)
+        qw, sw = ref.blockwise_quant_ref(x, 256)
+        same = torch.equal(qk, qw) and torch.equal(sk, sw)
+        row = {"R": K, "C": x.shape[1], "n_real": N,
+               "launches": weights.count((K, N)),
+               "ms": time_ms(lambda: tbq.blockwise_quant(x), flush),
+               "plain_ms": time_ms(lambda: ref.blockwise_quant_ref(x, 256),
+                                   flush),
+               "library_ms": None, "bit_exact": same, "max_abs_err": 0.0
+               if same else float("nan")}
+        row["bound_ms"], row["bound_by"] = bound_bytes(
+            x.numel() * 5 + sk.numel() * 4)
+        bq_rows.append(row)
+        if not same:
+            failed.append(("blockwise_quant", row))
+        log(f"  blockwise_quant R={K} C={row['C']} ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f}"
+            f" bit exact {same}")
+        del w, x
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"phase 7 kernels disagree with their plain "
+                             f"versions: {failed}")
+    return {"chain_launches": chain_counts, "quant_launches": quant_counts,
+            "int4_matmul": i4_rows, "chain": chain_rows,
+            "sr_requant": sr_rows, "blockwise_quant": bq_rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -772,9 +1203,25 @@ def main() -> int:
     serving = phase_serving(args.seed)
     parity = phase_parity(args.seed)
     training = phase_training(args.seed)
+    flash_rows = phase_flash_kernels(args.seed)
+    flash_serving = phase_serving(args.seed, flash=True)
+    flash_parity = phase_parity(args.seed, flash=True)
+    unfused = phase_unfused(args.seed)
+    log(f"  serving, route off / flash route: tokens/s "
+        f"{serving['tokens_per_s']:.1f} / {flash_serving['tokens_per_s']:.1f}"
+        f", mean TTFT {serving['mean_ttft_s']:.3f} / "
+        f"{flash_serving['mean_ttft_s']:.3f} s, median decode step "
+        f"{serving['median_decode_step_ms']:.2f} / "
+        f"{flash_serving['median_decode_step_ms']:.2f} ms, the "
+        f"{serving['stats']['prefills']} prefills "
+        f"{serving['prefill_ms_total']:.1f} / "
+        f"{flash_serving['prefill_ms_total']:.1f} ms, launches a prefill "
+        f"int8_matmul {7 * num_layers() + 1} / {7 * num_layers() + 1}, "
+        f"flash_attention 0 / {num_layers()}")
     log(f"== all phases passed in {time.monotonic() - t0:.1f} s")
     print(json.dumps(kernels_json(rows, step, step_by, max_abs, max_rel,
-                                  serving, parity, training)))
+                                  serving, parity, training, flash_rows,
+                                  flash_serving, flash_parity, unfused)))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -783,10 +1230,22 @@ def main() -> int:
 
 
 def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
-                 training) -> dict:
+                 training, flash_rows, flash_serving, flash_parity,
+                 unfused) -> dict:
     """The ``kernels`` line: every kernel with its launches on the main
     paths, errors against its plain version, and times beside its bound."""
     layers = num_layers()
+    flash_pick = next(r for r in flash_rows if (r["B"], r["S"], r["dv"],
+                                                r["causal"], r["dtype"]) ==
+                      (8, 512, 64, True, "bfloat16"))
+
+    def total(rs, mult, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
+        return {k: None if any(r[k] is None for r in rs)
+                else sum(r[k] * n for r, n in zip(rs, mult)) for k in keys}
+
+    chain_i4 = unfused["int4_matmul"]
+    chain_sr = [r for r in unfused["sr_requant"] if r["on_path"]]
+    bq = unfused["blockwise_quant"]
     # a training step's int8_matmul calls at M = 8 x 256, bf16 x: the
     # forward (7 a layer and the head) and the recompute (7 a layer)
     pick = {(r["K"], r["n_real"]): r for r in rows
@@ -823,6 +1282,7 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
             "M = 2048, bf16 x, sum of phase 2's per-shape medians")),
         "serving": {k: serving[k] for k in (
             "tokens_per_s", "mean_ttft_s", "median_decode_step_ms",
+            "prefill_ms_total", "median_prefill_ms",
             "peak_gib", "launches_per_step", "checked_problems",
             "profile_step_wall_ms", "profile_step_device_ms",
             "device_idle_share", "profile_error") if k in serving},
@@ -832,6 +1292,7 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "source": "src/repro_torch/kernels/csrc/int8_matmul_t.cu",
         "replaces": "src/repro/kernels/int8_matmul.py:141",
         "launches": tl.get("int8_matmul_t", 0),
+        "launches_by_path": {"training": tl.get("int8_matmul_t", 0)},
         "max_abs_err": max(r["max_abs_err"] for r in tk["int8_matmul_t"]),
         "max_rel_err": max(r["rel_err"] for r in tk["int8_matmul_t"]),
         **sums["int8_matmul_t"], "bound_by": by(tk["int8_matmul_t"]),
@@ -842,6 +1303,7 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "source": "src/repro_torch/kernels/csrc/fused_update.cu",
         "replaces": "src/repro/kernels/fused_update.py:234",
         "launches": tl.get("fused_qgalore_update", 0),
+        "launches_by_path": {"training": tl.get("fused_qgalore_update", 0)},
         "max_abs_err": max(r["max_abs_err"]
                            for r in tk["fused_qgalore_update"]),
         **sums["fused_qgalore_update"],
@@ -849,7 +1311,82 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "library_note": "no single PyTorch call computes the fused update",
         "timed_as": f"the {7 * layers + 1} updates of one steady "
                     "training step, rank 512, sum of per-shape medians",
-        "per_shape": tk["fused_qgalore_update"]}],
+        "per_shape": tk["fused_qgalore_update"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "launches": flash_serving["launches"].get("flash_attention", 0),
+        "launches_by_path": {"serving_flash_route": flash_serving[
+            "launches"].get("flash_attention", 0)},
+        "max_abs_err": max([r["max_abs_err"] for r in flash_rows]
+                           + [flash_serving["flash_check_max_abs_err"]]),
+        "max_rel_err": max([r["rel_err"] for r in flash_rows]
+                           + [flash_serving["flash_check_max_rel_err"]]),
+        **{k: flash_pick[k] * layers for k in ("ms", "plain_ms",
+                                               "bound_ms", "library_ms")},
+        "bound_by": flash_pick["bound_by"],
+        "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                        "(is_causal=True) on the same bf16 tensors",
+        "timed_as": f"the {layers} calls of one prefill at B 8, S 512, "
+                    "H 32, d 64, causal bf16: 24 x the per-call median",
+        "serving": {k: flash_serving[k] for k in (
+            "tokens_per_s", "mean_ttft_s", "median_decode_step_ms",
+            "prefill_ms_total", "median_prefill_ms", "peak_gib",
+            "launches_per_prefill", "flash_checked_problems")},
+        "serving_route_off": {k: serving[k] for k in (
+            "tokens_per_s", "mean_ttft_s", "median_decode_step_ms",
+            "prefill_ms_total", "median_prefill_ms")},
+        "path_parity_rel_err": flash_parity,
+        "per_shape": flash_rows}, {
+        "name": "int4_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int4_matmul.cu",
+        "replaces": "src/repro/kernels/int4_matmul.py:60",
+        "launches": unfused["chain_launches"].get("int4_matmul", 0),
+        "launches_by_path": {"unfused_update": unfused[
+            "chain_launches"].get("int4_matmul", 0)},
+        "max_abs_err": max(r["max_abs_err"] for r in chain_i4),
+        "max_rel_err": max(r["rel_err"] for r in chain_i4),
+        **total(chain_i4, [1] * len(chain_i4)),
+        "bound_by": by(chain_i4),
+        "library_call": "torch.matmul(g, P) on a P dequantized beforehand, "
+                        "f32",
+        "timed_as": "the projections of one unfused step of the 2048 x 2048 "
+                    "and 5461 x 2048 weights at rank 512, f32 g, sum of "
+                    "per-shape medians",
+        "chain": unfused["chain"],
+        "per_shape": chain_i4}, {
+        "name": "sr_requant", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sr_requant.cu",
+        "replaces": "src/repro/kernels/sr_requant.py:53",
+        "launches": unfused["chain_launches"].get("sr_requant", 0),
+        "launches_by_path": {"unfused_update": unfused[
+            "chain_launches"].get("sr_requant", 0)},
+        "max_abs_err": max(r["max_abs_err"] for r in unfused["sr_requant"]),
+        "max_scale_rel_err": max(r["scale_rel_err"]
+                                 for r in unfused["sr_requant"]),
+        "codes_equal": all(r["codes_equal"] for r in unfused["sr_requant"]),
+        **total(chain_sr, [1] * len(chain_sr)),
+        "bound_by": "bytes",
+        "library_note": "no single PyTorch call computes the SR requant",
+        "timed_as": "the requantizations of one unfused step of the "
+                    "2048 x 2048 and 5461 x 2048 weights, sum of per-shape "
+                    "medians",
+        "per_shape": unfused["sr_requant"]}, {
+        "name": "blockwise_quant", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/blockwise_quant.cu",
+        "replaces": "src/repro/kernels/blockwise_quant.py:37",
+        "launches": unfused["quant_launches"].get("blockwise_quant", 0),
+        "launches_by_path": {"quantize_int8": unfused[
+            "quant_launches"].get("blockwise_quant", 0)},
+        "max_abs_err": max(r["max_abs_err"] for r in bq),
+        "bit_exact": all(r["bit_exact"] for r in bq),
+        **total(bq, [r["launches"] for r in bq]),
+        "bound_by": "bytes",
+        "library_note": "no single PyTorch call computes the block-wise "
+                        "quantization",
+        "timed_as": f"quantize_int8 of the {sum(r['launches'] for r in bq)}"
+                    " llama-1b weights, sum of per-shape medians x launches",
+        "per_shape": bq}],
         "training": {k: training[k] for k in (
             "losses", "refresh_step_s", "refresh_svd_s", "svd_calls",
             "svd_units", "median_steady_step_ms", "tokens_per_s",

@@ -40,6 +40,15 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded once, as an IEEE division. PyTorch's CUDA
+    kernels turn a division by a Python scalar into a product with its
+    reciprocal, which rounds twice; dividing by a 0-d tensor filled on
+    ``a``'s device (no host copy) keeps the reference's rounding, and the
+    kernels', on the card too."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
 def _qrange(bits: int) -> Tuple[int, int]:
     return -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
 
@@ -141,7 +150,7 @@ def pack_int4(u: torch.Tensor) -> torch.Tensor:
     The last axis must be even; it is halved."""
     lo = u[..., 0::2]
     hi = u[..., 1::2]
-    return (lo | (hi << 4)).to(torch.uint8)
+    return (lo | (hi << 4)).to(torch.uint8).contiguous()
 
 
 def unpack_int4(p: torch.Tensor) -> torch.Tensor:
@@ -186,13 +195,13 @@ def quantize_blockwise(x: torch.Tensor, bits: int = 8,
 
     if symmetric:
         absmax = xb.abs().amax(dim=-1, keepdim=True)
-        scale = torch.clamp_min(absmax / qmax, _EPS)
+        scale = torch.clamp_min(true_div(absmax, qmax), _EPS)
         zero = None
         t = xb / scale
     else:
         mx = xb.amax(dim=-1, keepdim=True)
         mn = xb.amin(dim=-1, keepdim=True)
-        scale = torch.clamp_min((mx - mn) / (qmax - qmin), _EPS)
+        scale = torch.clamp_min(true_div(mx - mn, qmax - qmin), _EPS)
         zero = qmin - mn / scale
         t = xb / scale + zero
 

@@ -4,9 +4,10 @@
 ``LAUNCHES`` counts, per name, the calls that reached a kernel or a plain
 version, so a run can show which one it went through. Kernels (counted by
 their wrappers where they launch): ``"int8_matmul"``, ``"int8_matmul_t"``,
-``"fused_qgalore_update"``. Plain versions: ``"int8_matmul_ref"``,
-``"int8_matmul_t_ref"``, ``"fused_qgalore_update_ref"``, and the CPU model
-path's ``"deq_matmul"`` and ``"deq_matmul_t"``.
+``"fused_qgalore_update"``, ``"flash_attention"``, ``"sr_requant"``,
+``"int4_matmul"``, ``"blockwise_quant"``. Plain versions: the same names
+with ``"_ref"`` appended, and the CPU model path's ``"deq_matmul"`` and
+``"deq_matmul_t"``.
 """
 from collections import Counter
 

@@ -28,7 +28,8 @@
 //     loaded along their rows. A warp owns 4 rows x 256 columns, so each
 //     row's absmax is a warp shuffle reduction, in the epilogue.
 // Arithmetic follows the reference order with explicit round-to-nearest
-// intrinsics (no FMA contraction outside the product, true division):
+// intrinsics (no FMA contraction outside the product, true division; the
+// requantization is int8_group.cuh's, shared with sr_requant.cu):
 // codes then agree with fused_qgalore_update_ref except where the product's
 // summation order moves a value across a floor boundary (one INT8 quantum).
 //
@@ -41,6 +42,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "int8_group.cuh"
 
 namespace {
 
@@ -151,31 +154,18 @@ qgl_update(const float* __restrict__ A, const float* __restrict__ B,
     const float4 u0 = *reinterpret_cast<const float4*>(u01 + off);
     const float4 u1 = *reinterpret_cast<const float4*>(u01 + off + 4);
     const float u[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
-    float wn[8];
-    float amax = 0.f;
+    float code[8], wn[8];
+    int8_group::unpack(raw, code);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int word = j < 4 ? raw.x : raw.y;
-      const float code = static_cast<float>(
-          static_cast<int>(static_cast<unsigned>(word) << (24 - 8 * (j & 3))) >> 24);
-      const float w = __fmul_rn(code, s_old);
+      const float w = __fmul_rn(code[j], s_old);
       float upd = __fmul_rn(h.gscale, acc[i][j]);
       if (h.wd != 0.f) upd = __fadd_rn(upd, __fmul_rn(h.wd, w));
       wn[j] = __fsub_rn(w, __fmul_rn(h.lr, upd));
-      amax = fmaxf(amax, fabsf(wn[j]));
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float scale = fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);
-    unsigned packed[2] = {0u, 0u};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float c = floorf(__fadd_rn(__fdiv_rn(wn[j], scale), u[j]));
-      c = fminf(fmaxf(c, -128.f), 127.f);
-      packed[j >> 2] |= (static_cast<unsigned>(static_cast<int>(c)) & 0xFFu) << (8 * (j & 3));
-    }
-    *reinterpret_cast<int2*>(q_out + off) =
-        make_int2(static_cast<int>(packed[0]), static_cast<int>(packed[1]));
+    int2 codes;
+    const float scale = int8_group::sr_requant(wn, u, &codes);
+    *reinterpret_cast<int2*>(q_out + off) = codes;
     if (lane == 0) ws_out[static_cast<size_t>(row) * G + grp] = scale;
   }
 }

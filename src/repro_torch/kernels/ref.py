@@ -3,9 +3,12 @@
 matmuls. Each adds one to its ``LAUNCHES`` entry per call."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.adam8bit import bias_correction
+from repro_torch.core.quant import true_div
 from repro_torch.kernels import LAUNCHES
 
 
@@ -109,9 +112,77 @@ def fused_qgalore_update_ref(g, m, v, p_packed, p_scale, p_zero, q, wscale,
     if wd:
         upd = upd + wd * w
     wn = (w - lr * upd).reshape(R, C // wblock, wblock)
-    new_scale = torch.clamp_min(wn.abs().amax(dim=-1) / 127.0, 1e-12)
+    new_scale = torch.clamp_min(true_div(wn.abs().amax(dim=-1), 127.0),
+                                1e-12)
     codes = torch.floor(wn / new_scale[..., None]
                         + u01.reshape(R, C // wblock, wblock))
     q_new = torch.clamp(codes, -128, 127).reshape(R, C).to(torch.int8)
     return q_new, new_scale, m_new, v_new
 
+
+
+def int4_matmul_ref(g: torch.Tensor, packed: torch.Tensor,
+                    scale: torch.Tensor, zero: torch.Tensor,
+                    block: int) -> torch.Tensor:
+    """g (M, K) @ dequant_int4(packed (K, R/2), scale/zero (K, R/block))
+    → (M, R) f32: nibbles interleaved, low first, each minus 8, then
+    ``(u - zero) * scale`` (``repro/kernels/ref.py::int4_matmul_ref``)."""
+    LAUNCHES["int4_matmul_ref"] += 1
+    lo = (packed & 0xF).to(torch.float32)
+    hi = ((packed >> 4) & 0xF).to(torch.float32)
+    u = torch.stack([lo, hi], dim=-1).reshape(packed.shape[0], -1) - 8.0
+    K, R = u.shape
+    w = (u.reshape(K, R // block, block) - zero[..., None]) \
+        * scale[..., None]
+    return g.to(torch.float32) @ w.reshape(K, R)
+
+
+def sr_requant_ref(q: torch.Tensor, scale: torch.Tensor,
+                   update: torch.Tensor, u01: torch.Tensor, block: int):
+    """``W' = SR_quant(deq(W) + update)`` (``repro/kernels/ref.py::
+    sr_requant_ref``): q (R, C) int8, scale (R, C/block), update and the
+    uniforms u01 (R, C). Returns ``(q' int8, scale' f32)``."""
+    LAUNCHES["sr_requant_ref"] += 1
+    R, C = q.shape
+    w = q.to(torch.float32).reshape(R, C // block, block) * scale[..., None]
+    w = w.reshape(R, C) + update.to(torch.float32)
+    wb = w.reshape(R, C // block, block)
+    new_scale = torch.clamp_min(true_div(wb.abs().amax(dim=-1), 127.0),
+                                1e-12)
+    t = wb / new_scale[..., None]
+    codes = torch.clamp(torch.floor(t + u01.reshape(R, C // block, block)),
+                        -128, 127)
+    return codes.reshape(R, C).to(torch.int8), new_scale
+
+
+def blockwise_quant_ref(x: torch.Tensor, block: int):
+    """x (R, C) → symmetric int8 codes (round half to even) and per-block
+    f32 scales (``repro/kernels/ref.py::blockwise_quant_ref``)."""
+    LAUNCHES["blockwise_quant_ref"] += 1
+    R, C = x.shape
+    xb = x.to(torch.float32).reshape(R, C // block, block)
+    scale = torch.clamp_min(true_div(xb.abs().amax(dim=-1), 127.0), 1e-12)
+    codes = torch.clamp(torch.round(xb / scale[..., None]), -128, 127)
+    return codes.reshape(R, C).to(torch.int8), scale
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q (B, S, H, d), k (B, S, KH, d), v (B, S, KH, dv) → (B, S, H, dv)
+    f32 softmax attention (``repro/kernels/ref.py::flash_attention_ref``).
+    Query head h reads kv head ``h // (H / KH)``: the kv heads are
+    repeated, as ``repro/models/attention.py`` folds GQA."""
+    LAUNCHES["flash_attention_ref"] += 1
+    B, S, H, d = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(d)
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))

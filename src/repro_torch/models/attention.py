@@ -4,7 +4,11 @@ package: ``(B, S, H, hd)`` activations, ``(B, Smax, KH, hd)`` caches.
 
 The chunked einsum path is the reference numerics (the JAX package's flash
 kernel is off by default): scores for one query chunk at a time,
-normalised as ``e / z`` after subtracting the row max.
+normalised as ``e / z`` after subtracting the row max. With ``flash=True``
+(a bundle built with ``flash_attention=True``) every eligible call, a full
+causal self-attention such as a prefill, goes through
+``kernels.ops.flash_attention`` instead, as ``REPRO_FLASH_ATTENTION=1``
+routes the JAX package.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dense, dense_init, \
     rope_angles
 
@@ -45,10 +50,23 @@ def _attend_dense(q, k, v, *, causal: bool, q_offset: int):
     return o.reshape(B, Sq, H, dv)
 
 
+def _flash_eligible(q, k, causal: bool, q_offset: int) -> bool:
+    """The flash kernel covers the self-attention core only
+    (``repro/models/attention.py:61``): causal, queries aligned with keys
+    (full sequence, no offset), more than one query. Decode keeps the
+    chunked path. The port has no soft-cap."""
+    return (causal and q_offset == 0 and q.shape[1] == k.shape[1]
+            and q.shape[1] > 1 and q.shape[2] % k.shape[2] == 0)
+
+
 def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
-                      q_offset: int = 0) -> torch.Tensor:
+                      q_offset: int = 0, flash: bool = False
+                      ) -> torch.Tensor:
     """Attention over query chunks of ``q_chunk`` rows (scores stay
-    (chunk, Skv)); one dense block when ``Sq <= q_chunk``."""
+    (chunk, Skv)); one dense block when ``Sq <= q_chunk``. With ``flash``
+    an eligible call goes through the flash kernel (GQA native)."""
+    if flash and _flash_eligible(q, k, causal, q_offset):
+        return kops.flash_attention(q, k, v, causal=True).to(q.dtype)
     Sq = q.shape[1]
     if Sq <= q_chunk:
         return _attend_dense(q, k, v, causal=causal,
@@ -106,19 +124,21 @@ def _qkv(p, x, cfg: ModelConfig, positions, dtype):
 
 def gqa_apply(p: dict, x, cfg: ModelConfig, *, positions,
               causal: bool = True, q_chunk: int = 1024,
-              dtype=torch.bfloat16) -> torch.Tensor:
+              dtype=torch.bfloat16, flash: bool = False) -> torch.Tensor:
     """Full-sequence attention."""
     q, k, v = _qkv(p, x, cfg, positions, dtype)
-    o = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk)
+    o = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                          flash=flash)
     B, S = x.shape[:2]
     return dense(o.reshape(B, S, -1), p["wo"], dtype)
 
 
 def gqa_prefill(p, x, cfg: ModelConfig, *, positions, q_chunk=1024,
-                dtype=torch.bfloat16):
+                dtype=torch.bfloat16, flash: bool = False):
     """Like :func:`gqa_apply`, and also returns the (k, v) of the prompt."""
     q, k, v = _qkv(p, x, cfg, positions, dtype)
-    o = chunked_attention(q, k, v, causal=True, q_chunk=q_chunk)
+    o = chunked_attention(q, k, v, causal=True, q_chunk=q_chunk,
+                          flash=flash)
     B, S = x.shape[:2]
     return dense(o.reshape(B, S, -1), p["wo"], dtype), (k, v)
 

@@ -44,6 +44,7 @@ class ModelBundle:
     segments: tuple
     head_logits: Callable                  # (params, carry) -> logits (last pos)
     head_loss: Callable                    # (params, carry, batch) -> (loss, metrics)
+    flash_attention: bool = False          # prefill attention via the flash kernel
 
     def seg_key(self, i: int) -> str:
         return f"seg{i}_{self.segments[i].name}"

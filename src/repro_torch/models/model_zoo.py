@@ -23,17 +23,19 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     return mod.smoke_config() if smoke else mod.CONFIG
 
 
-def build(cfg: ModelConfig, *, device=None,
-          dtype=torch.bfloat16) -> ModelBundle:
+def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
+          flash_attention: bool = False) -> ModelBundle:
     """Bundle for ``cfg`` on ``device`` (default ``cuda``, which must be
-    present)."""
+    present). ``flash_attention`` routes prefill attention through the
+    flash kernel (the JAX package's ``REPRO_FLASH_ATTENTION=1``)."""
     if (cfg.family, cfg.attention, cfg.ffn_activation) != \
             ("dense", "gqa", "silu") or cfg.moe or cfg.qk_norm:
         raise NotImplementedError(
             f"{cfg.name}: only the LLaMA shape is ported (dense GQA, "
             "SwiGLU, no qk-norm)")
     from repro_torch.models import transformer
-    return transformer.build(cfg, device=resolve_device(device), dtype=dtype)
+    return transformer.build(cfg, device=resolve_device(device), dtype=dtype,
+                             flash_attention=flash_attention)
 
 
 def build_arch(arch_id: str, smoke: bool = False,

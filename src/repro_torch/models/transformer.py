@@ -24,22 +24,25 @@ def _map_leaves(tree, fn):
     return fn(tree)
 
 
-def block_apply(lp, carry, ctx, cfg: ModelConfig, *, dtype):
+def block_apply(lp, carry, ctx, cfg: ModelConfig, *, dtype,
+                flash: bool = False):
     h = carry["h"]
     x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
     h = h + attention.gqa_apply(lp["attn"], x, cfg,
                                 positions=ctx["positions"],
-                                q_chunk=Q_CHUNK, dtype=dtype)
+                                q_chunk=Q_CHUNK, dtype=dtype, flash=flash)
     x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
     return {**carry, "h": h + ffn_apply(lp["ffn"], x, dtype)}
 
 
-def block_prefill(lp, carry, ctx, cfg: ModelConfig, *, dtype):
+def block_prefill(lp, carry, ctx, cfg: ModelConfig, *, dtype,
+                  flash: bool = False):
     h = carry["h"]
     x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
     a, cache = attention.gqa_prefill(lp["attn"], x, cfg,
                                      positions=ctx["positions"],
-                                     q_chunk=Q_CHUNK, dtype=dtype)
+                                     q_chunk=Q_CHUNK, dtype=dtype,
+                                     flash=flash)
     if "max_len" in ctx:
         # grow the cache to the serving window (time axis = 1)
         pad = ctx["max_len"] - cache[0].shape[1]
@@ -73,10 +76,13 @@ def _head_logits(params, h, cfg: ModelConfig, dtype):
 
 
 def build(cfg: ModelConfig, *, device: torch.device,
-          dtype=torch.bfloat16) -> ModelBundle:
+          dtype=torch.bfloat16,
+          flash_attention: bool = False) -> ModelBundle:
     """Dense LM bundle with one segment of ``cfg.num_layers`` blocks and
     an untied head. ``device`` is where ``init_params`` puts the weights by
-    default and where the engine places its inputs."""
+    default and where the engine places its inputs. ``flash_attention``
+    routes every full causal self-attention (prefill, the full-sequence
+    forward) through the flash kernel; decode never takes it."""
     if cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name}: tied embeddings need the transposed INT8 matmul, "
@@ -134,11 +140,14 @@ def build(cfg: ModelConfig, *, device: torch.device,
 
     seg = SegmentDef(
         name="dense", n_layers=cfg.num_layers,
-        apply=functools.partial(block_apply, cfg=cfg, dtype=dtype),
-        prefill=functools.partial(block_prefill, cfg=cfg, dtype=dtype),
+        apply=functools.partial(block_apply, cfg=cfg, dtype=dtype,
+                                flash=flash_attention),
+        prefill=functools.partial(block_prefill, cfg=cfg, dtype=dtype,
+                                  flash=flash_attention),
         decode=functools.partial(block_decode, cfg=cfg, dtype=dtype),
         cache_shapes=functools.partial(_cache_shapes, cfg))
     return ModelBundle(cfg=cfg, device=torch.device(device), dtype=dtype,
                        init_params=init_params, embed=embed,
                        segments=(seg,), head_logits=head_logits,
-                       head_loss=head_loss)
+                       head_loss=head_loss,
+                       flash_attention=flash_attention)

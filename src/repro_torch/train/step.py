@@ -77,7 +77,14 @@ def build_train_step(bundle: ModelBundle, qcfg: QGaLoreConfig,
                      tcfg: TrainConfig, specs: List[LeafSpec]):
     """``step(state, batch, lr, step_idx, uniforms, refresh_masks)`` →
     ``(state, metrics, opt_metrics)``; a non-empty ``refresh_masks``
-    (``{leaf_idx: (nbatch,) bool}``) makes it a refresh step."""
+    (``{leaf_idx: (nbatch,) bool}``) makes it a refresh step.
+
+    A bundle built with ``flash_attention=True`` is refused: the flash
+    kernel has no backward."""
+    if bundle.flash_attention:
+        raise ValueError("training through the flash-attention route needs "
+                         "a backward kernel, which is not ported; build the "
+                         "bundle with flash_attention=False")
     any_galore = any(s.galore for s in specs)
 
     def step(state: TrainState, batch, lr: float, step_idx: int,

@@ -194,3 +194,151 @@ def _to(state, dev):
     return TrainState(mv(state.params), QGaLoreState(
         [Adam8bitState(mv(i.m), mv(i.v)) for i in opt.inner],
         [mv(p) for p in opt.proj], opt.count))
+
+
+def _flash_inputs(dev, B, S, H, KH, d, dv, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(s, generator=g, device=dev).to(dtype)
+                 for s in ((B, S, H, d), (B, S, KH, d), (B, S, KH, dv)))
+
+
+@pytest.mark.parametrize("B,S,H,KH,d,dv", [
+    (1, 1, 2, 2, 64, 64), (2, 48, 4, 4, 64, 64), (1, 130, 8, 2, 64, 64),
+    (2, 256, 4, 1, 128, 128), (1, 100, 2, 2, 48, 32), (1, 77, 3, 3, 16, 96),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, B, S, H, KH, d, dv, causal,
+                                       dtype):
+    """max|kernel - plain| / max|plain| <= 2e-3 in f32 and 1e-2 with a
+    bf16 output (one bf16 rounding); ragged S, native GQA, dv != d."""
+    from repro_torch.kernels import flash_attention as tflash
+    q, k, v = _flash_inputs(cuda, B, S, H, KH, d, dv, dtype, S + H)
+    LAUNCHES.clear()
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert LAUNCHES["flash_attention_ref"] == 0
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.shape == (B, S, H, dv) and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got.float(), want) <= (2e-3 if dtype == torch.float32
+                                       else 1e-2)
+
+
+@pytest.mark.parametrize("R,C", [(1, 256), (37, 512), (128, 768),
+                                 (300, 2048)])
+def test_sr_requant_bit_exact(cuda, R, C):
+    """Codes equal to the plain version's bit for bit, scales within
+    1e-6 (true division, no FMA contraction)."""
+    from repro_torch.kernels import sr_requant as tsr
+    g = torch.Generator(device=cuda).manual_seed(R + C)
+    qt = quant.quantize_blockwise(torch.randn((R, C), generator=g,
+                                              device=cuda) * 0.02, 8,
+                                  symmetric=True)
+    upd = torch.randn((R, C), generator=g, device=cuda) * 1e-3
+    u01 = torch.rand((R, C), generator=g, device=cuda)
+    LAUNCHES.clear()
+    q, s = tsr.sr_requant(qt.q, qt.scale, upd, u01)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sr_requant"] == 1 and LAUNCHES["sr_requant_ref"] == 0
+    qw, sw = ref.sr_requant_ref(qt.q, qt.scale, upd, u01, 256)
+    assert torch.equal(q, qw)
+    assert _rel(s, sw) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [(1, 256), (33, 768), (3, 5, 300),
+                                   (512, 2048)])
+def test_blockwise_quant_bit_exact(cuda, shape):
+    """Codes and scales equal to the plain version's and to
+    ``core.quant.quantize_blockwise`` on the card, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=cuda) * 3
+    LAUNCHES.clear()
+    got = ops.quantize_int8(x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["blockwise_quant"] == 1
+    want = quant.quantize_blockwise(x, 8, symmetric=True)
+    assert torch.equal(got.q, want.q) and torch.equal(got.scale, want.scale)
+    x2 = torch.nn.functional.pad(x.reshape(-1, shape[-1]),
+                                 (0, -shape[-1] % 256))
+    qw, sw = ref.blockwise_quant_ref(x2, 256)
+    assert torch.equal(got.q.reshape(qw.shape), qw)
+    assert torch.equal(got.scale.reshape(sw.shape), sw)
+
+
+@pytest.mark.parametrize("M,K,r", [(1, 64, 32), (37, 300, 64),
+                                   (130, 1000, 100), (257, 2048, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_matches_plain(cuda, M, K, r, dtype):
+    """2e-2 of max|plain| (the reference's tolerance); ragged M, K and R
+    against the tiles."""
+    from repro_torch.kernels import int4_matmul as ti4
+    g = torch.Generator(device=cuda).manual_seed(M + K + r)
+    P = torch.linalg.qr(torch.randn((K, r), generator=g, device=cuda))[0]
+    qp = projector.quantize_projection(P, 4, 256)
+    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    LAUNCHES.clear()
+    got = ti4.int4_matmul(x, qp.q, qp.scale, qp.zero, qp.block)
+    torch.cuda.synchronize()
+    assert LAUNCHES["int4_matmul"] == 1 and LAUNCHES["int4_matmul_ref"] == 0
+    want = ref.int4_matmul_ref(x, qp.q, qp.scale, qp.zero, qp.block)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _rel(got, want) <= 2e-2
+
+
+def test_unfused_chain_matches_cpu(cuda):
+    """The unfused update on the card against the CPU's plain versions
+    with the same uniforms: weights within one quantum, moments within
+    1e-5."""
+    m, n, r = 600, 512, 64
+    qt, qp, _, m32, v32, u01 = _fused_problem(cuda, m, n, r, "right", 7)
+    grad = torch.randn((m, n), device=cuda)
+    LAUNCHES.clear()
+    got, mg, vg = ops.unfused_qgalore_update(qt, grad, m32, v32, qp, 2,
+                                             1e-2, u01, gscale=0.25)
+    torch.cuda.synchronize()
+    assert LAUNCHES["int4_matmul"] == 1 and LAUNCHES["sr_requant"] == 1
+    cpu = lambda t: t.to("cpu")
+    want, mw, vw = ops.unfused_qgalore_update(
+        qt.to("cpu"), cpu(grad), cpu(m32), cpu(v32), qp.to("cpu"), 2, 1e-2,
+        cpu(u01), gscale=0.25)
+    dq = lambda t: quant.dequantize(t, torch.float32)
+    assert (dq(got.to("cpu")) - dq(want)).abs().max().item() \
+        <= want.scale.max().item() + 1e-6
+    assert _rel(mg.cpu(), mw) <= 1e-5 and _rel(vg.cpu(), vw) <= 1e-5
+
+
+def test_flash_prefill_matches_cpu(cuda):
+    """A 2-layer llama-60m-width prefill through the flash route on the
+    card against the CPU's plain route: logits within 2e-2 of
+    max|logits|, one flash launch a layer, and no chunked attention."""
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import engine
+    from repro_torch.serve.params import quantize_leaf
+    cfgs = {}
+    for dev in ("cpu", "cuda"):
+        cfgs[dev] = model_zoo.build_arch("llama-60m", smoke=True, device=dev,
+                                         dtype=torch.float32,
+                                         flash_attention=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p_gpu = cfgs["cuda"].init_params(gen, leaf_fn=quantize_leaf)
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        return t.to("cpu")
+
+    toks = torch.randint(1, 512, (2, 40), generator=torch.Generator()
+                         .manual_seed(1), dtype=torch.int32)
+    out = {}
+    for dev, params in (("cpu", to_cpu(p_gpu)), ("cuda", p_gpu)):
+        LAUNCHES.clear()
+        logits, _ = engine.build_prefill(cfgs[dev], 48)(
+            params, {"tokens": toks.to(dev)})
+        out[dev] = (logits.float().cpu(), dict(LAUNCHES))
+    (l_c, n_c), (l_g, n_g) = out["cpu"], out["cuda"]
+    assert n_g.get("flash_attention") == 2 and not n_g.get(
+        "flash_attention_ref")
+    assert n_c.get("flash_attention_ref") == 2
+    assert _rel(l_g, l_c) <= 2e-2
