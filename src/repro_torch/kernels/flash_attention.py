@@ -1,4 +1,4 @@
-"""Wrapper of the CUDA ``flash_attention`` kernel
+"""Wrapper of the CUDA ``flash_attention`` kernels
 (``csrc/flash_attention.cu``): the port of
 ``repro/kernels/flash_attention.py``.
 
@@ -6,10 +6,22 @@
 ``(B, S, H, dv)`` in q's type: online-softmax attention, causal or full,
 scores scaled by ``1/sqrt(d)`` in f32. GQA is native: query head ``h``
 reads kv head ``h // (H / KH)``. Inputs are float32 or bfloat16, all of
-one type; ``d, dv <= 128``; any S. For a CUDA tensor it launches the
-kernel; for a CPU tensor it runs ``ref.flash_attention_ref`` (cast to q's
-type). There is no backward (the JAX package has no backward kernel), so
-an input that requires grad is refused.
+one type; ``d, dv <= 128``; any S. For a CUDA tensor it launches a kernel
+chosen by the type, both counted as ``LAUNCHES["flash_attention"]``:
+
+* bf16 (every serving bundle): the FlashAttention-2 shape on the tensor
+  cores. Four warps own a 64-row query tile, 16 rows each; Q stays in
+  registers, 64-row K and V tiles stream through a ``cp.async`` ring,
+  ``S = Q Kᵀ`` and ``P V`` are ``mma.sync`` bf16 products with f32 sums,
+  and the online softmax runs in f32 on the accumulators. What bounds it
+  at S 512 is the bytes of q, k, v and o and the softmax; at long S the
+  ``mma.sync`` issue rate.
+* f32 (the parity phases and tests): f32 FMA on the SIMT units
+  throughout, bound by them.
+
+For a CPU tensor it runs ``ref.flash_attention_ref`` (cast to q's type).
+There is no backward (the JAX package has no backward kernel), so an
+input that requires grad is refused.
 """
 from __future__ import annotations
 

@@ -8,6 +8,19 @@ wrapper launches its kernel; for a CPU tensor it runs the plain version
 (``ref.int8_matmul_ref``, ``ref.int8_matmul_t_ref``). Neither falls back
 from a failed build or launch.
 
+``int8_matmul`` has two designs, chosen by :func:`plan` from M:
+
+* M <= 16 (decode): a stream over the codes with f32 FMA, bound by the
+  weight bytes;
+* M > 16 (prefill, training): tensor cores. A BM x 128 tile (BM 64 or
+  128) inside one 256-column group folds the group's scale into the
+  activation, stages ``x * s`` as bf16 and the raw codes (exact in bf16),
+  and runs ``mma.sync`` m16n8k16 with f32 sums. bf16 x takes one pass,
+  the rounding of ``x * s`` to bf16 that the TPU's MXU makes at default
+  precision; f32 x takes two (``hi = bf16(x * s)``, ``lo = bf16(x * s -
+  hi)``), which keeps f32 callers within ~2^-16 of the f32 product. What
+  bounds it now is ``mma.sync`` issue and the A staging, not the bytes.
+
 :func:`plan` chooses the launch (path, row tile, K split) from the shapes
 alone, in Python, so the CPU tests reach it.
 """
@@ -22,14 +35,15 @@ from repro_torch.kernels import LAUNCHES, build, ref
 
 GROUP = 256          # the kernel's quant block along N
 SMALL_M = 16         # largest M the small-M (weight-streaming) path takes
-TILE_N = 128         # tiled path output tile
-TILE_M = 128
+TILE_N = 128         # tiled path output tile columns
+TILE_K = 32          # tiled path k tile (a split's rows are a multiple)
 H100_SMS = 132
 
 
 class Plan(NamedTuple):
-    path: int        # 0: small-M stream, 1: tiled
-    m_tile: int      # rows per block on the small path (power of two)
+    path: int        # 0: small-M stream, 1: tiled (tensor cores)
+    m_tile: int      # rows per block: small path a power of two <= 16,
+                     # tiled path 64 or 128
     kc: int          # K rows per split
     splits: int      # K splits (> 1: partials + ordered reduction)
 
@@ -44,9 +58,11 @@ def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
     The small path has N/256 column groups; K is split until about two
     blocks per SM are in flight, as long as the float32 partials stay
     under a quarter of the code bytes (``splits * M * N * 4 <= K * N / 4``)
-    and each split keeps at least 64 rows. The tiled path splits K only
-    when its output tiles cannot fill one wave, with at least 256 rows a
-    split.
+    and each split keeps at least 64 rows. The tiled path takes 128-row
+    tiles unless 64-row tiles pad M by fewer rows (M = 17-64, or 300 in
+    5 tiles of 64 rather than 3 of 128), and splits K only when its output
+    tiles cannot fill one wave, with at least 256 rows a split and each
+    split a multiple of the 32-row k tile.
     """
     if M <= SMALL_M:
         m_tile = 1
@@ -57,11 +73,12 @@ def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
         splits = max(1, min(want, cap))
         kc = _cdiv(_cdiv(K, splits), 8) * 8
         return Plan(0, m_tile, kc, _cdiv(K, kc))
-    tiles = (N // TILE_N) * _cdiv(M, TILE_M)
+    bm = 128 if 2 * _cdiv(M, 128) == _cdiv(M, 64) else 64
+    tiles = (N // TILE_N) * _cdiv(M, bm)
     want = _cdiv(sms, tiles)
     splits = max(1, min(want, K // 256, 16))
-    kc = _cdiv(_cdiv(K, splits), 16) * 16
-    return Plan(1, 0, kc, _cdiv(K, kc))
+    kc = _cdiv(_cdiv(K, splits), TILE_K) * TILE_K
+    return Plan(1, bm, kc, _cdiv(K, kc))
 
 
 def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -104,6 +121,8 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     _check(x, q, scale, block)
     if x.device.type == "cpu":
         return ref.int8_matmul_ref(x, q, scale, block)
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
     M, K = x.shape
     N = q.shape[1]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count

@@ -24,9 +24,15 @@ def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-@pytest.mark.parametrize("M", [1, 3, 8, 16, 17, 100, 300])
-@pytest.mark.parametrize("K,N", [(64, 64), (300, 300), (1000, 2048),
-                                 (5461, 512)])
+# small-M and tiled paths, ragged K, padded N; the tiled path's 64- and
+# 128-row tiles with and without K splits at llama-1b's K
+INT8_PROBLEMS = [(M, K, N) for M in (1, 3, 8, 16, 17, 100, 300)
+                 for K, N in ((64, 64), (300, 300), (1000, 2048), (5461, 512))]
+INT8_PROBLEMS += [(M, K, N) for M in (17, 64, 65, 128, 300, 2048)
+                  for K, N in ((5461, 2048), (2048, 2048))]
+
+
+@pytest.mark.parametrize("M,K,N", INT8_PROBLEMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_matmul_matches_plain(cuda, M, K, N, dtype):
     """2e-2 of max|plain| (the JAX package's kernel tolerance); small-M and
@@ -46,6 +52,23 @@ def test_int8_matmul_matches_plain(cuda, M, K, N, dtype):
     assert _rel(got, want) <= 2e-2
     # padded columns dequantize to zero
     assert (got[:, N:] == 0).all()
+
+
+@pytest.mark.parametrize("M,K,N", [(17, 2048, 2048), (300, 5461, 2048),
+                                   (2048, 2048, 5632), (2048, 5461, 2048)])
+def test_int8_matmul_f32_x_two_passes(cuda, M, K, N):
+    """f32 x takes two bf16 passes (hi and lo of x * s) on the tensor
+    cores: within 1e-4 of max|plain|, where one bf16 pass would be ~1e-3."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    qt = quant.quantize_blockwise(torch.randn((K, N), generator=g,
+                                              device=cuda), 8,
+                                  symmetric=True)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    assert ti8.plan(M, K, N).path == 1
+    got = ti8.int8_matmul(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    want = ref.int8_matmul_ref(x, qt.q, qt.scale, 256)
+    assert _rel(got, want) <= 1e-4
 
 
 def test_quantized_dense_launches_kernel(cuda):
@@ -205,6 +228,9 @@ def _flash_inputs(dev, B, S, H, KH, d, dv, dtype, seed):
 @pytest.mark.parametrize("B,S,H,KH,d,dv", [
     (1, 1, 2, 2, 64, 64), (2, 48, 4, 4, 64, 64), (1, 130, 8, 2, 64, 64),
     (2, 256, 4, 1, 128, 128), (1, 100, 2, 2, 48, 32), (1, 77, 3, 3, 16, 96),
+    (1, 1, 4, 2, 128, 128), (1, 48, 4, 1, 64, 128), (2, 130, 4, 2, 128, 64),
+    (1, 2048, 4, 2, 64, 64), (1, 2048, 2, 1, 128, 96), (1, 37, 2, 1, 20, 24),
+    (1, 50, 2, 2, 64, 7),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

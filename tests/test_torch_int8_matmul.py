@@ -99,7 +99,8 @@ LLAMA_1B_KN = [(2048, 2048), (2048, 5632), (5461, 2048), (2048, 32000)]
 
 
 @pytest.mark.parametrize("K,N", LLAMA_1B_KN)
-@pytest.mark.parametrize("M", [1, 4, 8, 16, 17, 64, 2048, 4096])
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 17, 64, 65, 300, 512, 2048,
+                               4096])
 def test_plan_covers_k_and_bounds_partials(M, K, N):
     p = ti8.plan(M, K, N)
     assert p.splits >= 1 and p.kc >= 1
@@ -111,8 +112,27 @@ def test_plan_covers_k_and_bounds_partials(M, K, N):
         if p.splits > 1:        # partials stay under 1/4 of the codes
             assert p.splits * M * N * 4 <= K * N / 4
     else:
-        assert p.path == 1 and p.kc % 16 == 0
+        assert p.path == 1 and p.kc % ti8.TILE_K == 0
         assert p.splits <= 16
+        # 128-row tiles unless 64-row tiles pad M by fewer rows
+        assert p.m_tile in (64, 128)
+        pad = {bm: -(-M // bm) * bm - M for bm in (64, 128)}
+        assert pad[p.m_tile] == min(pad.values())
+        assert p.m_tile == 128 or pad[64] < pad[128]
+
+
+@pytest.mark.parametrize("M", [17, 33, 48, 63, 64])
+@pytest.mark.parametrize("K,N", LLAMA_1B_KN)
+def test_plan_short_prefill_takes_64_row_tiles(M, K, N):
+    """17 <= M <= 64: one 64-row tile a column block, not half of a 128-row
+    one; the K split fills the card with at least 256 rows a split."""
+    p = ti8.plan(M, K, N)
+    assert p.path == 1 and p.m_tile == 64
+    tiles = N // ti8.TILE_N
+    assert 1 <= p.splits <= max(1, min(-(-ti8.H100_SMS // tiles), K // 256))
+    assert p.splits == 1 or p.kc >= 256
+    assert p.splits * tiles >= min(ti8.H100_SMS, tiles * (K // 256)) \
+        or p.splits == 16
 
 
 def test_kernel_module_imports_without_nvcc():
