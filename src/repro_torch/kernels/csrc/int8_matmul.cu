@@ -65,6 +65,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "splitk.cuh"
 
 namespace {
 
@@ -370,17 +371,6 @@ i8mm_mma(const T* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-// out[i] = sum over splits of ws[s][i], in split order
-__global__ void splitk_reduce(const float* __restrict__ ws, float* __restrict__ out,
-                              int splits, size_t n) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += ws[static_cast<size_t>(z) * n + i];
-    out[i] = s;
-  }
-}
-
 template <typename T>
 void launch_small(const T* x, const int8_t* q, const float* s, float* o, int M, int K,
                   int N, int m_tile, int kc, int splits, cudaStream_t st) {
@@ -444,11 +434,8 @@ extern "C" int qgl_int8_matmul(const void* x, int x_bf16, const void* q, const v
                               splits, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (splits > 1) {
-    const size_t n = static_cast<size_t>(M) * N;
-    const int blocks = static_cast<int>((n + THREADS - 1) / THREADS < 4096 ? (n + THREADS - 1) / THREADS : 4096);
-    splitk_reduce<<<blocks, THREADS, 0, st>>>(static_cast<const float*>(ws),
-                                              static_cast<float*>(out), splits, n);
-  }
+  if (splits > 1)
+    splitk::launch(static_cast<const float*>(ws), static_cast<float*>(out), splits,
+                   static_cast<size_t>(M) * N, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,20 +6,42 @@
 // transposed weight copy). The contraction runs along N, the quant axis, so
 // the scale is a per-group accumulator epilogue, as in the TPU kernel
 // (int8_matmul.py:100-122) and ref.int8_matmul_t_ref:
-//     out[m, k] = sum_g scale[k, g] * (sum_{n in group g} g[m, n] * q[k, n]).
-// Each thread keeps a 256-column group's raw-code dot products in a
-// register tile, then scales and adds them into its output accumulator.
+//     out[m, k] = sum_grp scale[k, grp] * (sum_{n in group grp} g[m, n] * q[k, n]).
 //
 // N is the QTensor's padded width (a multiple of 256); the wrapper zero-pads
-// g to it, so padded codes contribute nothing. K (the output width) may be
-// ragged (5461 = llama-1b's d_ff): the row loop over q stops at K.
+// g to it, so padded codes contribute nothing, and every row of g and of q
+// is 16-byte aligned. K (the output width) may be ragged (5461 = llama-1b's
+// d_ff): code rows past K are zero filled and the stores are masked.
 //
 // What bounds it on an H100: the multiply-adds at M = 2048 tokens (2*M*K*N
-// operations on 1 byte of weight per M of them). This first version is a
-// plain register-blocked float32 GEMM (128x128 output tile, 32-deep N step,
-// 8x8 outputs per thread) with codes converted to f32 in shared memory; it
-// does not use the tensor cores (mma/wgmma on bf16 tiles is the next step,
-// shared with int8_matmul's tiled path).
+// operations on 1 byte of weight per M of them), so the product runs on the
+// tensor cores: mma.sync m16n8k16 bf16 with f32 sums (csrc/mma_bf16.cuh).
+// The layout suits the mma as it is stored:
+//  * A is g, row major along the contraction n: no scaling pass (the scale
+//    is per output column, not per n), so bf16 g goes straight from
+//    cp.async into the A tile.
+//  * B[n, k] = q[k, n] is contiguous along n, the mma's column-major B. A
+//    non-transposed ldmatrix of an 8 x 8 b16 matrix over 8 code rows gives
+//    lane (g, t) the codes n = 4t..4t+3 of output column g: one whole k16 B
+//    fragment, converted exactly to bf16 in registers as (c0, c1) and
+//    (c2, c3). That maps the mma's k indices {2t, 2t+1, 2t+8, 2t+9} to
+//    n = 4t..4t+3, so A is read with the same permutation: lane (g, t)
+//    takes row g, n = 4t..4t+3 as one 64-bit shared load (and row g + 8).
+//    Any permutation A and B share gives the same sum.
+//  * the scale: the mma sums of one 256-wide group (part) are multiplied by
+//    scale[k, grp] (one per output column, copied into shared memory with
+//    the group's first step) and added into acc; two accumulator sets.
+// A block owns a BM x 128 output tile (BM 64 or 128), 8 warps as 2 x 4,
+// each a (BM/2) x 32 warp tile. The g tile and the code tile of each 32-deep
+// n step stream through a 4-stage cp.async ring (one barrier a step).
+// bf16 g takes one pass: bf16 times an int8 code is exact in f32, so the
+// only rounding is the f32 sum's. f32 g takes two: hi = bf16(g) and
+// lo = bf16(g - hi), rounded in a conversion pass one step ahead in shared
+// memory, and two mma into the same sums (~2^-17 of each term).
+//
+// When the output tiles cannot fill the card, the groups are split over a
+// grid axis; each split writes a float32 partial and a second kernel sums
+// them in a fixed order (deterministic, no atomics).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC; bound through a plain C entry point loaded with ctypes.
@@ -28,118 +50,255 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+#include "splitk.cuh"
+
 namespace {
 
-constexpr int GROUP = 256;      // quant block along N
+using namespace mma_bf16;
+
+constexpr int GROUP = 256;          // quant block along N
 constexpr int THREADS = 256;
-constexpr int BM = 128, BK = 128, BN = 32, TM = 8, TK = 8;
+constexpr int TBN = 128;            // output columns (k) a block
+constexpr int TBK = 32;             // contraction (n) a step
+constexpr int STEPS_GROUP = GROUP / TBK;
+constexpr int LDA = TBK + 16;       // bf16 a staged A row: 96 bytes, so the
+                                    // 64-bit fragment loads are conflict free
+constexpr int LDB = TBK + 16;       // bytes a staged code row: 48, so
+                                    // ldmatrix is conflict free
+constexpr int LDR = TBK * 4 + 16;   // bytes a raw f32 g row (144)
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T, int BM_>
+struct Cfg {
+  static constexpr int PASSES = sizeof(T) == 4 ? 2 : 1;   // f32 g: hi and lo
+  static constexpr int STAGES = 4;                        // cp.async ring depth
+  static constexpr int GROW = sizeof(T) == 4 ? LDR : LDA * 2;  // bytes a staged g row
+  static constexpr int GS = STAGES * BM_ * GROW;
+  static constexpr int BS = STAGES * TBN * LDB;
+  static constexpr int AS = PASSES == 2 ? 2 * 2 * BM_ * LDA * 2 : 0;  // [buffer][hi, lo]
+  static constexpr int SS = 2 * TBN * 4;                  // two groups' scales
+  static constexpr int SMEM = GS + BS + AS + SS;
+};
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-i8mm_t_tiled(const T* __restrict__ g, const int8_t* __restrict__ q,
-             const float* __restrict__ scale, float* __restrict__ out,
-             int M, int K, int N) {
-  const int k0 = blockIdx.x * BK;
-  const int m0 = blockIdx.y * BM;
+template <typename T, int BM_>
+__global__ void __launch_bounds__(THREADS, BM_ == 64 ? 2 : 1)
+i8mm_t_mma(const T* __restrict__ g, const int8_t* __restrict__ q,
+           const float* __restrict__ scale, float* __restrict__ out,
+           int M, int K, int N, int gc) {
+  using C = Cfg<T, BM_>;
+  constexpr int PASSES = C::PASSES, S_ = C::STAGES, E = sizeof(T);
+  constexpr int WM = BM_ / 2;                    // warp tile rows (2 x 4 warps)
+  constexpr int MI = WM / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* Gs = smem;                                         // [S][BM][GROW]
+  int8_t* Bs = reinterpret_cast<int8_t*>(smem + C::GS);             // [S][TBN][LDB]
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem + C::GS + C::BS);  // [2][2][BM][LDA]
+  float* Ss = reinterpret_cast<float*>(smem + C::GS + C::BS + C::AS);            // [2][TBN]
+
+  const int k0 = blockIdx.x * TBN;
+  const int m0 = blockIdx.y * BM_;
   const int G = N / GROUP;
+  const int grp_begin = blockIdx.z * gc;
+  const int grp_end = min(G, grp_begin + gc);
+  const int n_begin = grp_begin * GROUP;
+  const int n_steps = (grp_end - grp_begin) * STEPS_GROUP;
+  float* dst = out + static_cast<size_t>(blockIdx.z) * M * K;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int gq = lane >> 2, tq = lane & 3;
 
-  __shared__ __align__(16) float As[BN][BM + 4];   // g tile, transposed (+4: fewer bank conflicts on the store)
-  __shared__ __align__(16) float Bs[BN][BK];   // codes as f32, transposed
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[TM][TK], part[TM][TK];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TK; ++j) acc[i][j] = 0.f;
-
-  for (int grp = 0; grp < G; ++grp) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TK; ++j) part[i][j] = 0.f;
-    for (int n0 = grp * GROUP; n0 < (grp + 1) * GROUP; n0 += BN) {
-      // g (BM x BN): 4096 values, 16 a thread, consecutive threads along n
-#pragma unroll
-      for (int t = 0; t < (BM * BN) / THREADS; ++t) {
-        const int idx = tid + t * THREADS;
-        const int r = idx / BN, c = idx % BN;
-        const int m = m0 + r;
-        As[c][r] = m < M ? to_f32(g[static_cast<size_t>(m) * N + n0 + c]) : 0.f;
-      }
-      // q (BK x BN): 128 rows of 32 bytes, 16 bytes a thread
-      {
-        const int r = tid / 2, c = (tid % 2) * 16;
-        const int k = k0 + r;
-        int4 raw = make_int4(0, 0, 0, 0);
-        if (k < K)
-          raw = __ldg(reinterpret_cast<const int4*>(q + static_cast<size_t>(k) * N + n0 + c));
-        const int words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-        for (int w = 0; w < 4; ++w)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            Bs[c + 4 * w + j][r] = static_cast<float>(
-                static_cast<int>(static_cast<unsigned>(words[w]) << (24 - 8 * j)) >> 24);
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int nn = 0; nn < BN; ++nn) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[nn][ty * TM]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[nn][ty * TM + 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[nn][tx * TK]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Bs[nn][tx * TK + 4]);
-        const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[TK] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TK; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-      }
-      __syncthreads();
+  // step st into stage st % S: the codes (128 rows x 2 chunks of 16, one a
+  // thread; rows past K zero filled) and the g rows (zero past M); with a
+  // group's first step, the group's 128 scales into buffer (group & 1),
+  // which the group two later overwrites only after this one's epilogue
+  auto load_step = [&](int st) {
+    const int s = st % S_;
+    const int n = n_begin + st * TBK;
+    {
+      const int r = tid >> 1, c = (tid & 1) * 16;
+      const bool ok = k0 + r < K;
+      cp_async16(Bs + (s * TBN + r) * LDB + c,
+                 ok ? q + static_cast<size_t>(k0 + r) * N + n + c : q, ok ? 16 : 0);
     }
-    // scale epilogue of the group: one scale per output column k
-#pragma unroll
-    for (int j = 0; j < TK; ++j) {
-      const int k = k0 + tx * TK + j;
-      const float s = k < K ? scale[static_cast<size_t>(k) * G + grp] : 0.f;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(part[i][j], s, acc[i][j]);
+    if (st % STEPS_GROUP == 0 && tid < TBN) {
+      const int gi = st / STEPS_GROUP;
+      const bool ok = k0 + tid < K;
+      cp_async4(Ss + (gi & 1) * TBN + tid,
+                ok ? scale + static_cast<size_t>(k0 + tid) * G + grp_begin + gi : scale,
+                ok ? 4 : 0);
     }
+    constexpr int CPR = TBK * E / 16;            // 16-byte chunks a g row
+#pragma unroll
+    for (int i = tid; i < BM_ * CPR; i += THREADS) {
+      const int r = i / CPR, c = i % CPR;
+      const bool ok = m0 + r < M;
+      cp_async16(Gs + (s * BM_ + r) * C::GROW + c * 16,
+                 ok ? g + static_cast<size_t>(m0 + r) * N + n + c * (16 / E) : g, ok ? 16 : 0);
+    }
+  };
+  // f32 g: the landed raw step st as bf16 hi and lo into A buffer buf
+  auto convert = [&](int st, int buf) {
+    const unsigned char* raw = Gs + (st % S_) * BM_ * C::GROW;
+#pragma unroll
+    for (int i = tid; i < BM_ * TBK / 8; i += THREADS) {
+      const int r = i / (TBK / 8), c = (i % (TBK / 8)) * 8;
+      const float4 a = *reinterpret_cast<const float4*>(raw + r * LDR + c * 4);
+      const float4 b = *reinterpret_cast<const float4*>(raw + r * LDR + c * 4 + 16);
+      const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        hi[j] = pack_bf16x2(v[2 * j], v[2 * j + 1]);
+        lo[j] = pack_bf16x2(v[2 * j] - __uint_as_float(hi[j] << 16),
+                            v[2 * j + 1] - __uint_as_float(hi[j] & 0xFFFF0000u));
+      }
+      *reinterpret_cast<uint4*>(As + ((buf * 2) * BM_ + r) * LDA + c) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(As + ((buf * 2 + 1) * BM_ + r) * LDA + c) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  };
+
+  float acc[MI][4][4], part[MI][4][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = part[mi][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < S_ - 1; ++s) {
+    if (s < n_steps) load_step(s);
+    cp_async_commit();
+  }
+  if constexpr (PASSES == 2) {
+    cp_async_wait<S_ - 2>();        // step 0 has landed
+    __syncthreads();
+    convert(0, 0);
   }
 
+  for (int st = 0; st < n_steps; ++st) {
+    // one pass: step st has landed; two: st + 1 too (it is converted below)
+    if constexpr (PASSES == 2) cp_async_wait<S_ - 3>(); else cp_async_wait<S_ - 2>();
+    __syncthreads();                // ... for every thread; step st - 1 is consumed
+    if (st + S_ - 1 < n_steps) load_step(st + S_ - 1);
+    cp_async_commit();
+    const int8_t* Bb = Bs + (st % S_) * TBN * LDB;
+    const __nv_bfloat16* Ab =
+        PASSES == 2 ? As + (st & 1) * 2 * BM_ * LDA
+                    : reinterpret_cast<const __nv_bfloat16*>(Gs + (st % S_) * BM_ * C::GROW);
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
+    for (int kk = 0; kk < TBK; kk += 16) {
+      // lane l addresses code row wn * 32 + l: matrix j is n8 tile j
+      uint32_t raw[4], b[4][2];
+      ldsm_x4(raw, Bb + (wn * 32 + lane) * LDB + kk);
 #pragma unroll
-    for (int j = 0; j < TK; ++j) {
-      const int k = k0 + tx * TK + j;
-      if (k < K) out[static_cast<size_t>(m) * K + k] = acc[i][j];
+      for (int j = 0; j < 4; ++j) s8x4_to_bf16x2_pairs(raw[j], b[j][0], b[j][1]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+        for (int p = 0; p < PASSES; ++p) {
+          const __nv_bfloat16* row = Ab + (p * BM_ + wm * WM + mi * 16 + gq) * LDA + kk + 4 * tq;
+          const uint2 r0 = *reinterpret_cast<const uint2*>(row);
+          const uint2 r8 = *reinterpret_cast<const uint2*>(row + 8 * LDA);
+          const uint32_t a[4] = {r0.x, r8.x, r0.y, r8.y};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16_16816(part[mi][j], a, b[j][0], b[j][1]);
+        }
+      }
+    }
+    if ((st + 1) % STEPS_GROUP == 0) {    // the group's scale epilogue
+      // this lane's output columns 8j + 2t, 8j + 2t + 1 (zero past K)
+      const float* sg = Ss + ((st / STEPS_GROUP) & 1) * TBN + wn * 32 + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 sc = *reinterpret_cast<const float2*>(sg + 8 * j);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[mi][j][e] = fmaf(part[mi][j][e], e & 1 ? sc.y : sc.x, acc[mi][j][e]);
+            part[mi][j][e] = 0.f;
+          }
+      }
+    }
+    // the other A buffer was last read in step st - 1
+    if constexpr (PASSES == 2)
+      if (st + 1 < n_steps) convert(st + 1, (st + 1) & 1);
+  }
+  cp_async_wait<0>();
+
+  // a lane holds, for rows g and g + 8, the columns 8j + 2t, 8j + 2t + 1;
+  // a row of the output is 8-byte aligned only when K is even
+  auto store2 = [&](int r, int c, float v0, float v1) {
+    if (r >= M || c >= K) return;
+    float* p = dst + static_cast<size_t>(r) * K + c;
+    if ((K & 1) == 0) {
+      *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+    } else {
+      p[0] = v0;
+      if (c + 1 < K) p[1] = v1;
+    }
+  };
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    const int r = m0 + wm * WM + mi * 16 + gq;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = k0 + wn * 32 + 8 * j + 2 * tq;
+      store2(r, c, acc[mi][j][0], acc[mi][j][1]);
+      store2(r + 8, c, acc[mi][j][2], acc[mi][j][3]);
     }
   }
 }
 
+template <typename T, int BM_>
+cudaError_t launch_mma(const T* g, const int8_t* q, const float* s, float* o, int M, int K,
+                       int N, int gc, int splits, cudaStream_t st) {
+  constexpr int smem = Cfg<T, BM_>::SMEM;
+  auto kern = i8mm_t_mma<T, BM_>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((K + TBN - 1) / TBN, (M + BM_ - 1) / BM_, splits);
+  kern<<<grid, THREADS, smem, st>>>(g, q, s, o, M, K, N, gc);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch(const T* g, const int8_t* q, const float* s, float* o, int M, int K, int N,
+                   int bm, int gc, int splits, cudaStream_t st) {
+  if (bm == 64) return launch_mma<T, 64>(g, q, s, o, M, K, N, gc, splits, st);
+  if (bm == 128) return launch_mma<T, 128>(g, q, s, o, M, K, N, gc, splits, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// g (M, N) f32 or bf16 (g_bf16 != 0), q (K, N) int8, scale (K, N/256) f32,
-// out (M, K) f32; N % 256 == 0. Returns cudaGetLastError() after the launch.
+// g (M, N) f32 or bf16 (g_bf16 != 0), 16-byte aligned; q (K, N) int8,
+// 16-byte aligned; scale (K, N/256) f32; out (M, K) f32; N % 256 == 0.
+// m_tile: the block's rows (64 or 128); gc: quant groups a split; with
+// splits > 1 the partials go to ws (splits * M * K floats) and a second
+// kernel sums them into out. Returns cudaGetLastError() after the launches.
 extern "C" int qgl_int8_matmul_t(const void* g, int g_bf16, const void* q, const void* scale,
-                                 void* out, int M, int K, int N, void* stream) {
+                                 void* out, void* ws, int M, int K, int N, int m_tile, int gc,
+                                 int splits, void* stream) {
+  if (M <= 0 || K <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((K + BK - 1) / BK, (M + BM - 1) / BM);
   const int8_t* qc = static_cast<const int8_t*>(q);
   const float* sc = static_cast<const float*>(scale);
-  float* o = static_cast<float*>(out);
-  if (g_bf16)
-    i8mm_t_tiled<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(g), qc, sc, o, M, K, N);
-  else
-    i8mm_t_tiled<float><<<grid, THREADS, 0, st>>>(static_cast<const float*>(g), qc, sc, o,
-                                                  M, K, N);
+  float* dst = splits > 1 ? static_cast<float*>(ws) : static_cast<float*>(out);
+  const cudaError_t err =
+      g_bf16 ? launch(static_cast<const __nv_bfloat16*>(g), qc, sc, dst, M, K, N, m_tile, gc,
+                      splits, st)
+             : launch(static_cast<const float*>(g), qc, sc, dst, M, K, N, m_tile, gc, splits,
+                      st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (splits > 1)
+    splitk::launch(static_cast<const float*>(ws), static_cast<float*>(out), splits,
+                   static_cast<size_t>(M) * K, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 // mma_bf16.cuh: hand-written PTX wrappers for warp-level bf16 tensor-core
-// products on sm_80+ (used on sm_90a by int8_matmul.cu and
-// flash_attention.cu; int8_matmul_t.cu can include it too).
+// products on sm_80+ (used on sm_90a by int8_matmul.cu, int8_matmul_t.cu,
+// int4_matmul.cu and flash_attention.cu).
 //
 //  * mma_bf16_16816: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 //    accumulating in place into four f32 registers.
@@ -8,7 +8,8 @@
 //  * cp_async16: cp.async.cg (16 bytes, L2 only) and cp_async4 (cp.async.ca,
 //    4 bytes), each with a zero fill of the bytes past src_bytes;
 //    cp_async_commit / cp_async_wait<N>.
-//  * pack_bf16x2, and s8x4_to_bf16x2: four int8 codes as two bf16x2 words.
+//  * pack_bf16x2, and s8x4_to_bf16x2 / s8x4_to_bf16x2_pairs: four int8
+//    codes as two bf16x2 words, (c0, c2) (c1, c3) or (c0, c1) (c2, c3).
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major), 4 words: a0 = (row g, k 2t..2t+1), a1 = (row
@@ -85,20 +86,34 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Four int8 codes c0..c3 (byte 0 lowest) as bf16x2 words (c0, c2) and
-// (c1, c3). Byte ^ 0x80 is the code + 128 as an unsigned byte; placed in
-// the mantissa of 2^23 it is the float 2^23 + code + 128, from which
-// 2^23 + 128 is subtracted exactly. An integer in [-128, 127] has at most
-// 8 significant bits, so its float's upper half is its exact bf16.
-__device__ __forceinline__ void s8x4_to_bf16x2(uint32_t w, uint32_t& even, uint32_t& odd) {
+// Four int8 codes c0..c3 (byte 0 lowest) as exact floats. Byte ^ 0x80 is
+// the code + 128 as an unsigned byte; placed in the mantissa of 2^23 it is
+// the float 2^23 + code + 128, from which 2^23 + 128 is subtracted exactly.
+// An integer in [-128, 127] has at most 8 significant bits, so its float's
+// upper half is its exact bf16.
+__device__ __forceinline__ void s8x4_to_f32(uint32_t w, float (&f)[4]) {
   const uint32_t u = w ^ 0x80808080u;
   const float magic = 8388736.f;  // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - magic;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - magic;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - magic;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - magic;
-  even = __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632);
-  odd = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632);
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - magic;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - magic;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - magic;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - magic;
+}
+
+// ... as bf16x2 words (c0, c2) and (c1, c3)
+__device__ __forceinline__ void s8x4_to_bf16x2(uint32_t w, uint32_t& even, uint32_t& odd) {
+  float f[4];
+  s8x4_to_f32(w, f);
+  even = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[2]), 0x7632);
+  odd = __byte_perm(__float_as_uint(f[1]), __float_as_uint(f[3]), 0x7632);
+}
+
+// ... as bf16x2 words (c0, c1) and (c2, c3)
+__device__ __forceinline__ void s8x4_to_bf16x2_pairs(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  float f[4];
+  s8x4_to_f32(w, f);
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
 }
 
 }  // namespace mma_bf16

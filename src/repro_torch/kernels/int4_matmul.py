@@ -7,14 +7,57 @@ low first, each minus 8; asymmetric ``(u - zero) * scale`` per (row,
 block)). g is float32 or bfloat16; M and K may be ragged. For a CUDA
 tensor it launches the kernel; for a CPU tensor it runs
 ``ref.int4_matmul_ref``.
+
+The kernel runs on the tensor cores (``mma.sync`` bf16, f32 sums): a block
+owns an output tile inside one block of R, so ``A = g * s`` has one scale
+a k row; B is the exact ``nibble - 8``; the zero point is an f32
+correction ``sum_k (g * s) * z`` subtracted in the epilogue. bf16 g takes
+one pass, f32 g two (hi/lo of ``g * s``). :func:`plan` chooses the tile
+and the K split from the shapes alone, in Python, so the CPU tests reach
+it.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import LAUNCHES, build, ref
+
+TILE_K = 32          # the kernel's k step (a split's rows are a multiple)
+H100_SMS = 132
+
+
+class Plan(NamedTuple):
+    m_tile: int      # output rows per block: 64 or 128
+    n_tile: int      # output columns per block (inside one block of R):
+                     # 64 or 128
+    kc: int          # K rows per split
+    splits: int      # K splits (> 1: partials + ordered reduction)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(M: int, K: int, R: int, block: int, sms: int = H100_SMS) -> Plan:
+    """Launch plan for ``g (M, K) @ P (K, R)`` with P quantized in blocks
+    of ``block`` columns.
+
+    Tiles never straddle a block of R: 128 columns when the block is wider
+    than 64, else 64 (the block's last tile is ragged). 128-row tiles when
+    they alone make two waves of blocks, else 64. K is split only when the
+    tiles cannot fill one wave, with at least 256 rows a split, at most 16
+    splits, each a multiple of the 32-row k step.
+    """
+    bn = 128 if block > 64 else 64
+    cols = (R // block) * _cdiv(block, bn)
+    bm = 128 if _cdiv(M, 128) * cols >= 2 * sms else 64
+    tiles = cols * _cdiv(M, bm)
+    splits = max(1, min(_cdiv(sms, tiles), K // 256, 16))
+    kc = max(TILE_K, _cdiv(_cdiv(K, splits), TILE_K) * TILE_K)
+    return Plan(bm, bn, kc, max(1, _cdiv(K, kc)))
 
 
 def _check(g, packed, scale, zero, block: int) -> None:
@@ -44,8 +87,10 @@ def _check(g, packed, scale, zero, block: int) -> None:
                         ("zero", zero)):
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        if -(-M // 64) > 65535:
+        if _cdiv(M, 64) > 65535:
             raise ValueError(f"too many rows for one launch: {M}")
+        if block % 2:       # a block of R starts on a whole byte
+            raise ValueError(f"the kernel needs an even block, got {block}")
 
 
 def int4_matmul(g: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
@@ -56,16 +101,22 @@ def int4_matmul(g: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         return ref.int4_matmul_ref(g, packed, scale, zero, block)
     M, K = g.shape
     R = packed.shape[1] * 2
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    p = plan(M, K, R, block, sms)
     out = torch.empty((M, R), dtype=torch.float32, device=g.device)
+    ws = (torch.empty((p.splits, M, R), dtype=torch.float32,
+                      device=g.device) if p.splits > 1 else out)
+    # a k pair is one load when K is even and g is aligned to two elements
+    vec = int(K % 2 == 0 and g.data_ptr() % (2 * g.element_size()) == 0)
     fn = _entry()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     LAUNCHES["int4_matmul"] += 1
     err = fn(g.data_ptr(), int(g.dtype == torch.bfloat16), packed.data_ptr(),
-             scale.data_ptr(), zero.data_ptr(), out.data_ptr(), M, K, R,
-             block, stream)
+             scale.data_ptr(), zero.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             M, K, R, block, p.m_tile, p.n_tile, p.kc, p.splits, vec, stream)
     if err != 0:
         raise RuntimeError(f"int4_matmul launch failed: CUDA error {err} "
-                           f"(M={M}, K={K}, R={R}, block={block})")
+                           f"(M={M}, K={K}, R={R}, block={block}, {p})")
     return out
 
 
@@ -74,6 +125,7 @@ def _entry():
     fn = lib.qgl_int4_matmul
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, vp]
+        fn.argtypes = [vp, i, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i,
+                       vp]
         fn.restype = i
     return fn

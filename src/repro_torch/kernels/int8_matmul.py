@@ -81,6 +81,28 @@ def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
     return Plan(1, bm, kc, _cdiv(K, kc))
 
 
+class PlanT(NamedTuple):
+    m_tile: int      # rows per block: 64 or 128
+    gc: int          # 256-column quant groups per split of the contraction
+    splits: int      # splits of the contraction (> 1: partials + ordered
+                     # reduction)
+
+
+def plan_t(M: int, K: int, N: int, sms: int = H100_SMS) -> PlanT:
+    """Launch plan for ``int8_matmul_t``'s ``(M, N) x (K, N)^T`` problem.
+
+    128-row tiles unless 64-row tiles pad M by fewer rows (the rule of
+    :func:`plan`); the contraction is split, in whole quant groups, only
+    when the BM x 128 output tiles cannot fill one wave, at most 16 ways.
+    """
+    groups = N // GROUP
+    bm = 128 if 2 * _cdiv(M, 128) == _cdiv(M, 64) else 64
+    tiles = _cdiv(K, TILE_N) * _cdiv(M, bm)
+    splits = max(1, min(_cdiv(sms, tiles), groups, 16))
+    gc = _cdiv(groups, splits)
+    return PlanT(bm, gc, max(1, _cdiv(groups, gc)))
+
+
 def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
            block: int, axis: int = 0) -> None:
     """``x``'s last axis must match axis ``axis`` of ``q``: K for
@@ -162,19 +184,26 @@ def int8_matmul_t(g: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     _check(g, q, scale, block, axis=1)
     if g.device.type == "cpu":
         return ref.int8_matmul_t_ref(g, q, scale, block)
-    if q.data_ptr() % 16:
-        raise ValueError("q must be 16-byte aligned")
+    if q.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("g and q must be 16-byte aligned")
     M, N = g.shape
     K = q.shape[0]
+    if _cdiv(M, 64) > 65535:
+        raise ValueError(f"too many rows for one launch: {M}")
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    p = plan_t(M, K, N, sms)
     out = torch.empty((M, K), dtype=torch.float32, device=g.device)
+    ws = (torch.empty((p.splits, M, K), dtype=torch.float32,
+                      device=g.device) if p.splits > 1 else out)
     fn = _entry_t()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     LAUNCHES["int8_matmul_t"] += 1
     err = fn(g.data_ptr(), int(g.dtype == torch.bfloat16), q.data_ptr(),
-             scale.data_ptr(), out.data_ptr(), M, K, N, stream)
+             scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, K, N,
+             p.m_tile, p.gc, p.splits, stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul_t launch failed: CUDA error {err} "
-                           f"(M={M}, K={K}, N={N})")
+                           f"(M={M}, K={K}, N={N}, {p})")
     return out
 
 
@@ -183,6 +212,6 @@ def _entry_t():
     fn = lib.qgl_int8_matmul_t
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, i, vp, vp, vp, i, i, i, vp]
+        fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i, i, vp]
         fn.restype = i
     return fn

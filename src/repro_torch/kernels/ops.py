@@ -4,7 +4,8 @@
 * :func:`quantized_dense` — ``x @ deq(W)`` with W consumed as INT8 codes.
   A plain ``QTensor`` weight (serving) has no weight gradient; a ``QVirtual``
   weight (training) is a ``torch.autograd.Function`` whose backward streams
-  the same INT8 blocks for ``dL/dx`` (``int8_matmul_t``) and puts
+  the same INT8 blocks for ``dL/dx`` (``int8_matmul_t``, g in the
+  activation dtype) and puts
   ``dL/dW = x^T g`` (float32, a library matmul, as the JAX package leaves
   it to XLA) on the shadow.
 * :func:`fused_qgalore_update` — the fused optimizer step for one weight:
@@ -64,14 +65,18 @@ def _dx(g2: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 class _QDense(torch.autograd.Function):
-    """``x2 @ deq(W)`` with ``dL/dW`` routed onto ``shadow``
-    (``repro/kernels/ops.py`` ``_qdense_core``)."""
+    """``x2 @ deq(W)`` cast to ``dtype``, with ``dL/dW`` routed onto
+    ``shadow`` (``repro/kernels/ops.py`` ``_qdense_core``). The cast sits
+    inside the Function, so the backward receives g in the activation
+    dtype: a bf16 g is one tensor-core pass of ``int8_matmul_t``, and
+    half the bytes of the f32 gradient of an outside cast (the same
+    values)."""
 
     @staticmethod
-    def forward(ctx, x2, shadow, qt):
+    def forward(ctx, x2, shadow, qt, dtype):
         ctx.save_for_backward(x2)
         ctx.qt = qt
-        return _fwd(x2, qt)
+        return _fwd(x2, qt).to(dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -82,7 +87,7 @@ class _QDense(torch.autograd.Function):
             dx = _dx(g, qt).to(x2.dtype)
         if ctx.needs_input_grad[1]:
             dw = torch.matmul(x2.to(torch.float32).T, g.to(torch.float32))
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def quantized_dense(x: torch.Tensor, w, dtype: torch.dtype = torch.bfloat16
@@ -96,12 +101,12 @@ def quantized_dense(x: torch.Tensor, w, dtype: torch.dtype = torch.bfloat16
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     if isinstance(w, QVirtual):
-        out = _QDense.apply(x2, w.shadow, qt)
+        out = _QDense.apply(x2, w.shadow, qt, dtype)
     elif torch.is_grad_enabled() and x.requires_grad:
-        out = _QDense.apply(x2, None, qt)
+        out = _QDense.apply(x2, None, qt, dtype)
     else:
-        out = _fwd(x2, qt)
-    return out.reshape(*lead, qt.orig_last).to(dtype)
+        out = _fwd(x2, qt).to(dtype)
+    return out.reshape(*lead, qt.orig_last)
 
 
 def fused_qgalore_update(param: QTensor, low_g: torch.Tensor,

@@ -115,6 +115,50 @@ def test_int8_matmul_t_matches_plain(cuda, M, K, N, dtype):
     assert _rel(got, want) <= 2e-2
 
 
+def _int8_t_case(dev, M, K, N, dtype):
+    g = torch.Generator(device=dev).manual_seed(M * 13 + K + N)
+    qt = quant.quantize_blockwise(torch.randn((K, N), generator=g,
+                                              device=dev) * 0.02, 8,
+                                  symmetric=True)
+    go = torch.randn((M, N), generator=g, device=dev).to(dtype)
+    LAUNCHES.clear()
+    got = ti8.int8_matmul_t(go, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert LAUNCHES["int8_matmul_t"] == 1
+    want = ref.int8_matmul_t_ref(go, qt.q, qt.scale, 256)
+    assert got.shape == (M, K) and torch.isfinite(got).all()
+    return _rel(got, want)
+
+
+# a llama-1b training step's four (K, N) problems, M = 2048 tokens and a
+# ragged M
+INT8_T_LLAMA = [(M, K, N) for M in (300, 2048)
+                for K, N in ((2048, 2048), (2048, 5632), (5461, 2048),
+                             (2048, 32000))]
+
+
+@pytest.mark.parametrize("M,K,N", INT8_T_LLAMA)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_t_llama_shapes(cuda, M, K, N, dtype):
+    """bf16 g (one tensor-core pass) within 2e-2 of max|plain|, f32 g (two
+    passes, hi/lo) within 1e-4."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _int8_t_case(cuda, M, K, N, dtype) <= tol
+
+
+@pytest.mark.parametrize("M,K,N,want", [
+    (17, 300, 2048, (64, True)), (100, 300, 2048, (128, True)),
+    (300, 5461, 512, (64, False)), (2048, 2048, 2048, (128, False))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_t_every_plan(cuda, M, K, N, want, dtype):
+    """Every (row tile, split) that ``plan_t`` chooses: 64- and 128-row
+    tiles, with and without a split of the groups."""
+    p = ti8.plan_t(M, K, N)
+    assert (p.m_tile, p.splits > 1) == want
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _int8_t_case(cuda, M, K, N, dtype) <= tol
+
+
 def _fused_problem(dev, m, n, r, side, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     qt = quant.quantize_blockwise(
@@ -311,6 +355,55 @@ def test_int4_matmul_matches_plain(cuda, M, K, r, dtype):
     want = ref.int4_matmul_ref(x, qp.q, qp.scale, qp.zero, qp.block)
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert _rel(got, want) <= 2e-2
+
+
+def _int4_case(dev, M, K, r, dtype, block=256):
+    from repro_torch.kernels import int4_matmul as ti4
+    g = torch.Generator(device=dev).manual_seed(M + 3 * K + r)
+    P = torch.linalg.qr(torch.randn((K, r), generator=g, device=dev))[0]
+    qp = projector.quantize_projection(P, 4, block)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    LAUNCHES.clear()
+    got = ti4.int4_matmul(x, qp.q, qp.scale, qp.zero, qp.block)
+    torch.cuda.synchronize()
+    assert LAUNCHES["int4_matmul"] == 1 and LAUNCHES["int4_matmul_ref"] == 0
+    want = ref.int4_matmul_ref(x, qp.q, qp.scale, qp.zero, qp.block)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    return _rel(got, want), ti4.plan(M, K, qp.q.shape[1] * 2, qp.block)
+
+
+@pytest.mark.parametrize("M", [2048, 5461])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_llama_shapes(cuda, M, dtype):
+    """The unfused update's projections (K = 2048, R = 512, P blocks of
+    256): f32 g (two passes) within 1e-4 of max|plain|, bf16 g within
+    2e-2."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert _int4_case(cuda, M, 2048, 512, dtype)[0] <= tol
+
+
+@pytest.mark.parametrize("M,K,r", [(1, 64, 32), (37, 300, 64),
+                                   (130, 1000, 100), (257, 2048, 512)])
+def test_int4_matmul_f32_two_passes(cuda, M, K, r):
+    """f32 g on ragged M, K and R: within 1e-4 of max|plain|."""
+    assert _int4_case(cuda, M, K, r, torch.float32)[0] <= 1e-4
+
+
+@pytest.mark.parametrize("M,K,r,block,want", [
+    (2048, 2048, 512, 256, (64, 128, True)),
+    (5461, 2048, 512, 256, (64, 128, False)),
+    (9000, 512, 512, 256, (128, 128, False)),
+    (37, 300, 64, 64, (64, 64, False)),
+    (130, 1000, 100, 100, (64, 128, True)),
+    (17000, 128, 128, 64, (128, 64, False))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_every_plan(cuda, M, K, r, block, want, dtype):
+    """Every (row tile, column tile, K split) that ``plan`` chooses,
+    blocks of R of 64, 100 (a ragged last tile) and 256."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    rel, p = _int4_case(cuda, M, K, r, dtype, block)
+    assert (p.m_tile, p.n_tile, p.splits > 1) == want
+    assert rel <= tol
 
 
 def test_unfused_chain_matches_cpu(cuda):

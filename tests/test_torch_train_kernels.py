@@ -243,6 +243,50 @@ def test_quantized_dense_grads_match_jax_vjp(lead, K, N):
     assert LAUNCHES["deq_matmul"] == 1 and LAUNCHES["deq_matmul_t"] == 1
 
 
+@pytest.mark.parametrize("lead,K,N", [((2, 17), 96, 300), ((40,), 300, 256)])
+def test_quantized_dense_hands_dx_the_activation_dtype(lead, K, N,
+                                                        monkeypatch):
+    """The output cast sits inside the autograd Function: a bf16 call hands
+    ``_dx`` (and so ``int8_matmul_t`` on the card) g in bf16, an f32 call
+    in f32; dx and dW still match jax.vjp of the same bf16 op within 1e-5
+    of max|ref| (the cast's cotangent carries the same values)."""
+    rng = np.random.default_rng(K + 1)
+    x = rng.standard_normal(lead + (K,)).astype(np.float32)
+    g_out = np.asarray(jnp.asarray(rng.standard_normal(lead + (N,)),
+                                   jnp.bfloat16))
+    jt = _weight(K, N, seed=N + 1, scale=0.1)
+
+    def f(shadow, xx):
+        return jops.quantized_dense(xx, jq.QVirtual(jt, shadow),
+                                    dtype=jnp.bfloat16, backend="ref")
+
+    _, vjp = jax.vjp(f, jq.virtualize(jt).shadow, jnp.asarray(x))
+    dw_ref, dx_ref = vjp(jnp.asarray(g_out))
+
+    seen, real = [], ops._dx
+
+    def rec(g2, qt):
+        seen.append(g2.dtype)
+        return real(g2, qt)
+
+    monkeypatch.setattr(ops, "_dx", rec)
+    qv = tq.virtualize(_t(jt))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = ops.quantized_dense(xt, qv, dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == lead + (N,)
+    dw, dx = torch.autograd.grad(
+        out, [qv.shadow, xt],
+        torch.from_numpy(g_out.astype(np.float32)).to(torch.bfloat16))
+    assert seen == [torch.bfloat16]
+    assert dx.dtype == torch.float32 and dw.dtype == torch.float32
+    assert _rel(dw.numpy(), dw_ref) <= 1e-5
+    assert _rel(dx.numpy(), dx_ref) <= 1e-5
+    # an f32 call hands g over in f32
+    out = ops.quantized_dense(xt, qv, dtype=torch.float32)
+    torch.autograd.grad(out.sum(), [xt])
+    assert seen == [torch.bfloat16, torch.float32]
+
+
 def test_quantized_dense_plain_qtensor_dx_only():
     """A plain QTensor weight (serving) has no shadow; dL/dx still flows
     when x requires grad, and without grad the forward keeps no graph."""

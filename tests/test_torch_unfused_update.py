@@ -170,6 +170,36 @@ def test_int4_matmul_plain_matches_jax(M, K, R):
     assert _rel(got.numpy(), want) <= 1e-5      # the same f32 products
 
 
+@pytest.mark.parametrize("M,K,R,block", [
+    (2048, 2048, 512, 256), (5461, 2048, 512, 256),   # phase 7's problems
+    (1, 64, 32, 32), (37, 300, 64, 64), (130, 1000, 100, 100),
+    (257, 2048, 512, 256), (600, 512, 64, 64), (21, 256, 100, 100),
+    (4096, 4096, 1024, 256), (300, 24, 24, 24), (70000, 256, 256, 128)])
+def test_int4_plan_covers_k_and_keeps_tiles_inside_blocks(M, K, R, block):
+    """Every k row in exactly one split of whole 32-row steps, no empty
+    split, at most 16 splits of at least 256 rows each, and an output tile
+    that never straddles a block of R (so A = g * s has one scale a row)."""
+    p = ti4.plan(M, K, R, block)
+    assert p.m_tile in (64, 128) and p.n_tile in (64, 128)
+    assert p.n_tile == (128 if block > 64 else 64)
+    assert p.kc % ti4.TILE_K == 0 and 1 <= p.splits <= 16
+    assert (p.splits - 1) * p.kc < max(K, 1) <= p.splits * p.kc
+    assert p.splits == 1 or p.kc >= 256 - ti4.TILE_K
+    cols = (R // block) * -(-block // p.n_tile)
+    tiles = cols * -(-M // p.m_tile)
+    assert p.splits == 1 or tiles * (p.splits - 1) < ti4.H100_SMS
+    # 128-row tiles only where they alone make two waves
+    assert (p.m_tile == 128) == (-(-M // 128) * cols >= 2 * ti4.H100_SMS)
+
+
+def test_int4_plan_phase7_shapes():
+    """llama-1b's right-side weights at rank 512 (P blocks of 256): 64-row
+    tiles of 128 columns; at M = 2048 the 128 tiles take a 2-way K split
+    to fill the card, at M = 5461 the 344 tiles fill it alone."""
+    assert ti4.plan(2048, 2048, 512, 256) == ti4.Plan(64, 128, 1024, 2)
+    assert ti4.plan(5461, 2048, 512, 256) == ti4.Plan(64, 128, 2048, 1)
+
+
 @pytest.mark.parametrize("lead,K,r", [((3, 7), 512, 128), ((21,), 256, 100),
                                       ((5,), 640, 96)])
 def test_int4_project_matches_jax_ops(lead, K, r):
