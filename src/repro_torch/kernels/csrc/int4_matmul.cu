@@ -13,11 +13,12 @@
 // the tensor cores: mma.sync m16n8k16 bf16 with f32 sums (csrc/mma_bf16.cuh).
 // The scale and the zero point vary along the contraction axis k, as the
 // scale does in the forward int8_matmul, so the same fold carries it:
-//  * a block owns an output tile inside one block b of R (BN = 64 or 128
-//    columns, the block's last tile ragged), so every k row of its A operand
-//    has the one scale s[k, b]: A = g * s[:, b], rounded to bf16 (bf16 g:
-//    one pass; f32 g: hi = bf16(g * s) and lo = bf16(g * s - hi), two mma
-//    into the same sums);
+//  * a block owns an output tile inside one block b of R (128 columns; a
+//    narrower block, or the block's last tile, masks the columns past its
+//    end), so every k row of its A operand has the one scale s[k, b]:
+//    A = g * s[:, b], rounded to bf16 (bf16 g: one pass; f32 g:
+//    hi = bf16(g * s) and lo = bf16(g * s - hi), two mma into the same
+//    sums);
 //  * B is u', exact in bf16: each k step's nibbles are unpacked in
 //    registers (a byte permute and a mask put 128 + u' + 8 into a bf16's
 //    mantissa; one bf16x2 subtraction) and stored as bf16, then read with
@@ -27,12 +28,15 @@
 //    c[m] = sum_k (g * s)[m, k] * z[k, b] is accumulated in f32 while A is
 //    staged, reduced across the threads of a row at the end, and
 //    subtracted in the epilogue: out = mma sum - c.
-// 8 warps as 2 x 4, each a (BM/2) x (BN/4) warp tile; a 32-deep k step is
+// A block owns a 64 x 128 output tile: at M = 2048, R = 512 that is 128
+// blocks, so K is split in two to fill the card's 132 SMs (the unfused
+// update's 5461-row projection makes 344 blocks and takes no split).
+// 8 warps as 2 x 4, each a 32 x 32 warp tile; a 32-deep k step is
 // loaded into registers one step ahead (plain loads: any M, K and R, rows
 // of any alignment) and staged into the other of two shared buffers after
-// the step's mma, one barrier a step. When the output tiles cannot fill the
-// card, K is split over a grid axis; each split writes a float32 partial
-// and a second kernel sums them in a fixed order (no atomics).
+// the step's mma, one barrier a step. A K split runs over a grid axis;
+// each split writes a float32 partial and a second kernel sums them in a
+// fixed order (no atomics).
 //
 // Shapes: M and K ragged (every load is masked), R even and a multiple of
 // block (block even).
@@ -55,15 +59,17 @@ using namespace mma_bf16;
 
 constexpr int THREADS = 256;
 constexpr int TBK = 32;             // contraction (k) a step
+constexpr int BM = 64;              // output rows a block
+constexpr int BN = 128;             // output columns a block (inside one block of R)
 constexpr int LDA = TBK + 8;        // bf16 a staged A row (80 bytes: ldmatrix conflict free)
+constexpr int LDB = BN + 8;         // bf16 a staged B row
 
-template <typename T, int BM_, int BN_>
+template <typename T>
 struct Cfg {
   static constexpr int PASSES = sizeof(T) == 4 ? 2 : 1;   // f32 g: hi and lo
-  static constexpr int LDB = BN_ + 8;                      // bf16 a staged B row
-  static constexpr int AS = 2 * PASSES * BM_ * LDA * 2;    // [buffer][pass][BM][LDA]
+  static constexpr int AS = 2 * PASSES * BM * LDA * 2;     // [buffer][pass][BM][LDA]
   static constexpr int BS = 2 * TBK * LDB * 2;             // [buffer][TBK][LDB]
-  static constexpr int SMEM = AS + BS + BM_ * 4;           // + the row corrections
+  static constexpr int SMEM = AS + BS + BM * 4;            // + the row corrections
 };
 
 // 128 + u' + 8 for the two nibbles of byte i of w, as a bf16x2 word (low
@@ -76,17 +82,17 @@ __device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t w, uint32_t w4, i
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <typename T, int BM_, int BN_>
-__global__ void __launch_bounds__(THREADS, BM_ == 64 ? 2 : 1)
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
 i4mm_mma(const T* __restrict__ g, const uint8_t* __restrict__ packed,
          const float* __restrict__ scale, const float* __restrict__ zero,
          float* __restrict__ out, int M, int K, int R, int block, int kc, int vec) {
-  using C = Cfg<T, BM_, BN_>;
-  constexpr int PASSES = C::PASSES, LDB = C::LDB;
-  constexpr int WM = BM_ / 2, MI = WM / 16;      // 2 x 4 warps
-  constexpr int WN = BN_ / 4, NJ = WN / 8;
-  constexpr int NR = BM_ / 16;                   // A rows a thread stages
-  constexpr int NW = BN_ / 64;                   // packed words a thread stages
+  using C = Cfg<T>;
+  constexpr int PASSES = C::PASSES;
+  constexpr int WM = BM / 2, MI = WM / 16;       // 2 x 4 warps
+  constexpr int WN = BN / 4, NJ = WN / 8;
+  constexpr int NR = BM / 16;                    // A rows a thread stages
+  constexpr int NW = BN / 64;                    // packed words a thread stages
   using Raw = typename std::conditional<sizeof(T) == 4, float2, uint32_t>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -94,11 +100,11 @@ i4mm_mma(const T* __restrict__ g, const uint8_t* __restrict__ packed,
   float* Cs = reinterpret_cast<float*>(smem + C::AS + C::BS);
 
   const int nb = R / block, Rh = R / 2;
-  const int tpb = (block + BN_ - 1) / BN_;       // tiles a block of R
+  const int tpb = (block + BN - 1) / BN;       // tiles a block of R
   const int b = blockIdx.x / tpb;
-  const int c0 = b * block + (blockIdx.x % tpb) * BN_;
-  const int c_end = min(c0 + BN_, (b + 1) * block);
-  const int m0 = blockIdx.y * BM_;
+  const int c0 = b * block + (blockIdx.x % tpb) * BN;
+  const int c_end = min(c0 + BN, (b + 1) * block);
+  const int m0 = blockIdx.y * BM;
   const int k_begin = blockIdx.z * kc;
   const int k_end = min(K, k_begin + kc);
   const int n_steps = (k_end - k_begin + TBK - 1) / TBK;
@@ -176,10 +182,10 @@ i4mm_mma(const T* __restrict__ g, const uint8_t* __restrict__ packed,
       v1 *= sk[1];
       corr[t] = fmaf(v1, zk[1], fmaf(v0, zk[0], corr[t]));
       const uint32_t hi = pack_bf16x2(v0, v1);
-      __nv_bfloat16* dst_a = As + ((buf * PASSES) * BM_ + a_row(t)) * LDA + 2 * kp;
+      __nv_bfloat16* dst_a = As + ((buf * PASSES) * BM + a_row(t)) * LDA + 2 * kp;
       *reinterpret_cast<uint32_t*>(dst_a) = hi;
       if constexpr (PASSES == 2)
-        *reinterpret_cast<uint32_t*>(dst_a + BM_ * LDA) =
+        *reinterpret_cast<uint32_t*>(dst_a + BM * LDA) =
             pack_bf16x2(v0 - __uint_as_float(hi << 16), v1 - __uint_as_float(hi & 0xFFFF0000u));
     }
 #pragma unroll
@@ -206,7 +212,7 @@ i4mm_mma(const T* __restrict__ g, const uint8_t* __restrict__ packed,
   for (int st = 0; st < n_steps; ++st) {
     __syncthreads();    // buffer st & 1 is staged; buffer (st + 1) & 1 is consumed
     if (st + 1 < n_steps) fetch(st + 1);
-    const __nv_bfloat16* Ab = As + (st & 1) * PASSES * BM_ * LDA;
+    const __nv_bfloat16* Ab = As + (st & 1) * PASSES * BM * LDA;
     const __nv_bfloat16* Bb = Bs + (st & 1) * TBK * LDB;
 #pragma unroll
     for (int kk = 0; kk < TBK; kk += 16) {
@@ -226,7 +232,7 @@ i4mm_mma(const T* __restrict__ g, const uint8_t* __restrict__ packed,
 #pragma unroll
         for (int p = 0; p < PASSES; ++p) {
           uint32_t a[4];
-          ldsm_x4(a, Ab + (p * BM_ + wm * WM + mi * 16 + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
+          ldsm_x4(a, Ab + (p * BM + wm * WM + mi * 16 + (lane & 15)) * LDA + kk + (lane >> 4) * 8);
 #pragma unroll
           for (int j = 0; j < NJ; ++j) mma_bf16_16816(acc[mi][j], a, bf[j][0], bf[j][1]);
         }
@@ -266,51 +272,35 @@ i4mm_mma(const T* __restrict__ g, const uint8_t* __restrict__ packed,
   }
 }
 
-template <typename T, int BM_, int BN_>
-cudaError_t launch_mma(const T* g, const uint8_t* p, const float* s, const float* z, float* o,
-                       int M, int K, int R, int block, int kc, int splits, int vec,
-                       cudaStream_t st) {
-  constexpr int smem = Cfg<T, BM_, BN_>::SMEM;
-  auto kern = i4mm_mma<T, BM_, BN_>;
+template <typename T>
+cudaError_t launch(const T* g, const uint8_t* p, const float* s, const float* z, float* o,
+                   int M, int K, int R, int block, int kc, int splits, int vec,
+                   cudaStream_t st) {
+  constexpr int smem = Cfg<T>::SMEM;
+  auto kern = i4mm_mma<T>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const int tiles = (R / block) * ((block + BN_ - 1) / BN_);
-  const dim3 grid(tiles, (M + BM_ - 1) / BM_, splits);
+  const int tiles = (R / block) * ((block + BN - 1) / BN);
+  const dim3 grid(tiles, (M + BM - 1) / BM, splits);
   kern<<<grid, THREADS, smem, st>>>(g, p, s, z, o, M, K, R, block, kc, vec);
   return cudaSuccess;
-}
-
-template <typename T>
-cudaError_t launch(const T* g, const uint8_t* p, const float* s, const float* z, float* o,
-                   int M, int K, int R, int block, int bm, int bn, int kc, int splits,
-                   int vec, cudaStream_t st) {
-  if (bm == 64 && bn == 64)
-    return launch_mma<T, 64, 64>(g, p, s, z, o, M, K, R, block, kc, splits, vec, st);
-  if (bm == 64 && bn == 128)
-    return launch_mma<T, 64, 128>(g, p, s, z, o, M, K, R, block, kc, splits, vec, st);
-  if (bm == 128 && bn == 64)
-    return launch_mma<T, 128, 64>(g, p, s, z, o, M, K, R, block, kc, splits, vec, st);
-  if (bm == 128 && bn == 128)
-    return launch_mma<T, 128, 128>(g, p, s, z, o, M, K, R, block, kc, splits, vec, st);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // g (M, K) f32 or bf16 (g_bf16 != 0); packed (K, R/2) uint8; scale, zero
-// (K, R/block) f32; out (M, R) f32; R even, block even, R % block == 0.
-// m_tile / n_tile: the block's output tile (64 or 128 each); kc: K rows a
-// split (a multiple of 32); with splits > 1 the partials go to ws (splits *
-// M * R floats) and a second kernel sums them into out. vec != 0: K is even
-// and g is aligned to two elements, so a k pair is one load. Returns
-// cudaGetLastError() after the launches.
+// (K, R/block) f32; out (M, R) f32; R even, block even, R % block == 0;
+// (M + 63) / 64 <= 65535. kc: K rows a split (a multiple of 32); with
+// splits > 1 the partials go to ws (splits * M * R floats) and a second
+// kernel sums them into out. vec != 0: K is even and g is aligned to two
+// elements, so a k pair is one load. Returns cudaGetLastError() after the
+// launches.
 extern "C" int qgl_int4_matmul(const void* g, int g_bf16, const void* packed, const void* scale,
                                const void* zero, void* out, void* ws, int M, int K, int R,
-                               int block, int m_tile, int n_tile, int kc, int splits, int vec,
-                               void* stream) {
+                               int block, int kc, int splits, int vec, void* stream) {
   if (M <= 0 || R <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* p = static_cast<const uint8_t*>(packed);
@@ -318,10 +308,10 @@ extern "C" int qgl_int4_matmul(const void* g, int g_bf16, const void* packed, co
   const float* z = static_cast<const float*>(zero);
   float* dst = splits > 1 ? static_cast<float*>(ws) : static_cast<float*>(out);
   const cudaError_t err =
-      g_bf16 ? launch(static_cast<const __nv_bfloat16*>(g), p, s, z, dst, M, K, R, block,
-                      m_tile, n_tile, kc, splits, vec, st)
-             : launch(static_cast<const float*>(g), p, s, z, dst, M, K, R, block, m_tile,
-                      n_tile, kc, splits, vec, st);
+      g_bf16 ? launch(static_cast<const __nv_bfloat16*>(g), p, s, z, dst, M, K, R, block, kc,
+                      splits, vec, st)
+             : launch(static_cast<const float*>(g), p, s, z, dst, M, K, R, block, kc, splits,
+                      vec, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (splits > 1)
     splitk::launch(static_cast<const float*>(ws), static_cast<float*>(out), splits,

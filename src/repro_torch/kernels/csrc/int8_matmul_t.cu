@@ -31,17 +31,15 @@
 //  * the scale: the mma sums of one 256-wide group (part) are multiplied by
 //    scale[k, grp] (one per output column, copied into shared memory with
 //    the group's first step) and added into acc; two accumulator sets.
-// A block owns a BM x 128 output tile (BM 64 or 128), 8 warps as 2 x 4,
-// each a (BM/2) x 32 warp tile. The g tile and the code tile of each 32-deep
-// n step stream through a 4-stage cp.async ring (one barrier a step).
+// A block owns a 128 x 128 output tile, 8 warps as 2 x 4, each a 64 x 32
+// warp tile: 256 blocks at M = K = 2048, the training step's smallest
+// problem, so the whole contraction runs in one block. The g tile and the
+// code tile of each 32-deep n step stream through a 4-stage cp.async ring
+// (one barrier a step).
 // bf16 g takes one pass: bf16 times an int8 code is exact in f32, so the
 // only rounding is the f32 sum's. f32 g takes two: hi = bf16(g) and
 // lo = bf16(g - hi), rounded in a conversion pass one step ahead in shared
 // memory, and two mma into the same sums (~2^-17 of each term).
-//
-// When the output tiles cannot fill the card, the groups are split over a
-// grid axis; each split writes a float32 partial and a second kernel sums
-// them in a fixed order (deterministic, no atomics).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC; bound through a plain C entry point loaded with ctypes.
@@ -51,7 +49,6 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
-#include "splitk.cuh"
 
 namespace {
 
@@ -59,6 +56,7 @@ using namespace mma_bf16;
 
 constexpr int GROUP = 256;          // quant block along N
 constexpr int THREADS = 256;
+constexpr int BM = 128;             // output rows (m) a block
 constexpr int TBN = 128;            // output columns (k) a block
 constexpr int TBK = 32;             // contraction (n) a step
 constexpr int STEPS_GROUP = GROUP / TBK;
@@ -68,26 +66,26 @@ constexpr int LDB = TBK + 16;       // bytes a staged code row: 48, so
                                     // ldmatrix is conflict free
 constexpr int LDR = TBK * 4 + 16;   // bytes a raw f32 g row (144)
 
-template <typename T, int BM_>
+template <typename T>
 struct Cfg {
   static constexpr int PASSES = sizeof(T) == 4 ? 2 : 1;   // f32 g: hi and lo
   static constexpr int STAGES = 4;                        // cp.async ring depth
   static constexpr int GROW = sizeof(T) == 4 ? LDR : LDA * 2;  // bytes a staged g row
-  static constexpr int GS = STAGES * BM_ * GROW;
+  static constexpr int GS = STAGES * BM * GROW;
   static constexpr int BS = STAGES * TBN * LDB;
-  static constexpr int AS = PASSES == 2 ? 2 * 2 * BM_ * LDA * 2 : 0;  // [buffer][hi, lo]
+  static constexpr int AS = PASSES == 2 ? 2 * 2 * BM * LDA * 2 : 0;  // [buffer][hi, lo]
   static constexpr int SS = 2 * TBN * 4;                  // two groups' scales
   static constexpr int SMEM = GS + BS + AS + SS;
 };
 
-template <typename T, int BM_>
-__global__ void __launch_bounds__(THREADS, BM_ == 64 ? 2 : 1)
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
 i8mm_t_mma(const T* __restrict__ g, const int8_t* __restrict__ q,
            const float* __restrict__ scale, float* __restrict__ out,
-           int M, int K, int N, int gc) {
-  using C = Cfg<T, BM_>;
+           int M, int K, int N) {
+  using C = Cfg<T>;
   constexpr int PASSES = C::PASSES, S_ = C::STAGES, E = sizeof(T);
-  constexpr int WM = BM_ / 2;                    // warp tile rows (2 x 4 warps)
+  constexpr int WM = BM / 2;                    // warp tile rows (2 x 4 warps)
   constexpr int MI = WM / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* Gs = smem;                                         // [S][BM][GROW]
@@ -96,13 +94,9 @@ i8mm_t_mma(const T* __restrict__ g, const int8_t* __restrict__ q,
   float* Ss = reinterpret_cast<float*>(smem + C::GS + C::BS + C::AS);            // [2][TBN]
 
   const int k0 = blockIdx.x * TBN;
-  const int m0 = blockIdx.y * BM_;
+  const int m0 = blockIdx.y * BM;
   const int G = N / GROUP;
-  const int grp_begin = blockIdx.z * gc;
-  const int grp_end = min(G, grp_begin + gc);
-  const int n_begin = grp_begin * GROUP;
-  const int n_steps = (grp_end - grp_begin) * STEPS_GROUP;
-  float* dst = out + static_cast<size_t>(blockIdx.z) * M * K;
+  const int n_steps = G * STEPS_GROUP;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int gq = lane >> 2, tq = lane & 3;
@@ -113,7 +107,7 @@ i8mm_t_mma(const T* __restrict__ g, const int8_t* __restrict__ q,
   // which the group two later overwrites only after this one's epilogue
   auto load_step = [&](int st) {
     const int s = st % S_;
-    const int n = n_begin + st * TBK;
+    const int n = st * TBK;
     {
       const int r = tid >> 1, c = (tid & 1) * 16;
       const bool ok = k0 + r < K;
@@ -124,23 +118,23 @@ i8mm_t_mma(const T* __restrict__ g, const int8_t* __restrict__ q,
       const int gi = st / STEPS_GROUP;
       const bool ok = k0 + tid < K;
       cp_async4(Ss + (gi & 1) * TBN + tid,
-                ok ? scale + static_cast<size_t>(k0 + tid) * G + grp_begin + gi : scale,
+                ok ? scale + static_cast<size_t>(k0 + tid) * G + gi : scale,
                 ok ? 4 : 0);
     }
     constexpr int CPR = TBK * E / 16;            // 16-byte chunks a g row
 #pragma unroll
-    for (int i = tid; i < BM_ * CPR; i += THREADS) {
+    for (int i = tid; i < BM * CPR; i += THREADS) {
       const int r = i / CPR, c = i % CPR;
       const bool ok = m0 + r < M;
-      cp_async16(Gs + (s * BM_ + r) * C::GROW + c * 16,
+      cp_async16(Gs + (s * BM + r) * C::GROW + c * 16,
                  ok ? g + static_cast<size_t>(m0 + r) * N + n + c * (16 / E) : g, ok ? 16 : 0);
     }
   };
   // f32 g: the landed raw step st as bf16 hi and lo into A buffer buf
   auto convert = [&](int st, int buf) {
-    const unsigned char* raw = Gs + (st % S_) * BM_ * C::GROW;
+    const unsigned char* raw = Gs + (st % S_) * BM * C::GROW;
 #pragma unroll
-    for (int i = tid; i < BM_ * TBK / 8; i += THREADS) {
+    for (int i = tid; i < BM * TBK / 8; i += THREADS) {
       const int r = i / (TBK / 8), c = (i % (TBK / 8)) * 8;
       const float4 a = *reinterpret_cast<const float4*>(raw + r * LDR + c * 4);
       const float4 b = *reinterpret_cast<const float4*>(raw + r * LDR + c * 4 + 16);
@@ -152,9 +146,9 @@ i8mm_t_mma(const T* __restrict__ g, const int8_t* __restrict__ q,
         lo[j] = pack_bf16x2(v[2 * j] - __uint_as_float(hi[j] << 16),
                             v[2 * j + 1] - __uint_as_float(hi[j] & 0xFFFF0000u));
       }
-      *reinterpret_cast<uint4*>(As + ((buf * 2) * BM_ + r) * LDA + c) =
+      *reinterpret_cast<uint4*>(As + ((buf * 2) * BM + r) * LDA + c) =
           make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(As + ((buf * 2 + 1) * BM_ + r) * LDA + c) =
+      *reinterpret_cast<uint4*>(As + ((buf * 2 + 1) * BM + r) * LDA + c) =
           make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
   };
@@ -186,8 +180,8 @@ i8mm_t_mma(const T* __restrict__ g, const int8_t* __restrict__ q,
     cp_async_commit();
     const int8_t* Bb = Bs + (st % S_) * TBN * LDB;
     const __nv_bfloat16* Ab =
-        PASSES == 2 ? As + (st & 1) * 2 * BM_ * LDA
-                    : reinterpret_cast<const __nv_bfloat16*>(Gs + (st % S_) * BM_ * C::GROW);
+        PASSES == 2 ? As + (st & 1) * 2 * BM * LDA
+                    : reinterpret_cast<const __nv_bfloat16*>(Gs + (st % S_) * BM * C::GROW);
 #pragma unroll
     for (int kk = 0; kk < TBK; kk += 16) {
       // lane l addresses code row wn * 32 + l: matrix j is n8 tile j
@@ -199,7 +193,7 @@ i8mm_t_mma(const T* __restrict__ g, const int8_t* __restrict__ q,
       for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
         for (int p = 0; p < PASSES; ++p) {
-          const __nv_bfloat16* row = Ab + (p * BM_ + wm * WM + mi * 16 + gq) * LDA + kk + 4 * tq;
+          const __nv_bfloat16* row = Ab + (p * BM + wm * WM + mi * 16 + gq) * LDA + kk + 4 * tq;
           const uint2 r0 = *reinterpret_cast<const uint2*>(row);
           const uint2 r8 = *reinterpret_cast<const uint2*>(row + 8 * LDA);
           const uint32_t a[4] = {r0.x, r8.x, r0.y, r8.y};
@@ -233,7 +227,7 @@ i8mm_t_mma(const T* __restrict__ g, const int8_t* __restrict__ q,
   // a row of the output is 8-byte aligned only when K is even
   auto store2 = [&](int r, int c, float v0, float v1) {
     if (r >= M || c >= K) return;
-    float* p = dst + static_cast<size_t>(r) * K + c;
+    float* p = out + static_cast<size_t>(r) * K + c;
     if ((K & 1) == 0) {
       *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
     } else {
@@ -253,52 +247,36 @@ i8mm_t_mma(const T* __restrict__ g, const int8_t* __restrict__ q,
   }
 }
 
-template <typename T, int BM_>
-cudaError_t launch_mma(const T* g, const int8_t* q, const float* s, float* o, int M, int K,
-                       int N, int gc, int splits, cudaStream_t st) {
-  constexpr int smem = Cfg<T, BM_>::SMEM;
-  auto kern = i8mm_t_mma<T, BM_>;
+template <typename T>
+cudaError_t launch(const T* g, const int8_t* q, const float* s, float* o, int M, int K, int N,
+                   cudaStream_t st) {
+  constexpr int smem = Cfg<T>::SMEM;
+  auto kern = i8mm_t_mma<T>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((K + TBN - 1) / TBN, (M + BM_ - 1) / BM_, splits);
-  kern<<<grid, THREADS, smem, st>>>(g, q, s, o, M, K, N, gc);
+  const dim3 grid((K + TBN - 1) / TBN, (M + BM - 1) / BM);
+  kern<<<grid, THREADS, smem, st>>>(g, q, s, o, M, K, N);
   return cudaSuccess;
-}
-
-template <typename T>
-cudaError_t launch(const T* g, const int8_t* q, const float* s, float* o, int M, int K, int N,
-                   int bm, int gc, int splits, cudaStream_t st) {
-  if (bm == 64) return launch_mma<T, 64>(g, q, s, o, M, K, N, gc, splits, st);
-  if (bm == 128) return launch_mma<T, 128>(g, q, s, o, M, K, N, gc, splits, st);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // g (M, N) f32 or bf16 (g_bf16 != 0), 16-byte aligned; q (K, N) int8,
-// 16-byte aligned; scale (K, N/256) f32; out (M, K) f32; N % 256 == 0.
-// m_tile: the block's rows (64 or 128); gc: quant groups a split; with
-// splits > 1 the partials go to ws (splits * M * K floats) and a second
-// kernel sums them into out. Returns cudaGetLastError() after the launches.
+// 16-byte aligned; scale (K, N/256) f32; out (M, K) f32; N % 256 == 0;
+// (M + 127) / 128 <= 65535. Returns cudaGetLastError() after the launch.
 extern "C" int qgl_int8_matmul_t(const void* g, int g_bf16, const void* q, const void* scale,
-                                 void* out, void* ws, int M, int K, int N, int m_tile, int gc,
-                                 int splits, void* stream) {
+                                 void* out, int M, int K, int N, void* stream) {
   if (M <= 0 || K <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* qc = static_cast<const int8_t*>(q);
   const float* sc = static_cast<const float*>(scale);
-  float* dst = splits > 1 ? static_cast<float*>(ws) : static_cast<float*>(out);
+  float* o = static_cast<float*>(out);
   const cudaError_t err =
-      g_bf16 ? launch(static_cast<const __nv_bfloat16*>(g), qc, sc, dst, M, K, N, m_tile, gc,
-                      splits, st)
-             : launch(static_cast<const float*>(g), qc, sc, dst, M, K, N, m_tile, gc, splits,
-                      st);
+      g_bf16 ? launch(static_cast<const __nv_bfloat16*>(g), qc, sc, o, M, K, N, st)
+             : launch(static_cast<const float*>(g), qc, sc, o, M, K, N, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (splits > 1)
-    splitk::launch(static_cast<const float*>(ws), static_cast<float*>(out), splits,
-                   static_cast<size_t>(M) * K, st);
   return static_cast<int>(cudaGetLastError());
 }

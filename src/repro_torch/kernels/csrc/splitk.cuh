@@ -1,7 +1,7 @@
 // splitk.cuh: the ordered second pass of a split contraction, shared by
-// int8_matmul.cu, int8_matmul_t.cu and int4_matmul.cu. Each split wrote a
-// float32 partial of the whole output into ws; the sum is taken in split
-// order, so the result does not depend on the schedule (no atomics).
+// int8_matmul.cu and int4_matmul.cu. Each split wrote a float32 partial of
+// the whole output into ws; the sum is taken in split order, so the result
+// does not depend on the schedule (no atomics).
 
 #pragma once
 

@@ -12,9 +12,9 @@ The kernel runs on the tensor cores (``mma.sync`` bf16, f32 sums): a block
 owns an output tile inside one block of R, so ``A = g * s`` has one scale
 a k row; B is the exact ``nibble - 8``; the zero point is an f32
 correction ``sum_k (g * s) * z`` subtracted in the epilogue. bf16 g takes
-one pass, f32 g two (hi/lo of ``g * s``). :func:`plan` chooses the tile
-and the K split from the shapes alone, in Python, so the CPU tests reach
-it.
+one pass, f32 g two (hi/lo of ``g * s``). The output tile is 64 x 128
+(a block of R narrower than 128 masks the rest); :func:`plan` chooses the
+K split from the shapes alone, in Python, so the CPU tests reach it.
 """
 from __future__ import annotations
 
@@ -25,14 +25,13 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, build, ref
 
-TILE_K = 32          # the kernel's k step (a split's rows are a multiple)
+TILE_M = 64          # the kernel's output rows a block
+TILE_N = 128         # its output columns a block, inside one block of R
+TILE_K = 32          # its k step (a split's rows are a multiple)
 H100_SMS = 132
 
 
 class Plan(NamedTuple):
-    m_tile: int      # output rows per block: 64 or 128
-    n_tile: int      # output columns per block (inside one block of R):
-                     # 64 or 128
     kc: int          # K rows per split
     splits: int      # K splits (> 1: partials + ordered reduction)
 
@@ -45,19 +44,15 @@ def plan(M: int, K: int, R: int, block: int, sms: int = H100_SMS) -> Plan:
     """Launch plan for ``g (M, K) @ P (K, R)`` with P quantized in blocks
     of ``block`` columns.
 
-    Tiles never straddle a block of R: 128 columns when the block is wider
-    than 64, else 64 (the block's last tile is ragged). 128-row tiles when
-    they alone make two waves of blocks, else 64. K is split only when the
-    tiles cannot fill one wave, with at least 256 rows a split, at most 16
-    splits, each a multiple of the 32-row k step.
+    The 64 x 128 output tiles never straddle a block of R (a block's last
+    tile is ragged). K is split only when the tiles cannot fill one wave,
+    with at least 256 rows a split, at most 16 splits, each a multiple of
+    the 32-row k step.
     """
-    bn = 128 if block > 64 else 64
-    cols = (R // block) * _cdiv(block, bn)
-    bm = 128 if _cdiv(M, 128) * cols >= 2 * sms else 64
-    tiles = cols * _cdiv(M, bm)
+    tiles = (R // block) * _cdiv(block, TILE_N) * _cdiv(M, TILE_M)
     splits = max(1, min(_cdiv(sms, tiles), K // 256, 16))
     kc = max(TILE_K, _cdiv(_cdiv(K, splits), TILE_K) * TILE_K)
-    return Plan(bm, bn, kc, max(1, _cdiv(K, kc)))
+    return Plan(kc, max(1, _cdiv(K, kc)))
 
 
 def _check(g, packed, scale, zero, block: int) -> None:
@@ -87,7 +82,7 @@ def _check(g, packed, scale, zero, block: int) -> None:
                         ("zero", zero)):
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        if _cdiv(M, 64) > 65535:
+        if _cdiv(M, TILE_M) > 65535:
             raise ValueError(f"too many rows for one launch: {M}")
         if block % 2:       # a block of R starts on a whole byte
             raise ValueError(f"the kernel needs an even block, got {block}")
@@ -113,7 +108,7 @@ def int4_matmul(g: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     LAUNCHES["int4_matmul"] += 1
     err = fn(g.data_ptr(), int(g.dtype == torch.bfloat16), packed.data_ptr(),
              scale.data_ptr(), zero.data_ptr(), out.data_ptr(), ws.data_ptr(),
-             M, K, R, block, p.m_tile, p.n_tile, p.kc, p.splits, vec, stream)
+             M, K, R, block, p.kc, p.splits, vec, stream)
     if err != 0:
         raise RuntimeError(f"int4_matmul launch failed: CUDA error {err} "
                            f"(M={M}, K={K}, R={R}, block={block}, {p})")
@@ -125,7 +120,6 @@ def _entry():
     fn = lib.qgl_int4_matmul
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, i, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i,
-                       vp]
+        fn.argtypes = [vp, i, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
         fn.restype = i
     return fn

@@ -23,6 +23,10 @@ from a failed build or launch.
 
 :func:`plan` chooses the launch (path, row tile, K split) from the shapes
 alone, in Python, so the CPU tests reach it.
+
+``int8_matmul_t`` has one design: ``mma.sync`` on 128 x 128 output tiles,
+the whole contraction in one block, the group scale an epilogue on each
+group's f32 sums (one pass for bf16 g, two for f32 g).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ GROUP = 256          # the kernel's quant block along N
 SMALL_M = 16         # largest M the small-M (weight-streaming) path takes
 TILE_N = 128         # tiled path output tile columns
 TILE_K = 32          # tiled path k tile (a split's rows are a multiple)
+TILE_M_T = 128       # int8_matmul_t's output rows a block
 H100_SMS = 132
 
 
@@ -79,28 +84,6 @@ def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
     splits = max(1, min(want, K // 256, 16))
     kc = _cdiv(_cdiv(K, splits), TILE_K) * TILE_K
     return Plan(1, bm, kc, _cdiv(K, kc))
-
-
-class PlanT(NamedTuple):
-    m_tile: int      # rows per block: 64 or 128
-    gc: int          # 256-column quant groups per split of the contraction
-    splits: int      # splits of the contraction (> 1: partials + ordered
-                     # reduction)
-
-
-def plan_t(M: int, K: int, N: int, sms: int = H100_SMS) -> PlanT:
-    """Launch plan for ``int8_matmul_t``'s ``(M, N) x (K, N)^T`` problem.
-
-    128-row tiles unless 64-row tiles pad M by fewer rows (the rule of
-    :func:`plan`); the contraction is split, in whole quant groups, only
-    when the BM x 128 output tiles cannot fill one wave, at most 16 ways.
-    """
-    groups = N // GROUP
-    bm = 128 if 2 * _cdiv(M, 128) == _cdiv(M, 64) else 64
-    tiles = _cdiv(K, TILE_N) * _cdiv(M, bm)
-    splits = max(1, min(_cdiv(sms, tiles), groups, 16))
-    gc = _cdiv(groups, splits)
-    return PlanT(bm, gc, max(1, _cdiv(groups, gc)))
 
 
 def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -188,22 +171,17 @@ def int8_matmul_t(g: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         raise ValueError("g and q must be 16-byte aligned")
     M, N = g.shape
     K = q.shape[0]
-    if _cdiv(M, 64) > 65535:
+    if _cdiv(M, TILE_M_T) > 65535:
         raise ValueError(f"too many rows for one launch: {M}")
-    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
-    p = plan_t(M, K, N, sms)
     out = torch.empty((M, K), dtype=torch.float32, device=g.device)
-    ws = (torch.empty((p.splits, M, K), dtype=torch.float32,
-                      device=g.device) if p.splits > 1 else out)
     fn = _entry_t()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     LAUNCHES["int8_matmul_t"] += 1
     err = fn(g.data_ptr(), int(g.dtype == torch.bfloat16), q.data_ptr(),
-             scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, K, N,
-             p.m_tile, p.gc, p.splits, stream)
+             scale.data_ptr(), out.data_ptr(), M, K, N, stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul_t launch failed: CUDA error {err} "
-                           f"(M={M}, K={K}, N={N}, {p})")
+                           f"(M={M}, K={K}, N={N})")
     return out
 
 
@@ -212,6 +190,6 @@ def _entry_t():
     fn = lib.qgl_int8_matmul_t
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        fn.argtypes = [vp, i, vp, vp, vp, i, i, i, vp]
         fn.restype = i
     return fn

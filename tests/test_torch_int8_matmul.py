@@ -135,47 +135,6 @@ def test_plan_short_prefill_takes_64_row_tiles(M, K, N):
         or p.splits == 16
 
 
-# int8_matmul_t: (M, K, N) with K the output width and N the padded
-# contraction, as a llama-1b training step calls it (M = 2048 tokens)
-LLAMA_1B_T = [(2048, 2048), (2048, 5632), (5461, 2048), (2048, 32000)]
-
-
-@pytest.mark.parametrize("K,N", LLAMA_1B_T)
-@pytest.mark.parametrize("M", [1, 16, 17, 64, 65, 300, 512, 2048, 4096])
-def test_plan_t_covers_groups_and_bounds_partials(M, K, N):
-    """Every quant group in exactly one split, no empty split, at most 16
-    splits of whole groups, and the row tile by the padding rule."""
-    p = ti8.plan_t(M, K, N)
-    groups = N // ti8.GROUP
-    assert 1 <= p.splits <= min(16, groups) and p.gc >= 1
-    assert (p.splits - 1) * p.gc < groups <= p.splits * p.gc
-    assert p.m_tile in (64, 128)
-    pad = {bm: -(-M // bm) * bm - M for bm in (64, 128)}
-    assert pad[p.m_tile] == min(pad.values())
-    assert p.m_tile == 128 or pad[64] < pad[128]
-    # a split only where the output tiles alone leave SMs idle
-    tiles = -(-K // ti8.TILE_N) * -(-M // p.m_tile)
-    assert p.splits == 1 or tiles * (p.splits - 1) < ti8.H100_SMS
-
-
-@pytest.mark.parametrize("K,N", LLAMA_1B_T)
-def test_plan_t_training_step_takes_whole_tiles(K, N):
-    """At M = 2048 the 128 x 128 output tiles fill the card (256 or more
-    blocks): 128-row tiles, the whole contraction in one pass."""
-    p = ti8.plan_t(2048, K, N)
-    assert p == ti8.PlanT(128, N // ti8.GROUP, 1)
-
-
-@pytest.mark.parametrize("M", [17, 100, 300])
-def test_plan_t_short_rows_split_the_contraction(M):
-    """Few row tiles at K = 2048: the groups are split to fill a wave;
-    whole groups may leave the wave one split's tiles short."""
-    p = ti8.plan_t(M, 2048, 5632)
-    tiles = (2048 // ti8.TILE_N) * -(-M // p.m_tile)
-    assert p.splits > 1
-    assert p.splits * tiles >= ti8.H100_SMS - tiles
-
-
 def test_kernel_module_imports_without_nvcc():
     """Importing the wrapper builds nothing; sources are found and the
     library name follows the source hash into build/."""

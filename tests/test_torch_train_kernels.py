@@ -45,25 +45,33 @@ def _weight(K, N, seed, scale=1.0):
 # int8_matmul_t
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("M,K,N", [
-    (7, 64, 256),          # one quant group
-    (33, 300, 512),        # ragged K (the output width)
-    (16, 127, 300),        # ragged K and N padded to 512
-    (5, 5461 // 43, 700),  # llama-1b's d_ff factor, N padded
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 7, 17, 129, 300])
+@pytest.mark.parametrize("K,N", [
+    (64, 256),             # one quant group
+    (300, 512),            # ragged K (the output width)
+    (127, 300),            # ragged K and N padded to 512
+    (5461 // 43, 700),     # llama-1b's d_ff factor, N padded
+    (5461, 512),           # llama-1b's d_ff as the output width
+    (128, 32000),          # the head's 125 groups in one contraction
 ])
-def test_int8_matmul_t_plain_matches_jax_ref(M, K, N):
-    """1e-5 of max|ref|: the same products, summed in another order."""
+def test_int8_matmul_t_plain_matches_jax_ref(K, N, M, dtype):
+    """1e-5 of max|ref|: the same products, summed in another order; g in
+    f32 or bf16 (the training path's), rows ragged against the kernel's
+    128-row tiles."""
     jt = _weight(K, N, seed=M + K)
-    g = np.random.default_rng(N).standard_normal((M, N)).astype(np.float32)
-    want = jops._i8t_call("ref", jnp.asarray(g), jt.q, jt.scale, 256)
+    g = torch.from_numpy(np.random.default_rng(N).standard_normal(
+        (M, N)).astype(np.float32)).to(dtype)
+    want = jops._i8t_call("ref", jnp.asarray(g.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32), jt.q,
+        jt.scale, 256)
     tt = _t(jt)
     LAUNCHES.clear()
-    got = ops._dx(torch.from_numpy(g), tt)          # the CPU model path
-    assert got.shape == (M, K)
+    got = ops._dx(g, tt)                            # the CPU model path
+    assert got.shape == (M, K) and got.dtype == torch.float32
     assert _rel(got.numpy(), want) <= 1e-5
     # the wrapper on a CPU tensor: the plain version over zero-padded g
-    g_pad = torch.nn.functional.pad(torch.from_numpy(g),
-                                    (0, tt.q.shape[1] - N))
+    g_pad = torch.nn.functional.pad(g, (0, tt.q.shape[1] - N))
     got_t = ti8.int8_matmul_t(g_pad, tt.q, tt.scale)
     assert _rel(got_t.numpy(), want) <= 1e-5
     assert LAUNCHES["int8_matmul_t"] == 0

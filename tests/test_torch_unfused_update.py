@@ -180,24 +180,25 @@ def test_int4_plan_covers_k_and_keeps_tiles_inside_blocks(M, K, R, block):
     split, at most 16 splits of at least 256 rows each, and an output tile
     that never straddles a block of R (so A = g * s has one scale a row)."""
     p = ti4.plan(M, K, R, block)
-    assert p.m_tile in (64, 128) and p.n_tile in (64, 128)
-    assert p.n_tile == (128 if block > 64 else 64)
     assert p.kc % ti4.TILE_K == 0 and 1 <= p.splits <= 16
     assert (p.splits - 1) * p.kc < max(K, 1) <= p.splits * p.kc
     assert p.splits == 1 or p.kc >= 256 - ti4.TILE_K
-    cols = (R // block) * -(-block // p.n_tile)
-    tiles = cols * -(-M // p.m_tile)
+    # a block of R takes whole 128-column tiles, the last one masked
+    cols = (R // block) * -(-block // ti4.TILE_N)
+    assert cols * ti4.TILE_N >= R
+    tiles = cols * -(-M // ti4.TILE_M)
     assert p.splits == 1 or tiles * (p.splits - 1) < ti4.H100_SMS
-    # 128-row tiles only where they alone make two waves
-    assert (p.m_tile == 128) == (-(-M // 128) * cols >= 2 * ti4.H100_SMS)
+    # a split exactly where the tiles alone leave SMs idle and K has rows
+    # for two splits of 256
+    assert (p.splits > 1) == (tiles < ti4.H100_SMS and K >= 512)
 
 
 def test_int4_plan_phase7_shapes():
-    """llama-1b's right-side weights at rank 512 (P blocks of 256): 64-row
-    tiles of 128 columns; at M = 2048 the 128 tiles take a 2-way K split
-    to fill the card, at M = 5461 the 344 tiles fill it alone."""
-    assert ti4.plan(2048, 2048, 512, 256) == ti4.Plan(64, 128, 1024, 2)
-    assert ti4.plan(5461, 2048, 512, 256) == ti4.Plan(64, 128, 2048, 1)
+    """llama-1b's right-side weights at rank 512 (P blocks of 256): at
+    M = 2048 the 128 tiles of 64 x 128 take a 2-way K split to fill the
+    card, at M = 5461 the 344 tiles fill it alone."""
+    assert ti4.plan(2048, 2048, 512, 256) == ti4.Plan(1024, 2)
+    assert ti4.plan(5461, 2048, 512, 256) == ti4.Plan(2048, 1)
 
 
 @pytest.mark.parametrize("lead,K,r", [((3, 7), 512, 128), ((21,), 256, 100),
