@@ -39,11 +39,18 @@ Phases (any failure exits non-zero):
    run's own inputs (``int8_matmul_t``: 1e-4 of max|plain| on bf16 g as
    the path hands it over, whose products are exact, and 1e-4 on f32 g
    made from it with bits below bf16's, which only the second pass
-   carries; the fused update: codes within one INT8 quantum, scales and
-   moments within 1e-5) and
-   timed beside it, ``int8_matmul_t`` with its design (``mma.sync`` bf16,
-   one pass for bf16 g, two for f32 g), TFLOP/s and factor against
-   cuBLAS bf16.
+   carries; the fused update: the weight within one INT8 quantum, codes
+   equal on more than 0.999 of the elements, scales and moments within
+   1e-5) and timed beside it, each with its design (``int8_matmul_t``:
+   ``mma.sync`` bf16, one pass for bf16 g, two for f32 g; the fused
+   update: ``mma.sync`` bf16, two passes on the direction, P read
+   packed), TFLOP/s, and factor against cuBLAS bf16 or time against the
+   bound. The fused update also takes a stress row per side on the run's
+   own inputs, at an lr where lr * gscale * max|U| is 256 quanta of the
+   old scale: the kernel must hold the same gate there, and the plain
+   version run on bf16(dir) (one pass) must fall below 0.99 of equal
+   codes (``hi_only_codes_equal``), so the gate can tell a dropped
+   second pass.
 6. Flash-attention prefill at full width. (a) The kernel against its
    plain version on the card at llama-1b's heads (H 32, d 64, bf16):
    B in {1, 8}, S in {48, 128, 512, 2048}, causal, plus non-causal at
@@ -812,6 +819,68 @@ def f32_beside(g: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     return g + g * u * 2 ** -8
 
 
+FUSED_DESIGN = "mma.sync bf16 x2 (dir hi + lo), INT4 P read packed"
+STRESS_QUANTA = 256
+
+
+def plain_direction(args, count, kw) -> torch.Tensor:
+    """The plain version's Adam direction (``ref.fused_qgalore_update_ref``'s
+    arithmetic)."""
+    from repro_torch.core.adam8bit import bias_correction
+    g, m, v = (t.float() for t in args[:3])
+    b1, b2 = kw["beta1"], kw["beta2"]
+    m_hat = (b1 * m + (1.0 - b1) * g) / bias_correction(b1, count)
+    v_hat = (b2 * v + (1.0 - b2) * (g * g)) / bias_correction(b2, count)
+    return m_hat / (torch.sqrt(v_hat) + kw["eps"])
+
+
+def plain_from_dir(dirn, args, lr, kw) -> tuple:
+    """The plain version's back-projection, step and SR requantization on a
+    given direction (the tail of ``ref.fused_qgalore_update_ref``, op for
+    op): the codes, and ``dir @ P^T`` (right) or ``P @ dir`` (left)."""
+    from repro_torch.core.quant import true_div
+    _, _, _, pq, ps, pz, q, ws, u01 = args
+    pb, wb = kw["pblock"], kw["wblock"]
+    u4 = torch.stack([(pq & 0xF).float(), ((pq >> 4) & 0xF).float()],
+                     dim=-1).reshape(pq.shape[0], -1) - 8.0
+    d, r = u4.shape
+    P = ((u4.reshape(d, r // pb, pb) - pz[..., None])
+         * ps[..., None]).reshape(d, r)
+    bp = dirn @ P.T if kw["side"] == "right" else P @ dirn
+    upd = kw["gscale"] * bp
+    R, C = q.shape
+    w = (q.float().reshape(R, C // wb, wb) * ws[..., None]).reshape(R, C)
+    if kw["wd"]:
+        upd = upd + kw["wd"] * w
+    wn = (w - lr * upd).reshape(R, C // wb, wb)
+    scale = torch.clamp_min(true_div(wn.abs().amax(dim=-1), 127.0), 1e-12)
+    codes = torch.floor(wn / scale[..., None] + u01.reshape(R, C // wb, wb))
+    return torch.clamp(codes, -128, 127).reshape(R, C).to(torch.int8), bp
+
+
+def fused_gate(M, N, args, count, lr, kw) -> dict:
+    """The kernel against the plain version on the same inputs: the
+    dequantized weight within one INT8 quantum (the plain version's largest
+    new scale), codes equal on more than 0.999 of the elements, scales and
+    moments within 1e-5 relative."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import fused_update as tfu
+    qk, sk, mk, vk = tfu.fused_qgalore_update(*args, count, lr, **kw)
+    qp, sp, mp, vp = ref.fused_qgalore_update_ref(*args, count, lr, **kw)
+    deq = lambda q_, s_: (q_.float().reshape(M, N // 256, 256)
+                          * s_[..., None]).reshape(M, N)
+    w_err = (deq(qk, sk) - deq(qp, sp)).abs().max().item()
+    quantum = sp.max().item()
+    same = (qk == qp).float().mean().item()
+    rels = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            .item() for n, a, b in (("scale", sk, sp), ("m", mk, mp),
+                                    ("v", vk, vp))}
+    ok = (w_err <= quantum + 1e-6 and same > 0.999
+          and max(rels.values()) <= 1e-5)
+    return {"max_abs_err": w_err, "quantum": quantum, "codes_equal": same,
+            "rel_errs": rels, "ok": ok, "plain_codes": qp}
+
+
 def check_train_kernels(probs_t, probs_f, mult: dict, seed: int) -> dict:
     """Each new kernel against its plain version on the training run's own
     inputs, at every distinct problem it was launched with, then timed at
@@ -883,34 +952,58 @@ def check_train_kernels(probs_t, probs_f, mult: dict, seed: int) -> dict:
                 + f" {'ok' if ok else 'FAIL'}")
         del w_lib, g_lib
     for (M, N, R, side), (args, (count, lr), kw) in sorted(probs_f.items()):
-        qk, sk, mk, vk = tfu.fused_qgalore_update(*args, count, lr, **kw)
-        qp, sp, mp, vp = ref.fused_qgalore_update_ref(*args, count, lr, **kw)
-        deq = lambda q_, s_: (q_.float().reshape(M, N // 256, 256)
-                              * s_[..., None]).reshape(M, N)
-        w_err = (deq(qk, sk) - deq(qp, sp)).abs().max().item()
-        quantum = sp.max().item()
-        same = (qk == qp).float().mean().item()
-        rels = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                .item() for n, a, b in (("scale", sk, sp), ("m", mk, mp),
-                                        ("v", vk, vp))}
-        row = {"M": M, "N": N, "r": R, "side": side,
+        gate = fused_gate(M, N, args, count, lr, kw)
+        del gate["plain_codes"]
+        row = {"M": M, "N": N, "r": R, "side": side, "lr": lr,
+               "on_path": True, "design": FUSED_DESIGN,
                "ms": time_ms(lambda: tfu.fused_qgalore_update(
                    *args, count, lr, **kw), flush),
                "plain_ms": time_ms(lambda: ref.fused_qgalore_update_ref(
                    *args, count, lr, **kw), flush),
-               "library_ms": None, "max_abs_err": w_err,
-               "quantum": quantum, "codes_equal": same, "rel_errs": rels}
+               "library_ms": None, **gate}
         row["bound_ms"], row["bound_by"] = bound_fused(args)
+        row["tflops"] = 2 * M * N * R / row["ms"] / 1e9
+        row["x_bound"] = row["ms"] / row["bound_ms"]
         out["fused_qgalore_update"].append(row)
-        ok = (w_err <= quantum + 1e-6 and same > 0.999
-              and max(rels.values()) <= 1e-5)
-        if not ok:
+        if not row["ok"]:
             failed.append(("fused_qgalore_update", row))
         log(f"  fused_qgalore_update M={M} N={N} r={R} {side} "
             f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
             f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-            f"weight err {w_err:.2e} (quantum {quantum:.2e}) codes equal "
-            f"{same:.6f} rel {rels} {'ok' if ok else 'FAIL'}")
+            f"x_bound={row['x_bound']:.2f} tflops={row['tflops']:.1f} "
+            f"[{FUSED_DESIGN}] weight err {row['max_abs_err']:.2e} (quantum "
+            f"{row['quantum']:.2e}) codes equal {row['codes_equal']:.6f} "
+            f"rel {row['rel_errs']} {'ok' if row['ok'] else 'FAIL'}")
+    # a stress step per side on the run's inputs: lr * gscale * max|U| is
+    # STRESS_QUANTA quanta of the old scale, so the step sets the new
+    # scales and the plain version run on bf16(dir) (one pass: no lo) must
+    # fall below 0.99 of equal codes while the kernel holds the gate
+    for want_side in ("right", "left"):
+        (M, N, R, side), (args, (count, _), kw) = next(
+            kv for kv in sorted(probs_f.items()) if kv[0][3] == want_side)
+        dirn = plain_direction(args, count, kw)
+        _, bp = plain_from_dir(dirn, args, 0.0, kw)
+        lr_s = STRESS_QUANTA * args[7].max().item() \
+            / (kw["gscale"] * bp.abs().max().item())
+        gate = fused_gate(M, N, args, count, lr_s, kw)
+        hi_codes, _ = plain_from_dir(dirn.to(torch.bfloat16).float(), args,
+                                     lr_s, kw)
+        hi_only = (hi_codes == gate.pop("plain_codes")).float().mean().item()
+        row = {"M": M, "N": N, "r": R, "side": side, "lr": lr_s,
+               "on_path": False, "stress_quanta": STRESS_QUANTA,
+               "design": FUSED_DESIGN, "ms": None, "plain_ms": None,
+               "library_ms": None, "bound_ms": None, "bound_by": None,
+               **gate, "hi_only_codes_equal": hi_only}
+        row["ok"] = gate["ok"] and hi_only < 0.99
+        out["fused_qgalore_update"].append(row)
+        if not row["ok"]:
+            failed.append(("fused_qgalore_update stress", row))
+        log(f"  fused_qgalore_update stress M={M} N={N} r={R} {side} "
+            f"lr={lr_s:.4g} ({STRESS_QUANTA} quanta) weight err "
+            f"{row['max_abs_err']:.2e} (quantum {row['quantum']:.2e}) codes "
+            f"equal {row['codes_equal']:.6f} rel {row['rel_errs']} "
+            f"hi_only_codes_equal={hi_only:.6f} "
+            f"{'ok' if row['ok'] else 'FAIL'}")
     if failed:
         raise AssertionError(f"training kernels disagree with their plain "
                              f"versions: {failed}")
@@ -934,6 +1027,11 @@ def check_train_kernels(probs_t, probs_f, mult: dict, seed: int) -> dict:
         / 1e9
     sums["int8_matmul_t"]["factor"] = sums["int8_matmul_t"]["ms"] \
         / sums["int8_matmul_t"]["library_ms"]
+    f_rows = [r for r in out["fused_qgalore_update"] if r["on_path"]]
+    flops = sum(2 * r["M"] * r["N"] * r["r"] * mult["fused_qgalore_update"][
+        (r["M"], r["N"], r["r"], r["side"])] for r in f_rows)
+    sums["fused_qgalore_update"]["tflops"] = \
+        flops / sums["fused_qgalore_update"]["ms"] / 1e9
     for name, s in sums.items():
         log(f"  one training step's {name} calls: "
             + " ".join(f"{k}={v:.3f}" if isinstance(v, float) else
@@ -1427,9 +1525,15 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "launches": tl.get("fused_qgalore_update", 0),
         "launches_by_path": {"training": tl.get("fused_qgalore_update", 0)},
         "max_abs_err": max(r["max_abs_err"]
-                           for r in tk["fused_qgalore_update"]),
+                           for r in tk["fused_qgalore_update"]
+                           if r["on_path"]),
         **sums["fused_qgalore_update"],
-        "bound_by": by(tk["fused_qgalore_update"]),
+        "bound_by": by([r for r in tk["fused_qgalore_update"]
+                        if r["on_path"]]),
+        "design": FUSED_DESIGN,
+        "stress": [{k: r[k] for k in ("M", "N", "side", "lr", "codes_equal",
+                                      "hi_only_codes_equal", "ok")}
+                   for r in tk["fused_qgalore_update"] if not r["on_path"]],
         "library_note": "no single PyTorch call computes the fused update",
         "timed_as": f"the {7 * layers + 1} updates of one steady "
                     "training step, rank 512, sum of per-shape medians",

@@ -20,9 +20,8 @@
 //    hi = bf16(g * s) and lo = bf16(g * s - hi), two mma into the same
 //    sums);
 //  * B is u', exact in bf16: each k step's nibbles are unpacked in
-//    registers (a byte permute and a mask put 128 + u' + 8 into a bf16's
-//    mantissa; one bf16x2 subtraction) and stored as bf16, then read with
-//    ldmatrix.trans;
+//    registers (mma_bf16.cuh's nibbles_to_bf16x2) and stored as bf16, then
+//    read with ldmatrix.trans;
 //  * the zero point is not an integer (zero = qmin - min / scale), so
 //    u' - z is not exact in bf16 and stays out of B: the correction
 //    c[m] = sum_k (g * s)[m, k] * z[k, b] is accumulated in f32 while A is
@@ -71,16 +70,6 @@ struct Cfg {
   static constexpr int BS = 2 * TBK * LDB * 2;             // [buffer][TBK][LDB]
   static constexpr int SMEM = AS + BS + BM * 4;            // + the row corrections
 };
-
-// 128 + u' + 8 for the two nibbles of byte i of w, as a bf16x2 word (low
-// nibble in the lower half), minus 136: u' exactly
-__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t w, uint32_t w4, int i) {
-  const uint32_t sel = static_cast<uint32_t>(i) | (static_cast<uint32_t>(4 + i) << 8);
-  const uint32_t y = (__byte_perm(w, w4, sel) & 0x000F000Fu) | 0x43004300u;
-  __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&y);
-  v = __hsub2(v, __floats2bfloat162_rn(136.f, 136.f));
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)

@@ -1,6 +1,6 @@
 // mma_bf16.cuh: hand-written PTX wrappers for warp-level bf16 tensor-core
 // products on sm_80+ (used on sm_90a by int8_matmul.cu, int8_matmul_t.cu,
-// int4_matmul.cu and flash_attention.cu).
+// int4_matmul.cu, fused_update.cu and flash_attention.cu).
 //
 //  * mma_bf16_16816: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 //    accumulating in place into four f32 registers.
@@ -9,7 +9,8 @@
 //    4 bytes), each with a zero fill of the bytes past src_bytes;
 //    cp_async_commit / cp_async_wait<N>.
 //  * pack_bf16x2, and s8x4_to_bf16x2 / s8x4_to_bf16x2_pairs: four int8
-//    codes as two bf16x2 words, (c0, c2) (c1, c3) or (c0, c1) (c2, c3).
+//    codes as two bf16x2 words, (c0, c2) (c1, c3) or (c0, c1) (c2, c3);
+//    nibbles_to_bf16x2: the two INT4 codes of one byte as u' = nibble - 8.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major), 4 words: a0 = (row g, k 2t..2t+1), a1 = (row
@@ -114,6 +115,18 @@ __device__ __forceinline__ void s8x4_to_bf16x2_pairs(uint32_t w, uint32_t& lo, u
   s8x4_to_f32(w, f);
   lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
   hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// The two nibbles of byte i of w (low nibble first) as a bf16x2 word of
+// u' = nibble - 8, exactly; w4 = w >> 4. A byte permute and a mask put
+// 128 + nibble into each bf16's mantissa, one bf16x2 subtraction of 136
+// leaves u'.
+__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t w, uint32_t w4, int i) {
+  const uint32_t sel = static_cast<uint32_t>(i) | (static_cast<uint32_t>(4 + i) << 8);
+  const uint32_t y = (__byte_perm(w, w4, sel) & 0x000F000Fu) | 0x43004300u;
+  __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&y);
+  v = __hsub2(v, __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 }  // namespace mma_bf16

@@ -76,14 +76,23 @@ def fused_qgalore_update(g, m, v, p_packed, p_scale, p_zero, q, wscale, u01,
     for name, t in (("q", q), ("u01", u01)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    if pblock % 2:
+        raise ValueError(f"the kernel needs an even pblock, got {pblock}")
     M, N = q.shape
     R = p_packed.shape[-1] * 2
+    lib = build.load("fused_update")
+    fn = _entry(lib)
     q_out = torch.empty_like(q)
     ws_out = torch.empty_like(wscale)
-    m_out, v_out, dirn = (torch.empty_like(g) for _ in range(3))
-    p_f32 = torch.empty((p_packed.shape[0], R), dtype=torch.float32,
-                        device=q.device)      # P unpacked, scratch
-    fn = _entry()
+    m_out, v_out = torch.empty_like(g), torch.empty_like(g)
+    # the direction as bf16 hi and lo, each block of the rank padded to the
+    # kernel's step, and its f32 block sums
+    nb, kb = R // pblock, lib.qgl_fused_update_block_ranks(pblock)
+    low = (M, nb * kb) if side == "right" else (nb * kb, N)
+    dh, dl = (torch.empty(low, dtype=torch.bfloat16, device=q.device)
+              for _ in range(2))
+    dsum = torch.empty((M, nb) if side == "right" else (nb, N),
+                       dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     c = float(count)
     LAUNCHES["fused_qgalore_update"] += 1
@@ -91,7 +100,7 @@ def fused_qgalore_update(g, m, v, p_packed, p_scale, p_zero, q, wscale, u01,
              p_scale.data_ptr(), p_zero.data_ptr(), q.data_ptr(),
              wscale.data_ptr(), u01.data_ptr(), q_out.data_ptr(),
              ws_out.data_ptr(), m_out.data_ptr(), v_out.data_ptr(),
-             dirn.data_ptr(), p_f32.data_ptr(), M, N, R, pblock,
+             dh.data_ptr(), dl.data_ptr(), dsum.data_ptr(), M, N, R, pblock,
              int(side == "right"),
              beta1, 1.0 - beta1, beta2, 1.0 - beta2,
              bias_correction(beta1, c), bias_correction(beta2, c), eps, lr,
@@ -102,11 +111,12 @@ def fused_qgalore_update(g, m, v, p_packed, p_scale, p_zero, q, wscale, u01,
     return q_out, ws_out, m_out, v_out
 
 
-def _entry():
-    lib = build.load("fused_update")
+def _entry(lib):
     fn = lib.qgl_fused_update
     if fn.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 15 + [i] * 5 + [f] * 10 + [vp]
+        fn.argtypes = [vp] * 16 + [i] * 5 + [f] * 10 + [vp]
         fn.restype = i
+        lib.qgl_fused_update_block_ranks.argtypes = [i]
+        lib.qgl_fused_update_block_ranks.restype = i
     return fn

@@ -172,26 +172,52 @@ def _fused_problem(dev, m, n, r, side, seed):
     return qt, qp, low, m32, v32, u01
 
 
-@pytest.mark.parametrize("m,n,r,side", [
-    (512, 256, 32, "right"), (256, 512, 32, "left"),
-    (300, 200, 24, "right"), (200, 300, 24, "left"),
-    (5461 // 43, 2048 // 8, 64, "right"), (2048 // 8, 5461 // 43, 64, "left"),
+FUSED_SMALL = [(512, 256, 32, "right"), (256, 512, 32, "left"),
+               (300, 200, 24, "right"), (200, 300, 24, "left"),
+               (5461 // 43, 2048 // 8, 64, "right"),
+               (2048 // 8, 5461 // 43, 64, "left")]
+# a steady llama-1b training step's problems at rank 512: the padded
+# 5632 columns and the ragged 5461 rows, the 32000-column head
+FUSED_LLAMA_1B = [(2048, 2048, 512, "right"), (2048, 5461, 512, "left"),
+                  (5461, 2048, 512, "right"), (2048, 32000, 512, "left")]
+STRESS_QUANTA = 256
+
+
+def _stress_lr(qt, qp, low, m32, v32, count, side, gscale=0.25):
+    """The lr at which lr * gscale * max|U| is STRESS_QUANTA quanta of the
+    old scale: the step sets the new scales, and a direction rounded to
+    bf16 (one pass) would move codes by more than the 0.999 bar."""
+    m_hat = (0.9 * m32 + 0.1 * low) / (1 - 0.9 ** count)
+    v_hat = (0.999 * v32 + 0.001 * low * low) / (1 - 0.999 ** count)
+    d = m_hat / (torch.sqrt(v_hat) + 1e-8)
+    P = quant.dequantize(qp, torch.float32)
+    U = d @ P.T if side == "right" else P @ d
+    return STRESS_QUANTA * qt.scale.max().item() / (gscale
+                                                     * U.abs().max().item())
+
+
+@pytest.mark.parametrize("m,n,r,side,step", [
+    *[(*p, "run") for p in FUSED_SMALL],
+    *[(*p, step) for p in FUSED_LLAMA_1B for step in ("run", "stress")],
 ])
 @pytest.mark.parametrize("wd", [0.0, 0.1])
-def test_fused_update_matches_plain(cuda, m, n, r, side, wd):
+def test_fused_update_matches_plain(cuda, m, n, r, side, step, wd):
     """The same uniforms: codes within one INT8 quantum (nearly all
-    equal), scales and moments within 1e-5 relative."""
+    equal), scales and moments within 1e-5 relative; at lr 1e-2, and at
+    llama-1b's problems also at a stress step."""
     qt, qp, low, m32, v32, u01 = _fused_problem(cuda, m, n, r, side, m + n)
+    lr = 1e-2 if step == "run" else _stress_lr(qt, qp, low, m32, v32, 3,
+                                               side)
     kw = dict(side=side, gscale=0.25, weight_decay=wd)
     LAUNCHES.clear()
-    got, mg, vg = ops.fused_qgalore_update(qt, low, m32, v32, qp, 3, 1e-2,
+    got, mg, vg = ops.fused_qgalore_update(qt, low, m32, v32, qp, 3, lr,
                                            u01, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["fused_qgalore_update"] == 1
     assert LAUNCHES["fused_qgalore_update_ref"] == 0
     cpu = lambda t: t.to("cpu")
     want, mw, vw = ops.fused_qgalore_update(
-        qt.to("cpu"), cpu(low), cpu(m32), cpu(v32), qp.to("cpu"), 3, 1e-2,
+        qt.to("cpu"), cpu(low), cpu(m32), cpu(v32), qp.to("cpu"), 3, lr,
         cpu(u01), **kw)
     dq_g = quant.dequantize(got.to("cpu"), torch.float32)
     dq_w = quant.dequantize(want, torch.float32)

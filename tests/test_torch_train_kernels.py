@@ -219,6 +219,125 @@ def test_fused_wrapper_checks_and_counts():
 
 
 # ---------------------------------------------------------------------------
+# the CUDA kernel's arithmetic for the rank product, emulated in float32
+# ---------------------------------------------------------------------------
+
+def _direction(g, m, v, count):
+    m_new = B1 * m + (1 - B1) * g
+    v_new = B2 * v + (1 - B2) * (g * g)
+    return (m_new / (1 - B1 ** count)) / (torch.sqrt(v_new / (1 - B2 ** count))
+                                          + EPS)
+
+
+def _u_prime(p_packed):
+    """INT4 codes as u' = nibble - 8, (d, r), exact."""
+    u = torch.stack([p_packed & 0xF, (p_packed >> 4) & 0xF], dim=-1)
+    return u.reshape(p_packed.shape[0], -1).to(torch.float32) - 8.0
+
+
+def _emulate_fused(g, m, v, p_packed, p_scale, p_zero, q, wscale, u01, count,
+                   lr, *, side, pblock, wd=0.0, passes=2):
+    """The kernel's decomposition of ``fused_qgalore_update`` in float32:
+    dir = hi + lo with hi = bf16(dir), lo = bf16(dir - hi) (``passes=1``
+    drops lo); P enters as the exact u'; per block b of the rank,
+    ``part = sum_k dir * u'`` and ``U += s_b * (part - z_b * S_b)`` with
+    ``S_b = sum_{k in b} dir``; then the reference's step and SR requant.
+    Returns the codes and the new scales."""
+    d = _direction(g, m, v, count)
+    hi = d.to(torch.bfloat16).float()
+    lo = (d - hi).to(torch.bfloat16).float()
+    u = _u_prime(p_packed)
+    U = torch.zeros(q.shape)
+    for b in range(u.shape[1] // pblock):
+        k = slice(b * pblock, (b + 1) * pblock)
+        if side == "right":
+            part = hi[:, k] @ u[:, k].T + (lo[:, k] @ u[:, k].T if passes == 2
+                                           else 0.0)
+            S = d[:, k].sum(dim=1, keepdim=True)
+            U += p_scale[:, b][None] * (part - p_zero[:, b][None] * S)
+        else:
+            part = u[:, k] @ hi[k] + (u[:, k] @ lo[k] if passes == 2 else 0.0)
+            S = d[k].sum(dim=0, keepdim=True)
+            U += p_scale[:, b][:, None] * (part - p_zero[:, b][:, None] * S)
+    M, N = q.shape
+    w = (q.float().reshape(M, N // 256, 256) * wscale[..., None]).reshape(M, N)
+    wn = (w - lr * (0.25 * U + wd * w)).reshape(M, N // 256, 256)
+    scale = torch.clamp_min(tq.true_div(wn.abs().amax(dim=-1), 127.0), 1e-12)
+    codes = torch.floor(wn / scale[..., None] + u01.reshape(M, N // 256, 256))
+    return torch.clamp(codes, -128, 127).reshape(M, N).to(torch.int8), scale
+
+
+def _rank512_problem(M, N, side, seed):
+    """Kernel-level inputs at rank 512 (pblock 256): a ragged row count, a
+    random INT4 P and Adam moments from numpy."""
+    rng = np.random.default_rng(seed)
+    r = 512
+    qt = tq.quantize_blockwise(torch.from_numpy(
+        (rng.standard_normal((M, N)) * 0.02).astype(np.float32)), 8,
+        symmetric=True)
+    d = N if side == "right" else M
+    qp = tq.quantize_blockwise(torch.from_numpy(
+        (rng.standard_normal((d, r)) / np.sqrt(d)).astype(np.float32)), 4,
+        block=256)
+    low = (M, r) if side == "right" else (r, N)
+    g, m, v = (torch.from_numpy(x.astype(np.float32)) for x in (
+        rng.standard_normal(low), rng.standard_normal(low) * 0.1,
+        np.abs(rng.standard_normal(low) * 0.01)))
+    u01 = torch.from_numpy(rng.random((M, N), dtype=np.float32))
+    return (g, m, v, qp.q, qp.scale, qp.zero, qt.q, qt.scale, u01), qp.block
+
+
+STRESS_QUANTA = 256
+
+
+def _stress_lr(args, count, side, pblock):
+    """The lr at which lr * gscale * max|U| is STRESS_QUANTA quanta of the
+    old scale (the largest): the step then sets the new scales, and a
+    direction rounded to bf16 moves codes by more than the 0.999 bar."""
+    g, m, v, pq, ps, pz, q, wscale, _ = args
+    d = _direction(g, m, v, count)
+    u = _u_prime(pq)
+    P = ((u.reshape(u.shape[0], -1, pblock) - pz[..., None])
+         * ps[..., None]).reshape(u.shape)
+    U = d @ P.T if side == "right" else P @ d
+    return STRESS_QUANTA * wscale.max().item() / (0.25 * U.abs().max().item())
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+@pytest.mark.parametrize("step", ["run", "stress"])
+@pytest.mark.parametrize("side,M,N", [("right", 5461 // 43, 512),
+                                      ("left", 5461 // 43, 512)])
+def test_fused_kernel_arithmetic_matches_plain(side, M, N, step, wd):
+    """The CUDA kernel's decomposition (hi/lo bf16 passes on dir, exact u',
+    the per-block scale and zero-point epilogue) against the plain version
+    at rank 512, pblock 256, 127 rows (ragged against the kernel's 64-row
+    tiles): the dequantized weight within one INT8 quantum, codes equal
+    on more than 0.999 of the elements, scales within 1e-5 relative. At the
+    run's lr (1e-3) and at a stress step, where one pass (hi only) must
+    fail the code bar, so that the gate can tell one pass from two."""
+    args, pblock = _rank512_problem(M, N, side, seed=N + (side == "left"))
+    assert pblock == 256
+    count = 3
+    lr = 1e-3 if step == "run" else _stress_lr(args, count, side, pblock)
+    qw, sw, _, _ = ref.fused_qgalore_update_ref(
+        *args, count, lr, side=side, pblock=pblock, wblock=256, wd=wd)
+    deq = lambda c, s: (c.float().reshape(M, N // 256, 256) * s[..., None])
+    same = {}
+    for passes in (2, 1):
+        qe, se = _emulate_fused(*args, count, lr, side=side, pblock=pblock,
+                                wd=wd, passes=passes)
+        same[passes] = (qe == qw).float().mean().item()
+        if passes == 2:
+            quantum = sw.max().item()
+            assert (deq(qe, se) - deq(qw, sw)).abs().max().item() \
+                <= quantum + 1e-6
+            assert _rel(se.numpy(), sw.numpy()) <= 1e-5
+    assert same[2] > 0.999
+    if step == "stress":
+        assert same[1] < 0.999, same
+
+
+# ---------------------------------------------------------------------------
 # gradients through QVirtual
 # ---------------------------------------------------------------------------
 
