@@ -8,7 +8,7 @@
 //  * cp_async16: cp.async.cg (16 bytes, L2 only) and cp_async4 (cp.async.ca,
 //    4 bytes), each with a zero fill of the bytes past src_bytes;
 //    cp_async_commit / cp_async_wait<N>.
-//  * pack_bf16x2, and s8x4_to_bf16x2 / s8x4_to_bf16x2_pairs: four int8
+//  * pack_bf16x2, split_bf16x2 (hi and lo of two floats), and s8x4_to_bf16x2 / s8x4_to_bf16x2_pairs: four int8
 //    codes as two bf16x2 words, (c0, c2) (c1, c3) or (c0, c1) (c2, c3);
 //    nibbles_to_bf16x2: the two INT4 codes of one byte as u' = nibble - 8.
 //
@@ -85,6 +85,15 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (a, b) as two bf16x2 words, hi = bf16(a, b) and lo = bf16 of the
+// residuals (a - hi, b - hi), which are exact in f32: hi + lo carries 16
+// significant bits, and a product with an exact bf16 operand taken as two
+// mma (hi, lo) into one f32 sum is within ~2^-16 of the f32 product.
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16x2(a, b);
+  lo = pack_bf16x2(a - __uint_as_float(hi << 16), b - __uint_as_float(hi & 0xFFFF0000u));
 }
 
 // Four int8 codes c0..c3 (byte 0 lowest) as exact floats. Byte ^ 0x80 is

@@ -7,17 +7,21 @@
 scores scaled by ``1/sqrt(d)`` in f32. GQA is native: query head ``h``
 reads kv head ``h // (H / KH)``. Inputs are float32 or bfloat16, all of
 one type; ``d, dv <= 128``; any S. For a CUDA tensor it launches a kernel
-chosen by the type, both counted as ``LAUNCHES["flash_attention"]``:
+chosen by the type, both counted as ``LAUNCHES["flash_attention"]`` and
+both the FlashAttention-2 shape on the tensor cores (``mma.sync`` bf16
+products with f32 sums, the online softmax in f32 on the accumulators,
+64-row K and V tiles streamed through shared memory, each warp owning 16
+query rows):
 
-* bf16 (every serving bundle): the FlashAttention-2 shape on the tensor
-  cores. Four warps own a 64-row query tile, 16 rows each; Q stays in
-  registers, 64-row K and V tiles stream through a ``cp.async`` ring,
-  ``S = Q Kᵀ`` and ``P V`` are ``mma.sync`` bf16 products with f32 sums,
-  and the online softmax runs in f32 on the accumulators. What bounds it
-  at S 512 is the bytes of q, k, v and o and the softmax; at long S the
-  ``mma.sync`` issue rate.
-* f32 (the parity phases and tests): f32 FMA on the SIMT units
-  throughout, bound by them.
+* bf16 (every serving bundle): one pass; four warps a 64-row query tile,
+  Q kept in registers. What bounds it at S 512 is the bytes of q, k, v
+  and o and the softmax; at long S the ``mma.sync`` issue rate.
+* f32 (the f32 bundles, the parity phases and tests): split precision,
+  eight warps a 128-row query tile. Q, K, V and P become ``hi =
+  bf16(x)`` and ``lo = bf16(x - hi)``, and each product takes three
+  passes (``hi·hi + hi·lo + lo·hi``) into the same f32 sums, which keeps
+  f32 callers within ~2^-16 of the f32 product. Each K and V tile is
+  split once in shared memory for the block's warps.
 
 For a CPU tensor it runs ``ref.flash_attention_ref`` (cast to q's type).
 There is no backward (the JAX package has no backward kernel), so an

@@ -8,21 +8,25 @@ wrapper launches its kernel; for a CPU tensor it runs the plain version
 (``ref.int8_matmul_ref``, ``ref.int8_matmul_t_ref``). Neither falls back
 from a failed build or launch.
 
-``int8_matmul`` has two designs, chosen by :func:`plan` from M:
+``int8_matmul`` runs on the tensor cores (``mma.sync`` m16n8k16 bf16 →
+f32) in two launch designs, chosen by :func:`plan` from M. Both fold the
+group's scale into the activation, stage ``x * s`` as bf16 and the raw
+codes (exact in bf16), and take f32 sums:
 
-* M <= 16 (decode): a stream over the codes with f32 FMA, bound by the
-  weight bytes;
-* M > 16 (prefill, training): tensor cores. A BM x 128 tile (BM 64 or
-  128) inside one 256-column group folds the group's scale into the
-  activation, stages ``x * s`` as bf16 and the raw codes (exact in bf16),
-  and runs ``mma.sync`` m16n8k16 with f32 sums. bf16 x takes one pass,
-  the rounding of ``x * s`` to bf16 that the TPU's MXU makes at default
-  precision; f32 x takes two (``hi = bf16(x * s)``, ``lo = bf16(x * s -
-  hi)``), which keeps f32 callers within ~2^-16 of the f32 product. What
-  bounds it now is ``mma.sync`` issue and the A staging, not the bytes.
+* M <= 16 (decode): bound by the weight bytes. M is padded to one m16
+  tile and both dtypes take two passes (``hi = bf16(x * s)``, ``lo =
+  bf16(x * s - hi)``), which keeps decode within ~2^-16 of the f32
+  product at no cost in time. A block owns 128 columns and one split of
+  K; the splits of a column tile form one thread-block cluster (at most
+  8) and are summed through distributed shared memory in a fixed order,
+  so a call is one launch and writes no partials.
+* M > 16 (prefill, training): a BM x 128 tile (BM 64 or 128). bf16 x
+  takes one pass, the rounding of ``x * s`` to bf16 that the TPU's MXU
+  makes at default precision; f32 x takes two. What bounds it now is
+  ``mma.sync`` issue and the A staging, not the bytes.
 
-:func:`plan` chooses the launch (path, row tile, K split) from the shapes
-alone, in Python, so the CPU tests reach it.
+:func:`plan` chooses the launch (path, row tile, K split, cluster) from
+the shapes alone, in Python, so the CPU tests reach it.
 
 ``int8_matmul_t`` has one design: ``mma.sync`` on 128 x 128 output tiles,
 the whole contraction in one block, the group scale an epilogue on each
@@ -38,7 +42,10 @@ import torch
 from repro_torch.kernels import LAUNCHES, build, ref
 
 GROUP = 256          # the kernel's quant block along N
-SMALL_M = 16         # largest M the small-M (weight-streaming) path takes
+SMALL_M = 16         # largest M the small-M path takes (one m16 tile)
+SMALL_N = 128        # small path: columns a block
+SMALL_K = 64         # small path k tile (a split's rows are a multiple)
+MAX_CLUSTER = 8      # small path: most K splits (blocks of one cluster)
 TILE_N = 128         # tiled path output tile columns
 TILE_K = 32          # tiled path k tile (a split's rows are a multiple)
 TILE_M_T = 128       # int8_matmul_t's output rows a block
@@ -46,11 +53,12 @@ H100_SMS = 132
 
 
 class Plan(NamedTuple):
-    path: int        # 0: small-M stream, 1: tiled (tensor cores)
-    m_tile: int      # rows per block: small path a power of two <= 16,
-                     # tiled path 64 or 128
+    path: int        # 0: small-M, 1: tiled
+    m_tile: int      # rows a block: 16 on the small path, 64 or 128 tiled
     kc: int          # K rows per split
-    splits: int      # K splits (> 1: partials + ordered reduction)
+    splits: int      # K splits: on the small path the blocks of one cluster,
+                     # summed in distributed shared memory; on the tiled path
+                     # (> 1) float32 partials and an ordered second kernel
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -60,24 +68,20 @@ def _cdiv(a: int, b: int) -> int:
 def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
     """Launch plan for an (M, K) x (K, N) problem.
 
-    The small path has N/256 column groups; K is split until about two
-    blocks per SM are in flight, as long as the float32 partials stay
-    under a quarter of the code bytes (``splits * M * N * 4 <= K * N / 4``)
-    and each split keeps at least 64 rows. The tiled path takes 128-row
-    tiles unless 64-row tiles pad M by fewer rows (M = 17-64, or 300 in
-    5 tiles of 64 rather than 3 of 128), and splits K only when its output
+    The small path has N/128 column tiles; K is split until about four
+    blocks per SM are in flight, into at most ``MAX_CLUSTER`` splits of
+    whole 64-row k tiles, all of one cluster. The tiled path takes 128-row
+    tiles unless 64-row tiles pad M by fewer rows (M = 17-64, or 300 in 5
+    tiles of 64 rather than 3 of 128), and splits K only when its output
     tiles cannot fill one wave, with at least 256 rows a split and each
     split a multiple of the 32-row k tile.
     """
     if M <= SMALL_M:
-        m_tile = 1
-        while m_tile < M:
-            m_tile *= 2
-        want = _cdiv(2 * sms, N // GROUP)
-        cap = max(1, min(K // (16 * m_tile), _cdiv(K, 64)))
-        splits = max(1, min(want, cap))
-        kc = _cdiv(_cdiv(K, splits), 8) * 8
-        return Plan(0, m_tile, kc, _cdiv(K, kc))
+        want = _cdiv(4 * sms, N // SMALL_N)
+        splits = max(1, min(want, MAX_CLUSTER, _cdiv(K, SMALL_K)))
+        kc = _cdiv(_cdiv(K, splits), SMALL_K) * SMALL_K
+        splits = _cdiv(K, kc)
+        return Plan(0, SMALL_M, kc, splits)
     bm = 128 if 2 * _cdiv(M, 128) == _cdiv(M, 64) else 64
     tiles = (N // TILE_N) * _cdiv(M, bm)
     want = _cdiv(sms, tiles)
@@ -134,7 +138,8 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     p = plan(M, K, N, sms)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     ws = (torch.empty((p.splits, M, N), dtype=torch.float32,
-                      device=x.device) if p.splits > 1 else out)
+                      device=x.device) if p.path == 1 and p.splits > 1
+          else out)
     fn = _entry()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     LAUNCHES["int8_matmul"] += 1

@@ -127,6 +127,82 @@ def test_flash_rejects_bad_shapes(shapes, msg):
 
 
 # ---------------------------------------------------------------------------
+# The f32 kernel's arithmetic (csrc/flash_attention.cu, flash_f32)
+# ---------------------------------------------------------------------------
+
+def _split(t, passes):
+    """(hi, lo) of an f32 tensor as bf16 values in f32; lo is zero for one
+    pass."""
+    hi = t.to(torch.bfloat16).float()
+    lo = (t - hi).to(torch.bfloat16).float() if passes == 2 else \
+        torch.zeros_like(t)
+    return hi, lo
+
+
+def _emulate_flash_f32(q, k, v, causal, passes=2):
+    """float32 emulation of the f32 kernel: Q, K, V and P split into hi =
+    bf16(x) and lo = bf16(x - hi), each product taken as hi.hi + hi.lo +
+    lo.hi in f32 (lo zero for one pass), the online softmax over 64-row KV
+    tiles in the log2 domain (scores times scale * log2 e, masked to
+    -1e30, exp2), and acc / max(l, 1e-30) at the end."""
+    B, S, H, d = q.shape
+    G = H // k.shape[2]
+    k, v = (t.repeat_interleave(G, dim=2).transpose(1, 2) for t in (k, v))
+    q = q.transpose(1, 2)                                # (B, H, S, d)
+    qh, ql = _split(q, passes)
+    sl2 = np.float32(1.0 / np.sqrt(d)) * np.float32(1.4426950408889634)
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, v.shape[-1]))
+    rows = torch.arange(S)[:, None]
+    for kv0 in range(0, S, 64):
+        kt, vt = k[:, :, kv0:kv0 + 64], v[:, :, kv0:kv0 + 64]
+        kh, kl = _split(kt, passes)
+        vh, vl = _split(vt, passes)
+        s = qh @ kh.transpose(-1, -2) + qh @ kl.transpose(-1, -2) \
+            + ql @ kh.transpose(-1, -2)
+        x = s * sl2
+        cols = kv0 + torch.arange(kt.shape[2])[None, :]
+        if causal:
+            x = torch.where(cols <= rows, x, torch.tensor(-1e30))
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        ph, pl = _split(p, passes)
+        acc = acc * alpha + ph @ vh + ph @ vl + pl @ vh
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("B,S,H,KH,d,dv,causal", [
+    (2, 128, 4, 4, 64, 64, True),      # llama's head width, two KV tiles
+    (1, 192, 8, 2, 32, 32, True),      # GQA, three KV tiles
+    (1, 100, 2, 2, 48, 32, False),     # d != dv, a ragged last KV tile
+    (1, 512, 2, 1, 64, 128, True),     # GQA, dv 128, eight KV tiles
+])
+def test_flash_f32_kernel_arithmetic_matches_plain(B, S, H, KH, d, dv,
+                                                   causal):
+    """The f32 kernel's three passes on split operands within 1e-4 of
+    max|plain| (``ref.flash_attention_ref``) and of the JAX package's Pallas
+    kernel in interpret mode; one pass (hi only) must miss that bar, so a
+    check at 1e-4 can tell a dropped pass."""
+    qn, kn, vn = _qkv(B, S, H, KH, d, dv, S + d)
+    q, k, v = (torch.from_numpy(a) for a in (qn, kn, vn))
+    want = ref.flash_attention_ref(q, k, v, causal=causal).numpy()
+    kr, vr = (jnp.repeat(jnp.asarray(a), H // KH, axis=2) for a in (kn, vn))
+    jwant = np.asarray(jops.flash_attention(jnp.asarray(qn), kr, vr,
+                                            causal=causal, interpret=True))
+    rel = lambda a, b: np.abs(a - b).max() / np.abs(b).max()
+    three = _emulate_flash_f32(q, k, v, causal).numpy()
+    assert three.shape == (B, S, H, dv)
+    assert rel(three, want) <= 1e-4
+    assert rel(three, jwant) <= 1e-4
+    one = _emulate_flash_f32(q, k, v, causal, passes=1).numpy()
+    assert rel(one, want) > 1e-4
+
+
+# ---------------------------------------------------------------------------
 # Routing (tests/test_models_smoke.py:102-141)
 # ---------------------------------------------------------------------------
 

@@ -3,6 +3,8 @@ against repro.kernels.ref and the Pallas kernel (interpret mode), the CPU
 model path against repro.kernels.ops.quantized_dense (ref backend), and
 the CUDA wrapper's launch planning and argument checks, which run here
 without a card or nvcc."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,11 +108,15 @@ def test_plan_covers_k_and_bounds_partials(M, K, N):
     assert p.splits >= 1 and p.kc >= 1
     assert (p.splits - 1) * p.kc < K <= p.splits * p.kc   # no empty split
     if M <= ti8.SMALL_M:
-        assert p.path == 0 and M <= p.m_tile <= 16
-        assert p.m_tile & (p.m_tile - 1) == 0
-        assert p.kc % 8 == 0
-        if p.splits > 1:        # partials stay under 1/4 of the codes
-            assert p.splits * M * N * 4 <= K * N / 4
+        # one m16 row tile; whole 64-row k tiles; every K row in exactly
+        # one split; the splits are one cluster, of at most 8 blocks, along
+        # the first axis of the grid (splits, N/128), which it divides
+        assert p.path == 0 and p.m_tile == 16
+        assert p.kc % ti8.SMALL_K == 0
+        rows = [k for z in range(p.splits)
+                for k in range(z * p.kc, min(K, (z + 1) * p.kc))]
+        assert rows == list(range(K))
+        assert p.splits <= ti8.MAX_CLUSTER and N % ti8.SMALL_N == 0
     else:
         assert p.path == 1 and p.kc % ti8.TILE_K == 0
         assert p.splits <= 16
@@ -143,3 +149,74 @@ def test_kernel_module_imports_without_nvcc():
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert path == build.lib_path("int8_matmul")
     assert "int8_matmul" not in build._LOADED
+
+
+# ---------------------------------------------------------------------------
+# The small-M kernel's arithmetic (csrc/int8_matmul.cu, i8mm_small)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def _llama_weight(K, N):
+    """Codes and scales of a (K, N) weight, drawn directly."""
+    rng = np.random.default_rng(K + N)
+    q = rng.integers(-127, 128, size=(K, N), dtype=np.int8)
+    s = rng.uniform(1e-4, 3e-4, size=(K, N // 256)).astype(np.float32)
+    return q, s
+
+
+K_WARPS = 2   # the small-M kernel's k warps: alternate 16-row steps of a k tile
+
+
+def _emulate_small(x, q, scale, passes):
+    """float32 emulation of the small-M kernel: hi = bf16(x * s) and lo =
+    bf16(x * s - hi) of each (k, group), times the exact codes, summed in
+    f32 in the kernel's order: in each K split, k warp w takes the 16-row
+    steps 16w, 16w + 32 of every 64-row k tile and keeps the hi and the lo
+    products in sums of their own, added at the end; a block adds its k
+    warps in order, and the cluster adds the blocks by split."""
+    M, K = x.shape
+    N = q.shape[1]
+    G = N // 256
+    p = ti8.plan(M, K, N)
+    assert p.path == 0
+    total = torch.zeros((M, N))
+    for z in range(p.splits):
+        k0, k1 = z * p.kc, min(K, (z + 1) * p.kc)
+        block = torch.zeros((M, G, 256))
+        for wk in range(K_WARPS):
+            part = [torch.zeros((M, G, 256)) for _ in range(passes)]
+            for kk in range(k0 + 16 * wk, k1, 16 * K_WARPS):
+                ks = slice(kk, min(kk + 16, k1))
+                xs = x[:, ks, None].float() * scale[None, ks, :]
+                hi = xs.to(torch.bfloat16).float()
+                q3 = q[ks].float().reshape(-1, G, 256)
+                part[0] = part[0] + torch.einsum("mkg,kgb->mgb", hi, q3)
+                if passes == 2:
+                    lo = (xs - hi).to(torch.bfloat16).float()
+                    part[1] = part[1] + torch.einsum("mkg,kgb->mgb", lo, q3)
+            block = block + (part[0] + part[1] if passes == 2 else part[0])
+        total = total + block.reshape(M, N)
+    return total
+
+
+@pytest.mark.parametrize("K,N", LLAMA_1B_KN)
+@pytest.mark.parametrize("M", [1, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_m_kernel_arithmetic_matches_plain(K, N, M, dtype):
+    """The small-M kernel's two passes at llama-1b's four (K, N) within
+    1e-4 of max|plain| (``ref.int8_matmul_ref``) and of the JAX package's
+    ``int8_matmul_ref``; one pass (hi only) must miss that bar, so a check
+    at 1e-4 can tell one pass from two."""
+    q, s = _llama_weight(K, N)
+    rng = np.random.default_rng(M + K)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)) \
+        .to(dtype)
+    qt, st = torch.from_numpy(q), torch.from_numpy(s)
+    want = ref.int8_matmul_ref(x, qt, st, 256)
+    jwant = jref.int8_matmul_ref(jnp.asarray(x.float().numpy()),
+                                 jnp.asarray(q), jnp.asarray(s), 256)
+    two = _emulate_small(x, qt, st, passes=2)
+    assert _rel(two.numpy(), want.numpy()) <= 1e-4
+    assert _rel(two.numpy(), jwant) <= 1e-4
+    one = _emulate_small(x, qt, st, passes=1)
+    assert _rel(one.numpy(), want.numpy()) > 1e-4
