@@ -144,10 +144,16 @@ def num_layers() -> int:
     return model_zoo.get_config("llama-1b").num_layers
 
 
-def i8_design(M: int, dtype) -> str:
-    """Which ``int8_matmul`` kernel design runs an (M, x dtype) problem."""
+def small_m(M: int, K: int, N: int) -> bool:
+    """Whether ``int8_matmul`` runs an (M, K) x (K, N) problem on its
+    small-M path (two passes in both dtypes)."""
     from repro_torch.kernels import int8_matmul as ti8
-    if M <= ti8.SMALL_M:
+    return ti8.plan(M, K, N).path == 0
+
+
+def i8_design(M: int, K: int, N: int, dtype) -> str:
+    """Which ``int8_matmul`` kernel design runs a problem."""
+    if small_m(M, K, N):
         return ("mma.sync bf16 x2 (hi/lo) small-M, K split in a cluster "
                 "(DSMEM reduction)")
     return mma_design(dtype)
@@ -160,11 +166,11 @@ def mma_design(dtype) -> str:
             else "mma.sync bf16 x2 (hi/lo)")
 
 
-def i8_tol(M: int, dtype) -> float:
-    """Two passes (M <= 16 in both dtypes, f32 x at any M): 1e-4 of
-    max|plain|; one bf16 pass: 2e-2."""
-    from repro_torch.kernels import int8_matmul as ti8
-    return F32_X_TOL if M <= ti8.SMALL_M or dtype == torch.float32 else TOL
+def i8_tol(M: int, K: int, N: int, dtype) -> float:
+    """Two passes (the small-M path in both dtypes, f32 x on any path):
+    1e-4 of max|plain|; one bf16 pass: 2e-2."""
+    two = small_m(M, K, N) or dtype == torch.float32
+    return F32_X_TOL if two else TOL
 
 
 def i8_hi_only(x, qt) -> float:
@@ -280,16 +286,16 @@ def phase_kernels(seed: int):
                 lib_ms = time_ms(lambda: torch.matmul(x_lib, w_lib), flush)
                 b_ms, b_by = bound(M, K, N, x.element_size())
                 # a small-M row must also show that one pass would fail
-                hi_only = i8_hi_only(x, qt) if M <= ti8.SMALL_M else None
+                hi_only = i8_hi_only(x, qt) if small_m(M, K, N) else None
                 row = {"M": M, "K": K, "N": N, "n_real": N0,
                        "x": str(dt).replace("torch.", ""), "ms": ms,
                        "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": b_ms, "bound_by": b_by, "rel_err": rel,
                        "hi_only_rel": hi_only,
                        "tflops": 2 * M * K * N0 / ms / 1e9,
-                       "design": i8_design(M, dt)}
+                       "design": i8_design(M, K, N, dt)}
                 rows.append(row)
-                ok = rel <= i8_tol(M, dt) and (hi_only is None
+                ok = rel <= i8_tol(M, K, N, dt) and (hi_only is None
                                               or hi_only > F32_X_TOL)
                 if not ok:
                     failed.append(row)
@@ -298,7 +304,8 @@ def phase_kernels(seed: int):
                     f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
                     f"tflops={row['tflops']:.1f} [{row['design']}] "
                     f"rel_err={rel:.2e}"
-                    + ("" if hi_only is None else f" hi_only_rel={hi_only:.2e}")
+                    + ("" if hi_only is None
+                       else f" hi_only_rel={hi_only:.2e}")
                     + f" {'ok' if ok else 'FAIL'}")
                 del x, x_lib
         del qt, w_lib
@@ -307,9 +314,9 @@ def phase_kernels(seed: int):
         raise AssertionError(f"int8_matmul disagrees with its plain version "
                              f"on {len(failed)} problem(s): {failed}")
     two = [r["rel_err"] for r in rows
-           if r["M"] <= ti8.SMALL_M or r["x"] == "float32"]
+           if r["hi_only_rel"] is not None or r["x"] == "float32"]
     log(f"  {len(rows)} problems agree: max rel err {max_rel:.2e} "
-        f"<= tolerance {TOL} (two passes, M <= {ti8.SMALL_M} or f32 x: "
+        f"<= tolerance {TOL} (two passes, small-M path or f32 x: "
         f"{max(two):.2e} <= {F32_X_TOL}; one pass would leave hi_only_rel >= "
         f"{min(r['hi_only_rel'] for r in rows if r['hi_only_rel']):.2e})")
     layers = num_layers()
@@ -379,8 +386,8 @@ def decode_sequence(seed: int) -> dict:
         if K not in xs:
             xs[K] = torch.randn((8, K), generator=gen,
                                 device=dev).to(torch.bfloat16)
-    ms, host_ms = sequence_ms(
-        lambda: [ti8.int8_matmul(xs[q.shape[0]], q, sc) for q, sc, _ in weights])
+    ms, host_ms = sequence_ms(lambda: [ti8.int8_matmul(xs[q.shape[0]], q, sc)
+                                       for q, sc, _ in weights])
     lib = [(q.float().reshape(q.shape[0], -1, 256) * sc[..., None])
            .reshape(q.shape[0], -1)[:, :n0].to(torch.bfloat16)
            for q, sc, n0 in weights]
@@ -587,7 +594,7 @@ def check_shapes(shapes, seed: int) -> dict:
             x = torch.randn((M, K), generator=gen, device=dev).to(dt)
             abs_err, rel = check_against_plain(x, qt)
             max_abs, max_rel = max(max_abs, abs_err), max(max_rel, rel)
-            if rel > i8_tol(M, dt):
+            if rel > i8_tol(M, K, N, dt):
                 failed.append((M, K, N, str(dt), rel))
         del qt
     torch.cuda.empty_cache()
@@ -1403,7 +1410,7 @@ def phase_unfused(seed: int):
             row["tflops"] = 2 * m * n * R / row["ms"] / 1e9
             row["factor"] = row["ms"] / row["library_ms"]
             i4_rows.append(row)
-            ok = rel <= i8_tol(m, g.dtype)
+            ok = rel <= (F32_X_TOL if g.dtype == torch.float32 else TOL)
             if not ok:
                 failed.append(("int4_matmul", row))
             log(f"  int4_matmul M={m} K={n} R={R} g={row['g']} "
@@ -1636,12 +1643,15 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
             "dequantized")),
         "training_step": dict(
             train_step, factor=train_step["ms"] / train_step["library_ms"],
-            design=i8_design(2048, torch.bfloat16), timed_as=(
+            design=i8_design(2048, 2048, 2048, torch.bfloat16), timed_as=(
                 f"the {14 * layers + 1} matmuls of one training step at "
                 "M = 2048, bf16 x, sum of phase 2's per-shape medians")),
-        "design": {"M <= 16, both dtypes": i8_design(1, torch.bfloat16),
-                   "M > 16, bf16 x": i8_design(2048, torch.bfloat16),
-                   "M > 16, f32 x": i8_design(2048, torch.float32)},
+        "design": {"M <= 16, both dtypes": i8_design(1, 2048, 2048,
+                                                     torch.bfloat16),
+                   "M > 16, bf16 x": i8_design(2048, 2048, 2048,
+                                               torch.bfloat16),
+                   "M > 16, f32 x": i8_design(2048, 2048, 2048,
+                                              torch.float32)},
         "serving": {k: serving[k] for k in (
             "tokens_per_s", "mean_ttft_s", "median_decode_step_ms",
             "prefill_ms_total", "median_prefill_ms",

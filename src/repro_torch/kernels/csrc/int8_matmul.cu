@@ -23,18 +23,19 @@
 // same f32 sums; since the codes are exact in bf16 this keeps the product
 // within ~2^-16 of the f32 product.
 //
-// Two launch designs, chosen by the wrapper's plan() from M:
+// Two launch designs, chosen by the wrapper's plan() from M (and K):
 //
-//  * decode and short prefill (M <= 16): i8mm_small, bound by the weight
-//    bytes (each code is read once and used M times). M is padded to one
-//    m16 tile; at this intensity the padded rows cost nothing, and both
-//    dtypes take the two passes (in accumulators of their own), which cost
-//    nothing either. A block owns 128 columns and one split of K, 8 warps
-//    as 4 column warps (32 columns each) x 2 k warps (alternate 16-row
-//    steps of each 64-row k tile). The codes stream through a 4-stage ring
-//    of 64-row tiles that waits for tile kt itself; while the first tiles
-//    are in flight, x * s of the whole split is staged once as hi and lo
-//    (the split's scales ride with tile 0), so the loop reads codes only.
+//  * decode and short prefill (M <= 16, K <= 8 * 2048): i8mm_small, bound
+//    by the weight bytes (each code is read once and used M times). M is
+//    padded to one m16 tile; at this intensity the padded rows cost
+//    nothing, and both dtypes take the two passes (in accumulators of
+//    their own), which cost nothing either. A block owns 128 columns and
+//    one split of K, 8 warps as 4 column warps (32 columns each) x 2 k
+//    warps (alternate 16-row steps of each 64-row k tile). The codes
+//    stream through a 4-stage ring of 64-row tiles that waits for tile kt
+//    itself; while the first tiles are in flight, x * s of the whole
+//    split is staged once as hi and lo (the split's scales ride with tile
+//    0), so the loop reads codes only.
 //    K is split over the blocks of a thread-block cluster (at most 8,
 //    portable), and the split partials meet in distributed shared memory:
 //    each block sums its k warps, pushes each item (four columns of a row)
@@ -42,11 +43,12 @@
 //    mbarrier, and every block sums the items it owns in rank order
 //    (deterministic, no atomics, no partials in device memory, one launch
 //    a call). What bounds it: per call, the first bytes of a fresh weight
-//    (~3-4 us after the launch) and the cluster's hand-over (~1 us); per
-//    64-row tile, the in-register code conversion (~0.45 us a tile with
-//    one 8-warp block an SM).
+//    (~3-4 us after the launch) and the cluster's hand-over (~1 us); then
+//    the bytes one block an SM keeps in flight (~0.45 us a 64-row tile).
+//    Neither a cheaper code conversion nor none at all made it faster.
 //
-//  * prefill and training (M > 16): i8mm_mma, bound by the multiply-adds.
+//  * prefill and training (M > 16, and any M past the small path's K):
+//    i8mm_mma, bound by the multiply-adds.
 //    A block owns a BM x 128 output tile (BM 64 or 128), 32-deep k tiles
 //    through a 4-stage ring that also carries the tile's 32 scales and the
 //    raw x slice of each row. A row of x need not be 16-byte aligned (K =

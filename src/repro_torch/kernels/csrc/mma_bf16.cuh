@@ -8,8 +8,9 @@
 //  * cp_async16: cp.async.cg (16 bytes, L2 only) and cp_async4 (cp.async.ca,
 //    4 bytes), each with a zero fill of the bytes past src_bytes;
 //    cp_async_commit / cp_async_wait<N>.
-//  * pack_bf16x2, split_bf16x2 (hi and lo of two floats), and s8x4_to_bf16x2 / s8x4_to_bf16x2_pairs: four int8
-//    codes as two bf16x2 words, (c0, c2) (c1, c3) or (c0, c1) (c2, c3);
+//  * pack_bf16x2; split_bf16x2: hi and lo of two floats; s8x4_to_bf16x2 /
+//    s8x4_to_bf16x2_pairs: four int8 codes as two bf16x2 words, (c0, c2)
+//    (c1, c3) or (c0, c1) (c2, c3);
 //    nibbles_to_bf16x2: the two INT4 codes of one byte as u' = nibble - 8.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g = lane / 4, t = lane % 4):

@@ -9,24 +9,24 @@ wrapper launches its kernel; for a CPU tensor it runs the plain version
 from a failed build or launch.
 
 ``int8_matmul`` runs on the tensor cores (``mma.sync`` m16n8k16 bf16 →
-f32) in two launch designs, chosen by :func:`plan` from M. Both fold the
-group's scale into the activation, stage ``x * s`` as bf16 and the raw
-codes (exact in bf16), and take f32 sums:
+f32) in two launch designs, chosen by :func:`plan` from M and K. Both
+fold the group's scale into the activation, stage ``x * s`` as bf16 and
+the raw codes (exact in bf16), and take f32 sums:
 
-* M <= 16 (decode): bound by the weight bytes. M is padded to one m16
-  tile and both dtypes take two passes (``hi = bf16(x * s)``, ``lo =
-  bf16(x * s - hi)``), which keeps decode within ~2^-16 of the f32
-  product at no cost in time. A block owns 128 columns and one split of
-  K; the splits of a column tile form one thread-block cluster (at most
-  8) and are summed through distributed shared memory in a fixed order,
-  so a call is one launch and writes no partials.
-* M > 16 (prefill, training): a BM x 128 tile (BM 64 or 128). bf16 x
-  takes one pass, the rounding of ``x * s`` to bf16 that the TPU's MXU
-  makes at default precision; f32 x takes two. What bounds it now is
-  ``mma.sync`` issue and the A staging, not the bytes.
+* M <= 16 (decode; K up to 8 x 2048): bound by the weight bytes. M is
+  padded to one m16 tile and both dtypes take two passes (``hi = bf16(x
+  * s)``, ``lo = bf16(x * s - hi)``), which keeps decode within ~2^-16
+  of the f32 product at no cost in time. A block owns 128 columns and
+  one split of K; the splits of a column tile form one thread-block
+  cluster (at most 8) and are summed through distributed shared memory
+  in a fixed order, so a call is one launch and writes no partials.
+* M > 16 (prefill, training), and larger K: a BM x 128 tile (BM 64 or
+  128). bf16 x takes one pass, the rounding of ``x * s`` to bf16 that the
+  TPU's MXU makes at default precision; f32 x takes two. What bounds it
+  now is ``mma.sync`` issue and the A staging, not the bytes.
 
-:func:`plan` chooses the launch (path, row tile, K split, cluster) from
-the shapes alone, in Python, so the CPU tests reach it.
+:func:`plan` chooses the launch (path, row tile, K split) from the shapes
+alone, in Python, so the CPU tests reach it.
 
 ``int8_matmul_t`` has one design: ``mma.sync`` on 128 x 128 output tiles,
 the whole contraction in one block, the group scale an epilogue on each
@@ -46,6 +46,8 @@ SMALL_M = 16         # largest M the small-M path takes (one m16 tile)
 SMALL_N = 128        # small path: columns a block
 SMALL_K = 64         # small path k tile (a split's rows are a multiple)
 MAX_CLUSTER = 8      # small path: most K splits (blocks of one cluster)
+SMALL_KC_MAX = 2048  # small path: most K rows a split (its x * s is staged
+                     # whole in shared memory); larger K takes the tiled path
 TILE_N = 128         # tiled path output tile columns
 TILE_K = 32          # tiled path k tile (a split's rows are a multiple)
 TILE_M_T = 128       # int8_matmul_t's output rows a block
@@ -70,13 +72,15 @@ def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
 
     The small path has N/128 column tiles; K is split until about four
     blocks per SM are in flight, into at most ``MAX_CLUSTER`` splits of
-    whole 64-row k tiles, all of one cluster. The tiled path takes 128-row
-    tiles unless 64-row tiles pad M by fewer rows (M = 17-64, or 300 in 5
-    tiles of 64 rather than 3 of 128), and splits K only when its output
+    whole 64-row k tiles, all of one cluster; K beyond ``MAX_CLUSTER *
+    SMALL_KC_MAX`` rows goes to the tiled path at any M. The tiled path
+    takes 128-row tiles unless 64-row tiles pad M by fewer rows (M =
+    17-64, or 300 in 5 tiles of 64 rather than 3 of 128), and splits K
+    only when its output
     tiles cannot fill one wave, with at least 256 rows a split and each
     split a multiple of the 32-row k tile.
     """
-    if M <= SMALL_M:
+    if M <= SMALL_M and K <= MAX_CLUSTER * SMALL_KC_MAX:
         want = _cdiv(4 * sms, N // SMALL_N)
         splits = max(1, min(want, MAX_CLUSTER, _cdiv(K, SMALL_K)))
         kc = _cdiv(_cdiv(K, splits), SMALL_K) * SMALL_K

@@ -30,14 +30,16 @@ INT8_PROBLEMS = [(M, K, N) for M in (1, 3, 8, 16, 17, 100, 300)
                  for K, N in ((64, 64), (300, 300), (1000, 2048), (5461, 512))]
 INT8_PROBLEMS += [(M, K, N) for M in (17, 64, 65, 128, 300, 2048)
                   for K, N in ((5461, 2048), (2048, 2048))]
+# past the small path's K: the tiled path at M <= 16
+INT8_PROBLEMS += [(M, 16448, 512) for M in (1, 8)]
 
 
 @pytest.mark.parametrize("M,K,N", INT8_PROBLEMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_matmul_matches_plain(cuda, M, K, N, dtype):
     """Small-M and tiled paths, ragged K, padded N, K splits: 1e-4 of
-    max|plain| where the kernel takes two passes (M <= 16, or f32 x), else
-    2e-2 (the JAX package's kernel tolerance, one bf16 pass)."""
+    max|plain| where the kernel takes two passes (the small-M path, or f32
+    x), else 2e-2 (the JAX package's kernel tolerance, one bf16 pass)."""
     g = torch.Generator(device=cuda).manual_seed(M * 7 + K)
     qt = quant.quantize_blockwise(torch.randn((K, N), generator=g,
                                               device=cuda), 8,
@@ -50,7 +52,8 @@ def test_int8_matmul_matches_plain(cuda, M, K, N, dtype):
     want = ref.int8_matmul_ref(x, qt.q, qt.scale, 256)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert torch.isfinite(got).all()
-    two_pass = M <= ti8.SMALL_M or dtype == torch.float32
+    two_pass = ti8.plan(M, K, qt.q.shape[1]).path == 0 or \
+        dtype == torch.float32
     assert _rel(got, want) <= (1e-4 if two_pass else 2e-2)
     # padded columns dequantize to zero
     assert (got[:, N:] == 0).all()

@@ -127,6 +127,17 @@ def test_plan_covers_k_and_bounds_partials(M, K, N):
         assert p.m_tile == 128 or pad[64] < pad[128]
 
 
+@pytest.mark.parametrize("M", [1, 16])
+def test_plan_small_m_beyond_its_k_takes_the_tiled_path(M):
+    """The small path stages a split's x * s whole in shared memory, so K
+    past MAX_CLUSTER * SMALL_KC_MAX rows takes the tiled path."""
+    k_max = ti8.MAX_CLUSTER * ti8.SMALL_KC_MAX
+    assert ti8.plan(M, k_max, 2048).path == 0
+    assert ti8.plan(M, k_max, 2048).kc <= ti8.SMALL_KC_MAX
+    p = ti8.plan(M, k_max + 1, 2048)
+    assert p.path == 1 and p.m_tile == 64
+
+
 @pytest.mark.parametrize("M", [17, 33, 48, 63, 64])
 @pytest.mark.parametrize("K,N", LLAMA_1B_KN)
 def test_plan_short_prefill_takes_64_row_tiles(M, K, N):
@@ -164,7 +175,7 @@ def _llama_weight(K, N):
     return q, s
 
 
-K_WARPS = 2   # the small-M kernel's k warps: alternate 16-row steps of a k tile
+K_WARPS = 2   # the small-M kernel's k warps: alternate 16-row steps a tile
 
 
 def _emulate_small(x, q, scale, passes):
