@@ -57,7 +57,11 @@ Phases (any failure exits non-zero):
    old scale: the kernel must hold the same gate there, and the plain
    version run on bf16(dir) (one pass) must fall below 0.99 of equal
    codes (``hi_only_codes_equal``), so the gate can tell a dropped
-   second pass.
+   second pass. The run writes checkpoints (every 3 steps, into a
+   temporary directory); a fresh ``Trainer`` then restores the step-3
+   checkpoint through ``maybe_restore`` and runs steps 4-5, whose losses
+   must equal the first run's within 1e-6 relative (the save and restore
+   seconds are printed).
 6. Flash-attention prefill at full width. (a) The kernel against its
    plain version on the card at llama-1b's heads (H 32, d 64, bf16):
    B in {1, 8}, S in {48, 128, 512, 2048}, causal, plus non-causal at
@@ -93,10 +97,25 @@ Phases (any failure exits non-zero):
    kernel. ``quantize_int8`` of all 169 llama-1b weights must launch
    ``blockwise_quant`` 169 times and equal ``core.quant.
    quantize_blockwise`` bit for bit.
+8. LLaMA-7B pre-training at full width and depth (32 layers, d 4096, 32
+   heads, d_ff 11008, vocab 32000; INT8 weights drawn on the card from
+   ``--seed``, bf16 activations): the ``qgalore`` preset at rank 1024
+   with the randomized subspace method, 8 x 256 tokens a step at
+   ``accum`` 2, 4 steps. Step 0 refreshes all 225 GaLore units; each
+   steady step must launch ``int8_matmul`` 898 times (2 microbatches x
+   (225 forward + 224 recompute)), ``int8_matmul_t`` 450 and
+   ``fused_qgalore_update`` 225, and no plain version. Losses must be
+   finite. Printed: the refresh step's and its subspace seconds, the
+   median steady step and tokens/s, ``max_memory_allocated`` over the
+   steady steps and over the whole phase beside the analytic
+   ``memory_report``, and whether the steady peak is under 16 GiB. Every
+   distinct problem of the three kernels is then held against its plain
+   version as in phase 5 (``int8_matmul`` as in phase 2) and timed.
 
 The last three lines are the kernels JSON (all seven kernels;
 ``int8_matmul``'s and ``int8_matmul_t``'s training step, flash's prefill
-and ``int4_matmul``'s projections with ``factor`` = ms / library_ms),
+and ``int4_matmul``'s projections with ``factor`` = ms / library_ms; the
+three training kernels also carry their LLaMA-7B rows),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository's ``src/``
 beside it, the script exits non-zero and prints no result.
@@ -104,11 +123,15 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
+import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -119,6 +142,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 PEAK_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core rate
 TOL = 2e-2
+RESUME_TOL = 1e-6    # a resumed step's loss against the first run's
 F32_X_TOL = 1e-4     # f32 x: two bf16 passes on the tiled path
 KN = [(2048, 2048), (2048, 5461), (5461, 2048), (2048, 32000)]
 MS = [1, 4, 8, 64, 512, 2048, 4096]
@@ -429,7 +453,8 @@ def phase_serving(seed: int, flash: bool = False):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = bundle.init_params(gen, leaf_fn=quantize_leaf)
+    params = bundle.init_params(gen,
+                                leaf_fn=lambda _, t: quantize_leaf(t))
     torch.cuda.synchronize()
     log(f"  init + INT8 quantization on the card: "
         f"{time.monotonic() - t0:.2f} s, peak "
@@ -677,7 +702,8 @@ def phase_parity(seed: int, flash: bool = False):
     cpu = model_zoo.build(cfg, device="cpu", dtype=torch.float32,
                           flash_attention=flash)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    p_gpu = gpu.init_params(gen, leaf_fn=quantize_leaf)
+    p_gpu = gpu.init_params(
+        gen, leaf_fn=lambda _, t: quantize_leaf(t))
 
     def to_cpu(t):
         if isinstance(t, dict):
@@ -749,6 +775,103 @@ def bound_fused(args):
                                        else "operations")
 
 
+def run_counted(tr, steps: int, names, at_step=None) -> list:
+    """``tr.run(steps)`` with, for each step, its loss, grad norm, host
+    seconds (the trainer's clock around the step, which ends on the
+    metrics' copy to the host, so the device work is done) and the
+    launches of each of ``names`` it made; ``at_step(step)`` runs (after
+    a synchronize) before each step."""
+    from repro_torch.kernels import LAUNCHES
+    snaps = {}
+
+    def hook(step):
+        torch.cuda.synchronize()
+        snaps[step] = Counter(LAUNCHES)
+        if at_step is not None:
+            at_step(step)
+
+    first = tr.start_step
+    tr.fault_hook = hook
+    try:
+        hist = tr.run(steps)
+    finally:
+        tr.fault_hook = None
+    torch.cuda.synchronize()
+    snaps[steps] = Counter(LAUNCHES)
+    rows = []
+    for h in hist:
+        s = h["step"]
+        if s < first:
+            continue
+        row = {"step": s, "loss": h["loss"], "grad_norm": h["grad_norm"],
+               "s": h["dt"], "launches": {n: snaps[s + 1][n] - snaps[s][n]
+                                          for n in names}}
+        rows.append(row)
+        log(f"  step {s}: loss {row['loss']:.4f} grad_norm "
+            f"{row['grad_norm']:.4f} {row['s']:.3f} s launches "
+            f"{row['launches']}")
+    return rows
+
+
+def time_saves(tr) -> list:
+    """Wrap ``tr``'s checkpoint manager so each save (host copy and write)
+    records its step and seconds in the returned list."""
+    saves, save = [], tr.mgr.save
+
+    def timed(step, state, extra_meta=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save(step, state, extra_meta)
+        tr.mgr.wait()
+        saves.append({"step": step, "s": time.perf_counter() - t})
+    tr.mgr.save = timed
+    return saves
+
+
+def check_resume(bundle, tcfg, qcfg, ckpt_root: Path, rows, save_s) -> dict:
+    """A fresh trainer restores the run's periodic checkpoint (moved alone
+    into a directory of its own, so ``maybe_restore`` finds it as the
+    latest) and runs the steps after it: its losses must equal the first
+    run's within ``RESUME_TOL`` relative."""
+    from repro_torch.config import replace
+    from repro_torch.train.trainer import Trainer
+    every = tcfg.checkpoint_every
+    src = ckpt_root / "run" / f"step_{every:08d}"
+    (ckpt_root / "resume").mkdir()
+    os.rename(src, ckpt_root / "resume" / src.name)
+    tr = Trainer(bundle, replace(tcfg, checkpoint_dir=str(
+        ckpt_root / "resume")), qcfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    start = tr.maybe_restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    if start != every + 1:
+        raise AssertionError(f"resume: restored to step {start}, want "
+                             f"{every + 1}")
+    tr.mgr = None
+    hist = tr.run(tcfg.steps)
+    first = {r["step"]: r["loss"] for r in rows}
+    rel = max(abs(h["loss"] - first[h["step"]]) / abs(first[h["step"]])
+              for h in hist)
+    ok = rel <= RESUME_TOL
+    saves = [(x["step"], round(x["s"], 3)) for x in save_s]
+    log(f"  resume: checkpoint saves (step, s) {saves}; restore of step "
+        f"{every} {restore_s:.3f} s; steps "
+        f"{[h['step'] for h in hist]} losses "
+        f"{[round(h['loss'], 6) for h in hist]}; largest relative "
+        f"difference from the first run {rel:.3e} (limit {RESUME_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    del tr
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"resume: losses differ by {rel:.3e} relative")
+    return {"checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+            "resume_steps": [h["step"] for h in hist],
+            "resume_max_rel_diff": rel}
+
+
 def phase_training(seed: int):
     """Q-GaLore pre-training of llama-1b for 6 steps: step 0 refreshes
     every projection by SVD, steps 1-5 are steady steps through the fused
@@ -766,9 +889,12 @@ def phase_training(seed: int):
     cfg = model_zoo.get_config("llama-1b")
     bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
     qcfg = preset("qgalore", QGaLoreConfig(rank=512))
+    ckpt_root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
     tcfg = TrainConfig(seed=seed, global_batch=8, seq_len=256, steps=6,
                        learning_rate=1e-3, warmup_steps=2, grad_clip=1.0,
-                       log_every=0)
+                       log_every=0, checkpoint_dir=str(ckpt_root / "run"),
+                       checkpoint_every=3, async_checkpoint=False)
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -777,6 +903,7 @@ def phase_training(seed: int):
     n_units = sum(s.nbatch for s in tr.specs if s.galore)
     log(f"  init (weights, INT8, random-orthonormal INT4 P for {n_units} "
         f"GaLore units) on the card: {time.monotonic() - t0:.2f} s")
+    save_s = time_saves(tr)
 
     # the first real inputs of every distinct problem each new kernel is
     # launched with, checked after the run (``ops`` calls the wrappers
@@ -810,26 +937,12 @@ def phase_training(seed: int):
 
     ti8.int8_matmul_t, tfu.fused_qgalore_update = rec_t, rec_f
     projector.compute_subspace = timed_svd
-    rows, names = [], ("int8_matmul", "int8_matmul_t",
-                       "fused_qgalore_update", "int8_matmul_ref",
-                       "int8_matmul_t_ref", "fused_qgalore_update_ref",
-                       "deq_matmul", "deq_matmul_t")
+    names = ("int8_matmul", "int8_matmul_t", "fused_qgalore_update",
+             "int8_matmul_ref", "int8_matmul_t_ref",
+             "fused_qgalore_update_ref", "deq_matmul", "deq_matmul_t")
     LAUNCHES.clear()
     try:
-        for s in range(tcfg.steps):
-            before = Counter(LAUNCHES)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            row = tr.run(s + 1)[-1]
-            torch.cuda.synchronize()
-            row = {"step": s, "loss": row["loss"],
-                   "grad_norm": row["grad_norm"],
-                   "s": time.perf_counter() - t,
-                   "launches": {n: LAUNCHES[n] - before[n] for n in names}}
-            rows.append(row)
-            log(f"  step {s}: loss {row['loss']:.4f} grad_norm "
-                f"{row['grad_norm']:.4f} {row['s']:.3f} s launches "
-                f"{row['launches']}")
+        rows = run_counted(tr, tcfg.steps, names)
     finally:
         ti8.int8_matmul_t, tfu.fused_qgalore_update = k_t, k_f
         projector.compute_subspace = svd
@@ -879,9 +992,12 @@ def phase_training(seed: int):
         f"{result['launches_per_steady_step']}")
     if problems:
         raise AssertionError("training: " + "; ".join(problems))
+    tr.mgr = None                     # the profiled step writes no checkpoint
     result.update(profile_train_step(tr))
     del tr
     torch.cuda.empty_cache()
+    result.update(check_resume(bundle, tcfg, qcfg, ckpt_root, rows,
+                               save_s))
     # launches of each problem in one step: int8_matmul_t runs at every
     # step, the fused update at the steady ones
     mult = {"int8_matmul_t": {}, "fused_qgalore_update": {}}
@@ -892,6 +1008,255 @@ def phase_training(seed: int):
             mult["fused_qgalore_update"][key] = n // (tcfg.steps - 1)
     result.update(check_train_kernels(probs_t, probs_f, mult, seed))
     return result
+
+
+SEVEN_B_STEPS = 4        # step 0 refreshes all 225 units; 1-3 are steady
+SEVEN_B_ACCUM = 2
+MEMORY_CLAIM_GIB = 16.0  # the paper's LLaMA-7B budget
+
+
+def phase_training_7b(seed: int) -> dict:
+    """Q-GaLore pre-training of LLaMA-7B at full width and depth: rank
+    1024 with the randomized subspace method, 8 x 256 tokens a step at
+    ``accum`` 2. Losses, the refresh step and its subspace seconds, the
+    steady steps, launches per step, both memory peaks beside the
+    analytic ``memory_report``; then every distinct problem of the three
+    training kernels against its plain version."""
+    from repro_torch.config import QGaLoreConfig, TrainConfig
+    from repro_torch.core import projector, qgalore
+    from repro_torch.core.optimizers import preset
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import fused_update as tfu
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.models import model_zoo
+    from repro_torch.train.trainer import Trainer
+    log("== phase 8: LLaMA-7B Q-GaLore pre-training (32 layers, rank 1024, "
+        f"randomized subspace, 8 x 256 tokens at accum {SEVEN_B_ACCUM})")
+    cfg = model_zoo.get_config("llama-7b")
+    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
+    qcfg = preset("qgalore", QGaLoreConfig(rank=1024,
+                                           subspace_method="randomized"))
+    tcfg = TrainConfig(seed=seed, global_batch=8, seq_len=256,
+                       steps=SEVEN_B_STEPS, learning_rate=1e-3,
+                       warmup_steps=2, grad_clip=1.0, log_every=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"  device memory held before the phase: {before:.2f} GiB")
+    t0 = time.monotonic()
+    tr = Trainer(bundle, tcfg, qcfg, accum=SEVEN_B_ACCUM)
+    torch.cuda.synchronize()
+    n_units = sum(s.nbatch for s in tr.specs if s.galore)
+    init_s = time.monotonic() - t0
+    report = qgalore.memory_report(tr.state.params, tr.rules, specs=tr.specs)
+    log(f"  init on the card: {init_s:.2f} s; {n_units} GaLore units; "
+        f"memory_report (GiB): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in report.items()))
+
+    # the first inputs of each distinct problem, copied to the host so
+    # that neither the copies nor the weights they were views of count in
+    # the run's device memory
+    probs_i, probs_t, probs_f, calls, sub_s = {}, {}, {}, Counter(), []
+    k_i, k_t, k_f, sub = ti8.int8_matmul, ti8.int8_matmul_t, \
+        tfu.fused_qgalore_update, projector.compute_subspace
+    host = lambda ts: [t.to("cpu", copy=True) for t in ts]
+
+    def rec_i(x, q, scale, block=256):
+        key = (x.shape[0], q.shape[0], q.shape[1], x.dtype)
+        calls["i", key] += 1
+        if key not in probs_i:
+            probs_i[key] = host((x, q, scale))
+        return k_i(x, q, scale, block)
+
+    def rec_t(g, q, scale, block=256):
+        key = (g.shape[0], q.shape[0], q.shape[1], g.dtype)
+        calls["t", key] += 1
+        if key not in probs_t:
+            probs_t[key] = host((g, q, scale))
+        return k_t(g, q, scale, block)
+
+    def rec_f(*args, **kw):
+        q = args[6]
+        key = (q.shape[0], q.shape[1], args[3].shape[-1] * 2, kw["side"])
+        calls["f", key] += 1
+        if key not in probs_f:
+            probs_f[key] = (host(args[:9]), args[9:], kw)
+        return k_f(*args, **kw)
+
+    def timed_sub(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = sub(*a, **k)
+        torch.cuda.synchronize()
+        sub_s.append(time.perf_counter() - t)
+        return out
+
+    peaks, held = {}, {}
+
+    def at_step(step):
+        # each step's peak (the one before it ends here); the steady peak
+        # is the largest of steps 1 on
+        peaks[step - 1] = torch.cuda.max_memory_allocated() / 2 ** 30
+        held[step] = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+
+    names = ("int8_matmul", "int8_matmul_t", "fused_qgalore_update",
+             "int8_matmul_ref", "int8_matmul_t_ref",
+             "fused_qgalore_update_ref", "deq_matmul", "deq_matmul_t")
+    ti8.int8_matmul, ti8.int8_matmul_t = rec_i, rec_t
+    tfu.fused_qgalore_update, projector.compute_subspace = rec_f, timed_sub
+    LAUNCHES.clear()
+    try:
+        rows = run_counted(tr, tcfg.steps, names, at_step)
+    finally:
+        ti8.int8_matmul, ti8.int8_matmul_t = k_i, k_t
+        tfu.fused_qgalore_update, projector.compute_subspace = k_f, sub
+    counts = dict(LAUNCHES)
+    peaks[tcfg.steps - 1] = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady_peak = max(peaks[s] for s in range(1, tcfg.steps))
+    phase_peak = max(peaks.values())    # peaks[-1]: the init
+    micro = 7 * cfg.num_layers + 1         # dense calls a forward
+    want_steady = {"int8_matmul": SEVEN_B_ACCUM * (2 * micro - 1),
+                   "int8_matmul_t": SEVEN_B_ACCUM * micro,
+                   "fused_qgalore_update": micro}
+    problems = []
+    for r in rows:
+        want = dict(want_steady, **({"fused_qgalore_update": 0}
+                                    if r["step"] == 0 else {}))
+        got = {n: r["launches"][n] for n in want}
+        if got != want:
+            problems.append(f"step {r['step']} launches {got} != {want}")
+        plain = {n: c for n, c in r["launches"].items()
+                 if n not in want and c}
+        if plain:
+            problems.append(f"step {r['step']} ran plain versions {plain}")
+        if not np.isfinite(r["loss"]):
+            problems.append(f"step {r['step']} loss {r['loss']}")
+    ln_v = float(np.log(cfg.vocab_size))
+    if not 0.8 * ln_v <= rows[0]["loss"] <= 1.25 * ln_v:
+        problems.append(f"first loss {rows[0]['loss']:.3f} far from "
+                        f"ln(vocab) = {ln_v:.3f}")
+    if tr.controller.total_svd_count() != n_units:
+        problems.append(f"{tr.controller.total_svd_count()} subspaces at "
+                        f"the refresh, want {n_units}")
+    steady = [r["s"] for r in rows[1:]]
+    tokens = tcfg.global_batch * tcfg.seq_len
+    under = steady_peak < MEMORY_CLAIM_GIB
+    result = {
+        "steps": tcfg.steps, "accum": SEVEN_B_ACCUM, "rank": qcfg.rank,
+        "subspace_method": qcfg.subspace_method, "units": n_units,
+        "init_s": init_s, "losses": [r["loss"] for r in rows],
+        "refresh_step_s": rows[0]["s"], "refresh_subspace_s": sum(sub_s),
+        "subspace_calls": len(sub_s),
+        "median_steady_step_ms": statistics.median(steady) * 1e3,
+        "tokens_per_s": tokens / statistics.median(steady),
+        "steady_peak_gib": steady_peak, "phase_peak_gib": phase_peak,
+        "peak_gib_by_step": {str(k): v for k, v in sorted(peaks.items())},
+        "held_before_phase_gib": before,
+        "memory_report_gib": report,
+        "steady_peak_under_16_gib": under, "launches": counts,
+        "launches_per_steady_step": rows[-1]["launches"]}
+    log(f"  losses {[round(x, 4) for x in result['losses']]}")
+    log(f"  refresh step {result['refresh_step_s']:.2f} s, of it subspace "
+        f"{result['refresh_subspace_s']:.2f} s ({len(sub_s)} batched "
+        f"calls, {n_units} units); median steady step "
+        f"{result['median_steady_step_ms']:.1f} ms -> "
+        f"{result['tokens_per_s']:.1f} tokens/s")
+    log(f"  measured launches per steady step: "
+        f"{result['launches_per_steady_step']} (want {want_steady})")
+    log(f"  max_memory_allocated by step (GiB; -1: the init): "
+        + ", ".join(f"{s}: {v:.2f}" for s, v in sorted(peaks.items()))
+        + "; allocated as each step starts: "
+        + ", ".join(f"{s}: {v:.2f}" for s, v in sorted(held.items())))
+    log(f"  max_memory_allocated: steady steps {steady_peak:.2f} GiB, whole "
+        f"phase (init and the refresh step too) {phase_peak:.2f} GiB; "
+        f"memory_report total {report['total_gb']:.2f} GiB (weights "
+        f"{report['weights_gb']:.2f}, optimizer {report['optimizer_gb']:.2f}"
+        f", of it projection {report['projection_gb']:.3f})")
+    log(f"  the steady-step peak of {steady_peak:.2f} GiB is "
+        + ("under" if under else "NOT under")
+        + f" {MEMORY_CLAIM_GIB:g} GiB")
+    if problems:
+        raise AssertionError("training 7b: " + "; ".join(problems))
+    del tr
+    torch.cuda.empty_cache()
+    mult = {"int8_matmul": {}, "int8_matmul_t": {},
+            "fused_qgalore_update": {}}
+    for (kind, key), n in calls.items():
+        if kind == "i":
+            mult["int8_matmul"][key[:3]] = n // tcfg.steps
+        elif kind == "t":
+            mult["int8_matmul_t"][key[:3]] = n // tcfg.steps
+        else:
+            mult["fused_qgalore_update"][key] = n // (tcfg.steps - 1)
+    card = lambda ts: [t.cuda() for t in ts]
+    result["int8_matmul"] = check_i8_problems(
+        {k: card(v) for k, v in probs_i.items()}, mult["int8_matmul"])
+    result.update(check_train_kernels(
+        {k: card(v) for k, v in probs_t.items()},
+        {k: (card(a), rest, kw) for k, (a, rest, kw) in probs_f.items()},
+        mult, seed))
+    return result
+
+
+def check_i8_problems(probs, mult: dict) -> dict:
+    """``int8_matmul`` against its plain version at every distinct problem
+    of a training run, on the run's own inputs (``i8_tol``), timed beside
+    the plain version, cuBLAS bf16 on the weight dequantized beforehand,
+    and the bound; with the sums over one step's calls (``mult``)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.kernels import ref
+    dev = next(iter(probs.values()))[0].device
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows, failed = [], []
+    for (M, K, N, dt), (x, q, scale) in sorted(probs.items(),
+                                               key=lambda kv: kv[0][:3]):
+        qt = quant.QTensor(q, scale, None, 8, 256, N, "float32")
+        abs_err, rel = check_against_plain(x, qt)
+        w_lib = quant.dequantize(qt, torch.bfloat16)
+        x_lib = x.to(torch.bfloat16)
+        row = {"M": M, "K": K, "N": N,
+               "x": str(dt).replace("torch.", ""),
+               "design": i8_design(M, K, N, dt),
+               "ms": time_ms(lambda: ti8.int8_matmul(x, q, scale), flush),
+               "plain_ms": time_ms(
+                   lambda: ref.int8_matmul_ref(x, q, scale, 256), flush),
+               "library_ms": time_ms(lambda: torch.matmul(x_lib, w_lib),
+                                     flush),
+               "max_abs_err": abs_err, "rel_err": rel,
+               "tol": i8_tol(M, K, N, dt),
+               "launches_per_step": mult[(M, K, N)]}
+        row["bound_ms"], row["bound_by"] = bound(M, K, N, x.element_size())
+        row["tflops"] = 2 * M * K * N / row["ms"] / 1e9
+        row["factor"] = row["ms"] / row["library_ms"]
+        rows.append(row)
+        ok = rel <= row["tol"]
+        if not ok:
+            failed.append(row)
+        log(f"  int8_matmul M={M} K={K} N={N} x={row['x']} "
+            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"tflops={row['tflops']:.1f} [{row['design']}] "
+            f"factor={row['factor']:.2f} rel_err={rel:.2e} "
+            f"{'ok' if ok else 'FAIL'}")
+        del w_lib, x_lib
+    if failed:
+        raise AssertionError(f"int8_matmul disagrees with its plain version "
+                             f"at 7B problems: {failed}")
+    sums = {f: sum(r[f] * r["launches_per_step"] for r in rows)
+            for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    sums["launches_per_step"] = sum(r["launches_per_step"] for r in rows)
+    sums["tflops"] = sum(2 * r["M"] * r["K"] * r["N"]
+                         * r["launches_per_step"] for r in rows) \
+        / sums["ms"] / 1e9
+    sums["factor"] = sums["ms"] / sums["library_ms"]
+    log("  one training step's int8_matmul calls: " + " ".join(
+        f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in sums.items()))
+    return {"per_shape": rows, "step_sums": sums}
 
 
 def profile_train_step(tr) -> dict:
@@ -1564,6 +1929,7 @@ def main() -> int:
     flash_serving = phase_serving(args.seed, flash=True)
     flash_parity = phase_parity(args.seed, flash=True)
     unfused = phase_unfused(args.seed)
+    training_7b = phase_training_7b(args.seed)
     log(f"  serving, route off / flash route: tokens/s "
         f"{serving['tokens_per_s']:.1f} / {flash_serving['tokens_per_s']:.1f}"
         f", mean TTFT {serving['mean_ttft_s']:.3f} / "
@@ -1578,7 +1944,8 @@ def main() -> int:
     log(f"== all phases passed in {time.monotonic() - t0:.1f} s")
     print(json.dumps(kernels_json(rows, step, step_by, max_abs, max_rel,
                                   serving, parity, training, flash_rows,
-                                  flash_serving, flash_parity, unfused)))
+                                  flash_serving, flash_parity, unfused,
+                                  training_7b)))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1588,9 +1955,11 @@ def main() -> int:
 
 def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                  training, flash_rows, flash_serving, flash_parity,
-                 unfused) -> dict:
+                 unfused, training_7b) -> dict:
     """The ``kernels`` line: every kernel with its launches on the main
-    paths, errors against its plain version, and times beside its bound."""
+    paths, errors against its plain version, and times beside its bound;
+    the three training kernels also carry their LLaMA-7B rows
+    (``llama_7b``: per-shape rows and one steady step's sums)."""
     layers = num_layers()
     flash_pick, flash_f32 = (
         next(r for r in flash_rows if (r["B"], r["S"], r["dv"], r["causal"],
@@ -1615,6 +1984,10 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     tl = training["launches"]
     tk = training["train_kernels"]
     sums = training["train_kernel_step_sums"]
+    l7 = training_7b["launches"]
+    tk7 = training_7b["train_kernels"]
+    sums7 = training_7b["train_kernel_step_sums"]
+    i8_7b = training_7b["int8_matmul"]
 
     def by(rs):
         return "bytes" if all(r["bound_by"] == "bytes" for r in rs) \
@@ -1625,11 +1998,19 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/int8_matmul.py:85",
         "launches": serving["launches"].get("int8_matmul", 0)
-        + tl.get("int8_matmul", 0),
+        + tl.get("int8_matmul", 0) + l7.get("int8_matmul", 0),
         "launches_by_path": {"serving": serving["launches"].get(
-            "int8_matmul", 0), "training": tl.get("int8_matmul", 0)},
-        "max_abs_err": max(max_abs, serving["check_max_abs_err"]),
+            "int8_matmul", 0), "training": tl.get("int8_matmul", 0),
+            "training_7b": l7.get("int8_matmul", 0)},
+        "max_abs_err": max([max_abs, serving["check_max_abs_err"]]
+                           + [r["max_abs_err"]
+                              for r in i8_7b["per_shape"]]),
         "max_rel_err": max(max_rel, serving["check_max_rel_err"]),
+        "max_rel_err_7b": max(r["rel_err"] for r in i8_7b["per_shape"]),
+        "llama_7b": dict(i8_7b, timed_as=(
+            "the int8_matmul calls of one LLaMA-7B steady step at M = 1024 "
+            "(4 x 256 a microbatch, accum 2), bf16 x, sum of per-shape "
+            "medians x launches")),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step_by,
         "library_ms": step["library_ms"],
@@ -1663,10 +2044,19 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "name": "int8_matmul_t", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul_t.cu",
         "replaces": "src/repro/kernels/int8_matmul.py:141",
-        "launches": tl.get("int8_matmul_t", 0),
-        "launches_by_path": {"training": tl.get("int8_matmul_t", 0)},
-        "max_abs_err": max(r["max_abs_err"] for r in tk["int8_matmul_t"]),
-        "max_rel_err": max(r["rel_err"] for r in tk["int8_matmul_t"]),
+        "launches": tl.get("int8_matmul_t", 0)
+        + l7.get("int8_matmul_t", 0),
+        "launches_by_path": {"training": tl.get("int8_matmul_t", 0),
+                             "training_7b": l7.get("int8_matmul_t", 0)},
+        "max_abs_err": max(r["max_abs_err"] for r in tk["int8_matmul_t"]
+                           + tk7["int8_matmul_t"]),
+        "max_rel_err": max(r["rel_err"] for r in tk["int8_matmul_t"]
+                           + tk7["int8_matmul_t"]),
+        "llama_7b": {"step_sums": sums7["int8_matmul_t"],
+                     "per_shape": tk7["int8_matmul_t"],
+                     "timed_as": "the dL/dx calls of one LLaMA-7B step at "
+                                 "M = 1024, bf16 g, sum of per-shape "
+                                 "medians x launches"},
         **sums["int8_matmul_t"], "bound_by": by(tk["int8_matmul_t"]),
         "design": {"bf16 g": mma_design(torch.bfloat16),
                    "f32 g": mma_design(torch.float32)},
@@ -1679,11 +2069,20 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "name": "fused_qgalore_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_update.cu",
         "replaces": "src/repro/kernels/fused_update.py:234",
-        "launches": tl.get("fused_qgalore_update", 0),
-        "launches_by_path": {"training": tl.get("fused_qgalore_update", 0)},
+        "launches": tl.get("fused_qgalore_update", 0)
+        + l7.get("fused_qgalore_update", 0),
+        "launches_by_path": {"training": tl.get("fused_qgalore_update", 0),
+                             "training_7b": l7.get("fused_qgalore_update",
+                                                   0)},
         "max_abs_err": max(r["max_abs_err"]
                            for r in tk["fused_qgalore_update"]
+                           + tk7["fused_qgalore_update"]
                            if r["on_path"]),
+        "llama_7b": {"step_sums": sums7["fused_qgalore_update"],
+                     "per_shape": tk7["fused_qgalore_update"],
+                     "timed_as": "the updates of one LLaMA-7B steady step, "
+                                 "rank 1024, sum of per-shape medians x "
+                                 "launches"},
         **sums["fused_qgalore_update"],
         "bound_by": by([r for r in tk["fused_qgalore_update"]
                         if r["on_path"]]),
@@ -1788,7 +2187,11 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
             "svd_units", "median_steady_step_ms", "tokens_per_s",
             "peak_gib", "launches_per_steady_step", "profile_step_wall_ms",
             "profile_step_device_ms", "device_idle_share", "profile_error",
-            "profile_top") if k in training}}
+            "profile_top", "checkpoint_save_s", "checkpoint_restore_s",
+            "resume_steps", "resume_max_rel_diff") if k in training},
+        "training_7b": {k: v for k, v in training_7b.items()
+                        if k not in ("int8_matmul", "train_kernels",
+                                     "train_kernel_step_sums")}}
     return kernels
 
 

@@ -2,8 +2,8 @@
 
 A copy of the model, Q-GaLore, training and shape-cell dataclasses of
 ``repro/config.py`` (the port imports nothing from ``repro``), without
-the fields of what is not ported (rank adaptation's knobs, distributed
-training, remat, LoRA, checkpoint cadence). Every
+the fields of what is not ported (distributed training, remat, LoRA, the
+JAX package's execution switches). Every
 ported architecture provides a module in ``repro_torch.configs`` exposing
 ``CONFIG`` (full size) and ``smoke_config()`` (reduced, CPU-runnable).
 """
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -140,10 +140,22 @@ class QGaLoreConfig:
     beta2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 0.0
-    # dynamic rank adaptation is not ported: True raises
+    # dynamic rank adaptation (AdaRankGrad-style): shrink a leaf's rank
+    # once the explained-variance ratio at the next-smaller rank stays at
+    # or above the threshold for `rank_patience` consecutive refreshes
     adaptive_rank: bool = False
-    # subspace method: "svd" (paper-faithful); "randomized" is not ported
+    # descending rank rungs, e.g. (128, 64, 32); empty = halve the current
+    # rank per transition. `min_rank` floors the ladder either way.
+    rank_ladder: Tuple[int, ...] = ()
+    explained_ratio_threshold: float = 0.95
+    rank_patience: int = 2
+    min_rank: int = 8
+    # ratios in [threshold - band, threshold) neither advance nor reset the
+    # shrink streak; 0.0 = no dead band
+    rank_hysteresis: float = 0.0
+    # subspace method: "svd" (paper-faithful) | "randomized" (range finder)
     subspace_method: str = "svd"
+    subspace_iters: int = 2         # power iterations for randomized method
     # which params get low-rank treatment
     min_dim: int = 128              # both dims must be >= this
     galore_embeddings: bool = False
@@ -160,8 +172,11 @@ class TrainConfig:
     lr_schedule: str = "cosine"     # cosine | linear | constant
     min_lr_ratio: float = 0.1
     grad_clip: float = 1.0
-    # checkpoints are not ported: a checkpoint_dir raises
+    # checkpointing
     checkpoint_dir: str = ""
+    checkpoint_every: int = 0       # 0 = off
+    keep_checkpoints: int = 3
+    async_checkpoint: bool = True
     log_every: int = 10
 
 

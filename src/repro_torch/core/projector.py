@@ -8,9 +8,18 @@ For a gradient ``G (m, n)`` GaLore projects into a rank-``r`` subspace:
 * ``m < n``  → "left":  ``P = U_r (m, r)``; low-rank ``P^T @ G`` is
   ``(r, n)``; back-projection ``P @ L``.
 
-The subspace comes from an exact SVD (``torch.linalg.svd``, a library call
-as in the JAX package, which leaves it to XLA). Singular vectors keep the
-solver's column signs; nothing canonicalises them.
+Two subspace methods, both library calls as in the JAX package (which
+leaves them to XLA):
+
+* ``svd``: an exact ``torch.linalg.svd``.
+* ``randomized``: the Halko-style range finder with ``iters`` power
+  iterations against a Gaussian ``omega (k, p)``, ``p = r + 8``: matmuls,
+  QR, and one SVD of a small ``(p, k)`` matrix. ``omega`` is an input
+  (the reference draws it from ``jax.random``, which torch cannot
+  reproduce), as the stochastic rounding's uniforms are.
+
+Singular vectors keep the solvers' column signs; nothing canonicalises
+them.
 """
 from __future__ import annotations
 
@@ -53,16 +62,59 @@ def random_orthonormal(gen: torch.Generator, d: int, r: int, batch: int = 0,
     return q if batch else q[0]
 
 
+OVERSAMPLE = 8       # the range finder's extra columns
+
+
+def omega_shape(shape: Tuple[int, ...], rank: int,
+                side: Optional[str] = None) -> Tuple[int, int]:
+    """``(k, p)`` of the Gaussian test matrix the randomized method takes
+    for a gradient of ``shape``: ``k`` is the contracted dimension of the
+    range ``A`` (``G`` left, ``G^T`` right), ``p = min(r + 8, k)``."""
+    side = side or galore_side(shape)
+    m, n = shape[-2], shape[-1]
+    k = n if side == "left" else m
+    rank = min(rank, min(m, n))
+    return k, min(rank + OVERSAMPLE, k)
+
+
+def _topr_randomized(G: torch.Tensor, rank: int, side: str,
+                     omega: torch.Tensor, iters: int = 2) -> torch.Tensor:
+    """Randomized range finder for the top-r left/right singular subspace
+    (the reference's ``_topr_randomized``, batched over leading dims)."""
+    A = G if side == "left" else G.transpose(-1, -2)     # range(A): (d, k)
+    Y = torch.matmul(A, omega)                            # (d, p)
+    for _ in range(iters):
+        Y = torch.linalg.qr(Y)[0]
+        Y = torch.matmul(A, torch.matmul(A.transpose(-1, -2), Y))
+    Q = torch.linalg.qr(Y)[0]                             # (d, p)
+    # Rayleigh-Ritz: order the directions by singular value
+    B = torch.matmul(Q.transpose(-1, -2), A)              # (p, k)
+    Ub = torch.linalg.svd(B, full_matrices=False)[0]
+    return torch.matmul(Q, Ub)[..., :rank]                # (d, r)
+
+
 def compute_subspace(G: torch.Tensor, rank: int, side: Optional[str] = None,
-                     method: str = "svd") -> torch.Tensor:
+                     method: str = "svd", omega: Optional[torch.Tensor] = None,
+                     iters: int = 2) -> torch.Tensor:
     """Top-r subspace of ``G (..., m, n)`` → P ``(..., d, r)``; leading
-    dims are a batch of independent problems."""
-    if method != "svd":
-        raise NotImplementedError(
-            f"subspace_method={method!r} is not ported; only 'svd' is")
+    dims are a batch of independent problems. ``method="randomized"``
+    needs ``omega (..., k, p)`` (:func:`omega_shape`), one per problem."""
     side = side or galore_side(G.shape)
     rank = min(rank, min(G.shape[-2], G.shape[-1]))
-    U, _, Vh = torch.linalg.svd(G.to(torch.float32), full_matrices=False)
+    Gf = G.to(torch.float32)
+    if method == "randomized":
+        want = omega_shape(G.shape, rank, side)
+        if omega is None or tuple(omega.shape[-2:]) != want:
+            raise ValueError(
+                f"the randomized method needs omega of shape (..., "
+                f"{want[0]}, {want[1]}), got "
+                f"{None if omega is None else tuple(omega.shape)}")
+        return _topr_randomized(Gf, rank, side, omega.to(torch.float32),
+                                iters)
+    if method != "svd":
+        raise ValueError(f"unknown subspace method {method!r}; "
+                         "'svd' or 'randomized'")
+    U, _, Vh = torch.linalg.svd(Gf, full_matrices=False)
     if side == "right":
         return Vh[..., :rank, :].transpose(-1, -2)
     return U[..., :rank]
@@ -89,6 +141,21 @@ def subspace_similarity(P_old: torch.Tensor, P_new: torch.Tensor
     M = torch.matmul(P_old.to(torch.float32).transpose(-1, -2),
                      P_new.to(torch.float32))
     return (M * M).sum(dim=(-2, -1)) / P_new.shape[-1]
+
+
+def explained_ratio(G: torch.Tensor, P: torch.Tensor, side: str
+                    ) -> torch.Tensor:
+    """Cumulative explained-variance profile of ``G`` under ``P``, shape
+    ``(..., r)``: entry ``k`` is the energy of ``G`` in the first ``k + 1``
+    columns of ``P`` over ``||G||_F^2`` (the rank-adaptation signal; for
+    singular-value-ordered columns, the top-(k+1) share)."""
+    Gf = G.to(torch.float32)
+    low = project(Gf, P.to(torch.float32), side)
+    axis = -2 if side == "right" else -1
+    energies = (low * low).sum(dim=axis)                  # (..., r)
+    total = (Gf * Gf).sum(dim=(-2, -1))
+    return torch.cumsum(energies, dim=-1) \
+        / torch.clamp_min(total, 1e-30)[..., None]
 
 
 def quantize_projection(P: torch.Tensor, bits: int, block: int) -> QTensor:

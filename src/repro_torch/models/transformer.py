@@ -18,10 +18,10 @@ from repro_torch.models.layers import dense, dense_init, embed_init, \
 Q_CHUNK = 1024      # query rows per attention score block (the JAX default)
 
 
-def _map_leaves(tree, fn):
+def _map_leaves(tree, fn, keys: tuple):
     if isinstance(tree, dict):
-        return {k: _map_leaves(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map_leaves(v, fn, keys + (k,)) for k, v in tree.items()}
+    return fn(keys, tree)
 
 
 def block_apply(lp, carry, ctx, cfg: ModelConfig, *, dtype,
@@ -92,31 +92,36 @@ def build(cfg: ModelConfig, *, device: torch.device,
         """Float32 parameters drawn from ``gen`` (the JAX package's
         distributions; its numbers cannot be reproduced).
 
-        ``leaf_fn`` (e.g. ``serve.params.quantize_leaf``) maps each leaf as
-        soon as its group is drawn, so the whole float tree never exists at
-        once on the device."""
+        ``leaf_fn(keys, leaf)`` (``keys``: the leaf's path in the tree)
+        maps each leaf as soon as its group is drawn, so the whole float
+        tree never exists at once on the device."""
         dev = device if device_ is None else device_
 
-        def fin(tree):
-            return tree if leaf_fn is None else _map_leaves(tree, leaf_fn)
+        def fin(tree, *keys):
+            return tree if leaf_fn is None else \
+                _map_leaves(tree, leaf_fn, keys)
 
         blocks = {
             "attn_norm": fin(rmsnorm_init(cfg.d_model, num=cfg.num_layers,
-                                          device=dev)),
+                                          device=dev),
+                             "seg0_dense", "attn_norm"),
             "attn": fin(attention.gqa_init(gen, cfg, num=cfg.num_layers,
-                                           device=dev)),
+                                           device=dev), "seg0_dense", "attn"),
             "ffn_norm": fin(rmsnorm_init(cfg.d_model, num=cfg.num_layers,
-                                         device=dev)),
+                                         device=dev),
+                            "seg0_dense", "ffn_norm"),
             "ffn": fin(ffn_init(gen, cfg.d_model, cfg.d_ff,
-                                num=cfg.num_layers, device=dev)),
+                                num=cfg.num_layers, device=dev),
+                       "seg0_dense", "ffn"),
         }
         return {
             "embedding": fin(embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                        device=dev)),
-            "final_norm": fin(rmsnorm_init(cfg.d_model, device=dev)),
+                                        device=dev), "embedding"),
+            "final_norm": fin(rmsnorm_init(cfg.d_model, device=dev),
+                              "final_norm"),
             "head": fin(dense_init(gen, cfg.d_model, cfg.vocab_size,
                                    scale=1.0 / math.sqrt(cfg.d_model),
-                                   device=dev)),
+                                   device=dev), "head"),
             "seg0_dense": blocks,
         }
 

@@ -70,7 +70,8 @@ def from_jax_state(state, device=None):
 
     ``state`` is a dict of numpy trees: ``params`` (as for
     :func:`from_jax_params`), ``inner`` (a tree like ``params`` whose leaves
-    are ``(m, v)`` pairs, each a QTensor tuple or a float array), ``proj``
+    are ``(m, v)`` pairs, each a QTensor tuple or a float array, or None for
+a frozen leaf), ``proj``
     (QTensor tuples, float arrays or None per leaf) and ``count``."""
     # train.step imports this module (quantize_leaf)
     from repro_torch.train.step import TrainState
@@ -83,8 +84,8 @@ def from_jax_state(state, device=None):
             return quant.from_numpy(t, dev)
         return torch.from_numpy(np.array(t)).to(dev)
 
-    inner = [Adam8bitState(one(m), one(v))
-             for _, (m, v) in flatten(state["inner"])]
+    inner = [None if mv is None else Adam8bitState(one(mv[0]), one(mv[1]))
+             for _, mv in flatten(state["inner"])]
     proj = [one(p) for _, p in flatten(state["proj"])]
     return TrainState(from_jax_params(state["params"], dev),
                       QGaLoreState(inner, proj, int(state["count"])))

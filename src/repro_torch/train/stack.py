@@ -53,13 +53,16 @@ def _leaves(tree) -> list:
 
 def _like(tree, flat: list):
     """A tree shaped like ``tree`` holding ``flat`` (sorted-key order)."""
-    it = iter(flat)
+    return _fill(tree, iter(flat))
 
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        return next(it)
-    return walk(tree)
+
+def _fill(tree, it):
+    # module-level recursion: a nested self-referencing function would form
+    # a reference cycle that keeps ``it``, and the gradients it iterates,
+    # on the device until the garbage collector runs
+    if isinstance(tree, dict):
+        return {k: _fill(tree[k], it) for k in sorted(tree)}
+    return next(it)
 
 
 def project_leaf(g: torch.Tensor, P, side: Optional[str] = None):
@@ -80,7 +83,7 @@ def _grads(out, inputs: List[torch.Tensor], grad_out):
 
 
 def fused_value_and_grad(bundle: ModelBundle, params, batch,
-                         proj_trees: Dict[str, Any]):
+                         proj_trees: Dict[str, Any], acc=None):
     """Loss and gradients with the per-layer recompute backward.
 
     ``proj_trees``: ``{params key: tree like params[key] with P or None per
@@ -88,7 +91,11 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
     full-rank gradients everywhere (refresh steps).
 
     Returns ``((loss, metrics), grads)``: ``grads`` is a tree like
-    ``params``, float32 w.r.t. the virtual (dequantized) weights.
+    ``params``, float32 w.r.t. the virtual (dequantized) weights. Each
+    stacked leaf's gradient is written layer by layer into one tensor. With
+    ``acc`` (a gradient tree of an earlier microbatch) the gradients are
+    added into it in place, layer by layer, and ``acc`` is returned: a
+    second full tree never exists.
     """
     seg_keys = [bundle.seg_key(i) for i in range(len(bundle.segments))]
     nonseg_v = _virt({k: v for k, v in params.items() if k not in seg_keys})
@@ -120,23 +127,33 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
         seg = bundle.segments[i]
         stack = params[seg_keys[i]]
         P_tree = proj_trees.get(seg_keys[i])
-        per_layer: List[list] = [None] * seg.n_layers
+        out = None if acc is None else _leaves(acc[seg_keys[i]])
+        fresh = acc is None
         for layer in reversed(range(seg.n_layers)):
             lp_v = _virt(layer_params(stack, layer))
             leaves = _diff(lp_v)
             c_in = {k: v.detach().requires_grad_(True)
                     for k, v in saved[i][layer].items()}
             with torch.enable_grad():
-                out = seg.apply(lp_v, c_in, ctx)
-                got = _grads(out["h"], [c_in["h"]] + leaves, g_h)
+                res = seg.apply(lp_v, c_in, ctx)
+                got = _grads(res["h"], [c_in["h"]] + leaves, g_h)
             g_h = got[0]
+            del res
             Ps = (_leaves(layer_params(P_tree, layer))
                   if P_tree is not None else [None] * len(leaves))
-            per_layer[layer] = [project_leaf(g, P)
-                                for g, P in zip(got[1:], Ps)]
-            del out, got, lp_v, leaves, c_in
-        g_segs[seg_keys[i]] = _like(
-            stack, [torch.stack(gs) for gs in zip(*per_layer)])
+            gl = [project_leaf(g, P) for g, P in zip(got[1:], Ps)]
+            del got, lp_v, leaves, c_in
+            if out is None:
+                out = [torch.empty((seg.n_layers,) + tuple(g.shape),
+                                   dtype=g.dtype, device=g.device)
+                       for g in gl]
+            for o, g in zip(out, gl):
+                if fresh:
+                    o[layer].copy_(g)
+                else:
+                    o[layer].add_(g)
+            del gl
+        g_segs[seg_keys[i]] = _like(stack, out)
         saved[i] = None
 
     with torch.enable_grad():
@@ -146,6 +163,11 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
     for k, P_sub in proj_trees.items():
         if k in g_nonseg and P_sub is not None:
             g_nonseg[k] = project_leaf(g_nonseg[k], P_sub)
+    if acc is not None:
+        for k in g_nonseg:
+            for a, g in zip(_leaves(acc[k]), _leaves(g_nonseg[k])):
+                a.add_(g)
+            g_nonseg[k] = acc[k]
     grads = {**g_nonseg, **g_segs}
     return (loss.detach(), {k: v.detach() if torch.is_tensor(v) else v
                             for k, v in metrics.items()}), \

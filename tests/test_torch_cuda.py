@@ -301,6 +301,68 @@ def test_training_steps_go_through_the_kernels(cuda):
     assert n_cpu.get("int8_matmul", 0) == 0
 
 
+def _smoke_trainer(dev, path, steps, accum=1, **qkw):
+    from repro_torch.config import QGaLoreConfig, TrainConfig
+    from repro_torch.core.optimizers import preset
+    from repro_torch.models import model_zoo
+    from repro_torch.train.trainer import Trainer
+    qcfg = preset("qgalore", QGaLoreConfig(rank=8, min_dim=32,
+                                           update_interval=4, adaptive_k=1,
+                                           cos_threshold=0.3, **qkw))
+    tcfg = TrainConfig(seed=0, global_batch=4, seq_len=32, steps=steps,
+                       learning_rate=1e-2, warmup_steps=2, log_every=0,
+                       checkpoint_dir=str(path) if path else "",
+                       checkpoint_every=5, async_checkpoint=False)
+    bundle = model_zoo.build_arch("llama-60m", smoke=True, device=dev,
+                                  dtype=torch.float32)
+    return Trainer(bundle, tcfg, qcfg, accum=accum)
+
+
+def test_randomized_subspace_on_the_card(cuda):
+    """The range finder on the card against the CPU on the same gradients
+    and test matrices: the same subspace (``P P^T`` within 1e-4)."""
+    gen = torch.Generator().manual_seed(0)
+    for shape, r in (((4, 256, 96), 16), ((2, 96, 320), 8)):
+        G = torch.randn(shape, generator=gen)
+        side = projector.galore_side(shape)
+        om = torch.randn((shape[0],) + projector.omega_shape(shape, r, side),
+                         generator=gen)
+        P_cpu = projector.compute_subspace(G, r, side, "randomized", om)
+        P_gpu = projector.compute_subspace(G.to(cuda), r, side, "randomized",
+                                           om.to(cuda)).cpu()
+        pp = lambda P: P @ P.transpose(-1, -2)
+        assert (pp(P_gpu) - pp(P_cpu)).abs().max().item() <= 1e-4
+
+
+def test_accum_checkpoint_and_rank_transition_on_the_card(cuda, tmp_path):
+    """llama-60m smoke on the card at ``accum`` 2 with the randomized
+    subspace and adaptive rank: a rank transition at step 8, a checkpoint
+    written and restored mid-run, and the resumed tail equal to the
+    uninterrupted run; the kernels launched, the plain versions not."""
+    kw = dict(accum=2, subspace_method="randomized", galore_embeddings=True,
+              adaptive_rank=True, rank_ladder=(4,),
+              explained_ratio_threshold=0.3, rank_patience=3, min_rank=4)
+    LAUNCHES.clear()
+    tr_a = _smoke_trainer(cuda, tmp_path / "a", 12, **kw)
+    hist_a = tr_a.run()
+    assert all(torch.isfinite(torch.tensor([h["loss"] for h in hist_a])))
+    assert tr_a.controller.rank_transition_summary()
+    assert LAUNCHES["fused_qgalore_update"] > 0
+    for name in ("int8_matmul_ref", "int8_matmul_t_ref", "deq_matmul",
+                 "deq_matmul_t", "fused_qgalore_update_ref"):
+        assert LAUNCHES.get(name, 0) == 0, name
+    tr_b = _smoke_trainer(cuda, tmp_path / "b", 12, **kw)
+    tr_b.run(7)
+    tr_c = _smoke_trainer(cuda, tmp_path / "b", 12, **kw)
+    assert tr_c.maybe_restore() == 7
+    by_step = {h["step"]: h["loss"] for h in hist_a}
+    for h in tr_c.run():
+        assert abs(h["loss"] - by_step[h["step"]]) <= \
+            1e-6 * abs(by_step[h["step"]]), h
+    assert tr_c.controller.rank_transition_summary() == \
+        tr_a.controller.rank_transition_summary()
+
+
 def _to(state, dev):
     """A TrainState moved to ``dev``."""
     from repro_torch.core.adam8bit import Adam8bitState
@@ -494,7 +556,8 @@ def test_flash_prefill_matches_cpu(cuda):
                                          dtype=torch.float32,
                                          flash_attention=True)
     gen = torch.Generator(device=cuda).manual_seed(0)
-    p_gpu = cfgs["cuda"].init_params(gen, leaf_fn=quantize_leaf)
+    p_gpu = cfgs["cuda"].init_params(
+        gen, leaf_fn=lambda _, t: quantize_leaf(t))
 
     def to_cpu(t):
         if isinstance(t, dict):

@@ -34,6 +34,7 @@ from repro.train.trainer import Trainer as JTrainer
 from repro_torch.config import QGaLoreConfig, ShapeCell, TrainConfig
 from repro_torch.core import adam8bit, adaptive, optimizers, projector
 from repro_torch.core import qgalore, quant
+from repro_torch.core.rules import ParamGroup, ParamRules
 from repro_torch.data import synthetic
 from repro_torch.kernels import LAUNCHES
 from repro_torch.models import base, model_zoo
@@ -349,7 +350,18 @@ def test_projector_matches_jax():
         qt = projector.quantize_projection(torch.from_numpy(Pj), 4, 256)
         qj = jproj.quantize_projection(jnp.asarray(Pj), 4, 256)
         np.testing.assert_array_equal(qt.q.numpy(), np.asarray(qj.q))
-    with pytest.raises(NotImplementedError, match="randomized"):
+        # the randomized method on the reference's own Gaussian draw
+        key = jax.random.PRNGKey(7)
+        k, p = projector.omega_shape(shape, 8, side)
+        omega = np.array(jax.random.normal(key, (k, p), jnp.float32))
+        Pr = projector.compute_subspace(torch.from_numpy(G), 8, side,
+                                        "randomized",
+                                        torch.from_numpy(omega))
+        Pjr = np.array(jproj.compute_subspace(jnp.asarray(G), 8, side,
+                                              "randomized", key))
+        assert float(projector.subspace_similarity(
+            Pr, torch.from_numpy(Pjr))) >= 1 - 1e-5
+    with pytest.raises(ValueError, match="omega"):
         projector.compute_subspace(torch.zeros((8, 8)), 2, None,
                                    "randomized")
 
@@ -361,9 +373,10 @@ def test_clip_by_global_norm_matches_jax():
     for max_norm in (0.0, 0.5, 100.0):
         want, wn = jtransform.clip_by_global_norm(
             jax.tree_util.tree_map(jnp.asarray, tree), max_norm)
+        # the port scales the tree in place: hand it copies
         got, gn = qgalore.clip_by_global_norm(
-            {"a": torch.from_numpy(tree["a"]),
-             "b": {"c": torch.from_numpy(tree["b"]["c"])}}, max_norm)
+            {"a": torch.from_numpy(tree["a"].copy()),
+             "b": {"c": torch.from_numpy(tree["b"]["c"].copy())}}, max_norm)
         assert float(gn) == pytest.approx(float(wn), rel=1e-6)
         assert _rel(got["a"].numpy(), want["a"]) < 1e-6
         assert _rel(got["b"]["c"].numpy(), want["b"]["c"]) < 1e-6
@@ -548,15 +561,30 @@ def test_preset_steps_match_jax(models, aligned_svd, name):
     assert to.count == int(jo.count) == 2
 
 
-def test_step_refuses_what_is_not_ported(models):
+def test_step_refuses_what_is_not_ported(models, tmp_path):
+    """What this slice ported is taken (a checkpoint directory, adaptive
+    rank, a rule-set); what it did not port is still refused (a flash
+    bundle, a recipe that is neither a config nor a rule-set)."""
     _, tb = models
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Trainer(tb, TrainConfig(**TCFG_KW, checkpoint_dir="x"), _tcfg())
+    tr = Trainer(tb, TrainConfig(**TCFG_KW, checkpoint_dir=str(tmp_path)),
+                 _tcfg())
+    assert tr.mgr is not None and tr.maybe_restore() == 0
     specs = qgalore.leaf_specs({"w": torch.zeros((64, 64))}, _tcfg())
-    with pytest.raises(NotImplementedError, match="adaptive_rank"):
-        adaptive.SubspaceController(specs, QGaLoreConfig(adaptive_rank=True))
+    ctl = adaptive.SubspaceController(specs,
+                                      QGaLoreConfig(adaptive_rank=True))
+    assert ctl.current_ranks() == {}
+    rules = ParamRules(base=_tcfg(), groups=(
+        ParamGroup("frozen", pattern=r"^\['w'\]$", frozen=True),))
+    got = qgalore.leaf_specs({"w": torch.zeros((64, 64)),
+                              "u": torch.zeros((64, 64))}, rules)
+    assert [(s.path, s.frozen, s.group) for s in got] == [
+        ("['u']", False, "default"), ("['w']", True, "frozen")]
     with pytest.raises(TypeError, match="QGaLoreConfig"):
         qgalore.leaf_specs({"w": torch.zeros((64, 64))}, object())
+    flash = model_zoo.build_arch("llama-60m", smoke=True, device="cpu",
+                                 dtype=torch.float32, flash_attention=True)
+    with pytest.raises(ValueError, match="flash"):
+        Trainer(flash, TrainConfig(**TCFG_KW), _tcfg())
 
 
 # ---------------------------------------------------------------------------
