@@ -111,11 +111,35 @@ Phases (any failure exits non-zero):
    ``memory_report``, and whether the steady peak is under 16 GiB. Every
    distinct problem of the three kernels is then held against its plain
    version as in phase 5 (``int8_matmul`` as in phase 2) and timed.
+9. Fine-tuning. (a) ``launch.finetune.main`` with its default flags on
+   llama-60m at its published widths and depth (8 layers, d 512, vocab
+   32000; rank 8, the first layer, embedding, final norm and head frozen,
+   8 steps of 4 x 32 tokens), the report written to
+   ``build/finetune_memory.json`` beside the kernels the run built: it
+   must say ``qgalore_leq_qlora: true`` (``main`` checks the four
+   contracts), the three training kernels must launch and no plain
+   version; then one more step from the trained state on the same
+   clipped low-rank gradients and uniforms through
+   ``transform.qgalore_transform`` (the fused kernel) and
+   ``transform.qgalore_reference_chain`` (plain stages): every tuned
+   weight within one INT8 quantum, with the share of equal codes
+   printed. (b) LLaMA-7B fine-tuning at full width and depth (phase 8's
+   model built with ``split_layers=1``) under ``launch.finetune``'s
+   rule-set at rank 8 with the randomized subspace method,
+   ``update_interval`` 2, 8 x 256 tokens a step, 4 steps (steps 0 and 2
+   refresh): the four contracts through ``launch.finetune``'s functions,
+   every steady step launching ``int8_matmul`` 449 times (225 forward, 224
+   recompute), ``int8_matmul_t`` 225 and ``fused_qgalore_update`` 217 (the
+   31 tuned layers x 7) and no plain version; the refresh and steady
+   steps, each step's ``max_memory_allocated``, ``memory_report`` beside
+   the QLoRA baseline at rank 8; then every distinct kernel problem
+   against its plain version as in phase 8.
 
 The last three lines are the kernels JSON (all seven kernels;
 ``int8_matmul``'s and ``int8_matmul_t``'s training step, flash's prefill
 and ``int4_matmul``'s projections with ``factor`` = ms / library_ms; the
-three training kernels also carry their LLaMA-7B rows),
+three training kernels also carry their LLaMA-7B pre-training and
+fine-tuning rows),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository's ``src/``
 beside it, the script exits non-zero and prints no result.
@@ -1015,6 +1039,103 @@ SEVEN_B_ACCUM = 2
 MEMORY_CLAIM_GIB = 16.0  # the paper's LLaMA-7B budget
 
 
+PLAIN_NAMES = ("int8_matmul_ref", "int8_matmul_t_ref",
+               "fused_qgalore_update_ref", "deq_matmul", "deq_matmul_t")
+TRAIN_KERNELS = ("int8_matmul", "int8_matmul_t", "fused_qgalore_update")
+
+
+class ProblemRecorder:
+    """Wraps the three training kernels' wrappers and
+    ``projector.compute_subspace`` while installed (``with``): the first
+    inputs of each distinct problem, copied to the host so that neither
+    the copies nor the weights they were views of count in the run's
+    device memory; the calls of each problem; and the subspace seconds
+    and calls of each step (``step``, set by the caller before each)."""
+
+    def __init__(self):
+        self.i, self.t, self.f = {}, {}, {}
+        self.calls = Counter()
+        self.sub_s, self.sub_n = Counter(), Counter()
+        self.step = -1
+
+    def __enter__(self):
+        from repro_torch.core import projector
+        from repro_torch.kernels import fused_update as tfu
+        from repro_torch.kernels import int8_matmul as ti8
+        k_i, k_t, k_f, sub = ti8.int8_matmul, ti8.int8_matmul_t, \
+            tfu.fused_qgalore_update, projector.compute_subspace
+        self._saved = (k_i, k_t, k_f, sub)
+        host = lambda ts: [t.to("cpu", copy=True) for t in ts]
+
+        def rec_i(x, q, scale, block=256):
+            key = (x.shape[0], q.shape[0], q.shape[1], x.dtype)
+            self.calls["i", key] += 1
+            if key not in self.i:
+                self.i[key] = host((x, q, scale))
+            return k_i(x, q, scale, block)
+
+        def rec_t(g, q, scale, block=256):
+            key = (g.shape[0], q.shape[0], q.shape[1], g.dtype)
+            self.calls["t", key] += 1
+            if key not in self.t:
+                self.t[key] = host((g, q, scale))
+            return k_t(g, q, scale, block)
+
+        def rec_f(*args, **kw):
+            q = args[6]
+            key = (q.shape[0], q.shape[1], args[3].shape[-1] * 2,
+                   kw["side"])
+            self.calls["f", key] += 1
+            if key not in self.f:
+                self.f[key] = (host(args[:9]), args[9:], kw)
+            return k_f(*args, **kw)
+
+        def timed_sub(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = sub(*a, **k)
+            torch.cuda.synchronize()
+            self.sub_s[self.step] += time.perf_counter() - t
+            self.sub_n[self.step] += 1
+            return out
+
+        ti8.int8_matmul, ti8.int8_matmul_t = rec_i, rec_t
+        tfu.fused_qgalore_update, projector.compute_subspace = rec_f, \
+            timed_sub
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import projector
+        from repro_torch.kernels import fused_update as tfu
+        from repro_torch.kernels import int8_matmul as ti8
+        (ti8.int8_matmul, ti8.int8_matmul_t, tfu.fused_qgalore_update,
+         projector.compute_subspace) = self._saved
+        return False
+
+    def check(self, steps: int, steady_steps: int, seed: int) -> dict:
+        """Every recorded problem against its plain version on the card
+        (``check_i8_problems``, ``check_train_kernels``), with each
+        problem's launches in one step: the matmuls run at every step,
+        the fused update at the steady ones."""
+        mult = {"int8_matmul": {}, "int8_matmul_t": {},
+                "fused_qgalore_update": {}}
+        for (kind, key), n in self.calls.items():
+            if kind == "i":
+                mult["int8_matmul"][key[:3]] = n // steps
+            elif kind == "t":
+                mult["int8_matmul_t"][key[:3]] = n // steps
+            else:
+                mult["fused_qgalore_update"][key] = n // steady_steps
+        card = lambda ts: [t.cuda() for t in ts]
+        out = {"int8_matmul": check_i8_problems(
+            {k: card(v) for k, v in self.i.items()}, mult["int8_matmul"])}
+        out.update(check_train_kernels(
+            {k: card(v) for k, v in self.t.items()},
+            {k: (card(a), rest, kw) for k, (a, rest, kw) in self.f.items()},
+            mult, seed))
+        return out
+
+
 def phase_training_7b(seed: int) -> dict:
     """Q-GaLore pre-training of LLaMA-7B at full width and depth: rank
     1024 with the randomized subspace method, 8 x 256 tokens a step at
@@ -1023,11 +1144,9 @@ def phase_training_7b(seed: int) -> dict:
     analytic ``memory_report``; then every distinct problem of the three
     training kernels against its plain version."""
     from repro_torch.config import QGaLoreConfig, TrainConfig
-    from repro_torch.core import projector, qgalore
+    from repro_torch.core import qgalore
     from repro_torch.core.optimizers import preset
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.kernels import fused_update as tfu
-    from repro_torch.kernels import int8_matmul as ti8
     from repro_torch.models import model_zoo
     from repro_torch.train.trainer import Trainer
     log("== phase 8: LLaMA-7B Q-GaLore pre-training (32 layers, rank 1024, "
@@ -1054,44 +1173,7 @@ def phase_training_7b(seed: int) -> dict:
         f"memory_report (GiB): " + ", ".join(
             f"{k} {v:.3f}" for k, v in report.items()))
 
-    # the first inputs of each distinct problem, copied to the host so
-    # that neither the copies nor the weights they were views of count in
-    # the run's device memory
-    probs_i, probs_t, probs_f, calls, sub_s = {}, {}, {}, Counter(), []
-    k_i, k_t, k_f, sub = ti8.int8_matmul, ti8.int8_matmul_t, \
-        tfu.fused_qgalore_update, projector.compute_subspace
-    host = lambda ts: [t.to("cpu", copy=True) for t in ts]
-
-    def rec_i(x, q, scale, block=256):
-        key = (x.shape[0], q.shape[0], q.shape[1], x.dtype)
-        calls["i", key] += 1
-        if key not in probs_i:
-            probs_i[key] = host((x, q, scale))
-        return k_i(x, q, scale, block)
-
-    def rec_t(g, q, scale, block=256):
-        key = (g.shape[0], q.shape[0], q.shape[1], g.dtype)
-        calls["t", key] += 1
-        if key not in probs_t:
-            probs_t[key] = host((g, q, scale))
-        return k_t(g, q, scale, block)
-
-    def rec_f(*args, **kw):
-        q = args[6]
-        key = (q.shape[0], q.shape[1], args[3].shape[-1] * 2, kw["side"])
-        calls["f", key] += 1
-        if key not in probs_f:
-            probs_f[key] = (host(args[:9]), args[9:], kw)
-        return k_f(*args, **kw)
-
-    def timed_sub(*a, **k):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = sub(*a, **k)
-        torch.cuda.synchronize()
-        sub_s.append(time.perf_counter() - t)
-        return out
-
+    rec = ProblemRecorder()
     peaks, held = {}, {}
 
     def at_step(step):
@@ -1100,18 +1182,12 @@ def phase_training_7b(seed: int) -> dict:
         peaks[step - 1] = torch.cuda.max_memory_allocated() / 2 ** 30
         held[step] = torch.cuda.memory_allocated() / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
+        rec.step = step
 
-    names = ("int8_matmul", "int8_matmul_t", "fused_qgalore_update",
-             "int8_matmul_ref", "int8_matmul_t_ref",
-             "fused_qgalore_update_ref", "deq_matmul", "deq_matmul_t")
-    ti8.int8_matmul, ti8.int8_matmul_t = rec_i, rec_t
-    tfu.fused_qgalore_update, projector.compute_subspace = rec_f, timed_sub
     LAUNCHES.clear()
-    try:
-        rows = run_counted(tr, tcfg.steps, names, at_step)
-    finally:
-        ti8.int8_matmul, ti8.int8_matmul_t = k_i, k_t
-        tfu.fused_qgalore_update, projector.compute_subspace = k_f, sub
+    with rec:
+        rows = run_counted(tr, tcfg.steps, TRAIN_KERNELS + PLAIN_NAMES,
+                           at_step)
     counts = dict(LAUNCHES)
     peaks[tcfg.steps - 1] = torch.cuda.max_memory_allocated() / 2 ** 30
     steady_peak = max(peaks[s] for s in range(1, tcfg.steps))
@@ -1147,8 +1223,9 @@ def phase_training_7b(seed: int) -> dict:
         "steps": tcfg.steps, "accum": SEVEN_B_ACCUM, "rank": qcfg.rank,
         "subspace_method": qcfg.subspace_method, "units": n_units,
         "init_s": init_s, "losses": [r["loss"] for r in rows],
-        "refresh_step_s": rows[0]["s"], "refresh_subspace_s": sum(sub_s),
-        "subspace_calls": len(sub_s),
+        "refresh_step_s": rows[0]["s"],
+        "refresh_subspace_s": sum(rec.sub_s.values()),
+        "subspace_calls": sum(rec.sub_n.values()),
         "median_steady_step_ms": statistics.median(steady) * 1e3,
         "tokens_per_s": tokens / statistics.median(steady),
         "steady_peak_gib": steady_peak, "phase_peak_gib": phase_peak,
@@ -1159,7 +1236,8 @@ def phase_training_7b(seed: int) -> dict:
         "launches_per_steady_step": rows[-1]["launches"]}
     log(f"  losses {[round(x, 4) for x in result['losses']]}")
     log(f"  refresh step {result['refresh_step_s']:.2f} s, of it subspace "
-        f"{result['refresh_subspace_s']:.2f} s ({len(sub_s)} batched "
+        f"{result['refresh_subspace_s']:.2f} s "
+        f"({result['subspace_calls']} batched "
         f"calls, {n_units} units); median steady step "
         f"{result['median_steady_step_ms']:.1f} ms -> "
         f"{result['tokens_per_s']:.1f} tokens/s")
@@ -1181,22 +1259,7 @@ def phase_training_7b(seed: int) -> dict:
         raise AssertionError("training 7b: " + "; ".join(problems))
     del tr
     torch.cuda.empty_cache()
-    mult = {"int8_matmul": {}, "int8_matmul_t": {},
-            "fused_qgalore_update": {}}
-    for (kind, key), n in calls.items():
-        if kind == "i":
-            mult["int8_matmul"][key[:3]] = n // tcfg.steps
-        elif kind == "t":
-            mult["int8_matmul_t"][key[:3]] = n // tcfg.steps
-        else:
-            mult["fused_qgalore_update"][key] = n // (tcfg.steps - 1)
-    card = lambda ts: [t.cuda() for t in ts]
-    result["int8_matmul"] = check_i8_problems(
-        {k: card(v) for k, v in probs_i.items()}, mult["int8_matmul"])
-    result.update(check_train_kernels(
-        {k: card(v) for k, v in probs_t.items()},
-        {k: (card(a), rest, kw) for k, (a, rest, kw) in probs_f.items()},
-        mult, seed))
+    result.update(rec.check(tcfg.steps, tcfg.steps - 1, seed))
     return result
 
 
@@ -1903,6 +1966,264 @@ def phase_unfused(seed: int):
             "sr_requant": sr_rows, "blockwise_quant": bq_rows}
 
 
+def chain_vs_executor(tr, seed: int) -> dict:
+    """One more step from ``tr``'s trained state on the same clipped
+    low-rank gradients through ``transform.qgalore_transform`` (the fused
+    kernel) and ``transform.qgalore_reference_chain`` (plain PyTorch
+    stages), with the same uniforms: every tuned INT8 weight within one
+    quantum (the executor's largest new scale of the leaf), the reference's
+    statement of the two."""
+    from repro_torch.core import qgalore, quant, transform
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.train import stack
+    from repro_torch.train import step as step_lib
+    params, opt = tr.state
+    specs, rules = tr.specs, tr.rules
+    keys = [k for k, _ in qgalore.flatten(params)]
+    trees = qgalore.unflatten(keys, opt.proj)
+    _, grads = stack.fused_value_and_grad(tr.bundle, params,
+                                          tr.batches(tr.tcfg.steps), trees)
+    grads, _ = transform.clip_by_global_norm(grads, tr.tcfg.grad_clip,
+                                             specs=specs)
+    draw = step_lib.generator_uniforms(seed + 99, "cuda")
+    uni = lambda leaf, layer, shape: draw(0, leaf, layer, shape)
+    lr = tr.tcfg.learning_rate
+    LAUNCHES.clear()
+    p_ex, _, _ = transform.qgalore_transform(rules, specs).update(
+        grads, opt, params, lr=lr, uniforms=uni)
+    torch.cuda.synchronize()
+    n_ex = dict(LAUNCHES)
+    LAUNCHES.clear()
+    p_ch, _, _ = transform.qgalore_reference_chain(rules).update(
+        grads, transform.chain_state(opt), params, lr=lr, uniforms=uni,
+        specs=specs)
+    torch.cuda.synchronize()
+    n_ch = dict(LAUNCHES)
+    n_units = sum(s.nbatch for s in specs if s.galore)
+    equal = total = 0
+    worst, worst_path = 0.0, None
+    ok = n_ex.get("fused_qgalore_update", 0) == n_units and not any(
+        n_ch.values())
+    for (_, a), (_, b), spec in zip(qgalore.flatten(p_ex),
+                                    qgalore.flatten(p_ch), specs):
+        if spec.frozen or not isinstance(a, quant.QTensor):
+            continue
+        equal += int((a.q == b.q).sum())
+        total += a.q.numel()
+        quantum = a.scale.max().item()
+        err = (quant.dequantize(a, torch.float32)
+               - quant.dequantize(b, torch.float32)).abs().max().item()
+        ok = ok and err <= quantum + 1e-6
+        if err / quantum > worst:
+            worst, worst_path = err / quantum, spec.path
+    out = {"codes_equal": equal / total, "max_quanta": worst,
+           "max_quanta_leaf": worst_path, "lr": lr,
+           "executor_launches": n_ex, "chain_launches": n_ch, "ok": ok}
+    log(f"  one step from the trained state, chain against executor (lr "
+        f"{lr:g}): INT8 codes equal {out['codes_equal']:.6f} of {total}; "
+        f"largest difference {worst:.4f} quanta ({worst_path}); executor "
+        f"launches {n_ex}, chain launches {n_ch} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fine-tune: chain against executor: {out}")
+    return out
+
+
+def phase_finetune_cli(seed: int) -> dict:
+    """Phase 9a: ``launch.finetune.main`` with its default flags (llama-60m
+    at its published widths and depth, rank 8, the first layer frozen, 8
+    steps of 4 x 32 tokens) on the card; then one step of the chain
+    against the executor from the trained state."""
+    import contextlib
+    import io
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import finetune
+    log("== phase 9a: the fine-tune CLI at llama-60m (8 layers, d 512, "
+        "rank 8, 1 frozen layer, 8 steps of 4 x 32 tokens)")
+    out_dir = Path(__file__).resolve().parent / "build"
+    out_dir.mkdir(exist_ok=True)
+    out = out_dir / "finetune_memory.json"
+    trainers, cls = [], finetune.Trainer
+
+    class Recording(cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            trainers.append(self)
+
+    finetune.Trainer = Recording
+    text = io.StringIO()
+    LAUNCHES.clear()
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(text):
+            rc = finetune.main(["--out", str(out)])
+    finally:
+        finetune.Trainer = cls
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = dict(LAUNCHES)
+    report = json.loads(out.read_text())
+    log(f"  {text.getvalue().strip().splitlines()[-1]} ({wall:.2f} s)")
+    log(f"  report: groups {report['groups']}, first loss "
+        f"{report['first_loss']:.4f}, final loss {report['final_loss']:.4f}"
+        f", SVDs {report['svd_used']}; launches {counts}")
+    problems = []
+    if rc != 0:
+        problems.append(f"main returned {rc}")
+    if report["qgalore_leq_qlora"] is not True:
+        problems.append("qgalore_leq_qlora is not true")
+    missing = [n for n in TRAIN_KERNELS if not counts.get(n)]
+    plain = {n: counts[n] for n in PLAIN_NAMES if counts.get(n)}
+    if missing:
+        problems.append(f"kernels not launched: {missing}")
+    if plain:
+        problems.append(f"plain versions ran on the card: {plain}")
+    if problems:
+        raise AssertionError("fine-tune CLI: " + "; ".join(problems))
+    chain = chain_vs_executor(trainers[0], seed)
+    del trainers
+    torch.cuda.empty_cache()
+    return {"report": report, "wall_s": wall, "launches": counts,
+            "chain_vs_executor": chain}
+
+
+FT_7B_STEPS = 4           # steps 0 and 2 refresh at update_interval 2
+FT_7B_RANK = 8
+
+
+def phase_finetune_7b(seed: int) -> dict:
+    """Phase 9b: LLaMA-7B fine-tuning at full width and depth, split after
+    the first layer, under ``launch.finetune``'s rule-set at rank 8 (the
+    randomized subspace method), 8 x 256 tokens a step, 4 steps. The four
+    contracts through ``launch.finetune``'s functions, the steps, memory
+    and launches, then every distinct kernel problem against its plain
+    version (phase 8's checks)."""
+    from repro_torch.config import QGaLoreConfig, TrainConfig
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import finetune
+    from repro_torch.models import model_zoo
+    from repro_torch.train.trainer import Trainer
+    log(f"== phase 9b: LLaMA-7B fine-tuning (32 layers, layer 0 and the "
+        f"embedding, final norm and head frozen, rank {FT_7B_RANK}, "
+        f"randomized subspace, 8 x 256 tokens)")
+    cfg = model_zoo.get_config("llama-7b")
+    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16,
+                             split_layers=1)
+    rules = finetune.build_finetune_rules(
+        QGaLoreConfig(rank=FT_7B_RANK, min_dim=128, update_interval=2,
+                      subspace_method="randomized"), FT_7B_RANK)
+    tcfg = TrainConfig(seed=seed, global_batch=8, seq_len=256,
+                       steps=FT_7B_STEPS, learning_rate=1e-3,
+                       warmup_steps=max(FT_7B_STEPS // 10, 1), grad_clip=1.0,
+                       log_every=0)
+    card = nvidia_smi_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.monotonic()
+    tr = Trainer(bundle, tcfg, rules, param_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    specs = tr.specs
+    frozen = finetune.check_frozen_stateless(specs, tr.state.opt)
+    finetune.check_group_ranks(specs, FT_7B_RANK)
+    frozen_before = finetune.frozen_weights(tr.state.params, specs)
+    n_units = sum(s.nbatch for s in specs if s.galore)
+    log(f"  init on the card: {init_s:.2f} s; {len(frozen)} frozen leaves, "
+        f"{n_units} tuned GaLore units; device memory before the phase "
+        f"{before:.2f} GiB")
+
+    rec = ProblemRecorder()
+    peaks = {}
+
+    def at_step(step):
+        peaks[step - 1] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        rec.step = step
+
+    LAUNCHES.clear()
+    with rec:
+        rows = run_counted(tr, tcfg.steps, TRAIN_KERNELS + PLAIN_NAMES,
+                           at_step)
+    counts = dict(LAUNCHES)
+    peaks[tcfg.steps - 1] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finetune.check_frozen_unchanged(frozen_before, tr.state.params, specs)
+    del frozen_before
+    mem = finetune.memory_vs_qlora(tr.state.params, rules, FT_7B_RANK,
+                                   specs=specs)
+    finetune.check_memory_leq_qlora(mem, FT_7B_RANK)
+    refresh = sorted(s for s in rec.sub_s if s >= 0)
+    steady = [r for r in rows if r["step"] not in refresh]
+    micro = 7 * cfg.num_layers + 1           # dense calls a forward
+    want_steady = {"int8_matmul": 2 * micro - 1, "int8_matmul_t": micro,
+                   "fused_qgalore_update": n_units}
+    if not refresh or refresh[0] != 0 or not steady:
+        raise AssertionError(f"fine-tune 7b: refresh steps {refresh}, want "
+                             "step 0 and at least one steady step")
+    problems = []
+    for r in rows:
+        want = dict(want_steady, **({"fused_qgalore_update": 0}
+                                    if r["step"] in refresh else {}))
+        got = {n: r["launches"][n] for n in want}
+        if got != want:
+            problems.append(f"step {r['step']} launches {got} != {want}")
+        plain = {n: r["launches"][n] for n in PLAIN_NAMES
+                 if r["launches"][n]}
+        if plain:
+            problems.append(f"step {r['step']} ran plain versions {plain}")
+        if not np.isfinite(r["loss"]):
+            problems.append(f"step {r['step']} loss {r['loss']}")
+    steady_s = [r["s"] for r in steady]
+    tokens = tcfg.global_batch * tcfg.seq_len
+    steady_peak = max(peaks[r["step"]] for r in steady)
+    result = {
+        "steps": tcfg.steps, "rank": FT_7B_RANK, "split_layers": 1,
+        "subspace_method": "randomized", "update_interval": 2,
+        "tuned_units": n_units, "frozen_leaves": len(frozen),
+        "init_s": init_s, "losses": [r["loss"] for r in rows],
+        "refresh_steps": refresh,
+        "refresh_step_s": {str(r["step"]): r["s"] for r in rows
+                           if r["step"] in refresh},
+        "refresh_subspace_s": {str(s): rec.sub_s[s] for s in refresh},
+        "median_steady_step_ms": statistics.median(steady_s) * 1e3,
+        "tokens_per_s": tokens / statistics.median(steady_s),
+        "steady_peak_gib": steady_peak, "phase_peak_gib": max(peaks.values()),
+        "peak_gib_by_step": {str(k): v for k, v in sorted(peaks.items())},
+        "held_before_phase_gib": before, "memory": mem, "card": card,
+        "launches": counts,
+        "launches_per_steady_step": steady[-1]["launches"]}
+    log(f"  losses {[round(x, 4) for x in result['losses']]}; refresh "
+        f"steps {refresh}: " + ", ".join(
+            f"step {s} {result['refresh_step_s'][str(s)]:.2f} s (subspace "
+            f"{rec.sub_s[s]:.2f} s)" for s in refresh)
+        + f"; median steady step {result['median_steady_step_ms']:.1f} ms "
+        f"-> {result['tokens_per_s']:.1f} tokens/s [{card}]")
+    log(f"  measured launches per steady step: "
+        f"{result['launches_per_steady_step']} (want {want_steady}) "
+        f"[{card}]")
+    log("  max_memory_allocated by step (GiB; -1: the init): "
+        + ", ".join(f"{s}: {v:.2f}" for s, v in sorted(peaks.items()))
+        + f"; steady peak {steady_peak:.2f}, phase peak "
+        f"{result['phase_peak_gib']:.2f} [{card}]")
+    log(f"  memory_report (GiB): Q-GaLore weights "
+        f"{mem['qgalore']['weights_gb']:.4f} + optimizer "
+        f"{mem['qgalore']['optimizer_gb']:.4f} = "
+        f"{mem['qgalore']['total_gb']:.4f}; QLoRA at rank {FT_7B_RANK}: "
+        f"weights {mem['qlora']['weights_gb']:.4f} + adapters and moments "
+        f"{mem['qlora']['adapter_plus_opt_gb']:.4f} = "
+        f"{mem['qlora']['total_gb']:.4f}; the four contracts hold "
+        f"[{card}]")
+    if problems:
+        raise AssertionError("fine-tune 7b: " + "; ".join(problems))
+    del tr
+    torch.cuda.empty_cache()
+    log(f"  the phase's kernel problems against their plain versions, on "
+        f"[{card}]:")
+    result.update(rec.check(tcfg.steps, len(steady), seed))
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1930,6 +2251,8 @@ def main() -> int:
     flash_parity = phase_parity(args.seed, flash=True)
     unfused = phase_unfused(args.seed)
     training_7b = phase_training_7b(args.seed)
+    finetune = {"cli": phase_finetune_cli(args.seed),
+                "llama_7b": phase_finetune_7b(args.seed)}
     log(f"  serving, route off / flash route: tokens/s "
         f"{serving['tokens_per_s']:.1f} / {flash_serving['tokens_per_s']:.1f}"
         f", mean TTFT {serving['mean_ttft_s']:.3f} / "
@@ -1945,7 +2268,7 @@ def main() -> int:
     print(json.dumps(kernels_json(rows, step, step_by, max_abs, max_rel,
                                   serving, parity, training, flash_rows,
                                   flash_serving, flash_parity, unfused,
-                                  training_7b)))
+                                  training_7b, finetune)))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1955,11 +2278,12 @@ def main() -> int:
 
 def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                  training, flash_rows, flash_serving, flash_parity,
-                 unfused, training_7b) -> dict:
+                 unfused, training_7b, finetune) -> dict:
     """The ``kernels`` line: every kernel with its launches on the main
     paths, errors against its plain version, and times beside its bound;
     the three training kernels also carry their LLaMA-7B rows
-    (``llama_7b``: per-shape rows and one steady step's sums)."""
+    (``llama_7b``: per-shape rows and one steady step's sums) and their
+    LLaMA-7B fine-tune rows at rank 8 (``llama_7b_finetune``)."""
     layers = num_layers()
     flash_pick, flash_f32 = (
         next(r for r in flash_rows if (r["B"], r["S"], r["dv"], r["causal"],
@@ -1988,6 +2312,14 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     tk7 = training_7b["train_kernels"]
     sums7 = training_7b["train_kernel_step_sums"]
     i8_7b = training_7b["int8_matmul"]
+    ft_cli, ft7 = finetune["cli"], finetune["llama_7b"]
+    lc, lf = ft_cli["launches"], ft7["launches"]
+    tkf, sumsf, i8f = ft7["train_kernels"], ft7["train_kernel_step_sums"], \
+        ft7["int8_matmul"]
+
+    def ft_paths(name):
+        return {"finetune_cli": lc.get(name, 0),
+                "finetune_7b": lf.get(name, 0)}
 
     def by(rs):
         return "bytes" if all(r["bound_by"] == "bytes" for r in rs) \
@@ -1998,15 +2330,23 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/int8_matmul.py:85",
         "launches": serving["launches"].get("int8_matmul", 0)
-        + tl.get("int8_matmul", 0) + l7.get("int8_matmul", 0),
+        + tl.get("int8_matmul", 0) + l7.get("int8_matmul", 0)
+        + sum(ft_paths("int8_matmul").values()),
         "launches_by_path": {"serving": serving["launches"].get(
             "int8_matmul", 0), "training": tl.get("int8_matmul", 0),
-            "training_7b": l7.get("int8_matmul", 0)},
+            "training_7b": l7.get("int8_matmul", 0),
+            **ft_paths("int8_matmul")},
         "max_abs_err": max([max_abs, serving["check_max_abs_err"]]
                            + [r["max_abs_err"]
-                              for r in i8_7b["per_shape"]]),
+                              for r in i8_7b["per_shape"]
+                              + i8f["per_shape"]]),
         "max_rel_err": max(max_rel, serving["check_max_rel_err"]),
-        "max_rel_err_7b": max(r["rel_err"] for r in i8_7b["per_shape"]),
+        "max_rel_err_7b": max(r["rel_err"] for r in i8_7b["per_shape"]
+                              + i8f["per_shape"]),
+        "llama_7b_finetune": dict(i8f, timed_as=(
+            "the int8_matmul calls of one LLaMA-7B fine-tune step at "
+            "M = 2048 (8 x 256, accum 1), bf16 x, sum of per-shape medians "
+            "x launches")),
         "llama_7b": dict(i8_7b, timed_as=(
             "the int8_matmul calls of one LLaMA-7B steady step at M = 1024 "
             "(4 x 256 a microbatch, accum 2), bf16 x, sum of per-shape "
@@ -2045,13 +2385,21 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "source": "src/repro_torch/kernels/csrc/int8_matmul_t.cu",
         "replaces": "src/repro/kernels/int8_matmul.py:141",
         "launches": tl.get("int8_matmul_t", 0)
-        + l7.get("int8_matmul_t", 0),
+        + l7.get("int8_matmul_t", 0)
+        + sum(ft_paths("int8_matmul_t").values()),
         "launches_by_path": {"training": tl.get("int8_matmul_t", 0),
-                             "training_7b": l7.get("int8_matmul_t", 0)},
+                             "training_7b": l7.get("int8_matmul_t", 0),
+                             **ft_paths("int8_matmul_t")},
         "max_abs_err": max(r["max_abs_err"] for r in tk["int8_matmul_t"]
-                           + tk7["int8_matmul_t"]),
+                           + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]),
         "max_rel_err": max(r["rel_err"] for r in tk["int8_matmul_t"]
-                           + tk7["int8_matmul_t"]),
+                           + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]),
+        "llama_7b_finetune": {"step_sums": sumsf["int8_matmul_t"],
+                              "per_shape": tkf["int8_matmul_t"],
+                              "timed_as": "the dL/dx calls of one LLaMA-7B "
+                                          "fine-tune step at M = 2048, bf16 "
+                                          "g, sum of per-shape medians x "
+                                          "launches"},
         "llama_7b": {"step_sums": sums7["int8_matmul_t"],
                      "per_shape": tk7["int8_matmul_t"],
                      "timed_as": "the dL/dx calls of one LLaMA-7B step at "
@@ -2070,14 +2418,24 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "source": "src/repro_torch/kernels/csrc/fused_update.cu",
         "replaces": "src/repro/kernels/fused_update.py:234",
         "launches": tl.get("fused_qgalore_update", 0)
-        + l7.get("fused_qgalore_update", 0),
+        + l7.get("fused_qgalore_update", 0)
+        + sum(ft_paths("fused_qgalore_update").values()),
         "launches_by_path": {"training": tl.get("fused_qgalore_update", 0),
                              "training_7b": l7.get("fused_qgalore_update",
-                                                   0)},
+                                                   0),
+                             **ft_paths("fused_qgalore_update")},
         "max_abs_err": max(r["max_abs_err"]
                            for r in tk["fused_qgalore_update"]
                            + tk7["fused_qgalore_update"]
+                           + tkf["fused_qgalore_update"]
                            if r["on_path"]),
+        "llama_7b_finetune": {"step_sums": sumsf["fused_qgalore_update"],
+                              "per_shape": tkf["fused_qgalore_update"],
+                              "timed_as": "the updates of one LLaMA-7B "
+                                          "fine-tune steady step, rank 8, "
+                                          "sum of per-shape medians x "
+                                          "launches"},
+        "chain_vs_executor": ft_cli["chain_vs_executor"],
         "llama_7b": {"step_sums": sums7["fused_qgalore_update"],
                      "per_shape": tk7["fused_qgalore_update"],
                      "timed_as": "the updates of one LLaMA-7B steady step, "
@@ -2191,7 +2549,12 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
             "resume_steps", "resume_max_rel_diff") if k in training},
         "training_7b": {k: v for k, v in training_7b.items()
                         if k not in ("int8_matmul", "train_kernels",
-                                     "train_kernel_step_sums")}}
+                                     "train_kernel_step_sums")},
+        "finetune": {"cli": {k: ft_cli[k] for k in (
+            "report", "wall_s", "launches", "chain_vs_executor")},
+            "llama_7b": {k: v for k, v in ft7.items()
+                         if k not in ("int8_matmul", "train_kernels",
+                                      "train_kernel_step_sums")}}}
     return kernels
 
 

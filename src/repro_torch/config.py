@@ -3,7 +3,7 @@
 A copy of the model, Q-GaLore, training and shape-cell dataclasses of
 ``repro/config.py`` (the port imports nothing from ``repro``), without
 the fields of what is not ported (distributed training, remat, LoRA, the
-JAX package's execution switches). Every
+JAX package's execution switches but ``fused_update``). Every
 ported architecture provides a module in ``repro_torch.configs`` exposing
 ``CONFIG`` (full size) and ``smoke_config()`` (reduced, CPU-runnable).
 """
@@ -159,6 +159,10 @@ class QGaLoreConfig:
     # which params get low-rank treatment
     min_dim: int = 128              # both dims must be >= this
     galore_embeddings: bool = False
+    # execution: a steady update of an eligible leaf runs as ONE fused
+    # kernel (kernels.ops.fused_qgalore_update); False runs the unfused
+    # composition, the stage-by-stage chain's arithmetic
+    fused_update: bool = True
 
 
 @dataclass(frozen=True)

@@ -184,15 +184,31 @@ def _quantize_p(P: torch.Tensor, cfg: QGaLoreConfig):
     return projector.quantize_projection(P, cfg.proj_bits, cfg.quant_block)
 
 
+def leaf_device(leaf) -> torch.device:
+    return leaf.q.device if isinstance(leaf, QTensor) else leaf.device
+
+
+def init_projection(spec: LeafSpec, cfg: QGaLoreConfig, seed: int,
+                    idx: int, device):
+    """Leaf ``idx``'s random orthonormal ``P``, drawn from a generator
+    seeded by ``(seed, idx)``; the controller forces a real refresh at
+    step 0."""
+    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + idx)
+    P = projector.random_orthonormal(gen, projector.proj_dim(spec.mat_shape),
+                                     spec.rank, batch=spec.nbatch,
+                                     device=device)
+    P = P.reshape(spec.proj_shape) if spec.batch else P[0]
+    return _quantize_p(P, cfg)
+
+
 def init(params, cfg, seed: int = 0,
          specs: Optional[List[LeafSpec]] = None) -> QGaLoreState:
-    """Zero moments and a random orthonormal ``P`` per GaLore leaf (drawn
-    from a generator seeded by ``(seed, leaf index)``); the controller
-    forces a real refresh at step 0. Frozen-group leaves hold no state."""
+    """Zero moments and a random orthonormal ``P`` per GaLore leaf
+    (:func:`init_projection`). Frozen-group leaves hold no state."""
     specs = specs or leaf_specs(params, cfg)
     inner, proj = [], []
     for i, ((_, leaf), spec) in enumerate(zip(flatten(params), specs)):
-        dev = leaf.q.device if isinstance(leaf, QTensor) else leaf.device
+        dev = leaf_device(leaf)
         eff = _eff_cfg(spec, cfg)
         hyper = AdamHyper.from_config(eff)
         if spec.frozen:
@@ -200,13 +216,7 @@ def init(params, cfg, seed: int = 0,
             proj.append(None)
         elif spec.galore:
             inner.append(adam8bit.init_state(spec.low_shape, hyper, dev))
-            gen = torch.Generator(device=dev).manual_seed(
-                seed * 1_000_003 + i)
-            d = projector.proj_dim(spec.mat_shape)
-            P = projector.random_orthonormal(gen, d, spec.rank,
-                                             batch=spec.nbatch, device=dev)
-            P = P.reshape(spec.proj_shape) if spec.batch else P[0]
-            proj.append(_quantize_p(P, eff))
+            proj.append(init_projection(spec, eff, seed, i, dev))
         else:
             inner.append(adam8bit.init_state(spec.shape, hyper, dev))
             proj.append(None)
@@ -318,8 +328,9 @@ def _grad_is_lowrank(grad, spec: LeafSpec) -> bool:
 
 def fused_eligible(param, P, spec: LeafSpec, cfg: QGaLoreConfig) -> bool:
     """The fused kernel covers the paper's recipe: symmetric INT8 weights,
-    stochastic rounding, an INT4 projection."""
-    return (spec.galore and cfg.stochastic_rounding
+    stochastic rounding, an INT4 projection (unless ``cfg.fused_update``
+    is off)."""
+    return (cfg.fused_update and spec.galore and cfg.stochastic_rounding
             and isinstance(param, QTensor) and param.bits == 8
             and param.symmetric and isinstance(P, QTensor) and P.bits == 4)
 

@@ -24,10 +24,13 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
 
 
 def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
-          flash_attention: bool = False) -> ModelBundle:
+          flash_attention: bool = False,
+          split_layers: int = 0) -> ModelBundle:
     """Bundle for ``cfg`` on ``device`` (default ``cuda``, which must be
     present). ``flash_attention`` routes prefill attention through the
-    flash kernel (the JAX package's ``REPRO_FLASH_ATTENTION=1``)."""
+    flash kernel (the JAX package's ``REPRO_FLASH_ATTENTION=1``);
+    ``split_layers`` splits the block stack into two segments
+    (``transformer.build``)."""
     if (cfg.family, cfg.attention, cfg.ffn_activation) != \
             ("dense", "gqa", "silu") or cfg.moe or cfg.qk_norm:
         raise NotImplementedError(
@@ -35,7 +38,8 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
             "SwiGLU, no qk-norm)")
     from repro_torch.models import transformer
     return transformer.build(cfg, device=resolve_device(device), dtype=dtype,
-                             flash_attention=flash_attention)
+                             flash_attention=flash_attention,
+                             split_layers=split_layers)
 
 
 def build_arch(arch_id: str, smoke: bool = False,

@@ -76,21 +76,37 @@ def _head_logits(params, h, cfg: ModelConfig, dtype):
 
 
 def build(cfg: ModelConfig, *, device: torch.device,
-          dtype=torch.bfloat16,
-          flash_attention: bool = False) -> ModelBundle:
-    """Dense LM bundle with one segment of ``cfg.num_layers`` blocks and
-    an untied head. ``device`` is where ``init_params`` puts the weights by
-    default and where the engine places its inputs. ``flash_attention``
-    routes every full causal self-attention (prefill, the full-sequence
-    forward) through the flash kernel; decode never takes it."""
+          dtype=torch.bfloat16, flash_attention: bool = False,
+          split_layers: int = 0) -> ModelBundle:
+    """Dense LM bundle with an untied head. ``device`` is where
+    ``init_params`` puts the weights by default and where the engine places
+    its inputs. ``flash_attention`` routes every full causal self-attention
+    (prefill, the full-sequence forward) through the flash kernel; decode
+    never takes it.
+
+    ``split_layers``: 0 gives one segment of ``cfg.num_layers`` blocks,
+    ``seg0_dense``; ``0 < N < num_layers`` splits the stack after the first
+    N layers into ``seg0_dense`` (layers 0..N-1) and ``seg1_dense`` (the
+    rest). The split model computes what the unsplit one does; it lets
+    param-group rules address a range of layers by path (the fine-tune
+    rules freeze ``seg0_``)."""
     if cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name}: tied embeddings need the transposed INT8 matmul, "
             "which is not ported yet")
+    if split_layers and not 0 < split_layers < cfg.num_layers:
+        # a split ignored in silence would leave one segment named
+        # seg0_dense, and a rule freezing "seg0_" would freeze every block
+        raise ValueError(
+            f"split_layers={split_layers} out of range for "
+            f"num_layers={cfg.num_layers} (need 0 < split < num_layers)")
+    sizes = ((split_layers, cfg.num_layers - split_layers) if split_layers
+             else (cfg.num_layers,))
 
     def init_params(gen: torch.Generator, device_=None, leaf_fn=None):
         """Float32 parameters drawn from ``gen`` (the JAX package's
-        distributions; its numbers cannot be reproduced).
+        distributions; its numbers cannot be reproduced): each segment's
+        blocks in order, then the embedding, final norm and head.
 
         ``leaf_fn(keys, leaf)`` (``keys``: the leaf's path in the tree)
         maps each leaf as soon as its group is drawn, so the whole float
@@ -101,19 +117,19 @@ def build(cfg: ModelConfig, *, device: torch.device,
             return tree if leaf_fn is None else \
                 _map_leaves(tree, leaf_fn, keys)
 
-        blocks = {
-            "attn_norm": fin(rmsnorm_init(cfg.d_model, num=cfg.num_layers,
-                                          device=dev),
-                             "seg0_dense", "attn_norm"),
-            "attn": fin(attention.gqa_init(gen, cfg, num=cfg.num_layers,
-                                           device=dev), "seg0_dense", "attn"),
-            "ffn_norm": fin(rmsnorm_init(cfg.d_model, num=cfg.num_layers,
-                                         device=dev),
-                            "seg0_dense", "ffn_norm"),
-            "ffn": fin(ffn_init(gen, cfg.d_model, cfg.d_ff,
-                                num=cfg.num_layers, device=dev),
-                       "seg0_dense", "ffn"),
-        }
+        params = {}
+        for i, n in enumerate(sizes):
+            key = f"seg{i}_dense"
+            params[key] = {
+                "attn_norm": fin(rmsnorm_init(cfg.d_model, num=n,
+                                              device=dev), key, "attn_norm"),
+                "attn": fin(attention.gqa_init(gen, cfg, num=n, device=dev),
+                            key, "attn"),
+                "ffn_norm": fin(rmsnorm_init(cfg.d_model, num=n, device=dev),
+                                key, "ffn_norm"),
+                "ffn": fin(ffn_init(gen, cfg.d_model, cfg.d_ff, num=n,
+                                    device=dev), key, "ffn"),
+            }
         return {
             "embedding": fin(embed_init(gen, cfg.vocab_size, cfg.d_model,
                                         device=dev), "embedding"),
@@ -122,7 +138,7 @@ def build(cfg: ModelConfig, *, device: torch.device,
             "head": fin(dense_init(gen, cfg.d_model, cfg.vocab_size,
                                    scale=1.0 / math.sqrt(cfg.d_model),
                                    device=dev), "head"),
-            "seg0_dense": blocks,
+            **params,
         }
 
     def embed(params, batch):
@@ -143,16 +159,16 @@ def build(cfg: ModelConfig, *, device: torch.device,
                                              batch["labels"][:, 1:])
         return loss, {**metrics, "ce_loss": loss}
 
-    seg = SegmentDef(
-        name="dense", n_layers=cfg.num_layers,
+    segments = tuple(SegmentDef(
+        name="dense", n_layers=n,
         apply=functools.partial(block_apply, cfg=cfg, dtype=dtype,
                                 flash=flash_attention),
         prefill=functools.partial(block_prefill, cfg=cfg, dtype=dtype,
                                   flash=flash_attention),
         decode=functools.partial(block_decode, cfg=cfg, dtype=dtype),
-        cache_shapes=functools.partial(_cache_shapes, cfg))
+        cache_shapes=functools.partial(_cache_shapes, cfg)) for n in sizes)
     return ModelBundle(cfg=cfg, device=torch.device(device), dtype=dtype,
                        init_params=init_params, embed=embed,
-                       segments=(seg,), head_logits=head_logits,
+                       segments=segments, head_logits=head_logits,
                        head_loss=head_loss,
                        flash_attention=flash_attention)

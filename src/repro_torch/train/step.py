@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import TrainConfig
-from repro_torch.core import qgalore
+from repro_torch.core import qgalore, transform
 from repro_torch.core.qgalore import LeafSpec, QGaLoreState
 from repro_torch.core.quant import true_div
 from repro_torch.core.rules import as_rules
@@ -159,7 +159,9 @@ def build_train_step(bundle: ModelBundle, qcfg, tcfg: TrainConfig,
     omegas)`` → ``(state, metrics, opt_metrics)``; a non-empty
     ``refresh_masks`` (``{leaf_idx: (nbatch,) bool}``) makes it a refresh
     step. ``qcfg``: a ``QGaLoreConfig`` or a ``ParamRules``; ``accum``
-    microbatches a step.
+    microbatches a step. The optimizer half is the canonical transform
+    (``transform.qgalore_transform``: project -> quantized_adam ->
+    backproject -> sr_requant), executed by ``qgalore.apply_updates``.
 
     A bundle built with ``flash_attention=True`` is refused: the flash
     kernel has no backward."""
@@ -169,6 +171,7 @@ def build_train_step(bundle: ModelBundle, qcfg, tcfg: TrainConfig,
                          "bundle with flash_attention=False")
     if accum < 1:
         raise ValueError(f"accum must be at least 1, got {accum}")
+    tx = transform.qgalore_transform(qcfg, specs=specs)
     any_galore = any(s.galore for s in specs)
 
     def step(state: TrainState, batch, lr: float, step_idx: int,
@@ -183,14 +186,15 @@ def build_train_step(bundle: ModelBundle, qcfg, tcfg: TrainConfig,
                 [k for k, _ in qgalore.flatten(params)], opt.proj)
         (loss, metrics), grads = accumulated_value_and_grad(
             bundle, params, batch, proj_trees, accum)
-        grads, gnorm = qgalore.clip_by_global_norm(grads, tcfg.grad_clip,
-                                                   specs=specs)
-        new_params, new_opt, opt_metrics = qgalore.apply_updates(
-            params, grads, opt, qcfg, lr,
-            lambda leaf, layer, shape: uniforms(step_idx, leaf, layer, shape),
-            refresh_masks=refresh_masks, refresh=refresh, specs=specs,
+        grads, gnorm = transform.clip_by_global_norm(grads, tcfg.grad_clip,
+                                                     specs=specs)
+        new_params, new_opt, opt_metrics = tx.update(
+            grads, opt, params, lr=lr,
+            uniforms=lambda leaf, layer, shape: uniforms(step_idx, leaf,
+                                                         layer, shape),
             omegas=None if omegas is None else
-            (lambda leaf, unit, shape: omegas(step_idx, leaf, unit, shape)))
+            (lambda leaf, unit, shape: omegas(step_idx, leaf, unit, shape)),
+            refresh_masks=refresh_masks, refresh=refresh)
         metrics = {**metrics, "loss": loss, "grad_norm": gnorm, "lr": lr}
         return TrainState(new_params, new_opt), metrics, opt_metrics
 

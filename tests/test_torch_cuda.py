@@ -211,6 +211,10 @@ FUSED_SMALL = [(512, 256, 32, "right"), (256, 512, 32, "left"),
 # 5632 columns and the ragged 5461 rows, the 32000-column head
 FUSED_LLAMA_1B = [(2048, 2048, 512, "right"), (2048, 5461, 512, "left"),
                   (5461, 2048, 512, "right"), (2048, 32000, 512, "left")]
+# a steady LLaMA-7B fine-tune step's problems at rank 8: P's quant block
+# shrinks to the rank, which the kernel pads to its 32-rank step
+FUSED_LLAMA_7B_R8 = [(4096, 4096, 8, "right"), (4096, 11008, 8, "left"),
+                     (11008, 4096, 8, "right")]
 STRESS_QUANTA = 256
 
 
@@ -229,7 +233,8 @@ def _stress_lr(qt, qp, low, m32, v32, count, side, gscale=0.25):
 
 @pytest.mark.parametrize("m,n,r,side,step", [
     *[(*p, "run") for p in FUSED_SMALL],
-    *[(*p, step) for p in FUSED_LLAMA_1B for step in ("run", "stress")],
+    *[(*p, step) for p in FUSED_LLAMA_1B + FUSED_LLAMA_7B_R8
+      for step in ("run", "stress")],
 ])
 @pytest.mark.parametrize("wd", [0.0, 0.1])
 def test_fused_update_matches_plain(cuda, m, n, r, side, step, wd):
@@ -299,6 +304,26 @@ def test_training_steps_go_through_the_kernels(cuda):
                  "deq_matmul_t", "fused_qgalore_update_ref"):
         assert n_gpu.get(name, 0) == 0, name
     assert n_cpu.get("int8_matmul", 0) == 0
+
+
+def test_finetune_run_on_the_card(cuda, tmp_path):
+    """``launch.finetune.run`` at llama-60m smoke size on the card: the
+    four contracts hold (``run`` raises otherwise), the report says
+    Q-GaLore fits under QLoRA, and the three training kernels ran while
+    no plain version did."""
+    from repro_torch.launch import finetune
+    LAUNCHES.clear()
+    report = finetune.run(arch="llama-60m", smoke=True, steps=6, rank=8,
+                          freeze_layers=1, out=str(tmp_path / "ft.json"),
+                          device="cuda")
+    torch.cuda.synchronize()
+    assert report["qgalore_leq_qlora"] is True
+    assert torch.isfinite(torch.tensor(report["final_loss"]))
+    for name in ("int8_matmul", "int8_matmul_t", "fused_qgalore_update"):
+        assert LAUNCHES[name] > 0, name
+    for name in ("int8_matmul_ref", "int8_matmul_t_ref", "deq_matmul",
+                 "deq_matmul_t", "fused_qgalore_update_ref"):
+        assert LAUNCHES.get(name, 0) == 0, name
 
 
 def _smoke_trainer(dev, path, steps, accum=1, **qkw):

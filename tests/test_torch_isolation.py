@@ -46,7 +46,9 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.serve.scheduler, "
             "repro_torch.kernels.int8_matmul, repro_torch.kernels.build, "
             "repro_torch.launch.train, repro_torch.train.trainer, "
-            "repro_torch.train.checkpoint, repro_torch.core.rules; "
+            "repro_torch.train.checkpoint, repro_torch.core.rules, "
+            "repro_torch.core.transform, repro_torch.models.lora, "
+            "repro_torch.launch.finetune; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")
