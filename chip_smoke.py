@@ -134,12 +134,33 @@ Phases (any failure exits non-zero):
    steps, each step's ``max_memory_allocated``, ``memory_report`` beside
    the QLoRA baseline at rank 8; then every distinct kernel problem
    against its plain version as in phase 8.
+10. Paged serving. (a) Phase 3's model and 16 requests through
+   ``make_scheduler(backend="auto")``, the paged scheduler (block 16,
+   chunk 32): 8 slots at the slot pool's memory; the same requests
+   behind one shared 256-token system prompt (beside the slot scheduler
+   on that traffic; the radix cache must hit); 16 slots at the 8-slot
+   block count (more than 8 requests at once, the pool within one
+   scratch block of the slot pool's bytes). Every request completes, the
+   allocator's invariant holds after each run, and every decode or
+   append dispatch launches ``int8_matmul`` 169 times and every fused
+   one 338, with no plain version and no ``flash_attention``; every
+   distinct problem is then held against the plain version, and both of
+   the kernel's paths must appear. Tokens/s, mean TTFT, median dispatch
+   ms and peak GiB are printed beside phase 3's, with the share of
+   requests whose greedy tokens equal the slot run's (reported: in bf16
+   chunked and one-shot prefill round differently). (b) llama-1b widths
+   at 2 layers, f32, the same codes on both sides: ``build_append`` at
+   chunk widths 1, 5, 16 and 48 within 1e-4 of one-shot prefill on the
+   card (last logits and the written cache); 8 shared-prefix requests
+   through the paged scheduler on the card and on the CPU (equal greedy
+   tokens and ``stats``) and through the card's slot scheduler (equal
+   tokens).
 
 The last three lines are the kernels JSON (all seven kernels;
 ``int8_matmul``'s and ``int8_matmul_t``'s training step, flash's prefill
 and ``int4_matmul``'s projections with ``factor`` = ms / library_ms; the
 three training kernels also carry their LLaMA-7B pre-training and
-fine-tuning rows),
+fine-tuning rows, ``int8_matmul`` its paged serving runs),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository's ``src/``
 beside it, the script exits non-zero and prints no result.
@@ -457,20 +478,16 @@ def decode_sequence(seed: int) -> dict:
     return out
 
 
-def phase_serving(seed: int, flash: bool = False):
-    """Phase 3, or with ``flash`` phase 6's serving run: the same requests
-    through a bundle built with ``flash_attention=True``, where every
-    group prefill must launch ``flash_attention`` once a layer and never
-    the chunked attention or a plain version."""
-    from repro_torch.kernels import LAUNCHES
-    from repro_torch.kernels import flash_attention as tflash
-    from repro_torch.kernels import int8_matmul as ti8
-    from repro_torch.models import attention, model_zoo
+SERVE_SLOTS = 8
+SERVE_MAX_PROMPT, SERVE_MAX_NEW = 512, 64
+SERVE_WINDOW = SERVE_MAX_PROMPT + SERVE_MAX_NEW
+
+
+def serving_model(seed: int, flash: bool = False):
+    """llama-1b at full width and depth on the card, bf16, its weights
+    drawn from ``seed`` and quantized to INT8 as they are drawn."""
+    from repro_torch.models import model_zoo
     from repro_torch.serve.params import quantize_leaf
-    from repro_torch.serve.scheduler import Request, Scheduler
-    log("== phase 6b: llama-1b serving, prefill through flash_attention"
-        if flash else "== phase 3: llama-1b serving through the slot "
-        "scheduler")
     cfg = model_zoo.get_config("llama-1b")
     bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16,
                              flash_attention=flash)
@@ -483,15 +500,39 @@ def phase_serving(seed: int, flash: bool = False):
     log(f"  init + INT8 quantization on the card: "
         f"{time.monotonic() - t0:.2f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return cfg, bundle, params
+
+
+def serving_requests(seed: int, vocab: int) -> list:
+    """The serving phases' 16 requests: prompts of 16-512 tokens, 16-64
+    new tokens, drawn from ``seed``."""
+    from repro_torch.serve.scheduler import Request
     rng = np.random.default_rng(seed)
-    n_req, slots, max_new = 16, 8, 64
-    lens = rng.integers(16, 513, size=n_req)
-    news = rng.integers(16, max_new + 1, size=n_req)
-    reqs = [Request(rid=i, tokens=rng.integers(1, cfg.vocab_size,
-                                                size=int(lens[i]))
+    n_req = 16
+    lens = rng.integers(16, SERVE_MAX_PROMPT + 1, size=n_req)
+    news = rng.integers(16, SERVE_MAX_NEW + 1, size=n_req)
+    return [Request(rid=i, tokens=rng.integers(1, vocab, size=int(lens[i]))
                     .astype(np.int32), max_new_tokens=int(news[i]))
             for i in range(n_req)]
-    sched = Scheduler(bundle, params, num_slots=slots, max_len=512 + max_new,
+
+
+def phase_serving(seed: int, flash: bool = False):
+    """Phase 3, or with ``flash`` phase 6's serving run: the same requests
+    through a bundle built with ``flash_attention=True``, where every
+    group prefill must launch ``flash_attention`` once a layer and never
+    the chunked attention or a plain version."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.models import attention
+    from repro_torch.serve.scheduler import Request, Scheduler
+    log("== phase 6b: llama-1b serving, prefill through flash_attention"
+        if flash else "== phase 3: llama-1b serving through the slot "
+        "scheduler")
+    cfg, bundle, params = serving_model(seed, flash)
+    reqs = serving_requests(seed, cfg.vocab_size)
+    n_req, slots = len(reqs), SERVE_SLOTS
+    sched = Scheduler(bundle, params, num_slots=slots, max_len=SERVE_WINDOW,
                       dtype=torch.bfloat16, device="cuda")
     # warm-up: first launches, library handles; then a fresh pool
     sched.run([Request(rid=-1, tokens=reqs[0].tokens[:16],
@@ -602,7 +643,8 @@ def phase_serving(seed: int, flash: bool = False):
               "stats": st, "launches": counts,
               "launches_per_step": launched / max(calls, 1),
               "prefill_ms_total": sum(prefill_ms),
-              "median_prefill_ms": statistics.median(prefill_ms)}
+              "median_prefill_ms": statistics.median(prefill_ms),
+              "tokens_by_rid": {c.rid: c.tokens for c in comps}}
     if flash:
         result["launches_per_prefill"] = [p[0] for p in prefills]
     log(f"  {n_req} requests, {slots} slots: {n_tok} tokens in {wall:.2f} s"
@@ -708,6 +750,14 @@ def profile_decode(sched, reqs, steps: int = 5) -> dict:
             "device_idle_share": 1 - busy_ms / wall_ms}
 
 
+def to_cpu(t):
+    """A parameter tree's copy on the CPU (QTensor.to and Tensor.to
+    alike)."""
+    if isinstance(t, dict):
+        return {k: to_cpu(v) for k, v in t.items()}
+    return t.to("cpu")
+
+
 def phase_parity(seed: int, flash: bool = False):
     """Phase 4, or with ``flash`` phase 6c: both bundles built with
     ``flash_attention=True``, so the card's prefill runs the flash kernel
@@ -728,12 +778,6 @@ def phase_parity(seed: int, flash: bool = False):
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     p_gpu = gpu.init_params(
         gen, leaf_fn=lambda _, t: quantize_leaf(t))
-
-    def to_cpu(t):
-        if isinstance(t, dict):
-            return {k: to_cpu(v) for k, v in t.items()}
-        return t.to("cpu")          # QTensor.to and Tensor.to alike
-
     p_cpu = to_cpu(p_gpu)
     rng = np.random.default_rng(seed + 1)
     lengths = [12, 7]
@@ -2224,6 +2268,354 @@ def phase_finetune_7b(seed: int) -> dict:
     return result
 
 
+PAGED_BLOCK, PAGED_CHUNK = 16, 32
+SYSTEM_PROMPT = 256       # phase 10a's shared prefix, 16 blocks
+
+
+def pool_bytes_slot(bundle, slots: int, window: int) -> int:
+    """The bytes of the slot scheduler's KV pool (``init_pool``) in bf16."""
+    return sum(seg.n_layers * math.prod(shape) * 2
+               for seg in bundle.segments
+               for shape in seg.cache_shapes(slots, window))
+
+
+def first_divergence(got: dict, want: dict):
+    """The share of requests whose tokens equal ``want``'s, and the first
+    (rid, token index) where they differ (None if all are equal)."""
+    same = [r for r in want if got.get(r) == want[r]]
+    for r in sorted(want):
+        if got.get(r) != want[r]:
+            a, b = got.get(r, []), want[r]
+            i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            return len(same) / len(want), (r, i)
+    return 1.0, None
+
+
+def paged_run(bundle, params, reqs, *, slots: int, window: int,
+              shapes: set, num_blocks=None, profile: bool = False) -> dict:
+    """One run of ``reqs`` through ``make_scheduler(backend="auto")`` (the
+    paged scheduler) on the card, bf16: every dispatch counted and timed
+    (synchronised), its ``int8_matmul`` launches held to 169 (decode or
+    append) or 338 (fused), the allocator's invariant after the run. With
+    ``profile``, five decode-only steps with every slot in flight are
+    then profiled as phase 3's are (prompts cut to one chunk, so the
+    first step prefills them all)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.serve.paged import PagedScheduler
+    from repro_torch.serve.scheduler import Request, make_scheduler
+    per_call = 7 * num_layers() + 1
+    sched = make_scheduler(bundle, params, backend="auto", num_slots=slots,
+                           max_len=window, block_size=PAGED_BLOCK,
+                           num_blocks=num_blocks, prefill_chunk=PAGED_CHUNK,
+                           dtype=torch.bfloat16, device="cuda")
+    if type(sched) is not PagedScheduler:
+        raise AssertionError(f"backend auto gave {type(sched).__name__}")
+    # warm-up: first launches of the append and decode programs
+    sched.run([Request(rid=-1, tokens=reqs[0].tokens[:PAGED_CHUNK + 1],
+                       max_new_tokens=2)])
+    sched.reset()
+    ms = {"_step": [], "_append": [], "_fused": []}
+    bad = []
+
+    def timed(name, inner):
+        want = per_call * (2 if name == "_fused" else 1)
+
+        def run(*a):
+            before = LAUNCHES["int8_matmul"]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(*a)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t) * 1e3)
+            if LAUNCHES["int8_matmul"] - before != want:
+                bad.append((name, LAUNCHES["int8_matmul"] - before))
+            return out
+        return run
+
+    inner = {n: getattr(sched, n) for n in ms}
+    for n in ms:
+        setattr(sched, n, timed(n, inner[n]))
+    from repro_torch.kernels import int8_matmul as ti8
+    kernel = ti8.int8_matmul
+
+    def recording(x, q, scale, block=256):
+        shapes.add((x.shape[0], q.shape[0], q.shape[1], x.dtype))
+        return kernel(x, q, scale, block)
+
+    ti8.int8_matmul = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.monotonic()
+    try:
+        comps = sched.run(reqs)
+        torch.cuda.synchronize()
+    finally:
+        ti8.int8_matmul = kernel
+        for n in ms:
+            setattr(sched, n, inner[n])
+    wall = time.monotonic() - t0
+    counts, st = dict(LAUNCHES), dict(sched.stats)
+    problems = [f"{n} dispatch launched int8_matmul {k} times"
+                for n, k in bad[:3]]
+    n_disp = {n: len(v) for n, v in ms.items()}
+    want = per_call * (n_disp["_step"] + n_disp["_append"]
+                       + 2 * n_disp["_fused"])
+    if counts.get("int8_matmul") != want:
+        problems.append(f"int8_matmul launches {counts.get('int8_matmul')}"
+                        f" != {want} for dispatches {n_disp}")
+    if any(n.endswith("_ref") or n.startswith("deq_")
+           or n.startswith("flash") for n in counts):
+        problems.append(f"plain versions or flash ran: {counts}")
+    by_rid = {c.rid: c for c in comps}
+    for r in reqs:
+        c = by_rid.get(r.rid)
+        if c is None or len(c.tokens) != r.max_new_tokens:
+            problems.append(f"request {r.rid} incomplete")
+    if st["admitted"] < len(reqs) or st["retired"] != len(reqs):
+        problems.append(f"admitted/retired {st['admitted']}/"
+                        f"{st['retired']}")
+    sched.alloc.check()
+    held = len(sched.radix.cached_blocks())
+    leaked = sched.alloc.usable_blocks - held - sched.alloc.free_blocks
+    if leaked:
+        problems.append(f"{leaked} blocks leaked")
+    n_tok = sum(len(c.tokens) for c in comps)
+    prof = profile_decode(sched, [
+        Request(rid=r.rid, tokens=r.tokens[:PAGED_CHUNK],
+                max_new_tokens=SERVE_MAX_NEW) for r in reqs[:slots]]) \
+        if profile else {}
+    out = {"slots": slots, "window": window, **prof,
+           "num_blocks": sched.num_blocks, "pool_bytes": sched.pool_bytes(),
+           "tokens_per_s": n_tok / wall, "wall_s": wall, "tokens": n_tok,
+           "mean_ttft_s": float(np.mean([c.ttft for c in comps])),
+           "median_decode_step_ms": statistics.median(ms["_step"])
+           if ms["_step"] else None,
+           "median_fused_ms": statistics.median(ms["_fused"])
+           if ms["_fused"] else None,
+           "median_append_ms": statistics.median(ms["_append"])
+           if ms["_append"] else None,
+           "dispatches": n_disp, "launches": counts,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "stats": st, "tokens_by_rid": {c.rid: c.tokens for c in comps}}
+    log(f"  paged, {slots} slots, window {window}, {sched.num_blocks} "
+        f"blocks ({out['pool_bytes'] / 2**20:.1f} MiB): {n_tok} tokens in "
+        f"{wall:.2f} s -> {out['tokens_per_s']:.1f} tok/s; mean TTFT "
+        f"{out['mean_ttft_s']:.3f} s; median ms decode "
+        f"{out['median_decode_step_ms']} fused {out['median_fused_ms']} "
+        f"append {out['median_append_ms']}; dispatches {n_disp}; peak "
+        f"{out['peak_gib']:.2f} GiB; stats {st}; launches {counts}")
+    del sched
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("paged serving: " + "; ".join(problems))
+    return out
+
+
+def slot_run(bundle, params, reqs, *, window: int) -> dict:
+    """The same traffic through the slot scheduler (8 slots), for the
+    shared-prefix comparison: tokens/s and mean TTFT."""
+    from repro_torch.serve.scheduler import Request, Scheduler
+    sched = Scheduler(bundle, params, num_slots=SERVE_SLOTS, max_len=window,
+                      dtype=torch.bfloat16, device="cuda")
+    sched.run([Request(rid=-1, tokens=reqs[0].tokens[:16],
+                       max_new_tokens=2)])
+    sched.reset()
+    t0 = time.monotonic()
+    comps = sched.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    n_tok = sum(len(c.tokens) for c in comps)
+    out = {"tokens_per_s": n_tok / wall, "wall_s": wall,
+           "mean_ttft_s": float(np.mean([c.ttft for c in comps])),
+           "tokens_by_rid": {c.rid: c.tokens for c in comps}}
+    log(f"  slot, {SERVE_SLOTS} slots, window {window}: {n_tok} tokens in "
+        f"{wall:.2f} s -> {out['tokens_per_s']:.1f} tok/s; mean TTFT "
+        f"{out['mean_ttft_s']:.3f} s")
+    del sched
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_paged(seed: int, serving: dict) -> dict:
+    """Phase 10a: llama-1b at full width and depth through the paged
+    scheduler, beside phase 3's slot run (``serving``)."""
+    from repro_torch.serve.scheduler import Request
+    log("== phase 10a: llama-1b serving through the paged scheduler "
+        f"(block {PAGED_BLOCK}, chunk {PAGED_CHUNK})")
+    log("card:", nvidia_smi_line())
+    cfg, bundle, params = serving_model(seed)
+    reqs = serving_requests(seed, cfg.vocab_size)
+    shapes: set = set()
+    runs = {"paged_8": paged_run(bundle, params, reqs, slots=SERVE_SLOTS,
+                                 window=SERVE_WINDOW, shapes=shapes,
+                                 profile=True)}
+    system = np.random.default_rng(seed + 10).integers(
+        1, cfg.vocab_size, size=SYSTEM_PROMPT).astype(np.int32)
+    shared = [Request(rid=r.rid, tokens=np.concatenate([system, r.tokens]),
+                      max_new_tokens=r.max_new_tokens) for r in reqs]
+    wide = SERVE_WINDOW + SYSTEM_PROMPT
+    runs["shared_slot"] = slot_run(bundle, params, shared, window=wide)
+    runs["shared_paged"] = paged_run(bundle, params, shared,
+                                     slots=SERVE_SLOTS, window=wide,
+                                     shapes=shapes)
+    blocks_8 = runs["paged_8"]["num_blocks"]
+    runs["paged_16"] = paged_run(bundle, params, reqs, slots=2 * SERVE_SLOTS,
+                                 window=SERVE_WINDOW, shapes=shapes,
+                                 num_blocks=blocks_8)
+    slot_bytes = pool_bytes_slot(bundle, SERVE_SLOTS, SERVE_WINDOW)
+    problems = []
+    if not runs["shared_paged"]["stats"]["radix_hit_blocks"]:
+        problems.append("no radix hits behind the shared system prompt")
+    p16 = runs["paged_16"]
+    if p16["stats"]["max_concurrent"] <= SERVE_SLOTS:
+        problems.append(f"16 slots ran at most "
+                        f"{p16['stats']['max_concurrent']} requests")
+    # the scratch block: one block over the slot pool's 8 x MB
+    limit = slot_bytes * (1 + 1 / (SERVE_SLOTS
+                                   * -(-SERVE_WINDOW // PAGED_BLOCK)))
+    if p16["pool_bytes"] > limit:
+        problems.append(f"pool {p16['pool_bytes']} B > {limit:.0f} B")
+    equal = {}
+    for name, want in (("paged_8", serving["tokens_by_rid"]),
+                       ("paged_16", serving["tokens_by_rid"]),
+                       ("shared_paged", runs["shared_slot"][
+                           "tokens_by_rid"])):
+        equal[name] = first_divergence(runs[name]["tokens_by_rid"], want)
+    log(f"  slot pool {slot_bytes / 2**20:.1f} MiB; paged pool at 16 slots "
+        f"{p16['pool_bytes'] / 2**20:.1f} MiB, max concurrent "
+        f"{p16['stats']['max_concurrent']}")
+    for name, (share, div) in equal.items():
+        log(f"  {name}: share of requests with the slot run's greedy "
+            f"tokens {share:.4f}, first divergence (rid, index) {div}")
+    s3, p8 = serving, runs["paged_8"]
+    log(f"  beside phase 3 (slot, 8 slots; {nvidia_smi_line()}): tok/s "
+        f"{s3['tokens_per_s']:.1f} / paged {p8['tokens_per_s']:.1f}; mean "
+        f"TTFT {s3['mean_ttft_s']:.3f} / {p8['mean_ttft_s']:.3f} s; median "
+        f"decode step {s3['median_decode_step_ms']:.2f} / "
+        f"{p8['median_decode_step_ms']:.2f} ms; peak {s3['peak_gib']:.2f} /"
+        f" {p8['peak_gib']:.2f} GiB; shared prefix: slot TTFT "
+        f"{runs['shared_slot']['mean_ttft_s']:.3f} s / paged "
+        f"{runs['shared_paged']['mean_ttft_s']:.3f} s")
+    if problems:
+        raise AssertionError("paged serving: " + "; ".join(problems))
+    del params, bundle
+    torch.cuda.empty_cache()
+    check = check_shapes(shapes, seed)
+    paths = {small_m(M, K, N) for M, K, N, _ in shapes}
+    if paths != {True, False}:
+        raise AssertionError(f"paged serving ran one int8_matmul path only "
+                             f"(small-M: {paths})")
+    return {"runs": {n: {k: v for k, v in r.items() if k != "tokens_by_rid"}
+                     for n, r in runs.items()},
+            "slot_pool_bytes": slot_bytes,
+            "equal_to_slot": {n: {"share": sh, "first_divergence": d}
+                              for n, (sh, d) in equal.items()},
+            "launches": sum(r["launches"].get("int8_matmul", 0)
+                            for r in runs.values() if "launches" in r),
+            **check}
+
+
+PARITY_TOL = 1e-4     # f32: the kernels take two passes
+
+
+def phase_paged_parity(seed: int) -> dict:
+    """Phase 10b: llama-1b widths at 2 layers, f32, the same INT8 codes on
+    the card and the CPU: chunked append against one-shot prefill on the
+    card; the paged scheduler on the card against the CPU's and against
+    the card's slot scheduler."""
+    from repro_torch.config import replace
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import engine
+    from repro_torch.serve.params import quantize_leaf
+    from repro_torch.serve.scheduler import Request, Scheduler, \
+        init_pool, make_scheduler
+    log("== phase 10b: paged parity at f32, llama-1b widths at 2 layers")
+    cfg = replace(model_zoo.get_config("llama-1b"), num_layers=2)
+    bundles = {dev: model_zoo.build(cfg, device=dev, dtype=torch.float32)
+               for dev in ("cpu", "cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    p_gpu = bundles["cuda"].init_params(
+        gen, leaf_fn=lambda _, t: quantize_leaf(t))
+    params = {"cuda": p_gpu, "cpu": to_cpu(p_gpu)}
+    rng = np.random.default_rng(seed + 3)
+    P, window = 100, 128
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, P))
+                              .astype(np.int32)).cuda()
+    b, p = bundles["cuda"], params["cuda"]
+    want_l, want = engine.build_prefill(b, window)(p, {"tokens": prompt})
+    append = engine.build_append(b, window)
+    widths, problems = {}, []
+    for c in (1, 5, 16, 48):
+        state = init_pool(b, 1, window, torch.float32, "cuda")
+        for pos in range(0, P, c):
+            n = min(c, P - pos)
+            chunk = torch.zeros((1, c), dtype=torch.int32, device="cuda")
+            chunk[0, :n] = prompt[0, pos:pos + n]
+            logits, state = append(p, state, chunk, torch.tensor(
+                [n], dtype=torch.int32, device="cuda"))
+        rel_l = ((logits - want_l).abs().max()
+                 / want_l.abs().max()).item()
+        rel_c = max(((g[:, :, :P] - r[:, :, :P]).abs().max()
+                     / r[:, :, :P].abs().max()).item()
+                    for g, r in zip(state.caches["seg0_dense"],
+                                    want.caches["seg0_dense"]))
+        widths[c] = {"logits_rel": rel_l, "cache_rel": rel_c}
+        if max(rel_l, rel_c) > PARITY_TOL:
+            problems.append(f"append width {c}: {widths[c]}")
+    log(f"  build_append against one-shot prefill on the card: {widths}")
+    prefix = rng.integers(1, cfg.vocab_size, size=48)
+    reqs = []
+    for i in range(8):
+        t = rng.integers(1, cfg.vocab_size, size=int(rng.integers(3, 20)))
+        if i % 2 == 0:
+            t = np.concatenate([prefix, t])
+        reqs.append((i, t.astype(np.int32).tolist(),
+                     int(rng.integers(2, 8))))
+    runs = {}
+    for name, dev, backend in (("paged_cpu", "cpu", "paged"),
+                               ("paged_card", "cuda", "paged"),
+                               ("slot_card", "cuda", "slot")):
+        sched = make_scheduler(bundles[dev], params[dev], backend=backend,
+                               num_slots=4, max_len=window,
+                               block_size=PAGED_BLOCK,
+                               prefill_chunk=PAGED_CHUNK,
+                               dtype=torch.float32, device=dev)
+        LAUNCHES.clear()
+        t0 = time.monotonic()
+        comps = sched.run([Request(*r) for r in reqs])
+        runs[name] = ({c.rid: c.tokens for c in comps}, dict(sched.stats),
+                      dict(LAUNCHES), time.monotonic() - t0)
+        if backend == "paged":
+            sched.alloc.check()
+        del sched
+    (t_c, s_c, n_c, w_c), (t_g, s_g, n_g, w_g), (t_s, _, _, _) = (
+        runs["paged_cpu"], runs["paged_card"], runs["slot_card"])
+    log(f"  paged scheduler, card {w_g:.2f} s / CPU {w_c:.2f} s: tokens "
+        f"equal {t_g == t_c}, stats equal {s_g == s_c} ({s_g}); card's "
+        f"slot scheduler tokens equal {t_g == t_s}; launches card {n_g} "
+        f"CPU {n_c}")
+    if not n_g.get("int8_matmul") or any(n.endswith("_ref")
+                                         or n.startswith("deq_")
+                                         for n in n_g):
+        problems.append(f"card run did not go through the kernel: {n_g}")
+    if not n_c.get("deq_matmul") or n_c.get("int8_matmul"):
+        problems.append(f"CPU run did not take the plain path: {n_c}")
+    if t_g != t_c or s_g != s_c:
+        problems.append(f"card against CPU: tokens {t_g} vs {t_c}, stats "
+                        f"{s_g} vs {s_c}")
+    if t_g != t_s:
+        problems.append(f"paged against slot: tokens {t_g} vs {t_s}")
+    if not s_g["radix_hit_blocks"]:
+        problems.append("no radix hits")
+    if problems:
+        raise AssertionError("paged parity: " + "; ".join(problems))
+    return {"append_vs_prefill": widths, "stats": s_g,
+            "tokens_equal_cpu": True, "tokens_equal_slot": True}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2253,6 +2645,8 @@ def main() -> int:
     training_7b = phase_training_7b(args.seed)
     finetune = {"cli": phase_finetune_cli(args.seed),
                 "llama_7b": phase_finetune_7b(args.seed)}
+    paged = {"serving": phase_paged(args.seed, serving),
+             "parity": phase_paged_parity(args.seed)}
     log(f"  serving, route off / flash route: tokens/s "
         f"{serving['tokens_per_s']:.1f} / {flash_serving['tokens_per_s']:.1f}"
         f", mean TTFT {serving['mean_ttft_s']:.3f} / "
@@ -2268,7 +2662,7 @@ def main() -> int:
     print(json.dumps(kernels_json(rows, step, step_by, max_abs, max_rel,
                                   serving, parity, training, flash_rows,
                                   flash_serving, flash_parity, unfused,
-                                  training_7b, finetune)))
+                                  training_7b, finetune, paged)))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2278,7 +2672,7 @@ def main() -> int:
 
 def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                  training, flash_rows, flash_serving, flash_parity,
-                 unfused, training_7b, finetune) -> dict:
+                 unfused, training_7b, finetune, paged) -> dict:
     """The ``kernels`` line: every kernel with its launches on the main
     paths, errors against its plain version, and times beside its bound;
     the three training kernels also carry their LLaMA-7B rows
@@ -2316,6 +2710,7 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     lc, lf = ft_cli["launches"], ft7["launches"]
     tkf, sumsf, i8f = ft7["train_kernels"], ft7["train_kernel_step_sums"], \
         ft7["int8_matmul"]
+    ps = paged["serving"]
 
     def ft_paths(name):
         return {"finetune_cli": lc.get(name, 0),
@@ -2331,16 +2726,19 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "replaces": "src/repro/kernels/int8_matmul.py:85",
         "launches": serving["launches"].get("int8_matmul", 0)
         + tl.get("int8_matmul", 0) + l7.get("int8_matmul", 0)
-        + sum(ft_paths("int8_matmul").values()),
+        + sum(ft_paths("int8_matmul").values()) + ps["launches"],
         "launches_by_path": {"serving": serving["launches"].get(
             "int8_matmul", 0), "training": tl.get("int8_matmul", 0),
             "training_7b": l7.get("int8_matmul", 0),
-            **ft_paths("int8_matmul")},
-        "max_abs_err": max([max_abs, serving["check_max_abs_err"]]
+            **ft_paths("int8_matmul"), "paged_serving": ps["launches"]},
+        "max_abs_err": max([max_abs, serving["check_max_abs_err"],
+                            ps["check_max_abs_err"]]
                            + [r["max_abs_err"]
                               for r in i8_7b["per_shape"]
                               + i8f["per_shape"]]),
-        "max_rel_err": max(max_rel, serving["check_max_rel_err"]),
+        "max_rel_err": max(max_rel, serving["check_max_rel_err"],
+                           ps["check_max_rel_err"]),
+        "paged_serving": dict(paged["serving"], parity=paged["parity"]),
         "max_rel_err_7b": max(r["rel_err"] for r in i8_7b["per_shape"]
                               + i8f["per_shape"]),
         "llama_7b_finetune": dict(i8f, timed_as=(

@@ -4,7 +4,9 @@ package: ``(B, S, H, hd)`` activations, ``(B, Smax, KH, hd)`` caches.
 
 The chunked einsum path is the reference numerics (the JAX package's flash
 kernel is off by default): scores for one query chunk at a time,
-normalised as ``e / z`` after subtracting the row max. With ``flash=True``
+normalised as ``e / z`` after subtracting the row max. Chunk-append
+(:func:`gqa_append`, the paged serving runtime's prefill) takes the same
+arithmetic with the causal mask on absolute positions. With ``flash=True``
 (a bundle built with ``flash_attention=True``) every eligible call, a full
 causal self-attention such as a prefill, goes through
 ``kernels.ops.flash_attention`` instead, as ``REPRO_FLASH_ATTENTION=1``
@@ -75,6 +77,35 @@ def chunked_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
                           q_offset=q_offset + i)
             for i in range(0, Sq, q_chunk)]
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def append_attention(q, k_cache, v_cache, q_positions) -> torch.Tensor:
+    """Chunk-append attention: C queries at absolute positions
+    ``q_positions`` (B, C) against a (B, Smax, KH, dh) cache that already
+    holds every position ``<= q_positions`` (this chunk's K/V included).
+
+    :func:`_attend_dense` op for op (the same einsums, max, exp, sum and
+    ``e / z``) with the causal mask taken against absolute positions:
+    masked keys add an exact 0 to the sums. Never the flash kernel: the
+    queries are offset (``_flash_eligible``)."""
+    B, C, H, dh = q.shape
+    KH = k_cache.shape[2]
+    dv = v_cache.shape[-1]
+    G = H // KH
+    qf = q.to(torch.float32) / math.sqrt(dh)
+    kf = k_cache.to(torch.float32)
+    vf = v_cache.to(torch.float32)
+    qg = qf.reshape(B, C, KH, G, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf)
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = kpos[None, None] <= q_positions[:, :, None]        # (B, C, Skv)
+    s = torch.where(mask[:, None, None], s,
+                    torch.full((), NEG_INF, device=q.device))
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    z = e.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", e / z, vf)
+    return o.reshape(B, C, H, dv).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, length) -> torch.Tensor:
@@ -171,3 +202,31 @@ def gqa_decode(p, x, cfg: ModelConfig, *, cache: Tuple, length,
                                      v_cache[rows, pos])
     o = decode_attention(q, k_cache, v_cache, length + 1)
     return dense(o.reshape(B, 1, -1), p["wo"], dtype), (k_cache, v_cache)
+
+
+def gqa_append(p, x, cfg: ModelConfig, *, cache: Tuple, positions, mask,
+               dtype=torch.bfloat16):
+    """Chunk-append: x (B,C,D) holds the next C prompt tokens at absolute
+    ``positions`` (B,C); ``mask`` (B,C) marks the valid (not padded-tail)
+    tokens. Valid tokens write their K/V at their position of the cache
+    IN PLACE; padded tail positions write nothing. Queries attend the
+    whole cache under the absolute causal mask (:func:`append_attention`).
+
+    The write is one ``index_put`` per cache at ``positions % Smax``: C
+    consecutive positions stay distinct modulo Smax, so no two entries of
+    a row collide, and a masked entry writes back what its slot holds."""
+    k_cache, v_cache = cache
+    B, C, _ = x.shape
+    S = k_cache.shape[1]
+    if C > S:
+        raise ValueError(f"append chunk {C} wider than the cache ({S})")
+    q, k, v = _qkv(p, x, cfg, positions, dtype)
+    rows = torch.arange(B, device=x.device)[:, None]
+    pos = positions.long() % S
+    keep = mask[..., None, None]
+    k_cache[rows, pos] = torch.where(keep, k.to(k_cache.dtype),
+                                     k_cache[rows, pos])
+    v_cache[rows, pos] = torch.where(keep, v.to(v_cache.dtype),
+                                     v_cache[rows, pos])
+    o = append_attention(q, k_cache, v_cache, positions)
+    return dense(o.reshape(B, C, -1), p["wo"], dtype), (k_cache, v_cache)

@@ -12,7 +12,7 @@ state (positions, lengths) built by ``embed``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -32,6 +32,13 @@ class SegmentDef:
     decode: Callable
     # (batch, max_len) -> per-layer cache shapes, each leading with batch
     cache_shapes: Callable
+    # chunk-append (the paged runtime's prefill): (layer_params, carry,
+    # cache_slice, ctx) -> (carry, cache_slice), where carry["h"] holds a
+    # chunk of C tokens at absolute ctx["positions"] (B, C), the cache
+    # already holds every earlier position, and ctx["chunk_mask"] (B, C)
+    # marks the valid tokens (padded tail positions write nothing).
+    # Appending a prompt chunk by chunk computes what one-shot prefill does.
+    append: Optional[Callable] = None
 
 
 @dataclass(frozen=True)

@@ -65,6 +65,21 @@ def block_decode(lp, carry, cache, ctx, cfg: ModelConfig, *, dtype):
     return {**carry, "h": h + f}, cache
 
 
+def block_append(lp, carry, cache, ctx, cfg: ModelConfig, *, dtype):
+    """Chunk-append (paged prefill): carry["h"] is a (B, C, D) chunk of
+    prompt tokens at absolute ``ctx["positions"]``; the cache slices
+    already hold every earlier position and are written in place."""
+    h = carry["h"]
+    x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
+    a, cache = attention.gqa_append(lp["attn"], x, cfg, cache=cache,
+                                    positions=ctx["positions"],
+                                    mask=ctx["chunk_mask"], dtype=dtype)
+    h = h + a
+    x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
+    f = ffn_apply(lp["ffn"], x, dtype)
+    return {**carry, "h": h + f}, cache
+
+
 def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
     shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     return (shape, shape)
@@ -166,7 +181,9 @@ def build(cfg: ModelConfig, *, device: torch.device,
         prefill=functools.partial(block_prefill, cfg=cfg, dtype=dtype,
                                   flash=flash_attention),
         decode=functools.partial(block_decode, cfg=cfg, dtype=dtype),
-        cache_shapes=functools.partial(_cache_shapes, cfg)) for n in sizes)
+        cache_shapes=functools.partial(_cache_shapes, cfg),
+        append=functools.partial(block_append, cfg=cfg, dtype=dtype))
+        for n in sizes)
     return ModelBundle(cfg=cfg, device=torch.device(device), dtype=dtype,
                        init_params=init_params, embed=embed,
                        segments=segments, head_logits=head_logits,

@@ -8,14 +8,17 @@ hd)`` per segment. Per-row ``lengths`` drive every positional effect
 (RoPE, cache write slot, attention mask), so one decode step serves rows
 at different positions.
 
-Unlike the JAX engine, decode updates ``state.caches`` IN PLACE: the
-returned state shares its cache tensors with the one passed in.
+Unlike the JAX engine, decode and append update ``state.caches`` IN
+PLACE: the returned state shares its cache tensors with the one passed in.
+With a ``capture`` hook (the paged runtime's) the returned state carries
+the captured slices instead.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models.base import ModelBundle, layer_params
@@ -93,21 +96,106 @@ def build_prefill(bundle: ModelBundle, max_len: int,
     return prefill
 
 
-def build_decode(bundle: ModelBundle):
+def _run_cached(seg, method, stack, caches, carry, ctx, capture):
+    """Walk one segment's layers through ``method`` (``seg.decode`` or
+    ``seg.append``) on its cache slices; returns the carry and, with
+    ``capture``, each layer's captured pytree stacked along a new layer
+    axis (else None: the slices were written in place)."""
+    kc, vc = caches
+    captured = []
+    for layer in range(seg.n_layers):
+        carry, cache = method(layer_params(stack, layer), carry,
+                              (kc[layer], vc[layer]), ctx)
+        if capture is not None:
+            captured.append(capture(cache, ctx))
+    if capture is None:
+        return carry, None
+    return carry, tuple(torch.stack(c) for c in zip(*captured))
+
+
+def append_ok(bundle: ModelBundle) -> bool:
+    """True when the bundle supports chunk-append prefill, the substrate of
+    the paged serving runtime (``serve/paged.py``): every segment offers
+    ``SegmentDef.append``. (The JAX package also asks for ragged prefill
+    and no ``decode_extras``; every bundle of the port has both.)"""
+    return all(seg.append is not None for seg in bundle.segments)
+
+
+def build_append(bundle: ModelBundle, max_len: int, capture=None):
+    """Returns ``append(params, state, tokens (B, C), chunk_len (B,)) ->
+    (last_logits, new_state)``: chunk-continuation prefill.
+
+    ``state`` already holds the first ``state.lengths`` positions of each
+    row; ``tokens`` carries the next chunk (right-padded to C, per-row
+    valid count ``chunk_len``). Valid tokens write their K/V at absolute
+    positions ``lengths + i`` in place (padded tail positions write
+    nothing), queries attend the whole cache under the absolute causal
+    mask, and the logits sit at each row's last valid chunk position.
+    Running a prompt through ``append`` chunk by chunk computes what
+    :func:`build_prefill` does.
+
+    ``capture``: optional ``(new_cache_slice, ctx) -> pytree`` hook applied
+    to each layer's updated cache; the returned state then carries the
+    captured pytrees, stacked by layer (the paged runtime keeps only the
+    chunk's freshly written K/V). ``max_len`` is the window, as for
+    :func:`build_prefill`.
+    """
+    if not append_ok(bundle):
+        raise ValueError(
+            f"{bundle.cfg.name}: chunk-append prefill requires "
+            "row-independent attention segments (SegmentDef.append) — "
+            "this bundle must use one-shot prefill")
+
+    @torch.no_grad()
+    def append(params, state: DecodeState, tokens, chunk_len):
+        B, C = tokens.shape
+        if C == 1:
+            # as the JAX engine: a width-1 chunk runs at width 2 (the pad
+            # position is masked and writes nothing), so the capture
+            # width the paged write plan reads is 2
+            tokens = F.pad(tokens, (0, 1))
+            C = 2
+        carry, _ = bundle.embed(params, {"tokens": tokens})
+        base = state.lengths.to(torch.int32)
+        chunk_len = chunk_len.to(torch.int32)
+        cols = torch.arange(C, dtype=torch.int32, device=tokens.device)
+        ctx = {"length": base, "positions": base[:, None] + cols[None],
+               "chunk_mask": cols[None] < chunk_len[:, None],
+               "max_len": max_len}
+        new_caches: Dict[str, Any] = {}
+        for i, seg in enumerate(bundle.segments):
+            key = bundle.seg_key(i)
+            carry, got = _run_cached(seg, seg.append, params[key],
+                                     state.caches[key], carry, ctx, capture)
+            new_caches[key] = state.caches[key] if got is None else got
+        h = carry["h"]
+        rows = torch.arange(B, device=h.device)
+        h_last = h[rows, (chunk_len.clamp(min=1) - 1).long()][:, None]
+        logits = bundle.head_logits(params, {**carry, "h": h_last})
+        return logits, DecodeState(new_caches, base + chunk_len)
+
+    return append
+
+
+def build_decode(bundle: ModelBundle, capture=None):
     """Returns ``decode(params, state, tokens (B, 1)) -> (logits,
-    new_state)``; ``state.caches`` are written in place."""
+    new_state)``; ``state.caches`` are written in place.
+
+    ``capture``: optional ``(new_cache_slice, ctx) -> pytree`` hook, as in
+    :func:`build_append`: the returned state's caches are then the
+    captured pytrees (e.g. just this step's K/V), stacked by layer."""
     @torch.no_grad()
     def decode(params, state: DecodeState, tokens):
         carry, ctx = bundle.embed(params, {"tokens": tokens})
         ctx = {**ctx, "length": state.lengths}
+        new_caches: Dict[str, Any] = {}
         for i, seg in enumerate(bundle.segments):
             key = bundle.seg_key(i)
-            stack, (kc, vc) = params[key], state.caches[key]
-            for layer in range(seg.n_layers):
-                carry, _ = seg.decode(layer_params(stack, layer), carry,
-                                      (kc[layer], vc[layer]), ctx)
+            carry, got = _run_cached(seg, seg.decode, params[key],
+                                     state.caches[key], carry, ctx, capture)
+            new_caches[key] = state.caches[key] if got is None else got
         logits = bundle.head_logits(params, carry)
-        return logits, DecodeState(state.caches, state.lengths + 1)
+        return logits, DecodeState(new_caches, state.lengths + 1)
 
     return decode
 

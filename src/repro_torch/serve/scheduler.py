@@ -1,5 +1,7 @@
 """Continuous-batching serving runtime: slot scheduler + KV-cache pool
-(the counterpart of the slot backend of ``repro/serve/scheduler.py``).
+(the counterpart of ``repro/serve/scheduler.py``). The paged backend
+(block pool, radix prefix cache, chunked prefill) is ``serve/paged.py``;
+:func:`make_scheduler` picks between them.
 
 * a **KV-cache pool**: one ``DecodeState`` whose batch axis is a fixed set
   of ``num_slots`` slots (cache tensors ``(L, num_slots, max_len, KH,
@@ -32,11 +34,19 @@ from repro_torch.serve.engine import DecodeState
 
 @dataclass
 class Request:
-    """One generation request: ``tokens`` is the unpadded prompt."""
+    """One generation request: ``tokens`` is the unpadded prompt.
+
+    ``cont`` carries the in-progress :class:`Completion` of a PREEMPTED
+    request (paged backend only): the paged scheduler may evict a running
+    sequence when the block pool drains and requeue it as a continuation
+    whose prompt is the original prompt plus everything emitted so far; on
+    re-admission the completion keeps accumulating (greedy decode replays
+    the prefix)."""
     rid: int
     tokens: Sequence[int]
     max_new_tokens: int
     eos_id: Optional[int] = None
+    cont: Optional["Completion"] = None
 
 
 @dataclass
@@ -50,7 +60,14 @@ class Completion:
     t_finish: float = 0.0
 
     @property
+    def latency(self) -> float:
+        return self.t_finish - self.t_submit
+
+    @property
     def ttft(self) -> float:
+        """Submit → first emitted token. For the slot backend admission and
+        first token coincide; the paged backend's chunked prefill separates
+        them (``t_admit < t_first``)."""
         return self.t_first - self.t_submit
 
 
@@ -297,12 +314,27 @@ class Scheduler:
         return self.completed
 
 
-def make_scheduler(bundle: ModelBundle, params, *, backend: str = "slot",
+def make_scheduler(bundle: ModelBundle, params, *, backend: str = "auto",
                    num_slots: int, max_len: int, **kw) -> Scheduler:
-    """Serving backend selection: only ``"slot"`` is ported (the paged
-    runtime is not)."""
-    if backend != "slot":
-        raise ValueError(f"serving backend {backend!r} is not ported; "
-                         "the port has 'slot'")
-    return Scheduler(bundle, params, num_slots=num_slots, max_len=max_len,
-                     **kw)
+    """Serving backend selection.
+
+    ``backend``: ``"slot"``, the contiguous per-slot pool above;
+    ``"paged"``, the block-pool runtime with radix prefix sharing and
+    chunked prefill (``serve/paged.py``, requires ``engine.append_ok``);
+    ``"auto"``, paged when the bundle supports it (every bundle of the
+    port does), slot otherwise. The slot backend ignores the paged-only
+    keywords. Both give the same tokens under greedy decode."""
+    if backend == "auto":
+        backend = "paged" if engine.append_ok(bundle) else "slot"
+    if backend == "paged":
+        from repro_torch.serve.paged import PagedScheduler
+        return PagedScheduler(bundle, params, num_slots=num_slots,
+                              max_len=max_len, **kw)
+    if backend == "slot":
+        kw = {k: v for k, v in kw.items()
+              if k not in ("block_size", "num_blocks", "prefill_chunk",
+                           "use_radix", "reserve_decode")}
+        return Scheduler(bundle, params, num_slots=num_slots,
+                         max_len=max_len, **kw)
+    raise ValueError(f"unknown serving backend {backend!r} "
+                     "(expected 'slot', 'paged', or 'auto')")

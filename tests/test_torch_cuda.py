@@ -602,3 +602,89 @@ def test_flash_prefill_matches_cpu(cuda):
         "flash_attention_ref")
     assert n_c.get("flash_attention_ref") == 2
     assert _rel(l_g, l_c) <= 2e-2
+
+
+def _smoke_on_both(cuda):
+    """llama-60m smoke (f32) on the card and the CPU, on the same INT8
+    codes drawn on the card."""
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.params import quantize_leaf
+    bundles = {dev: model_zoo.build_arch("llama-60m", smoke=True, device=dev,
+                                         dtype=torch.float32)
+               for dev in ("cpu", "cuda")}
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p_gpu = bundles["cuda"].init_params(
+        gen, leaf_fn=lambda _, t: quantize_leaf(t))
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        return t.to("cpu")
+
+    return bundles, {"cpu": to_cpu(p_gpu), "cuda": p_gpu}
+
+
+@pytest.mark.parametrize("width", [1, 16])
+def test_append_matches_prefill_on_the_card(cuda, width):
+    """Chunked append on the card against one-shot prefill on the card,
+    f32: last logits and the written cache within 1e-4 of max|ref|, every
+    matmul through the kernel."""
+    from repro_torch.serve import engine
+    from repro_torch.serve.scheduler import init_pool
+    bundles, params = _smoke_on_both(cuda)
+    b, p = bundles["cuda"], params["cuda"]
+    P, max_len = 40, 48
+    prompt = torch.randint(1, 512, (1, P), generator=torch.Generator()
+                           .manual_seed(1), dtype=torch.int32).to(cuda)
+    want_l, want = engine.build_prefill(b, max_len)(p, {"tokens": prompt})
+    append = engine.build_append(b, max_len)
+    state = init_pool(b, 1, max_len, torch.float32, cuda)
+    LAUNCHES.clear()
+    for pos in range(0, P, width):
+        n = min(width, P - pos)
+        chunk = torch.zeros((1, width), dtype=torch.int32, device=cuda)
+        chunk[0, :n] = prompt[0, pos:pos + n]
+        logits, state = append(p, state, chunk,
+                               torch.tensor([n], dtype=torch.int32,
+                                            device=cuda))
+    torch.cuda.synchronize()
+    assert LAUNCHES["int8_matmul"] == 15 * -(-P // width)
+    assert not LAUNCHES["deq_matmul"]
+    assert _rel(logits, want_l) <= 1e-4
+    for got, ref in zip(state.caches["seg0_dense"],
+                        want.caches["seg0_dense"]):
+        assert _rel(got[:, :, :P], ref[:, :, :P]) <= 1e-4
+    assert int(state.lengths[0]) == P
+
+
+def test_paged_scheduler_matches_cpu(cuda):
+    """The paged scheduler on the card (kernels) against the CPU's (plain
+    versions) on the same codes, f32, shared-prefix traffic: equal greedy
+    tokens and equal stats."""
+    import numpy as np
+    from repro_torch.serve.paged import PagedScheduler
+    from repro_torch.serve.scheduler import Request
+    bundles, params = _smoke_on_both(cuda)
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(1, 512, size=24)
+    reqs = []
+    for i in range(8):
+        t = rng.integers(1, 512, size=int(rng.integers(3, 20)))
+        if i % 2 == 0:
+            t = np.concatenate([prefix, t])
+        reqs.append((i, t.astype(np.int32).tolist(),
+                     int(rng.integers(2, 8))))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sched = PagedScheduler(bundles[dev], params[dev], num_slots=4,
+                               max_len=64, block_size=8, prefill_chunk=8,
+                               dtype=torch.float32, device=dev)
+        LAUNCHES.clear()
+        comps = sched.run([Request(*r) for r in reqs])
+        out[dev] = ({c.rid: c.tokens for c in comps}, sched.stats,
+                    dict(LAUNCHES))
+        sched.alloc.check()
+    (t_c, s_c, n_c), (t_g, s_g, n_g) = out["cpu"], out["cuda"]
+    assert n_g.get("int8_matmul") and not n_g.get("deq_matmul")
+    assert t_g == t_c and s_g == s_c
+    assert s_g["radix_hit_blocks"] > 0

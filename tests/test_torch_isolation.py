@@ -48,7 +48,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.launch.train, repro_torch.train.trainer, "
             "repro_torch.train.checkpoint, repro_torch.core.rules, "
             "repro_torch.core.transform, repro_torch.models.lora, "
-            "repro_torch.launch.finetune; "
+            "repro_torch.launch.finetune, repro_torch.serve.paged, "
+            "repro_torch.serve.radix; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")
@@ -94,6 +95,6 @@ def test_unported_architectures_raise():
     from repro_torch.config import replace
     with pytest.raises(NotImplementedError, match="tied"):
         model_zoo.build(replace(tied, tie_embeddings=True), device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        scheduler.make_scheduler(None, None, backend="paged", num_slots=1,
+    with pytest.raises(ValueError, match="unknown serving backend"):
+        scheduler.make_scheduler(None, None, backend="bogus", num_slots=1,
                                  max_len=8)
