@@ -155,12 +155,37 @@ Phases (any failure exits non-zero):
    through the paged scheduler on the card and on the CPU (equal greedy
    tokens and ``stats``) and through the card's slot scheduler (equal
    tokens).
+11. The dense variants. (a) mistral-nemo-12b, yi-9b, qwen3-32b (qk-norm),
+   gemma-7b (GeGLU, head_dim 256, the tied head) and internvl2-2b (the
+   VLM backbone) at full width and depth, bf16, one at a time: weights
+   drawn from ``--seed`` and quantized on the card one layer of a group
+   at a time (``init_params(by_layer=True)``; the drawn tree's
+   parameters must equal ``model_zoo.count_params``), then 8 requests
+   (prompts of 64-512 tokens, 16 greedy new tokens) through
+   ``make_scheduler`` with 4 slots (the paged runtime). Every decode or
+   append dispatch must launch ``int8_matmul`` 7 x layers times plus one
+   for an untied head (twice that a fused one) and ``int8_matmul_t`` once
+   for the tied head and never otherwise, with no plain version; then
+   the prefill and 4 teacher-forced decode steps at bf16 against the full
+   forward (0.1 of max|logits|; see ``BF16_PATH_TOL``), and every
+   distinct ``int8_matmul`` problem against its plain version. Tokens/s,
+   mean TTFT, median decode dispatch ms, INT8 GiB, peak GiB and launches
+   a decode dispatch are printed beside the card's name and power
+   limit. (b) Each at f32 and 2 layers, the same codes on the card and
+   the CPU: the prefill and 3 decode steps (and for the VLM the forward
+   over a patch prefix) within 1e-4 of max|logits|, the card through the
+   kernels and the CPU through the plain versions. (c) gemma-7b's tied
+   head ``h (M, 3072) bf16 @ deq(E (256000, 3072))^T`` through
+   ``int8_matmul_t`` at M = 1, 8, 16 and 2048, against its plain version
+   (2e-2 of max|plain|) and timed beside it, cuBLAS bf16 and the bound.
+   The phase's wall time is printed.
 
 The last three lines are the kernels JSON (all seven kernels;
 ``int8_matmul``'s and ``int8_matmul_t``'s training step, flash's prefill
 and ``int4_matmul``'s projections with ``factor`` = ms / library_ms; the
 three training kernels also carry their LLaMA-7B pre-training and
-fine-tuning rows, ``int8_matmul`` its paged serving runs),
+fine-tuning rows, ``int8_matmul`` its paged serving runs and both INT8
+matmuls phase 11's, ``int8_matmul_t`` the tied head's rows),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository's ``src/``
 beside it, the script exits non-zero and prints no result.
@@ -2293,18 +2318,20 @@ def first_divergence(got: dict, want: dict):
 
 
 def paged_run(bundle, params, reqs, *, slots: int, window: int,
-              shapes: set, num_blocks=None, profile: bool = False) -> dict:
+              shapes: set, num_blocks=None, profile: bool = False,
+              per_call: int = 0, per_call_t: int = 0) -> dict:
     """One run of ``reqs`` through ``make_scheduler(backend="auto")`` (the
     paged scheduler) on the card, bf16: every dispatch counted and timed
-    (synchronised), its ``int8_matmul`` launches held to 169 (decode or
-    append) or 338 (fused), the allocator's invariant after the run. With
-    ``profile``, five decode-only steps with every slot in flight are
-    then profiled as phase 3's are (prompts cut to one chunk, so the
-    first step prefills them all)."""
+    (synchronised), its launches held to ``per_call`` of ``int8_matmul``
+    (default llama-1b's 169) and ``per_call_t`` of ``int8_matmul_t`` a
+    decode or append dispatch and twice those a fused one, the allocator's
+    invariant after the run. With ``profile``, five decode-only steps
+    with every slot in flight are then profiled as phase 3's are (prompts
+    cut to one chunk, so the first step prefills them all)."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.serve.paged import PagedScheduler
     from repro_torch.serve.scheduler import Request, make_scheduler
-    per_call = 7 * num_layers() + 1
+    per_call = per_call or 7 * num_layers() + 1
     sched = make_scheduler(bundle, params, backend="auto", num_slots=slots,
                            max_len=window, block_size=PAGED_BLOCK,
                            num_blocks=num_blocks, prefill_chunk=PAGED_CHUNK,
@@ -2319,17 +2346,20 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
     bad = []
 
     def timed(name, inner):
-        want = per_call * (2 if name == "_fused" else 1)
+        mult = 2 if name == "_fused" else 1
+        want = (per_call * mult, per_call_t * mult)
 
         def run(*a):
-            before = LAUNCHES["int8_matmul"]
+            before = (LAUNCHES["int8_matmul"], LAUNCHES["int8_matmul_t"])
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = inner(*a)
             torch.cuda.synchronize()
             ms[name].append((time.perf_counter() - t) * 1e3)
-            if LAUNCHES["int8_matmul"] - before != want:
-                bad.append((name, LAUNCHES["int8_matmul"] - before))
+            got = (LAUNCHES["int8_matmul"] - before[0],
+                   LAUNCHES["int8_matmul_t"] - before[1])
+            if got != want:
+                bad.append((name, got))
             return out
         return run
 
@@ -2357,14 +2387,15 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
             setattr(sched, n, inner[n])
     wall = time.monotonic() - t0
     counts, st = dict(LAUNCHES), dict(sched.stats)
-    problems = [f"{n} dispatch launched int8_matmul {k} times"
-                for n, k in bad[:3]]
+    problems = [f"{n} dispatch launched (int8_matmul, int8_matmul_t) {k}"
+                f" times" for n, k in bad[:3]]
     n_disp = {n: len(v) for n, v in ms.items()}
-    want = per_call * (n_disp["_step"] + n_disp["_append"]
-                       + 2 * n_disp["_fused"])
-    if counts.get("int8_matmul") != want:
-        problems.append(f"int8_matmul launches {counts.get('int8_matmul')}"
-                        f" != {want} for dispatches {n_disp}")
+    calls = n_disp["_step"] + n_disp["_append"] + 2 * n_disp["_fused"]
+    if counts.get("int8_matmul") != per_call * calls or \
+            counts.get("int8_matmul_t", 0) != per_call_t * calls:
+        problems.append(f"launches {counts} != {per_call} int8_matmul and "
+                        f"{per_call_t} int8_matmul_t x {calls} for "
+                        f"dispatches {n_disp}")
     if any(n.endswith("_ref") or n.startswith("deq_")
            or n.startswith("flash") for n in counts):
         problems.append(f"plain versions or flash ran: {counts}")
@@ -2616,6 +2647,313 @@ def phase_paged_parity(seed: int) -> dict:
             "tokens_equal_cpu": True, "tokens_equal_slot": True}
 
 
+DENSE_ARCHS = ("mistral-nemo-12b", "yi-9b", "qwen3-32b", "gemma-7b",
+               "internvl2-2b")
+DENSE_SLOTS, DENSE_REQS, DENSE_NEW = 4, 8, 16
+DENSE_PROMPT = (64, 512)
+DENSE_WINDOW = DENSE_PROMPT[1] + DENSE_NEW
+# bf16 teacher-forced decode against the full forward: the two paths round
+# at different places (a decode matmul at M = 1 takes the small-M path's
+# two passes, the forward's M = 32 the tiled path's one bf16 pass, 2e-2 of
+# max|plain| a matmul at most, docs/kernels.md), and every layer casts its
+# output to bf16 (2^-9 relative); over 24-64 layers of random weights the
+# logits may differ by a few hundredths of max|logits|. A wrong cache
+# position, RoPE angle or missing qk-norm moves them by O(1), ten times
+# this bar or more.
+BF16_PATH_TOL = 0.1
+TIED_MS = (1, 8, 16, DENSE_SLOTS * DENSE_PROMPT[1])
+
+
+def dense_requests(seed: int, vocab: int) -> list:
+    """Phase 11a's 8 requests: prompts of 64-512 tokens drawn from
+    ``seed``, 16 greedy new tokens each."""
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(seed + 11)
+    lens = rng.integers(DENSE_PROMPT[0], DENSE_PROMPT[1] + 1,
+                        size=DENSE_REQS)
+    return [Request(rid=i, tokens=rng.integers(1, vocab, size=int(n))
+                    .astype(np.int32), max_new_tokens=DENSE_NEW)
+            for i, n in enumerate(lens)]
+
+
+def tree_stats(params) -> dict:
+    """Parameters of a tree, and the bytes of its INT8 leaves (codes and
+    scales) and of its float leaves."""
+    from repro_torch.core.quant import QTensor
+    out = {"params": 0, "int8_bytes": 0, "float_bytes": 0}
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, QTensor):
+            out["params"] += math.prod(t.shape)
+            out["int8_bytes"] += t.q.nbytes + t.scale.nbytes
+        else:
+            out["params"] += t.numel()
+            out["float_bytes"] += t.nbytes
+    walk(params)
+    return out
+
+
+def decode_vs_forward(bundle, params, seed: int, prompt: int = 32,
+                      steps: int = 4) -> list:
+    """Phase 11b at bf16: one prompt's prefill, then teacher-forced decode
+    steps through the cache, each step's logits against the full-sequence
+    forward's last logits at that length (relative to max|forward|)."""
+    from repro_torch.models import base
+    from repro_torch.serve import engine
+    rng = np.random.default_rng(seed + 12)
+    toks = torch.from_numpy(rng.integers(
+        1, bundle.cfg.vocab_size, size=(1, prompt + steps))
+        .astype(np.int32)).cuda()
+
+    @torch.no_grad()
+    def full(upto):
+        carry, ctx = bundle.embed(params, {"tokens": toks[:, :upto]})
+        carry = base.run_segments(bundle, params, carry, ctx)
+        return bundle.head_logits(params, carry)[:, -1].float()
+
+    def rel(a, b):
+        return ((a.float() - b).abs().max() / b.abs().max()).item()
+
+    logits, state = engine.build_prefill(bundle, prompt + steps + 1)(
+        params, {"tokens": toks[:, :prompt]})
+    errs = [rel(logits[:, -1], full(prompt))]
+    decode = engine.build_decode(bundle)
+    for t in range(prompt, prompt + steps):
+        logits, state = decode(params, state, toks[:, t: t + 1])
+        errs.append(rel(logits[:, -1], full(t + 1)))
+    return errs
+
+
+def serve_dense(arch: str, seed: int) -> dict:
+    """Phase 11a (and 11b's bf16 half) for one architecture at full width
+    and depth: weights drawn and quantized on the card one layer of a
+    group at a time, 8 requests through ``make_scheduler`` (the paged
+    runtime), every dispatch's launches held to the architecture's count;
+    then the decode-against-forward check and every distinct
+    ``int8_matmul`` problem against its plain version."""
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.params import quantize_leaf
+    cfg = model_zoo.get_config(arch)
+    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = bundle.init_params(gen, leaf_fn=lambda _, t: quantize_leaf(t),
+                                by_layer=True)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = tree_stats(params)
+    want_params = model_zoo.count_params(cfg)
+    tied = cfg.tie_embeddings
+    per_call = 7 * cfg.num_layers + (0 if tied else 1)
+    per_call_t = 1 if tied else 0
+    log(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.ffn_activation}"
+        f"{', qk-norm' if cfg.qk_norm else ''}"
+        f"{', tied head' if tied else ''}"
+        f"{', vlm' if cfg.family == 'vlm' else ''}: {st['params'] / 1e9:.2f} "
+        f"B parameters ({want_params / 1e9:.2f} B counted on the meta "
+        f"device), INT8 codes and scales {st['int8_bytes'] / 2**30:.2f} GiB, "
+        f"float {st['float_bytes'] / 2**20:.2f} MiB; drawn and quantized in "
+        f"{init_s:.2f} s, peak {init_peak:.2f} GiB")
+    problems = []
+    if st["params"] != want_params:
+        problems.append(f"{st['params']} parameters drawn, "
+                        f"{want_params} counted")
+    shapes: set = set()
+    run = paged_run(bundle, params, dense_requests(seed, cfg.vocab_size),
+                    slots=DENSE_SLOTS, window=DENSE_WINDOW, shapes=shapes,
+                    profile=True, per_call=per_call, per_call_t=per_call_t)
+    errs = decode_vs_forward(bundle, params, seed)
+    log(f"  {arch} bf16 decode against the full forward (prefill, then 4 "
+        f"teacher-forced steps), rel err {['%.2e' % e for e in errs]} "
+        f"(tolerance {BF16_PATH_TOL})")
+    if max(errs) > BF16_PATH_TOL:
+        problems.append(f"decode against forward {errs}")
+    del params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = check_shapes(shapes, seed)
+    if problems:
+        raise AssertionError(f"phase 11a {arch}: " + "; ".join(problems))
+    out = {k: run.get(k) for k in (
+        "tokens_per_s", "mean_ttft_s", "median_decode_step_ms",
+        "median_append_ms", "median_fused_ms", "dispatches", "launches",
+        "peak_gib", "stats", "wall_s", "profile_step_wall_ms",
+        "profile_step_device_ms", "device_idle_share", "profile_error")}
+    out.update(layers=cfg.num_layers, params=st["params"],
+               int8_gib=st["int8_bytes"] / 2 ** 30, init_s=init_s,
+               init_peak_gib=init_peak, decode_vs_forward_rel=errs,
+               launches_per_decode_dispatch={"int8_matmul": per_call,
+                                             "int8_matmul_t": per_call_t},
+               **check)
+    return out
+
+
+def f32_parity_dense(arch: str, seed: int) -> dict:
+    """Phase 11b at f32: 2 layers at full width, the same INT8 codes on the
+    card and the CPU; a prompt's prefill and 3 teacher-forced decode steps
+    (and for the VLM the full forward over a patch prefix), the card's
+    logits within ``PARITY_TOL`` of the CPU's; the card launches the
+    kernels, the CPU the plain versions."""
+    from repro_torch.config import replace
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import base, model_zoo
+    from repro_torch.serve import engine
+    from repro_torch.serve.params import quantize_leaf
+    cfg = replace(model_zoo.get_config(arch), num_layers=2)
+    gpu = model_zoo.build(cfg, device="cuda", dtype=torch.float32)
+    cpu = model_zoo.build(cfg, device="cpu", dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    p_gpu = gpu.init_params(gen, leaf_fn=lambda _, t: quantize_leaf(t),
+                            by_layer=True)
+    p_cpu = to_cpu(p_gpu)
+    rng = np.random.default_rng(seed + 13)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, 15))
+                            .astype(np.int32))
+    patches = torch.from_numpy(rng.standard_normal(
+        (1, cfg.num_prefix_embeddings, cfg.d_model)).astype(np.float32)) \
+        * 0.5 if cfg.family == "vlm" else None
+    out = {}
+    for name, bundle, params in (("cpu", cpu, p_cpu), ("gpu", gpu, p_gpu)):
+        dev = bundle.device
+        t = toks.to(dev)
+        LAUNCHES.clear()
+        logits, state = engine.build_prefill(bundle, 16)(
+            params, {"tokens": t[:, :12]})
+        got = [logits[:, -1]]
+        decode = engine.build_decode(bundle)
+        for i in range(12, 15):
+            logits, state = decode(params, state, t[:, i: i + 1])
+            got.append(logits[:, -1])
+        if patches is not None:
+            with torch.no_grad():
+                carry, ctx = bundle.embed(params, {
+                    "tokens": t, "patch_embeds": patches.to(dev)})
+                carry = base.run_segments(bundle, params, carry, ctx)
+                got.append(bundle.head_logits(params, carry)[:, -1])
+        out[name] = ([g.float().cpu() for g in got], dict(LAUNCHES))
+    (l_c, n_c), (l_g, n_g) = out["cpu"], out["gpu"]
+    rel = max(((g - c).abs().max() / c.abs().max()).item()
+              for g, c in zip(l_g, l_c))
+    kernels = {"int8_matmul"} | ({"int8_matmul_t"} if cfg.tie_embeddings
+                                 else set())
+    plain = {"deq_matmul"} | ({"deq_matmul_t"} if cfg.tie_embeddings
+                              else set())
+    prefix = "" if patches is None else " and the forward over a patch prefix"
+    log(f"  {arch} f32, 2 layers, card against CPU: rel err {rel:.2e} "
+        f"(tolerance {PARITY_TOL}) over the prefill, 3 decode steps{prefix}"
+        f"; launches card {n_g} CPU {n_c}")
+    problems = []
+    if set(n_g) != kernels:
+        problems.append(f"card launches {n_g}, want {kernels}")
+    if set(n_c) != plain:
+        problems.append(f"CPU launches {n_c}, want {plain}")
+    if rel > PARITY_TOL:
+        problems.append(f"rel err {rel:.2e}")
+    del p_gpu, p_cpu, gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"phase 11b {arch}: " + "; ".join(problems))
+    return {"rel_err": rel, "launches_card": n_g, "launches_cpu": n_c}
+
+
+def tied_head_rows(seed: int) -> list:
+    """Phase 11c: gemma-7b's tied head as a kernel problem, ``h (M, 3072)
+    bf16 @ deq(E (256000, 3072))^T`` through ``int8_matmul_t`` at M = 1, 8,
+    16 (decode) and slots x prompt, against its plain version (2e-2 of
+    max|plain|, the one-pass bf16 bar) and timed beside it, cuBLAS bf16 on
+    E dequantized, and the bound."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.kernels import ref
+    from repro_torch.models import model_zoo
+    cfg = model_zoo.get_config("gemma-7b")
+    V, D = cfg.vocab_size, cfg.d_model
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    w = torch.randn((V, D), generator=gen, device=dev) * 0.02
+    qt = quant.quantize_blockwise(w, bits=8, symmetric=True)
+    del w
+    w_lib = quant.dequantize(qt, torch.bfloat16)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    chunk = 256          # the plain version's (M, 12, 256000) f32 partials
+
+    def plain(x):
+        return torch.cat([ref.int8_matmul_t_ref(x[i: i + chunk], qt.q,
+                                                qt.scale, 256)
+                          for i in range(0, x.shape[0], chunk)])
+
+    rows = []
+    for M in TIED_MS:
+        x = torch.randn((M, D), generator=gen, device=dev).to(torch.bfloat16)
+        got = ti8.int8_matmul_t(x, qt.q, qt.scale)
+        want = plain(x)
+        abs_err = (got - want).abs().max().item()
+        rel = abs_err / want.abs().max().item()
+        del got, want
+        ms = time_ms(lambda: ti8.int8_matmul_t(x, qt.q, qt.scale), flush,
+                     reps=10)
+        plain_ms = time_ms(lambda: plain(x), flush, reps=3)
+        lib_ms = time_ms(lambda: torch.matmul(x, w_lib.T), flush, reps=10)
+        b_ms, b_by = bound_t(M, V, D, 2)
+        row = {"M": M, "K": V, "N": D, "g": "bfloat16", "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "max_abs_err": abs_err, "rel_err": rel,
+               "tflops": 2 * M * V * D / ms / 1e9,
+               "padded_rows": -(-M // ti8.TILE_M_T) * ti8.TILE_M_T,
+               "design": mma_design(torch.bfloat16)
+               + f", {ti8.TILE_M_T}-row output tiles"}
+        rows.append(row)
+        log(f"  tied head M={M:5d} K={V} N={D} bf16 g: ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (cuBLAS bf16)"
+            f" bound_ms={b_ms:.4f} ({b_by}) tflops={row['tflops']:.1f} "
+            f"rows padded to {row['padded_rows']} rel_err={rel:.2e} "
+            f"{'ok' if rel <= TOL else 'FAIL'}")
+        del x
+    del qt, w_lib, flush
+    torch.cuda.empty_cache()
+    bad = [r for r in rows if r["rel_err"] > TOL]
+    if bad:
+        raise AssertionError(f"int8_matmul_t disagrees with its plain "
+                             f"version at the tied head: {bad}")
+    return rows
+
+
+def phase_dense_variants(seed: int) -> dict:
+    """Phase 11: the dense variants at full width (11a, 11b's bf16 half),
+    their f32 card-against-CPU parity at 2 layers (11b) and the tied head
+    as a kernel problem (11c)."""
+    log("== phase 11: the dense variants at full width and depth through "
+        "the paged scheduler (4 slots, 8 requests, prompts 64-512, 16 new)")
+    card = nvidia_smi_line()
+    log("card:", card)
+    t0 = time.monotonic()
+    serve = {a: serve_dense(a, seed) for a in DENSE_ARCHS}
+    for a, r in serve.items():
+        log(f"  11a {a}: {r['tokens_per_s']:.1f} tok/s, mean TTFT "
+            f"{r['mean_ttft_s']:.3f} s, median decode dispatch "
+            f"{r['median_decode_step_ms']} ms, INT8 weights "
+            f"{r['int8_gib']:.2f} GiB, peak {r['peak_gib']:.2f} GiB, launches"
+            f" a decode dispatch {r['launches_per_decode_dispatch']}, decode "
+            f"idle share {r['device_idle_share']} [{card}]")
+    parity = {a: f32_parity_dense(a, seed) for a in DENSE_ARCHS}
+    tied = tied_head_rows(seed)
+    wall = time.monotonic() - t0
+    log(f"  phase 11 in {wall:.1f} s (nothing cut: every architecture at "
+        "its full depth)")
+    return {"serving": serve, "f32_parity": parity, "tied_head": tied,
+            "wall_s": wall, "card": card}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2647,6 +2985,7 @@ def main() -> int:
                 "llama_7b": phase_finetune_7b(args.seed)}
     paged = {"serving": phase_paged(args.seed, serving),
              "parity": phase_paged_parity(args.seed)}
+    dense = phase_dense_variants(args.seed)
     log(f"  serving, route off / flash route: tokens/s "
         f"{serving['tokens_per_s']:.1f} / {flash_serving['tokens_per_s']:.1f}"
         f", mean TTFT {serving['mean_ttft_s']:.3f} / "
@@ -2662,7 +3001,7 @@ def main() -> int:
     print(json.dumps(kernels_json(rows, step, step_by, max_abs, max_rel,
                                   serving, parity, training, flash_rows,
                                   flash_serving, flash_parity, unfused,
-                                  training_7b, finetune, paged)))
+                                  training_7b, finetune, paged, dense)))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2672,12 +3011,14 @@ def main() -> int:
 
 def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                  training, flash_rows, flash_serving, flash_parity,
-                 unfused, training_7b, finetune, paged) -> dict:
+                 unfused, training_7b, finetune, paged, dense) -> dict:
     """The ``kernels`` line: every kernel with its launches on the main
     paths, errors against its plain version, and times beside its bound;
     the three training kernels also carry their LLaMA-7B rows
     (``llama_7b``: per-shape rows and one steady step's sums) and their
-    LLaMA-7B fine-tune rows at rank 8 (``llama_7b_finetune``)."""
+    LLaMA-7B fine-tune rows at rank 8 (``llama_7b_finetune``);
+    ``int8_matmul`` and ``int8_matmul_t`` their phase 11 serving launches,
+    ``int8_matmul_t`` the tied head's rows (``tied_head``)."""
     layers = num_layers()
     flash_pick, flash_f32 = (
         next(r for r in flash_rows if (r["B"], r["S"], r["dv"], r["causal"],
@@ -2711,6 +3052,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     tkf, sumsf, i8f = ft7["train_kernels"], ft7["train_kernel_step_sums"], \
         ft7["int8_matmul"]
     ps = paged["serving"]
+    dl = {n: sum(r["launches"].get(n, 0) for r in dense["serving"].values())
+          for n in ("int8_matmul", "int8_matmul_t")}
 
     def ft_paths(name):
         return {"finetune_cli": lc.get(name, 0),
@@ -2726,18 +3069,27 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "replaces": "src/repro/kernels/int8_matmul.py:85",
         "launches": serving["launches"].get("int8_matmul", 0)
         + tl.get("int8_matmul", 0) + l7.get("int8_matmul", 0)
-        + sum(ft_paths("int8_matmul").values()) + ps["launches"],
+        + sum(ft_paths("int8_matmul").values()) + ps["launches"]
+        + dl["int8_matmul"],
         "launches_by_path": {"serving": serving["launches"].get(
             "int8_matmul", 0), "training": tl.get("int8_matmul", 0),
             "training_7b": l7.get("int8_matmul", 0),
-            **ft_paths("int8_matmul"), "paged_serving": ps["launches"]},
+            **ft_paths("int8_matmul"), "paged_serving": ps["launches"],
+            "dense_variants_serving": dl["int8_matmul"]},
         "max_abs_err": max([max_abs, serving["check_max_abs_err"],
                             ps["check_max_abs_err"]]
                            + [r["max_abs_err"]
                               for r in i8_7b["per_shape"]
-                              + i8f["per_shape"]]),
-        "max_rel_err": max(max_rel, serving["check_max_rel_err"],
-                           ps["check_max_rel_err"]),
+                              + i8f["per_shape"]]
+                           + [r["check_max_abs_err"]
+                              for r in dense["serving"].values()]),
+        "max_rel_err": max([max_rel, serving["check_max_rel_err"],
+                            ps["check_max_rel_err"]]
+                           + [r["check_max_rel_err"]
+                              for r in dense["serving"].values()]),
+        "dense_variants": {
+            "card": dense["card"], "wall_s": dense["wall_s"],
+            "serving": dense["serving"], "f32_parity": dense["f32_parity"]},
         "paged_serving": dict(paged["serving"], parity=paged["parity"]),
         "max_rel_err_7b": max(r["rel_err"] for r in i8_7b["per_shape"]
                               + i8f["per_shape"]),
@@ -2784,14 +3136,22 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "replaces": "src/repro/kernels/int8_matmul.py:141",
         "launches": tl.get("int8_matmul_t", 0)
         + l7.get("int8_matmul_t", 0)
-        + sum(ft_paths("int8_matmul_t").values()),
+        + sum(ft_paths("int8_matmul_t").values()) + dl["int8_matmul_t"],
         "launches_by_path": {"training": tl.get("int8_matmul_t", 0),
                              "training_7b": l7.get("int8_matmul_t", 0),
-                             **ft_paths("int8_matmul_t")},
+                             **ft_paths("int8_matmul_t"),
+                             "tied_head_serving": dl["int8_matmul_t"]},
         "max_abs_err": max(r["max_abs_err"] for r in tk["int8_matmul_t"]
-                           + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]),
+                           + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]
+                           + dense["tied_head"]),
         "max_rel_err": max(r["rel_err"] for r in tk["int8_matmul_t"]
-                           + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]),
+                           + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]
+                           + dense["tied_head"]),
+        "tied_head": {"per_shape": dense["tied_head"], "timed_as": (
+            "gemma-7b's tied head h (M, 3072) bf16 @ deq(E (256000, 3072))^T"
+            ", per-call median after an L2 flush; library: cuBLAS bf16 "
+            "h @ E^T on E dequantized beforehand"),
+            "launches_per_head_call": 1},
         "llama_7b_finetune": {"step_sums": sumsf["int8_matmul_t"],
                               "per_shape": tkf["int8_matmul_t"],
                               "timed_as": "the dL/dx calls of one LLaMA-7B "

@@ -23,10 +23,15 @@ the raw codes (exact in bf16), and take f32 sums:
 * M > 16 (prefill, training), and larger K: a BM x 128 tile (BM 64 or
   128). bf16 x takes one pass, the rounding of ``x * s`` to bf16 that the
   TPU's MXU makes at default precision; f32 x takes two. What bounds it
-  now is ``mma.sync`` issue and the A staging, not the bytes.
+  now is ``mma.sync`` issue and the A staging, not the bytes. Its K split
+  follows K alone (at most ``TILED_KC`` rows a split), so the order in
+  which a row's sums are taken, and so its output bit for bit, does not
+  depend on how many rows share the call.
 
 :func:`plan` chooses the launch (path, row tile, K split) from the shapes
-alone, in Python, so the CPU tests reach it.
+alone, in Python, so the CPU tests reach it. On either path a row's output
+is the same at every M the path takes (M <= 16, or M > 16); the two paths
+round differently.
 
 ``int8_matmul_t`` has one design: ``mma.sync`` on 128 x 128 output tiles,
 the whole contraction in one block, the group scale an epilogue on each
@@ -50,6 +55,7 @@ SMALL_KC_MAX = 2048  # small path: most K rows a split (its x * s is staged
                      # whole in shared memory); larger K takes the tiled path
 TILE_N = 128         # tiled path output tile columns
 TILE_K = 32          # tiled path k tile (a split's rows are a multiple)
+TILED_KC = 4096      # tiled path: most K rows a split
 TILE_M_T = 128       # int8_matmul_t's output rows a block
 H100_SMS = 132
 
@@ -75,10 +81,12 @@ def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
     whole 64-row k tiles, all of one cluster; K beyond ``MAX_CLUSTER *
     SMALL_KC_MAX`` rows goes to the tiled path at any M. The tiled path
     takes 128-row tiles unless 64-row tiles pad M by fewer rows (M =
-    17-64, or 300 in 5 tiles of 64 rather than 3 of 128), and splits K
-    only when its output
-    tiles cannot fill one wave, with at least 256 rows a split and each
-    split a multiple of the 32-row k tile.
+    17-64, or 300 in 5 tiles of 64 rather than 3 of 128; the row tile
+    does not change a row's sums), and splits K by K alone: into
+    ``ceil(K / TILED_KC)`` splits (at most 16), each a multiple of the
+    32-row k tile. A split count chosen from M would fill the card at
+    short prefills, but would also change each row's summation order
+    with the number of rows in the call.
     """
     if M <= SMALL_M and K <= MAX_CLUSTER * SMALL_KC_MAX:
         want = _cdiv(4 * sms, N // SMALL_N)
@@ -87,9 +95,7 @@ def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
         splits = _cdiv(K, kc)
         return Plan(0, SMALL_M, kc, splits)
     bm = 128 if 2 * _cdiv(M, 128) == _cdiv(M, 64) else 64
-    tiles = (N // TILE_N) * _cdiv(M, bm)
-    want = _cdiv(sms, tiles)
-    splits = max(1, min(want, K // 256, 16))
+    splits = min(_cdiv(K, TILED_KC), 16)
     kc = _cdiv(_cdiv(K, splits), TILE_K) * TILE_K
     return Plan(1, bm, kc, _cdiv(K, kc))
 

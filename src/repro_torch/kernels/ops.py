@@ -8,6 +8,9 @@
   activation dtype) and puts
   ``dL/dW = x^T g`` (float32, a library matmul, as the JAX package leaves
   it to XLA) on the shadow.
+* :func:`quantized_dense_t` — ``x @ deq(W)^T`` over the same stored
+  blocks (the tied-embedding head): its forward is ``int8_matmul_t``, its
+  ``dL/dx`` ``int8_matmul``, and ``dL/dW = g^T x`` lands on the shadow.
 * :func:`fused_qgalore_update` — the fused optimizer step for one weight:
   pads its operands to the kernel's layout and crops the results.
 * :func:`flash_attention` — online-softmax attention with native GQA (the
@@ -55,7 +58,8 @@ def _fwd(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
 
 
 def _dx(g2: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """g2 (M, orig) @ deq(qt)[:, :orig]^T → (M, K) float32."""
+    """g2 (M, orig) @ deq(qt)[:, :orig]^T → (M, K) float32 (the forward of
+    :func:`quantized_dense_t` too)."""
     if g2.device.type == "cpu":
         return ref.deq_matmul_t(g2, qt.q, qt.scale, qt.block)
     pad = qt.q.shape[1] - g2.shape[1]
@@ -90,6 +94,30 @@ class _QDense(torch.autograd.Function):
         return dx, dw, None, None
 
 
+class _QDenseT(torch.autograd.Function):
+    """``x2 @ deq(W)^T`` cast to ``dtype``, the mirror of :class:`_QDense`
+    (``repro/kernels/ops.py`` ``_qdense_t_core``): the forward streams the
+    codes through ``int8_matmul_t``, ``dL/dx`` through ``int8_matmul``, and
+    ``dL/dW = g^T x2`` (float32) lands on ``shadow``."""
+
+    @staticmethod
+    def forward(ctx, x2, shadow, qt, dtype):
+        ctx.save_for_backward(x2)
+        ctx.qt = qt
+        return _dx(x2, qt).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, = ctx.saved_tensors
+        qt = ctx.qt
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _fwd(g, qt).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(g.to(torch.float32).T, x2.to(torch.float32))
+        return dx, dw, None, None
+
+
 def quantized_dense(x: torch.Tensor, w, dtype: torch.dtype = torch.bfloat16
                     ) -> torch.Tensor:
     """``x (..., K) @ deq(W (K, N))`` with W consumed as INT8 codes: a
@@ -107,6 +135,29 @@ def quantized_dense(x: torch.Tensor, w, dtype: torch.dtype = torch.bfloat16
     else:
         out = _fwd(x2, qt).to(dtype)
     return out.reshape(*lead, qt.orig_last)
+
+
+def quantized_dense_t(x: torch.Tensor, w, dtype: torch.dtype = torch.bfloat16
+                      ) -> torch.Tensor:
+    """``x (..., D) @ deq(W (V, D))^T`` → ``(..., V)`` in ``dtype``, the
+    tied-embedding head (``repro/kernels/ops.py:347``): the contraction
+    runs along the quant axis of the same stored blocks, x zero-padded to
+    the codes' padded width. ``w`` is a QTensor or a QVirtual, as for
+    :func:`quantized_dense`."""
+    qt = w.qt if isinstance(w, QVirtual) else w
+    _check_weight(qt)
+    if x.shape[-1] != qt.orig_last:
+        raise ValueError(f"x has D={x.shape[-1]}, the weight "
+                         f"{tuple(qt.shape)}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if isinstance(w, QVirtual):
+        out = _QDenseT.apply(x2, w.shadow, qt, dtype)
+    elif torch.is_grad_enabled() and x.requires_grad:
+        out = _QDenseT.apply(x2, None, qt, dtype)
+    else:
+        out = _dx(x2, qt).to(dtype)
+    return out.reshape(*lead, qt.q.shape[0])
 
 
 def fused_qgalore_update(param: QTensor, low_g: torch.Tensor,

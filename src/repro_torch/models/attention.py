@@ -1,6 +1,8 @@
 """GQA attention with prefill and decode variants (the counterpart of the
-GQA half of ``repro/models/attention.py``, without qk-norm). Layouts follow the JAX
-package: ``(B, S, H, hd)`` activations, ``(B, Smax, KH, hd)`` caches.
+GQA half of ``repro/models/attention.py``, qk-norm included: with
+``cfg.qk_norm`` q and k are RMS-normalised over the head width before
+RoPE). Layouts follow the JAX package: ``(B, S, H, hd)`` activations,
+``(B, Smax, KH, hd)`` caches.
 
 The chunked einsum path is the reference numerics (the JAX package's flash
 kernel is off by default): scores for one query chunk at a time,
@@ -22,7 +24,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dense, dense_init, \
-    rope_angles
+    rmsnorm, rmsnorm_init, rope_angles
 
 NEG_INF = -1e30
 
@@ -134,13 +136,24 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, *,
              num: Optional[int] = None, device="cpu") -> dict:
     d, H, KH = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
-    return {
+    p = {
         "wq": dense_init(gen, d, H * hd, num=num, device=device),
         "wk": dense_init(gen, d, KH * hd, num=num, device=device),
         "wv": dense_init(gen, d, KH * hd, num=num, device=device),
         "wo": dense_init(gen, H * hd, d, scale=1.0 / math.sqrt(H * hd),
                          num=num, device=device),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, num=num, device=device)
+        p["k_norm"] = rmsnorm_init(hd, num=num, device=device)
+    return p
+
+
+def _qk_norm(p, q, k, cfg: ModelConfig):
+    if not cfg.qk_norm:
+        return q, k
+    return (rmsnorm(q, p["q_norm"], cfg.rmsnorm_eps),
+            rmsnorm(k, p["k_norm"], cfg.rmsnorm_eps))
 
 
 def _qkv(p, x, cfg: ModelConfig, positions, dtype):
@@ -149,6 +162,7 @@ def _qkv(p, x, cfg: ModelConfig, positions, dtype):
     q = dense(x, p["wq"], dtype).reshape(B, S, H, hd)
     k = dense(x, p["wk"], dtype).reshape(B, S, KH, hd)
     v = dense(x, p["wv"], dtype).reshape(B, S, KH, hd)
+    q, k = _qk_norm(p, q, k, cfg)
     sin, cos = rope_angles(positions, hd, cfg.rope_theta)
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
@@ -188,6 +202,7 @@ def gqa_decode(p, x, cfg: ModelConfig, *, cache: Tuple, length,
     q = dense(x, p["wq"], dtype).reshape(B, 1, H, hd)
     k = dense(x, p["wk"], dtype).reshape(B, 1, KH, hd)
     v = dense(x, p["wv"], dtype).reshape(B, 1, KH, hd)
+    q, k = _qk_norm(p, q, k, cfg)
     sin, cos = rope_angles(length[:, None].to(torch.float32), hd,
                            cfg.rope_theta)
     q = apply_rope(q, sin, cos)

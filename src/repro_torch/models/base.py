@@ -46,7 +46,8 @@ class ModelBundle:
     cfg: ModelConfig
     device: torch.device
     dtype: torch.dtype                     # activation / cache dtype
-    init_params: Callable                  # (generator, device=None) -> params
+    init_params: Callable                  # (generator, device_=None, leaf_fn=None,
+                                           #  by_layer=False) -> params
     embed: Callable                        # (params, batch) -> (carry, ctx)
     segments: tuple
     head_logits: Callable                  # (params, carry) -> logits (last pos)

@@ -76,6 +76,16 @@ def dense(x: torch.Tensor, w, dtype=torch.bfloat16) -> torch.Tensor:
     return torch.einsum("...d,df->...f", x.to(dtype), materialize(w, dtype))
 
 
+def dense_t(x: torch.Tensor, w, dtype=torch.bfloat16) -> torch.Tensor:
+    """x (..., d) @ w (v, d)^T, the tied-embedding head; INT8 weights
+    stream the same blocks through ``quantized_dense_t``."""
+    qt = w.qt if isinstance(w, QVirtual) else w
+    if isinstance(qt, QTensor) and qt.bits == 8 and qt.zero is None \
+            and qt.ndim == 2:
+        return kops.quantized_dense_t(x, w, dtype=dtype)
+    return torch.einsum("...d,vd->...v", x.to(dtype), materialize(w, dtype))
+
+
 def embed_lookup(w, tokens: torch.Tensor, dtype=torch.bfloat16
                  ) -> torch.Tensor:
     """Embedding rows for ``tokens``. INT8 tables gather codes and scales
@@ -104,6 +114,14 @@ def rmsnorm(x: torch.Tensor, w, eps: float = 1e-5) -> torch.Tensor:
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def geglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    # the tanh form, as jax.nn.gelu(approximate=True)
+    return F.gelu(gate, approximate="tanh") * up
+
+
+ACTIVATIONS = {"silu": swiglu, "gelu": geglu}
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
@@ -142,10 +160,12 @@ def ffn_init(gen: torch.Generator, d_model: int, d_ff: int, *,
     }
 
 
-def ffn_apply(p: dict, x: torch.Tensor, dtype=torch.bfloat16
-              ) -> torch.Tensor:
-    """SwiGLU FFN (the LLaMA family's ``ffn_activation="silu"``)."""
-    h = swiglu(dense(x, p["wg"], dtype), dense(x, p["wi"], dtype))
+def ffn_apply(p: dict, x: torch.Tensor, activation: str = "silu",
+              dtype=torch.bfloat16) -> torch.Tensor:
+    """Gated FFN: ``activation`` is ``cfg.ffn_activation``, ``"silu"``
+    (SwiGLU) or ``"gelu"`` (GeGLU)."""
+    h = ACTIVATIONS[activation](dense(x, p["wg"], dtype),
+                                dense(x, p["wi"], dtype))
     return dense(h, p["wd"], dtype)
 
 

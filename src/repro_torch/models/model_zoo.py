@@ -1,7 +1,11 @@
-"""Architecture registry of the port: the LLaMA family only."""
+"""Architecture registry of the port: the dense decoder-only family (the
+LLaMA configs, mistral-nemo-12b, yi-9b, qwen3-32b, gemma-7b) and the VLM
+backbone internvl2-2b. The other families of the JAX package are refused
+by name, with the ROADMAP sub-slice that brings each."""
 from __future__ import annotations
 
 import importlib
+import math
 from typing import Optional
 
 import torch
@@ -11,10 +15,30 @@ from repro_torch.device import resolve_device
 from repro_torch.models.base import ModelBundle
 
 ARCH_IDS = ("llama-60m", "llama-130m", "llama-350m", "llama-1b",
-            "llama-7b")
+            "llama-7b", "mistral-nemo-12b", "yi-9b", "qwen3-32b",
+            "gemma-7b", "internvl2-2b")
+
+# the JAX package's other architectures, and the ROADMAP queue 1 sub-slice
+# that ports each
+LATER = {"qwen3-moe-30b-a3b": "4b (MoE)", "deepseek-v3-671b": "4c (MLA, MTP)",
+         "xlstm-125m": "4d (xLSTM)", "zamba2-2.7b": "4e (the SSM hybrid)",
+         "seamless-m4t-medium": "4f (encoder-decoder)"}
+_FAMILY_SLICE = {"moe": LATER["qwen3-moe-30b-a3b"],
+                 "xlstm": LATER["xlstm-125m"], "ssm": LATER["zamba2-2.7b"],
+                 "hybrid": LATER["zamba2-2.7b"],
+                 "encdec": LATER["seamless-m4t-medium"]}
+FLASH_MAX_HEAD_DIM = 128    # csrc/flash_attention.cu takes d <= 128
+
+
+def _refuse(cfg: ModelConfig, what: str, sub_slice: str):
+    raise NotImplementedError(f"{cfg.name}: {what} is not ported yet "
+                              f"(ROADMAP queue 1, sub-slice {sub_slice})")
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
+    if arch_id in LATER:
+        raise NotImplementedError(f"{arch_id} is not ported yet (ROADMAP "
+                                  f"queue 1, sub-slice {LATER[arch_id]})")
     if arch_id not in ARCH_IDS:
         raise ValueError(f"{arch_id!r} is not ported; the port has "
                          f"{', '.join(ARCH_IDS)}")
@@ -23,19 +47,44 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     return mod.smoke_config() if smoke else mod.CONFIG
 
 
+def check_config(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP sub-slice for any
+    part of ``cfg`` the port does not have: families other than ``dense``
+    and ``vlm``, MLA, MoE and MTP. qk-norm, GeGLU, tied embeddings and the
+    VLM prefix are ported."""
+    if cfg.family in _FAMILY_SLICE:
+        _refuse(cfg, f"the {cfg.family} family", _FAMILY_SLICE[cfg.family])
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if cfg.attention == "mla" or cfg.mla is not None:
+        _refuse(cfg, "MLA attention", LATER["deepseek-v3-671b"])
+    if cfg.mtp_depth:
+        _refuse(cfg, "multi-token prediction", LATER["deepseek-v3-671b"])
+    if cfg.moe is not None:
+        _refuse(cfg, "a mixture of experts", LATER["qwen3-moe-30b-a3b"])
+    if cfg.attention != "gqa":
+        raise ValueError(f"{cfg.name}: unknown attention {cfg.attention!r}")
+    if cfg.ffn_activation not in ("silu", "gelu"):
+        raise ValueError(f"{cfg.name}: unknown FFN activation "
+                         f"{cfg.ffn_activation!r}")
+
+
 def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
           flash_attention: bool = False,
           split_layers: int = 0) -> ModelBundle:
     """Bundle for ``cfg`` on ``device`` (default ``cuda``, which must be
     present). ``flash_attention`` routes prefill attention through the
-    flash kernel (the JAX package's ``REPRO_FLASH_ATTENTION=1``);
+    flash kernel (the JAX package's ``REPRO_FLASH_ATTENTION=1``), which
+    takes head widths up to 128 only: a wider head (gemma-7b's 256) is
+    refused here, never sent to the einsum path in silence;
     ``split_layers`` splits the block stack into two segments
     (``transformer.build``)."""
-    if (cfg.family, cfg.attention, cfg.ffn_activation) != \
-            ("dense", "gqa", "silu") or cfg.moe or cfg.qk_norm:
+    check_config(cfg)
+    if flash_attention and cfg.resolved_head_dim > FLASH_MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"{cfg.name}: only the LLaMA shape is ported (dense GQA, "
-            "SwiGLU, no qk-norm)")
+            f"{cfg.name}: the flash kernel takes head_dim <= "
+            f"{FLASH_MAX_HEAD_DIM}, this config has {cfg.resolved_head_dim} "
+            "(ROADMAP queue 2 #4: flash d = 256)")
     from repro_torch.models import transformer
     return transformer.build(cfg, device=resolve_device(device), dtype=dtype,
                              flash_attention=flash_attention,
@@ -45,3 +94,17 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
 def build_arch(arch_id: str, smoke: bool = False,
                device: Optional[str] = None, **kw) -> ModelBundle:
     return build(get_config(arch_id, smoke=smoke), device=device, **kw)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Total parameters of ``cfg``, drawn on the meta device (nothing is
+    allocated): the counterpart of ``count_params_analytic``."""
+    bundle = build(cfg, device="meta", dtype=torch.float32)
+    params = bundle.init_params(torch.Generator())
+
+    def total(t):
+        if isinstance(t, dict):
+            return sum(total(v) for v in t.values())
+        return math.prod(t.shape)
+
+    return total(params)

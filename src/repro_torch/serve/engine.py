@@ -86,6 +86,8 @@ def build_prefill(bundle: ModelBundle, max_len: int,
         else:
             lengths = prompt_lengths(tokens, pad_id)
         h = carry["h"]
+        # a VLM's patch prefix shifts the last position; ``lengths`` stay
+        # text-only, as the JAX package records them
         offset = h.shape[1] - tokens.shape[1]
         idx = (lengths.clamp(min=1) - 1 + offset).long()
         rows = torch.arange(h.shape[0], device=h.device)

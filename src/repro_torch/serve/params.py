@@ -20,7 +20,10 @@ from repro_torch.device import resolve_device
 
 def quantize_leaf(leaf: torch.Tensor, block: int = quant.DEFAULT_BLOCK):
     """A symmetric INT8 QTensor for a leaf with ``ndim >= 2`` and a last
-    axis of at least 32, on the leaf's device; other leaves as they are."""
+    axis of at least 32, on the leaf's device; other leaves as they are.
+    Blocks run along the last axis, so quantizing each layer of a stacked
+    leaf gives the stack's codes and scales (``init_params(by_layer=
+    True)`` relies on it)."""
     if leaf.ndim >= 2 and leaf.shape[-1] >= 32:
         return quant.quantize_blockwise(leaf, bits=8, block=block,
                                         symmetric=True)

@@ -323,7 +323,12 @@ def make_scheduler(bundle: ModelBundle, params, *, backend: str = "auto",
     chunked prefill (``serve/paged.py``, requires ``engine.append_ok``);
     ``"auto"``, paged when the bundle supports it (every bundle of the
     port does), slot otherwise. The slot backend ignores the paged-only
-    keywords. Both give the same tokens under greedy decode."""
+    keywords. At f32 both give the same tokens under greedy decode. At
+    bf16 a row's matmuls no longer depend on the rows that share its
+    dispatch (``kernels.int8_matmul.plan``), but chunked and one-shot
+    prefill still take attention's sums in other orders, and a prompt of
+    at most 16 tokens prefilled alone takes the small-M matmul path: so
+    near-tied logits may pick other tokens."""
     if backend == "auto":
         backend = "paged" if engine.append_ok(bundle) else "slot"
     if backend == "paged":

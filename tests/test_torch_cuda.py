@@ -688,3 +688,81 @@ def test_paged_scheduler_matches_cpu(cuda):
     assert n_g.get("int8_matmul") and not n_g.get("deq_matmul")
     assert t_g == t_c and s_g == s_c
     assert s_g["radix_hit_blocks"] > 0
+
+
+@pytest.mark.parametrize("K,N", [(2048, 2048), (5461, 2048), (2048, 5632),
+                                 (25600, 5120)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_row_bit_equal_across_m(cuda, K, N, dtype):
+    """A row's output does not depend on how many rows share the call: on
+    the tiled path (M > 16, and M <= 16 past the small path's K) the K
+    split follows K alone, and on the small-M path it follows N; so the
+    first rows are bit-equal at every M a path takes."""
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    qt = quant.quantize_blockwise(torch.randn((K, N), generator=g,
+                                              device=cuda) * 0.02, 8,
+                                  symmetric=True)
+    x = torch.randn((2048, K), generator=g, device=cuda).to(dtype)
+    tiled = ti8.int8_matmul(x[:17], qt.q, qt.scale)
+    for M in (17, 33, 64, 100, 128, 256, 512, 2048):
+        assert ti8.plan(M, K, N).path == 1
+        got = ti8.int8_matmul(x[:M].contiguous(), qt.q, qt.scale)
+        assert torch.equal(got[:17], tiled), M
+    small = ti8.int8_matmul(x[:1], qt.q, qt.scale)
+    for M in (1, 2, 4, 8, 16):
+        got = ti8.int8_matmul(x[:M].contiguous(), qt.q, qt.scale)
+        assert torch.equal(got[:1], small), M
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 300])
+def test_quantized_dense_t_tied_head_shapes(cuda, M):
+    """gemma-7b's tied head, ``h (M, 3072) bf16 @ deq(E (256000, 3072))^T``:
+    one ``int8_matmul_t`` launch, within 1e-4 of max|plain| (bf16 g times
+    the codes is exact in f32), the vocabulary uncropped."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    qt = quant.quantize_blockwise(torch.randn((256000, 3072), generator=g,
+                                              device=cuda) * 0.02, 8,
+                                  symmetric=True)
+    x = torch.randn((M, 3072), generator=g, device=cuda).to(torch.bfloat16)
+    LAUNCHES.clear()
+    got = ops.quantized_dense_t(x, qt, dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"int8_matmul_t": 1}
+    assert tuple(got.shape) == (M, 256000)
+    want = torch.cat([ref.int8_matmul_t_ref(x[i: i + 64], qt.q, qt.scale,
+                                            256) for i in range(0, M, 64)])
+    assert _rel(got, want) <= 1e-4
+
+
+def test_gemma_smoke_serves_on_the_card(cuda):
+    """gemma-7b's smoke config at f32 on the card against the CPU, the
+    same codes: greedy tokens through ``make_scheduler`` (the paged
+    runtime) equal, the card through ``int8_matmul`` and the tied head's
+    ``int8_matmul_t``, the CPU through the plain versions."""
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.params import quantize_leaf
+    from repro_torch.serve.scheduler import Request, make_scheduler
+    gpu = model_zoo.build_arch("gemma-7b", smoke=True, device="cuda",
+                               dtype=torch.float32)
+    cpu = model_zoo.build_arch("gemma-7b", smoke=True, device="cpu",
+                               dtype=torch.float32)
+    p_gpu = gpu.init_params(torch.Generator(device=cuda).manual_seed(0),
+                            leaf_fn=lambda _, t: quantize_leaf(t))
+    def to_cpu(t):
+        return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.to("cpu")
+
+    p_cpu = to_cpu(p_gpu)
+    reqs = [(i, [1 + (7 * i + j) % 500 for j in range(3 + 2 * i)], 4)
+            for i in range(4)]
+    out = {}
+    for name, bundle, params in (("cuda", gpu, p_gpu), ("cpu", cpu, p_cpu)):
+        sched = make_scheduler(bundle, params, num_slots=2, max_len=32,
+                               block_size=4, prefill_chunk=8,
+                               dtype=torch.float32, device=name)
+        LAUNCHES.clear()
+        comps = sched.run([Request(*r) for r in reqs])
+        out[name] = ({c.rid: c.tokens for c in comps}, dict(LAUNCHES))
+    assert out["cuda"][0] == out["cpu"][0]
+    assert set(out["cuda"][1]) == {"int8_matmul", "int8_matmul_t"}
+    assert set(out["cpu"][1]) == {"deq_matmul", "deq_matmul_t"}

@@ -142,14 +142,23 @@ def test_plan_small_m_beyond_its_k_takes_the_tiled_path(M):
 @pytest.mark.parametrize("K,N", LLAMA_1B_KN)
 def test_plan_short_prefill_takes_64_row_tiles(M, K, N):
     """17 <= M <= 64: one 64-row tile a column block, not half of a 128-row
-    one; the K split fills the card with at least 256 rows a split."""
+    one; the K split is the one every M > 16 takes (K alone)."""
     p = ti8.plan(M, K, N)
     assert p.path == 1 and p.m_tile == 64
-    tiles = N // ti8.TILE_N
-    assert 1 <= p.splits <= max(1, min(-(-ti8.H100_SMS // tiles), K // 256))
-    assert p.splits == 1 or p.kc >= 256
-    assert p.splits * tiles >= min(ti8.H100_SMS, tiles * (K // 256)) \
-        or p.splits == 16
+    assert p.splits == min(-(-K // ti8.TILED_KC), 16)
+    assert (p.kc, p.splits) == ti8.plan(4096, K, N)[2:]
+
+
+@pytest.mark.parametrize("K,N", LLAMA_1B_KN + [(25600, 5120),
+                                               (256000, 3072)])
+def test_plan_k_order_does_not_depend_on_m(K, N):
+    """Each path's K split is a function of the shapes without M, so a
+    row's summation order is the same whatever rows share the call."""
+    tiled = {ti8.plan(M, K, N)[2:] for M in (17, 64, 65, 128, 300, 512,
+                                             2048, 4096, 16384)}
+    assert len(tiled) == 1
+    small = {ti8.plan(M, K, N) for M in range(1, ti8.SMALL_M + 1)}
+    assert len(small) == 1
 
 
 def test_kernel_module_imports_without_nvcc():

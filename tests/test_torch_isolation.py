@@ -49,7 +49,13 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.train.checkpoint, repro_torch.core.rules, "
             "repro_torch.core.transform, repro_torch.models.lora, "
             "repro_torch.launch.finetune, repro_torch.serve.paged, "
-            "repro_torch.serve.radix; "
+            "repro_torch.serve.radix, repro_torch.models.model_zoo, "
+            "repro_torch.models.transformer, repro_torch.models.attention, "
+            "repro_torch.kernels.ops, repro_torch.data.synthetic, "
+            "repro_torch.configs.mistral_nemo_12b, "
+            "repro_torch.configs.yi_9b, repro_torch.configs.qwen3_32b, "
+            "repro_torch.configs.gemma_7b, "
+            "repro_torch.configs.internvl2_2b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")
@@ -90,11 +96,14 @@ def test_entry_points_refuse_without_device(no_card):
 
 def test_unported_architectures_raise():
     with pytest.raises(ValueError, match="not ported"):
-        model_zoo.get_config("gemma-7b")
-    tied = model_zoo.get_config("llama-60m", smoke=True)
-    from repro_torch.config import replace
-    with pytest.raises(NotImplementedError, match="tied"):
-        model_zoo.build(replace(tied, tie_embeddings=True), device="cpu")
+        model_zoo.get_config("gpt-2")
+    with pytest.raises(NotImplementedError, match="sub-slice 4b"):
+        model_zoo.get_config("qwen3-moe-30b-a3b")
+    base = model_zoo.get_config("llama-60m", smoke=True)
+    from repro_torch.config import MoEConfig, replace
+    with pytest.raises(NotImplementedError, match="sub-slice 4b"):
+        model_zoo.build(replace(base, moe=MoEConfig(num_experts=4)),
+                        device="cpu")
     with pytest.raises(ValueError, match="unknown serving backend"):
         scheduler.make_scheduler(None, None, backend="bogus", num_slots=1,
                                  max_len=8)
