@@ -2343,6 +2343,7 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
                        max_new_tokens=2)])
     sched.reset()
     ms = {"_step": [], "_append": [], "_fused": []}
+    got_by = {n: [] for n in ms}
     bad = []
 
     def timed(name, inner):
@@ -2358,6 +2359,7 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
             ms[name].append((time.perf_counter() - t) * 1e3)
             got = (LAUNCHES["int8_matmul"] - before[0],
                    LAUNCHES["int8_matmul_t"] - before[1])
+            got_by[name].append(got)
             if got != want:
                 bad.append((name, got))
             return out
@@ -2373,7 +2375,16 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
         shapes.add((x.shape[0], q.shape[0], q.shape[1], x.dtype))
         return kernel(x, q, scale, block)
 
+    from repro_torch.kernels import ops as kops
+    dense_t = kops.quantized_dense_t
+    head_calls = [0]
+
+    def counted_dense_t(*a, **kw):
+        head_calls[0] += 1
+        return dense_t(*a, **kw)
+
     ti8.int8_matmul = recording
+    kops.quantized_dense_t = counted_dense_t
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
@@ -2383,6 +2394,7 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
         torch.cuda.synchronize()
     finally:
         ti8.int8_matmul = kernel
+        kops.quantized_dense_t = dense_t
         for n in ms:
             setattr(sched, n, inner[n])
     wall = time.monotonic() - t0
@@ -2391,6 +2403,13 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
                 f" times" for n, k in bad[:3]]
     n_disp = {n: len(v) for n, v in ms.items()}
     calls = n_disp["_step"] + n_disp["_append"] + 2 * n_disp["_fused"]
+    # measured: the launches each decode dispatch counted, and the
+    # int8_matmul_t launches of the run over its tied-head calls
+    per_decode = {k: sum(g[i] for g in got_by["_step"]) / len(got_by["_step"])
+                  for i, k in enumerate(("int8_matmul", "int8_matmul_t"))} \
+        if got_by["_step"] else None
+    per_head = counts.get("int8_matmul_t", 0) / head_calls[0] \
+        if head_calls[0] else None
     if counts.get("int8_matmul") != per_call * calls or \
             counts.get("int8_matmul_t", 0) != per_call_t * calls:
         problems.append(f"launches {counts} != {per_call} int8_matmul and "
@@ -2428,6 +2447,9 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
            "median_append_ms": statistics.median(ms["_append"])
            if ms["_append"] else None,
            "dispatches": n_disp, "launches": counts,
+           "launches_per_decode_dispatch": per_decode,
+           "head_calls": head_calls[0],
+           "launches_per_head_call": per_head,
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "stats": st, "tokens_by_rid": {c.rid: c.tokens for c in comps}}
     log(f"  paged, {slots} slots, window {window}, {sched.num_blocks} "
@@ -2771,6 +2793,11 @@ def serve_dense(arch: str, seed: int) -> dict:
     run = paged_run(bundle, params, dense_requests(seed, cfg.vocab_size),
                     slots=DENSE_SLOTS, window=DENSE_WINDOW, shapes=shapes,
                     profile=True, per_call=per_call, per_call_t=per_call_t)
+    if tied and run["launches_per_head_call"] != 1:
+        problems.append(f"{run['launches']} launches over "
+                        f"{run['head_calls']} tied-head calls")
+    if not tied and run["head_calls"]:
+        problems.append(f"{run['head_calls']} tied-head calls, untied head")
     errs = decode_vs_forward(bundle, params, seed)
     log(f"  {arch} bf16 decode against the full forward (prefill, then 4 "
         f"teacher-forced steps), rel err {['%.2e' % e for e in errs]} "
@@ -2787,12 +2814,12 @@ def serve_dense(arch: str, seed: int) -> dict:
         "tokens_per_s", "mean_ttft_s", "median_decode_step_ms",
         "median_append_ms", "median_fused_ms", "dispatches", "launches",
         "peak_gib", "stats", "wall_s", "profile_step_wall_ms",
-        "profile_step_device_ms", "device_idle_share", "profile_error")}
+        "profile_step_device_ms", "device_idle_share", "profile_error",
+        "launches_per_decode_dispatch", "head_calls",
+        "launches_per_head_call")}
     out.update(layers=cfg.num_layers, params=st["params"],
                int8_gib=st["int8_bytes"] / 2 ** 30, init_s=init_s,
                init_peak_gib=init_peak, decode_vs_forward_rel=errs,
-               launches_per_decode_dispatch={"int8_matmul": per_call,
-                                             "int8_matmul_t": per_call_t},
                **check)
     return out
 
@@ -3151,7 +3178,9 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
             "gemma-7b's tied head h (M, 3072) bf16 @ deq(E (256000, 3072))^T"
             ", per-call median after an L2 flush; library: cuBLAS bf16 "
             "h @ E^T on E dequantized beforehand"),
-            "launches_per_head_call": 1},
+            "head_calls": dense["serving"]["gemma-7b"]["head_calls"],
+            "launches_per_head_call":
+                dense["serving"]["gemma-7b"]["launches_per_head_call"]},
         "llama_7b_finetune": {"step_sums": sumsf["int8_matmul_t"],
                               "per_shape": tkf["int8_matmul_t"],
                               "timed_as": "the dL/dx calls of one LLaMA-7B "

@@ -85,6 +85,9 @@ class ModelConfig:
     rope_theta: float = 10000.0
     rmsnorm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # scale token embeddings by sqrt(d_model) (gemma; the JAX package keys
+    # this on the config's name)
+    embed_scale: bool = False
     # attention flavor
     attention: str = "gqa"         # gqa | mla
     mla: Optional[MLAConfig] = None

@@ -5,7 +5,7 @@ CONFIG = ModelConfig(
     name="gemma-7b", family="dense",
     num_layers=28, d_model=3072, num_heads=16, num_kv_heads=16,
     head_dim=256, d_ff=24576, vocab_size=256000,
-    ffn_activation="gelu", tie_embeddings=True,
+    ffn_activation="gelu", tie_embeddings=True, embed_scale=True,
 )
 
 

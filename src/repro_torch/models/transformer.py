@@ -157,8 +157,8 @@ def build(cfg: ModelConfig, *, device: torch.device,
     rules freeze ``seg0_``).
 
     ``cfg.tie_embeddings`` drops the ``head`` leaf: the logits are
-    ``h @ E^T`` through ``layers.dense_t``. gemma's embeddings are scaled by
-    sqrt(d_model), keyed on the name as the JAX package keys it. A ``vlm``
+    ``h @ E^T`` through ``layers.dense_t``. ``cfg.embed_scale`` (gemma) scales
+    the embeddings by sqrt(d_model). A ``vlm``
     bundle puts ``batch["patch_embeds"]`` (B, P, d_model) in front of the
     token embeddings, and its loss drops those P positions."""
     is_vlm = cfg.family == "vlm"
@@ -229,7 +229,7 @@ def build(cfg: ModelConfig, *, device: torch.device,
     def embed(params, batch):
         tokens = batch["tokens"]
         h = layers.embed_lookup(params["embedding"], tokens, dtype)
-        if cfg.name.startswith("gemma"):
+        if cfg.embed_scale:
             # the factor rounded to the activation dtype, as the JAX
             # package's weakly typed scalar is
             h = h * torch.full((), math.sqrt(cfg.d_model), dtype=h.dtype,

@@ -273,6 +273,19 @@ def test_vlm_batches_and_training(models):
     assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
 
 
+@pytest.mark.parametrize("smoke", (False, True))
+@pytest.mark.parametrize("arch", model_zoo.ARCH_IDS)
+def test_configs_match_the_reference(arch, smoke):
+    """The port's configs hold the reference's fields; its one extra,
+    ``embed_scale``, is set where the JAX package keys the scale on the
+    name."""
+    import dataclasses
+    tcfg = dataclasses.asdict(model_zoo.get_config(arch, smoke=smoke))
+    jcfg = dataclasses.asdict(jzoo.get_config(arch, smoke=smoke))
+    assert tcfg.pop("embed_scale") == jcfg["name"].startswith("gemma")
+    assert tcfg == jcfg
+
+
 def test_refusals_name_the_sub_slice():
     gemma = model_zoo.get_config("gemma-7b")
     with pytest.raises(NotImplementedError, match="head_dim <= 128"):
