@@ -179,13 +179,46 @@ Phases (any failure exits non-zero):
    ``int8_matmul_t`` at M = 1, 8, 16 and 2048, against its plain version
    (2e-2 of max|plain|) and timed beside it, cuBLAS bf16 and the bound.
    The phase's wall time is printed.
+12. The mixture of experts. (a) qwen3-moe-30b-a3b at full width and
+   depth (48 layers, 128 experts top-8, expert_ff 768), bf16, its INT8
+   weights drawn on the card one layer at a time, 8 requests (64-512
+   prompt tokens, 16 greedy new) through ``make_scheduler("auto")``,
+   which must give the slot scheduler (4 slots): every request
+   completes, every prefill is one row at its prompt's exact length, and
+   every prefill and decode dispatch launches ``int8_matmul`` 241 times
+   (wq, wk, wv, wo and the router a layer, the head) and
+   ``int8_matmul_batched`` 144 times (the three expert stacks a layer),
+   with no plain version; every distinct problem of both is then held
+   against its plain version with phase 2's bars. Printed: tokens/s,
+   mean TTFT, the median decode dispatch, a profiled decode step's device
+   ms and idle share, INT8 and peak GiB, and the padded share (experts
+   with an empty buffer a decode dispatch, mean fill at prefill). (b)
+   The prefill and 4 teacher-forced decode steps at bf16 against the full
+   forward (0.1 of max|logits|), and at f32 and 2 layers the card against
+   the CPU on the same codes (1e-4 of max|logits|, equal greedy tokens).
+   (c) ``int8_matmul_batched`` and ``int8_matmul_t_batched`` at E 128,
+   (K, N) = (2048, 768) and (768, 2048), C in {4, 32, 160, 512}, bf16 and
+   f32: each against its plain version and timed (cold L2, median of 20)
+   beside the same work as 128 per-expert launches of the 2-D kernel,
+   one ``torch.bmm`` on the bf16 stack and the bound; then 3 Q-GaLore
+   steps of the model at full width and 2 layers (rank 128, randomized
+   subspace, 8 x 256 tokens), every step's launches held to what the
+   code implies (a steady step: 21 ``int8_matmul``, 12
+   ``int8_matmul_batched``, 11 ``int8_matmul_t``, 6
+   ``int8_matmul_t_batched``, 779 ``fused_qgalore_update``) with no plain
+   version, and the batched transpose's problems against its plain
+   version as phase 5 holds ``int8_matmul_t``.
+
+``python3 chip_smoke.py --only 12`` (or ``1,12``, ``11``) runs those
+phases alone for development and prints no kernels line and no result.
 
 The last three lines are the kernels JSON (all seven kernels;
 ``int8_matmul``'s and ``int8_matmul_t``'s training step, flash's prefill
 and ``int4_matmul``'s projections with ``factor`` = ms / library_ms; the
 three training kernels also carry their LLaMA-7B pre-training and
 fine-tuning rows, ``int8_matmul`` its paged serving runs and both INT8
-matmuls phase 11's, ``int8_matmul_t`` the tied head's rows),
+matmuls phase 11's and 12's (the expert grid axis counted apart),
+``int8_matmul_t`` the tied head's rows),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository's ``src/``
 beside it, the script exits non-zero and prints no result.
@@ -2825,11 +2858,12 @@ def serve_dense(arch: str, seed: int) -> dict:
 
 
 def f32_parity_dense(arch: str, seed: int) -> dict:
-    """Phase 11b at f32: 2 layers at full width, the same INT8 codes on the
-    card and the CPU; a prompt's prefill and 3 teacher-forced decode steps
-    (and for the VLM the full forward over a patch prefix), the card's
-    logits within ``PARITY_TOL`` of the CPU's; the card launches the
-    kernels, the CPU the plain versions."""
+    """Phase 11b (and 12b) at f32: 2 layers at full width, the same INT8
+    codes on the card and the CPU; a prompt's prefill and 3 teacher-forced
+    decode steps (and for the VLM the full forward over a patch prefix),
+    the card's logits within ``PARITY_TOL`` of the CPU's and the same
+    greedy token at each; the card launches the kernels (an MoE model the
+    batched one too), the CPU the plain versions."""
     from repro_torch.config import replace
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import base, model_zoo
@@ -2870,14 +2904,20 @@ def f32_parity_dense(arch: str, seed: int) -> dict:
     (l_c, n_c), (l_g, n_g) = out["cpu"], out["gpu"]
     rel = max(((g - c).abs().max() / c.abs().max()).item()
               for g, c in zip(l_g, l_c))
+    same_greedy = all(torch.equal(g.argmax(-1), c.argmax(-1))
+                      for g, c in zip(l_g, l_c))
     kernels = {"int8_matmul"} | ({"int8_matmul_t"} if cfg.tie_embeddings
                                  else set())
     plain = {"deq_matmul"} | ({"deq_matmul_t"} if cfg.tie_embeddings
                               else set())
+    if cfg.moe is not None:
+        kernels.add("int8_matmul_batched")
+        plain.add("deq_matmul_batched")
     prefix = "" if patches is None else " and the forward over a patch prefix"
     log(f"  {arch} f32, 2 layers, card against CPU: rel err {rel:.2e} "
         f"(tolerance {PARITY_TOL}) over the prefill, 3 decode steps{prefix}"
-        f"; launches card {n_g} CPU {n_c}")
+        f", greedy tokens {'equal' if same_greedy else 'DIFFER'}; launches "
+        f"card {n_g} CPU {n_c}")
     problems = []
     if set(n_g) != kernels:
         problems.append(f"card launches {n_g}, want {kernels}")
@@ -2885,12 +2925,15 @@ def f32_parity_dense(arch: str, seed: int) -> dict:
         problems.append(f"CPU launches {n_c}, want {plain}")
     if rel > PARITY_TOL:
         problems.append(f"rel err {rel:.2e}")
+    if not same_greedy and cfg.moe is not None:
+        problems.append("greedy tokens differ")
     del p_gpu, p_cpu, gpu, cpu
     gc.collect()
     torch.cuda.empty_cache()
     if problems:
-        raise AssertionError(f"phase 11b {arch}: " + "; ".join(problems))
-    return {"rel_err": rel, "launches_card": n_g, "launches_cpu": n_c}
+        raise AssertionError(f"f32 parity {arch}: " + "; ".join(problems))
+    return {"rel_err": rel, "same_greedy": same_greedy, "launches_card": n_g,
+            "launches_cpu": n_c}
 
 
 def tied_head_rows(seed: int) -> list:
@@ -2981,9 +3024,567 @@ def phase_dense_variants(seed: int) -> dict:
             "wall_s": wall, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the mixture of experts
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"     # served as phase 11a serves: DENSE_*
+MOE_CS = (4, 32, 160, 512)          # decode (4 slots), short prefill,
+                                    # training (8 x 256), a 512-token prompt
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_RANK = 2, 3, 128
+
+
+def moe_launches(cfg) -> dict:
+    """One forward's kernel launches at full width: ``int8_matmul`` for
+    wq, wk, wv, wo and the router a layer and the untied head,
+    ``int8_matmul_batched`` for the three expert stacks a layer."""
+    return {"int8_matmul": 5 * cfg.num_layers + 1,
+            "int8_matmul_batched": 3 * cfg.num_layers}
+
+
+def batched_tol(E, M, K, N, dtype) -> float:
+    """Phase 2's bars at the batched call's plan: two passes (the small-M
+    path in both dtypes, f32 x) 1e-4 of max|plain|, one bf16 pass 2e-2."""
+    from repro_torch.kernels import int8_matmul as ti8
+    two = ti8.plan(M, K, N, E=E).path == 0 or dtype == torch.float32
+    return F32_X_TOL if two else TOL
+
+
+def bound_batched(E, M, K, N, itemsize, transposed=False):
+    """Least time (ms) of E problems: every expert's activations, codes and
+    scales read once, the f32 outputs written once, against the
+    multiply-adds at the bf16 peak."""
+    outs = M * (K if transposed else N) * 4
+    ins = M * (N if transposed else K) * itemsize
+    nbytes = E * (ins + K * N + K * (N // 256) * 4 + outs)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * E * M * K * N / PEAK_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_batched(shapes, seed: int) -> dict:
+    """Hold ``int8_matmul_batched`` against its plain version at every (E,
+    M, K, N, dtype) of a run, on fresh seeded inputs (phase 2's bars)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    max_abs, max_rel, failed = 0.0, 0.0, []
+    for E, K, N in sorted({s[:1] + s[2:4] for s in shapes}):
+        qt = quant.quantize_blockwise(
+            torch.randn((E, K, N), generator=gen, device=dev) * 0.02,
+            bits=8, symmetric=True)
+        for _, M, _, _, dt in sorted(s for s in shapes
+                                     if (s[0],) + s[2:4] == (E, K, N)):
+            x = torch.randn((E, M, K), generator=gen, device=dev).to(dt)
+            got = ti8.int8_matmul_batched(x, qt.q, qt.scale)
+            want = ref.int8_matmul_batched_ref(x, qt.q, qt.scale, 256)
+            abs_err = (got - want).abs().max().item()
+            rel = abs_err / max(want.abs().max().item(), 1e-30)
+            max_abs, max_rel = max(max_abs, abs_err), max(max_rel, rel)
+            if rel > batched_tol(E, M, K, N, dt):
+                failed.append((E, M, K, N, str(dt), rel))
+            del x, got, want
+        del qt
+    torch.cuda.empty_cache()
+    log(f"  {len(shapes)} distinct int8_matmul_batched problems of the run "
+        f"(M in {sorted({s[1] for s in shapes})}) against the plain "
+        f"version: max rel err {max_rel:.2e}")
+    if failed:
+        raise AssertionError(f"int8_matmul_batched disagrees with its plain "
+                             f"version: {failed}")
+    return {"checked_problems": len(shapes), "check_max_abs_err": max_abs,
+            "check_max_rel_err": max_rel}
+
+
+class BatchedRecorder:
+    """Records, while installed, the distinct problems (E, M, K, N, dtype)
+    the two batched wrappers are launched with: ``i`` for
+    ``int8_matmul_batched``, and ``t`` for ``int8_matmul_t_batched`` with
+    each problem's first inputs, copied to the host."""
+
+    def __init__(self):
+        self.i, self.t = set(), {}
+
+    def __enter__(self):
+        from repro_torch.kernels import int8_matmul as ti8
+        self._saved = (ti8.int8_matmul_batched, ti8.int8_matmul_t_batched)
+        k_i, k_t = self._saved
+
+        def rec_i(x, q, scale, block=256):
+            self.i.add((q.shape[0], x.shape[1], q.shape[1], q.shape[2],
+                        x.dtype))
+            return k_i(x, q, scale, block)
+
+        def rec_t(g, q, scale, block=256):
+            key = (q.shape[0], g.shape[1], q.shape[1], q.shape[2], g.dtype)
+            if key not in self.t:
+                self.t[key] = [t.to("cpu", copy=True) for t in (g, q, scale)]
+            return k_t(g, q, scale, block)
+
+        ti8.int8_matmul_batched, ti8.int8_matmul_t_batched = rec_i, rec_t
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import int8_matmul as ti8
+        ti8.int8_matmul_batched, ti8.int8_matmul_t_batched = self._saved
+        return False
+
+
+def padded_share(routed: list, E: int, decode_c: int) -> dict:
+    """From each dispatch's ``(capacity, tokens routed to each expert)``:
+    the experts with an empty buffer in a decode dispatch (mean over its
+    layers), and the mean fill of the expert buffers (kept rows over C)
+    at prefill."""
+    dec = [c for C, c in routed if C == decode_c]
+    pre = [(C, c) for C, c in routed if C != decode_c]
+    out = {}
+    if dec:
+        counts = torch.stack(dec).float()
+        empty = (counts == 0).sum(1).float()
+        out["decode_empty_experts_mean"] = empty.mean().item()
+        out["decode_nonempty_experts_max"] = int((counts > 0).sum(1).max())
+        out["decode_empty_share"] = out["decode_empty_experts_mean"] / E
+    if pre:
+        fills = [(c.clamp(max=C).float().sum() / (E * C)).item()
+                 for C, c in pre]
+        out["prefill_mean_fill"] = float(np.mean(fills))
+        out["prefill_dispatches"] = len(pre)
+    return out
+
+
+def serve_moe(seed: int) -> dict:
+    """Phase 12a and 12b's bf16 half: qwen3-moe-30b-a3b at full width and
+    depth through ``make_scheduler(backend="auto")`` (the slot scheduler),
+    every prefill one unpadded request, every prefill and decode dispatch
+    held to ``moe_launches``; then the decode-against-forward check and
+    every distinct 2-D and batched problem against its plain version."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.serve.params import quantize_leaf
+    from repro_torch.serve.scheduler import Request, Scheduler, \
+        make_scheduler
+    cfg = model_zoo.get_config(MOE_ARCH)
+    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = bundle.init_params(gen, leaf_fn=lambda _, t: quantize_leaf(t),
+                                by_layer=True)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = tree_stats(params)
+    want_params = model_zoo.count_params(cfg)
+    mc = cfg.moe
+    log(f"  {MOE_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim}, "
+        f"qk-norm, {mc.num_experts} experts top-{mc.top_k}, expert_ff "
+        f"{mc.expert_ff}, vocab {cfg.vocab_size}: {st['params'] / 1e9:.2f} B "
+        f"parameters ({want_params / 1e9:.2f} B counted on the meta device), "
+        f"INT8 codes and scales {st['int8_bytes'] / 2**30:.2f} GiB, float "
+        f"{st['float_bytes'] / 2**20:.2f} MiB; drawn and quantized in "
+        f"{init_s:.2f} s, peak {init_peak:.2f} GiB")
+    problems = []
+    if st["params"] != want_params:
+        problems.append(f"{st['params']} parameters drawn, "
+                        f"{want_params} counted")
+    reqs = dense_requests(seed, cfg.vocab_size)
+    sched = make_scheduler(bundle, params, backend="auto",
+                           num_slots=DENSE_SLOTS, max_len=DENSE_WINDOW,
+                           dtype=torch.bfloat16, device="cuda")
+    if type(sched) is not Scheduler:
+        raise AssertionError(f"backend auto gave {type(sched).__name__}")
+    sched.run([Request(rid=-1, tokens=reqs[0].tokens[:64],
+                       max_new_tokens=2)])           # warm-up
+    sched.reset()
+    want = moe_launches(cfg)
+    names = tuple(want)
+    ms = {"_prefill": [], "_step": []}
+    got_by = {n: [] for n in ms}
+    prefill_rows = []
+
+    def timed(name, inner):
+        def run(*a):
+            before = {n: LAUNCHES[n] for n in names}
+            if name == "_prefill":
+                prefill_rows.append(tuple(a[1]["tokens"].shape))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(*a)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t) * 1e3)
+            got_by[name].append({n: LAUNCHES[n] - before[n] for n in names})
+            return out
+        return run
+
+    inner = {n: getattr(sched, n) for n in ms}
+    for n in ms:
+        setattr(sched, n, timed(n, inner[n]))
+    shapes: set = set()
+    kernel = ti8.int8_matmul
+
+    def recording(x, q, scale, block=256, p=None):
+        shapes.add((x.shape[0], q.shape[0], q.shape[1], x.dtype))
+        return kernel(x, q, scale, block, p)
+
+    # each dispatch's routing: per-expert token counts (device tensors, no
+    # host sync) at the capacity the serving paths use, C = T (decode passes
+    # B·S; a prompt of at most 512 tokens is drop-free)
+    routed, route = [], moe._route
+
+    def rec_route(router_w, x, mc_):
+        w, e, aux = route(router_w, x, mc_)
+        routed.append((x.shape[0], torch.bincount(e.reshape(-1),
+                                                  minlength=mc_.num_experts)))
+        return w, e, aux
+
+    ti8.int8_matmul = recording
+    moe._route = rec_route
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.monotonic()
+    try:
+        with BatchedRecorder() as brec:
+            comps = sched.run(reqs)
+            torch.cuda.synchronize()
+    finally:
+        ti8.int8_matmul = kernel
+        moe._route = route
+        for n in ms:
+            setattr(sched, n, inner[n])
+    wall = time.monotonic() - t0
+    counts, stats = dict(LAUNCHES), dict(sched.stats)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, rows in got_by.items():
+        bad = [g for g in rows if g != want]
+        if bad:
+            problems.append(f"{name}: {len(bad)} dispatches launched "
+                            f"{bad[0]}, want {want}")
+    by_rid = {c.rid: c for c in comps}
+    lens = [len(r.tokens) for r in reqs]
+    if sorted(prefill_rows) != sorted((1, n) for n in lens):
+        problems.append(f"prefills {prefill_rows}, want one row at each "
+                        f"prompt's length {lens}")
+    for r in reqs:
+        c = by_rid.get(r.rid)
+        if c is None or len(c.tokens) != r.max_new_tokens:
+            problems.append(f"request {r.rid} incomplete")
+    if any(n.endswith("_ref") or n.startswith("deq_") for n in counts):
+        problems.append(f"plain versions ran: {counts}")
+    share = padded_share(routed, mc.num_experts, DENSE_SLOTS)
+    del routed
+    n_tok = sum(len(c.tokens) for c in comps)
+    per_decode = {n: sum(g[n] for g in got_by["_step"])
+                  / len(got_by["_step"]) for n in names}
+    out = {"layers": cfg.num_layers, "params": st["params"],
+           "int8_gib": st["int8_bytes"] / 2 ** 30, "init_s": init_s,
+           "init_peak_gib": init_peak, "tokens_per_s": n_tok / wall,
+           "wall_s": wall, "tokens": n_tok,
+           "mean_ttft_s": float(np.mean([c.ttft for c in comps])),
+           "median_decode_step_ms": statistics.median(ms["_step"]),
+           "median_prefill_ms": statistics.median(ms["_prefill"]),
+           "dispatches": {n: len(v) for n, v in ms.items()},
+           "launches": counts, "launches_per_decode_dispatch": per_decode,
+           "launches_per_dispatch_want": want, "peak_gib": peak,
+           "stats": stats, "padded": share}
+    log(f"  {n_tok} tokens in {wall:.2f} s -> {out['tokens_per_s']:.1f} "
+        f"tok/s; mean TTFT {out['mean_ttft_s']:.3f} s; median decode "
+        f"dispatch {out['median_decode_step_ms']:.2f} ms, prefill "
+        f"{out['median_prefill_ms']:.2f} ms; dispatches {out['dispatches']};"
+        f" peak {peak:.2f} GiB; launches {counts}; a decode dispatch "
+        f"{per_decode} (want {want}); padded {share}")
+    out.update(profile_decode(sched, reqs[:DENSE_SLOTS]))
+    del sched
+    errs = decode_vs_forward(bundle, params, seed)
+    log(f"  {MOE_ARCH} bf16 decode against the full forward (prefill, then "
+        f"4 teacher-forced steps), rel err {['%.2e' % e for e in errs]} "
+        f"(tolerance {BF16_PATH_TOL})")
+    if max(errs) > BF16_PATH_TOL:
+        problems.append(f"decode against forward {errs}")
+    out["decode_vs_forward_rel"] = errs
+    del params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(check_shapes(shapes, seed))
+    out["batched"] = check_batched(brec.i, seed)
+    if problems:
+        raise AssertionError("phase 12a: " + "; ".join(problems))
+    return out
+
+
+def moe_expert_rows(seed: int) -> dict:
+    """Phase 12c: both batched kernels at the expert problems (E 128, (K,
+    N) = (2048, 768) and (768, 2048), C in ``MOE_CS``, bf16 and f32),
+    each against its plain version and timed (cold L2, median of 20)
+    beside 128 launches of the 2-D kernel (one an expert, each at its own
+    plan; never on the path), one ``torch.bmm`` on the bf16 stack
+    dequantized beforehand, and the bound."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.kernels import ref
+    from repro_torch.models import model_zoo
+    mc = model_zoo.get_config(MOE_ARCH).moe
+    E = mc.num_experts
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {"int8_matmul_batched": [], "int8_matmul_t_batched": []}
+    failed = []
+    for K, N in ((2048, mc.expert_ff), (mc.expert_ff, 2048)):
+        qt = quant.quantize_blockwise(
+            torch.randn((E, K, N), generator=gen, device=dev) * 0.02,
+            bits=8, symmetric=True)
+        q, s = qt.q, qt.scale
+        w_lib = quant.dequantize(qt, torch.bfloat16)
+        for C in MOE_CS:
+            for dt in (torch.bfloat16, torch.float32):
+                for name in rows:
+                    t = name == "int8_matmul_t_batched"
+                    x = torch.randn((E, C, N if t else K), generator=gen,
+                                    device=dev).to(dt)
+                    xl = x.to(torch.bfloat16)
+                    if t:
+                        run = lambda: ti8.int8_matmul_t_batched(x, q, s)
+                        plain = lambda: ref.int8_matmul_t_batched_ref(
+                            x, q, s, 256)
+                        per = lambda: [ti8.int8_matmul_t(x[e], q[e], s[e])
+                                       for e in range(E)]
+                        lib = lambda: torch.bmm(xl, w_lib.transpose(1, 2))
+                        tol = F32_X_TOL
+                    else:
+                        run = lambda: ti8.int8_matmul_batched(x, q, s)
+                        plain = lambda: ref.int8_matmul_batched_ref(
+                            x, q, s, 256)
+                        per = lambda: [ti8.int8_matmul(x[e], q[e], s[e])
+                                       for e in range(E)]
+                        lib = lambda: torch.bmm(xl, w_lib)
+                        tol = batched_tol(E, C, K, N, dt)
+                    got, want = run(), plain()
+                    abs_err = (got - want).abs().max().item()
+                    rel = abs_err / max(want.abs().max().item(), 1e-30)
+                    del got, want
+                    row = {"E": E, "M": C, "K": K, "N": N,
+                           "x": str(dt).replace("torch.", ""),
+                           "ms": time_ms(run, flush),
+                           "per_expert_ms": time_ms(per, flush, reps=10),
+                           "plain_ms": time_ms(plain, flush, reps=5),
+                           "library_ms": time_ms(lib, flush),
+                           "max_abs_err": abs_err, "rel_err": rel,
+                           "tol": tol}
+                    row["bound_ms"], row["bound_by"] = bound_batched(
+                        E, C, K, N, dt.itemsize, t)
+                    row["tflops"] = 2 * E * C * K * N / row["ms"] / 1e9
+                    row["x_bound"] = row["ms"] / row["bound_ms"]
+                    row["x_per_expert"] = row["ms"] / row["per_expert_ms"]
+                    if not t:
+                        row["design"] = i8_design(C, K, N, dt) \
+                            if ti8.plan(C, K, N, E=E).path else (
+                                "mma.sync bf16 x2 (hi/lo) small-M, "
+                                f"{ti8.plan(C, K, N, E=E).splits} split(s)")
+                    else:
+                        row["design"] = mma_design(dt)
+                    rows[name].append(row)
+                    ok = rel <= tol
+                    if not ok:
+                        failed.append((name, row))
+                    log(f"  {name} E={E} C={C} K={K} N={N} x={row['x']} "
+                        f"ms={row['ms']:.4f} per_expert_ms="
+                        f"{row['per_expert_ms']:.4f} plain_ms="
+                        f"{row['plain_ms']:.4f} library_ms="
+                        f"{row['library_ms']:.4f} (torch.bmm bf16) bound_ms="
+                        f"{row['bound_ms']:.4f} ({row['bound_by']}) "
+                        f"tflops={row['tflops']:.1f} [{row['design']}] "
+                        f"rel_err={rel:.2e} {'ok' if ok else 'FAIL'}")
+                    del x, xl
+        del qt, q, s, w_lib
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"batched kernels disagree with their plain "
+                             f"versions: {failed}")
+    return rows
+
+
+def check_batched_t(probs: dict, seed: int) -> list:
+    """``int8_matmul_t_batched`` at the training run's distinct problems,
+    on the run's own bf16 g and on f32 g beside it (``f32_beside``), as
+    phase 5 holds ``int8_matmul_t``: 1e-4 of max|plain|, and for f32 g the
+    error one bf16 pass would leave above that bar."""
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    rows, failed = [], []
+    for key, (g_run, q, s) in sorted(probs.items(), key=lambda kv: kv[0][:4]):
+        g_run, q, s = g_run.cuda(), q.cuda(), s.cuda()
+        gs = (g_run,) if g_run.dtype == torch.float32 else (
+            g_run, f32_beside(g_run, gen))
+        for g in gs:
+            got = ti8.int8_matmul_t_batched(g, q, s)
+            want = ref.int8_matmul_t_batched_ref(g, q, s, 256)
+            peak = max(want.abs().max().item(), 1e-30)
+            rel = (got - want).abs().max().item() / peak
+            hi = None
+            if g.dtype == torch.float32:
+                hi = (ref.int8_matmul_t_batched_ref(
+                    g.to(torch.bfloat16), q, s, 256) - want).abs().max() \
+                    .item() / peak
+            ok = rel <= F32_X_TOL and (hi is None or hi > F32_X_TOL)
+            row = {"E": key[0], "M": key[1], "K": key[2], "N": key[3],
+                   "g": str(g.dtype).replace("torch.", ""),
+                   "on_path": g.dtype == key[4], "rel_err": rel,
+                   "hi_only_rel": hi, "ok": ok}
+            rows.append(row)
+            if not ok:
+                failed.append(row)
+            log(f"  int8_matmul_t_batched (training) E={key[0]} M={key[1]} "
+                f"K={key[2]} N={key[3]} g={row['g']} rel_err={rel:.2e}"
+                + ("" if hi is None else f" hi_only_rel={hi:.2e}")
+                + f" {'ok' if ok else 'FAIL'}")
+            del got, want
+    if failed:
+        raise AssertionError(f"int8_matmul_t_batched disagrees with its "
+                             f"plain version at training problems: {failed}")
+    return rows
+
+
+def train_moe(seed: int) -> dict:
+    """Phase 12c's training run: qwen3-moe-30b-a3b at full width and 2
+    layers, the ``qgalore`` preset at rank 128 with the randomized
+    subspace method, 8 x 256 tokens, 3 steps. Each steady step's launches
+    are held to what the code implies, and the batched transpose's
+    problems against its plain version."""
+    from repro_torch.config import QGaLoreConfig, TrainConfig, replace
+    from repro_torch.core.optimizers import preset
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import model_zoo
+    from repro_torch.train.trainer import Trainer
+    cfg = replace(model_zoo.get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
+    qcfg = preset("qgalore", QGaLoreConfig(rank=MOE_RANK,
+                                           subspace_method="randomized"))
+    tcfg = TrainConfig(seed=seed, global_batch=8, seq_len=256,
+                       steps=MOE_TRAIN_STEPS, learning_rate=1e-3,
+                       warmup_steps=1, grad_clip=1.0, log_every=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tr = Trainer(bundle, tcfg, qcfg)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    units = sum(s.nbatch for s in tr.specs if s.galore)
+    fwd = moe_launches(cfg)
+    L = cfg.num_layers
+    # forward + recompute of every block (the head and embedding are not
+    # recomputed), dL/dx of every INT8 matmul, one update a GaLore unit
+    want = {"int8_matmul": 2 * fwd["int8_matmul"] - 1,
+            "int8_matmul_batched": 2 * fwd["int8_matmul_batched"],
+            "int8_matmul_t": fwd["int8_matmul"],
+            "int8_matmul_t_batched": 3 * L,
+            "fused_qgalore_update": units}
+    names = tuple(want) + PLAIN_NAMES + ("int8_matmul_batched_ref",
+                                         "int8_matmul_t_batched_ref",
+                                         "deq_matmul_batched",
+                                         "deq_matmul_t_batched")
+    sub_s = []
+    from repro_torch.core import projector
+    sub = projector.compute_subspace
+
+    def timed_sub(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = sub(*a, **k)
+        torch.cuda.synchronize()
+        sub_s.append(time.perf_counter() - t)
+        return out
+
+    projector.compute_subspace = timed_sub
+    LAUNCHES.clear()
+    try:
+        with BatchedRecorder() as brec:
+            rows = run_counted(tr, tcfg.steps, names)
+    finally:
+        projector.compute_subspace = sub
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    problems = []
+    for r in rows:
+        w = dict(want, **({"fused_qgalore_update": 0} if r["step"] == 0
+                          else {}))
+        got = {n: r["launches"][n] for n in w}
+        if got != w:
+            problems.append(f"step {r['step']} launches {got} != {w}")
+        plain = {n: c for n, c in r["launches"].items() if n not in w and c}
+        if plain:
+            problems.append(f"step {r['step']} ran plain versions {plain}")
+        if not np.isfinite(r["loss"]):
+            problems.append(f"step {r['step']} loss {r['loss']}")
+    steady = [r["s"] for r in rows[1:]]
+    out = {"layers": L, "rank": MOE_RANK, "units": units, "init_s": init_s,
+           "losses": [r["loss"] for r in rows],
+           "refresh_step_s": rows[0]["s"], "refresh_subspace_s": sum(sub_s),
+           "median_steady_step_ms": statistics.median(steady) * 1e3,
+           "tokens_per_s": tcfg.global_batch * tcfg.seq_len
+           / statistics.median(steady),
+           "peak_gib": peak, "launches": dict(LAUNCHES),
+           "launches_per_steady_step": rows[-1]["launches"],
+           "launches_want": want}
+    log(f"  training {L} layers at full width: {units} GaLore units; losses "
+        f"{[round(x, 4) for x in out['losses']]}; refresh step "
+        f"{out['refresh_step_s']:.2f} s (subspace {sum(sub_s):.2f} s); "
+        f"median steady step {out['median_steady_step_ms']:.1f} ms; peak "
+        f"{peak:.2f} GiB; a steady step launched "
+        f"{ {n: out['launches_per_steady_step'][n] for n in want} } (want "
+        f"{want})")
+    del tr, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("phase 12c training: " + "; ".join(problems))
+    out["int8_matmul_t_batched"] = check_batched_t(brec.t, seed)
+    out["batched_forward"] = check_batched(brec.i, seed)
+    return out
+
+
+def phase_moe(seed: int) -> dict:
+    """Phase 12: qwen3-moe-30b-a3b served at full width and depth (12a),
+    its answers (12b: bf16 decode against the forward inside 12a; f32 card
+    against CPU at 2 layers), the batched kernels at the expert problems
+    and a 2-layer full-width training run (12c)."""
+    log(f"== phase 12: {MOE_ARCH} (48 layers, 128 experts top-8) through "
+        f"the slot scheduler ({DENSE_SLOTS} slots, {DENSE_REQS} requests, "
+        f"prompts {DENSE_PROMPT[0]}-{DENSE_PROMPT[1]}, {DENSE_NEW} new)")
+    card = nvidia_smi_line()
+    log("card:", card)
+    t0 = time.monotonic()
+    serve = serve_moe(seed)
+    log(f"  12a {MOE_ARCH}: {serve['tokens_per_s']:.1f} tok/s, mean TTFT "
+        f"{serve['mean_ttft_s']:.3f} s, median decode dispatch "
+        f"{serve['median_decode_step_ms']:.2f} ms, INT8 weights "
+        f"{serve['int8_gib']:.2f} GiB, peak {serve['peak_gib']:.2f} GiB, "
+        f"decode idle share {serve['device_idle_share']}, device "
+        f"{serve['profile_step_device_ms']} ms a decode step [{card}]")
+    parity = f32_parity_dense(MOE_ARCH, seed)
+    kernels = moe_expert_rows(seed)
+    training = train_moe(seed)
+    wall = time.monotonic() - t0
+    log(f"  phase 12 in {wall:.1f} s")
+    return {"serving": serve, "f32_parity": parity, "kernels": kernels,
+            "training": training, "wall_s": wall, "card": card}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run (e.g. 1,12): a "
+                         "partial run for development, which prints no "
+                         "kernels line and no result")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2998,6 +3599,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.monotonic()
+    if args.only:
+        phases = {"1": phase_environment, "11": phase_dense_variants,
+                  "12": phase_moe}
+        for name in args.only.split(","):
+            fn = phases[name]
+            fn() if name == "1" else fn(args.seed)
+        log(f"== phases {args.only} passed in {time.monotonic() - t0:.1f} s")
+        return 0
     phase_environment()
     rows, step, step_by, max_abs, max_rel = phase_kernels(args.seed)
     serving = phase_serving(args.seed)
@@ -3013,6 +3622,7 @@ def main() -> int:
     paged = {"serving": phase_paged(args.seed, serving),
              "parity": phase_paged_parity(args.seed)}
     dense = phase_dense_variants(args.seed)
+    moe = phase_moe(args.seed)
     log(f"  serving, route off / flash route: tokens/s "
         f"{serving['tokens_per_s']:.1f} / {flash_serving['tokens_per_s']:.1f}"
         f", mean TTFT {serving['mean_ttft_s']:.3f} / "
@@ -3028,7 +3638,8 @@ def main() -> int:
     print(json.dumps(kernels_json(rows, step, step_by, max_abs, max_rel,
                                   serving, parity, training, flash_rows,
                                   flash_serving, flash_parity, unfused,
-                                  training_7b, finetune, paged, dense)))
+                                  training_7b, finetune, paged, dense,
+                                  moe)))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3038,14 +3649,17 @@ def main() -> int:
 
 def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                  training, flash_rows, flash_serving, flash_parity,
-                 unfused, training_7b, finetune, paged, dense) -> dict:
+                 unfused, training_7b, finetune, paged, dense, moe) -> dict:
     """The ``kernels`` line: every kernel with its launches on the main
     paths, errors against its plain version, and times beside its bound;
     the three training kernels also carry their LLaMA-7B rows
     (``llama_7b``: per-shape rows and one steady step's sums) and their
     LLaMA-7B fine-tune rows at rank 8 (``llama_7b_finetune``);
     ``int8_matmul`` and ``int8_matmul_t`` their phase 11 serving launches,
-    ``int8_matmul_t`` the tied head's rows (``tied_head``)."""
+    ``int8_matmul_t`` the tied head's rows (``tied_head``); the three
+    their phase 12 launches (the expert grid axis counted apart as
+    ``*_batched``) and both INT8 matmuls the expert problems' rows
+    (``moe``)."""
     layers = num_layers()
     flash_pick, flash_f32 = (
         next(r for r in flash_rows if (r["B"], r["S"], r["dv"], r["causal"],
@@ -3081,6 +3695,18 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     ps = paged["serving"]
     dl = {n: sum(r["launches"].get(n, 0) for r in dense["serving"].values())
           for n in ("int8_matmul", "int8_matmul_t")}
+    ms_, mt_ = moe["serving"]["launches"], moe["training"]["launches"]
+    moe_paths = {n: {"moe_serving": ms_.get(n, 0) + ms_.get(n + "_batched", 0),
+                     "moe_serving_batched": ms_.get(n + "_batched", 0),
+                     "moe_training": mt_.get(n, 0)
+                     + mt_.get(n + "_batched", 0),
+                     "moe_training_batched": mt_.get(n + "_batched", 0)}
+                 for n in ("int8_matmul", "int8_matmul_t")}
+    mk = moe["kernels"]
+    moe_timed = ("E 128 expert problems, per-call median of 20 after an L2 "
+                 "flush; per_expert_ms: the same work as 128 launches of "
+                 "the 2-D kernel (median of 10); library: one torch.bmm on "
+                 "the bf16 stack dequantized beforehand")
 
     def ft_paths(name):
         return {"finetune_cli": lc.get(name, 0),
@@ -3097,26 +3723,39 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "launches": serving["launches"].get("int8_matmul", 0)
         + tl.get("int8_matmul", 0) + l7.get("int8_matmul", 0)
         + sum(ft_paths("int8_matmul").values()) + ps["launches"]
-        + dl["int8_matmul"],
+        + dl["int8_matmul"] + moe_paths["int8_matmul"]["moe_serving"]
+        + moe_paths["int8_matmul"]["moe_training"],
         "launches_by_path": {"serving": serving["launches"].get(
             "int8_matmul", 0), "training": tl.get("int8_matmul", 0),
             "training_7b": l7.get("int8_matmul", 0),
             **ft_paths("int8_matmul"), "paged_serving": ps["launches"],
-            "dense_variants_serving": dl["int8_matmul"]},
+            "dense_variants_serving": dl["int8_matmul"],
+            **moe_paths["int8_matmul"]},
         "max_abs_err": max([max_abs, serving["check_max_abs_err"],
-                            ps["check_max_abs_err"]]
+                            ps["check_max_abs_err"],
+                            moe["serving"]["check_max_abs_err"],
+                            moe["serving"]["batched"]["check_max_abs_err"]]
                            + [r["max_abs_err"]
                               for r in i8_7b["per_shape"]
-                              + i8f["per_shape"]]
+                              + i8f["per_shape"]
+                              + mk["int8_matmul_batched"]]
                            + [r["check_max_abs_err"]
                               for r in dense["serving"].values()]),
         "max_rel_err": max([max_rel, serving["check_max_rel_err"],
-                            ps["check_max_rel_err"]]
+                            ps["check_max_rel_err"],
+                            moe["serving"]["check_max_rel_err"],
+                            moe["serving"]["batched"]["check_max_rel_err"]]
                            + [r["check_max_rel_err"]
-                              for r in dense["serving"].values()]),
+                              for r in dense["serving"].values()]
+                           + [r["rel_err"]
+                              for r in mk["int8_matmul_batched"]]),
         "dense_variants": {
             "card": dense["card"], "wall_s": dense["wall_s"],
             "serving": dense["serving"], "f32_parity": dense["f32_parity"]},
+        "moe": {"card": moe["card"], "wall_s": moe["wall_s"],
+                "serving": moe["serving"], "f32_parity": moe["f32_parity"],
+                "expert_rows": mk["int8_matmul_batched"],
+                "timed_as": moe_timed},
         "paged_serving": dict(paged["serving"], parity=paged["parity"]),
         "max_rel_err_7b": max(r["rel_err"] for r in i8_7b["per_shape"]
                               + i8f["per_shape"]),
@@ -3163,17 +3802,23 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "replaces": "src/repro/kernels/int8_matmul.py:141",
         "launches": tl.get("int8_matmul_t", 0)
         + l7.get("int8_matmul_t", 0)
-        + sum(ft_paths("int8_matmul_t").values()) + dl["int8_matmul_t"],
+        + sum(ft_paths("int8_matmul_t").values()) + dl["int8_matmul_t"]
+        + moe_paths["int8_matmul_t"]["moe_training"],
         "launches_by_path": {"training": tl.get("int8_matmul_t", 0),
                              "training_7b": l7.get("int8_matmul_t", 0),
                              **ft_paths("int8_matmul_t"),
-                             "tied_head_serving": dl["int8_matmul_t"]},
+                             "tied_head_serving": dl["int8_matmul_t"],
+                             **moe_paths["int8_matmul_t"]},
         "max_abs_err": max(r["max_abs_err"] for r in tk["int8_matmul_t"]
                            + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]
-                           + dense["tied_head"]),
+                           + dense["tied_head"]
+                           + mk["int8_matmul_t_batched"]),
         "max_rel_err": max(r["rel_err"] for r in tk["int8_matmul_t"]
                            + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]
                            + dense["tied_head"]),
+        "moe": {"expert_rows": mk["int8_matmul_t_batched"],
+                "training_check": moe["training"]["int8_matmul_t_batched"],
+                "timed_as": moe_timed},
         "tied_head": {"per_shape": dense["tied_head"], "timed_as": (
             "gemma-7b's tied head h (M, 3072) bf16 @ deq(E (256000, 3072))^T"
             ", per-call median after an L2 flush; library: cuBLAS bf16 "
@@ -3206,11 +3851,14 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "replaces": "src/repro/kernels/fused_update.py:234",
         "launches": tl.get("fused_qgalore_update", 0)
         + l7.get("fused_qgalore_update", 0)
-        + sum(ft_paths("fused_qgalore_update").values()),
+        + sum(ft_paths("fused_qgalore_update").values())
+        + mt_.get("fused_qgalore_update", 0),
         "launches_by_path": {"training": tl.get("fused_qgalore_update", 0),
                              "training_7b": l7.get("fused_qgalore_update",
                                                    0),
-                             **ft_paths("fused_qgalore_update")},
+                             **ft_paths("fused_qgalore_update"),
+                             "moe_training": mt_.get("fused_qgalore_update",
+                                                     0)},
         "max_abs_err": max(r["max_abs_err"]
                            for r in tk["fused_qgalore_update"]
                            + tk7["fused_qgalore_update"]
@@ -3341,7 +3989,9 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
             "report", "wall_s", "launches", "chain_vs_executor")},
             "llama_7b": {k: v for k, v in ft7.items()
                          if k not in ("int8_matmul", "train_kernels",
-                                      "train_kernel_step_sums")}}}
+                                      "train_kernel_step_sums")}},
+        "moe_training": {k: v for k, v in moe["training"].items()
+                         if k != "int8_matmul_t_batched"}}
     return kernels
 
 

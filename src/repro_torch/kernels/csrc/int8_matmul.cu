@@ -68,6 +68,16 @@
 //    split over a grid axis; each split writes a float32 partial and a
 //    second kernel sums them in a fixed order (deterministic, no atomics).
 //
+// Expert stacks (the reference's vmap of this kernel over an MoE layer's E
+// experts, ops.py:368): one launch computes E independent problems x[e]
+// (M, K) @ deq(q[e], scale[e]) -> out[e], all contiguous and of the same
+// shape. The expert is one more grid axis: z on the small path (the
+// cluster stays the K splits of one column tile of one expert), and z
+// together with the K split on the tiled path (z = e * splits + split).
+// Each block offsets its pointers by its expert's strides and runs the 2-D
+// code unchanged, so a row of expert e is the 2-D kernel's output on
+// expert e's problem, bit for bit, at the same plan.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC; bound through a plain C entry point loaded with ctypes.
 
@@ -175,6 +185,13 @@ __global__ void __launch_bounds__(THREADS)
 i8mm_small(const T* __restrict__ x, const int8_t* __restrict__ q,
            const float* __restrict__ scale, float* __restrict__ out,
            int M, int K, int N, int kc) {
+  {                                             // expert blockIdx.z's problem
+    const size_t e = blockIdx.z;
+    x += e * M * K;
+    q += e * K * N;
+    scale += e * K * (N / GROUP);
+    out += e * M * N;
+  }
   const int split = blockIdx.x;                 // the block's rank in its cluster
   const int splits = gridDim.x;                 // the cluster's size
   const SmallSmem L(M, kc, splits);
@@ -355,7 +372,7 @@ i8mm_small(const T* __restrict__ x, const int8_t* __restrict__ q,
 
 // ---------------------------------------------------------------------------
 // tiled path: BM x 128 output tile per block on the tensor cores, K split
-// over blockIdx.z
+// (and the expert) over blockIdx.z
 // ---------------------------------------------------------------------------
 constexpr int TBN = 128, TBK = 32;
 constexpr int LDA = TBK + 8;    // bf16 elements per staged A row (80 bytes)
@@ -400,10 +417,18 @@ i8mm_mma(const T* __restrict__ x, const int8_t* __restrict__ q,
   const int m0 = blockIdx.y * BM_;
   const int g = n0 / GROUP;
   const int G = N / GROUP;
-  const int k_begin = blockIdx.z * kc;
+  // z = expert * splits + split; split s of every expert writes partial s
+  // of the whole (E, M, N) output
+  const int splits = (K + kc - 1) / kc;
+  const int e = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int n_exp = gridDim.z / splits;
+  x += static_cast<size_t>(e) * M * K;
+  q += static_cast<size_t>(e) * K * N;
+  scale += static_cast<size_t>(e) * K * (N / GROUP);
+  const int k_begin = split * kc;
   const int k_end = min(K, k_begin + kc);
   const int n_kt = (k_end - k_begin + TBK - 1) / TBK;
-  float* dst = out + static_cast<size_t>(blockIdx.z) * M * N;
+  float* dst = out + (static_cast<size_t>(split) * n_exp + e) * M * N;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
 
@@ -561,10 +586,10 @@ i8mm_mma(const T* __restrict__ x, const int8_t* __restrict__ q,
 }
 
 template <typename T>
-cudaError_t launch_small(const T* x, const int8_t* q, const float* s, float* o, int M, int K,
-                         int N, int kc, int splits, cudaStream_t st) {
-  if (M == 0) return cudaSuccess;   // no rows: nothing to write
-  if (M < 0 || M > 16 || kc % SBK || splits < 1 || splits > MAX_CLUSTER)
+cudaError_t launch_small(const T* x, const int8_t* q, const float* s, float* o, int E, int M,
+                         int K, int N, int kc, int splits, cudaStream_t st) {
+  if (M == 0 || E == 0) return cudaSuccess;   // no rows: nothing to write
+  if (M < 0 || M > 16 || kc % SBK || splits < 1 || splits > MAX_CLUSTER || E < 0 || E > 65535)
     return cudaErrorInvalidValue;
   const int smem = SmallSmem(M, kc, splits).bytes;
   auto kern = i8mm_small<T>;
@@ -572,7 +597,7 @@ cudaError_t launch_small(const T* x, const int8_t* q, const float* s, float* o, 
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, N / SBN);
+  cfg.gridDim = dim3(splits, N / SBN, E);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -587,8 +612,12 @@ cudaError_t launch_small(const T* x, const int8_t* q, const float* s, float* o, 
 }
 
 template <typename T, int BM_>
-cudaError_t launch_mma(const T* x, const int8_t* q, const float* s, float* o, int M,
+cudaError_t launch_mma(const T* x, const int8_t* q, const float* s, float* o, int E, int M,
                        int K, int N, int kc, int splits, cudaStream_t st) {
+  if (M == 0 || E == 0) return cudaSuccess;
+  if (M < 0 || E < 0 || static_cast<long long>(E) * splits > 65535 ||
+      (M + BM_ - 1) / BM_ > 65535 || (K + kc - 1) / kc != splits)
+    return cudaErrorInvalidValue;
   constexpr int smem = Tiled<T, BM_>::SMEM;
   auto kern = i8mm_mma<T, BM_>;
   if (smem > 48 * 1024) {
@@ -596,50 +625,62 @@ cudaError_t launch_mma(const T* x, const int8_t* q, const float* s, float* o, in
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(N / TBN, (M + BM_ - 1) / BM_, splits);
+  const dim3 grid(N / TBN, (M + BM_ - 1) / BM_, E * splits);
   kern<<<grid, THREADS, smem, st>>>(x, q, s, o, M, K, N, kc);
   return cudaSuccess;
 }
 
 template <typename T>
-cudaError_t launch_tiled(const T* x, const int8_t* q, const float* s, float* o, int M,
+cudaError_t launch_tiled(const T* x, const int8_t* q, const float* s, float* o, int E, int M,
                          int K, int N, int bm, int kc, int splits, cudaStream_t st) {
-  if (bm == 64) return launch_mma<T, 64>(x, q, s, o, M, K, N, kc, splits, st);
-  if (bm == 128) return launch_mma<T, 128>(x, q, s, o, M, K, N, kc, splits, st);
+  if (bm == 64) return launch_mma<T, 64>(x, q, s, o, E, M, K, N, kc, splits, st);
+  if (bm == 128) return launch_mma<T, 128>(x, q, s, o, E, M, K, N, kc, splits, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// path 0: small-M (M <= 16; kc a multiple of 64; splits = the blocks of a
-// cluster, 1..8, reduced in distributed shared memory; m_tile and ws
-// unused); path 1: tiled (m_tile = the block's rows, 64 or 128; kc a
-// multiple of 32; with splits > 1 the partials go to ws, splits * M * N
-// floats, and a second kernel sums them into out). q 16-byte aligned.
-// Returns the launch's error, or cudaGetLastError() after the launches.
-extern "C" int qgl_int8_matmul(const void* x, int x_bf16, const void* q, const void* scale,
-                               void* out, void* ws, int M, int K, int N, int path,
-                               int m_tile, int kc, int splits, void* stream) {
+// E problems x (E, M, K) @ deq(q (E, K, N), scale (E, K, N/256)) -> out
+// (E, M, N), each contiguous. path 0: small-M (M <= 16; kc a multiple of
+// 64; splits = the blocks of a cluster, 1..8, reduced in distributed shared
+// memory; m_tile and ws unused); path 1: tiled (m_tile = the block's rows,
+// 64 or 128; kc a multiple of 32, splits = ceil(K / kc); with splits > 1
+// the partials go to ws, splits * E * M * N floats, and a second kernel
+// sums them into out). q 16-byte aligned. Returns the launch's error, or
+// cudaGetLastError() after the launches.
+extern "C" int qgl_int8_matmul_batched(const void* x, int x_bf16, const void* q,
+                                       const void* scale, void* out, void* ws, int E, int M,
+                                       int K, int N, int path, int m_tile, int kc, int splits,
+                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* qc = static_cast<const int8_t*>(q);
   const float* sc = static_cast<const float*>(scale);
   if (path == 0) {
     const cudaError_t err =
         x_bf16 ? launch_small(static_cast<const __nv_bfloat16*>(x), qc, sc,
-                              static_cast<float*>(out), M, K, N, kc, splits, st)
+                              static_cast<float*>(out), E, M, K, N, kc, splits, st)
                : launch_small(static_cast<const float*>(x), qc, sc, static_cast<float*>(out),
-                              M, K, N, kc, splits, st);
+                              E, M, K, N, kc, splits, st);
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
   }
   float* dst = splits > 1 ? static_cast<float*>(ws) : static_cast<float*>(out);
   const cudaError_t err =
-      x_bf16 ? launch_tiled(static_cast<const __nv_bfloat16*>(x), qc, sc, dst, M, K, N,
+      x_bf16 ? launch_tiled(static_cast<const __nv_bfloat16*>(x), qc, sc, dst, E, M, K, N,
                             m_tile, kc, splits, st)
-             : launch_tiled(static_cast<const float*>(x), qc, sc, dst, M, K, N, m_tile, kc,
-                            splits, st);
+             : launch_tiled(static_cast<const float*>(x), qc, sc, dst, E, M, K, N, m_tile,
+                            kc, splits, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (splits > 1)
+  if (splits > 1 && M > 0 && E > 0)
     splitk::launch(static_cast<const float*>(ws), static_cast<float*>(out), splits,
-                   static_cast<size_t>(M) * N, st);
+                   static_cast<size_t>(E) * M * N, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One problem: x (M, K) @ deq(q (K, N), scale (K, N/256)) -> out (M, N),
+// the batched entry at E = 1.
+extern "C" int qgl_int8_matmul(const void* x, int x_bf16, const void* q, const void* scale,
+                               void* out, void* ws, int M, int K, int N, int path,
+                               int m_tile, int kc, int splits, void* stream) {
+  return qgl_int8_matmul_batched(x, x_bf16, q, scale, out, ws, 1, M, K, N, path, m_tile, kc,
+                                 splits, stream);
 }

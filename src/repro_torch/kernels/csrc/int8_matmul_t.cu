@@ -41,6 +41,13 @@
 // lo = bf16(g - hi), rounded in a conversion pass one step ahead in shared
 // memory, and two mma into the same sums (~2^-17 of each term).
 //
+// Expert stacks (the reference's vmap over an MoE layer's E experts): one
+// launch computes E independent problems g[e] (M, N) @ deq(q[e])^T ->
+// out[e] (M, K), all contiguous and of the same shape, with the expert on
+// grid axis z. Each block offsets its pointers by its expert's strides and
+// runs the 2-D code unchanged, so a row of expert e is the 2-D kernel's
+// output on expert e's problem, bit for bit.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC; bound through a plain C entry point loaded with ctypes.
 
@@ -92,6 +99,13 @@ i8mm_t_mma(const T* __restrict__ g, const int8_t* __restrict__ q,
   int8_t* Bs = reinterpret_cast<int8_t*>(smem + C::GS);             // [S][TBN][LDB]
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem + C::GS + C::BS);  // [2][2][BM][LDA]
   float* Ss = reinterpret_cast<float*>(smem + C::GS + C::BS + C::AS);            // [2][TBN]
+  {                                             // expert blockIdx.z's problem
+    const size_t e = blockIdx.z;
+    g += e * M * N;
+    q += e * K * N;
+    scale += e * K * (N / GROUP);
+    out += e * M * K;
+  }
 
   const int k0 = blockIdx.x * TBN;
   const int m0 = blockIdx.y * BM;
@@ -248,8 +262,9 @@ i8mm_t_mma(const T* __restrict__ g, const int8_t* __restrict__ q,
 }
 
 template <typename T>
-cudaError_t launch(const T* g, const int8_t* q, const float* s, float* o, int M, int K, int N,
-                   cudaStream_t st) {
+cudaError_t launch(const T* g, const int8_t* q, const float* s, float* o, int E, int M, int K,
+                   int N, cudaStream_t st) {
+  if (E > 65535 || (M + BM - 1) / BM > 65535) return cudaErrorInvalidValue;
   constexpr int smem = Cfg<T>::SMEM;
   auto kern = i8mm_t_mma<T>;
   if (smem > 48 * 1024) {
@@ -257,26 +272,35 @@ cudaError_t launch(const T* g, const int8_t* q, const float* s, float* o, int M,
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((K + TBN - 1) / TBN, (M + BM - 1) / BM);
+  const dim3 grid((K + TBN - 1) / TBN, (M + BM - 1) / BM, E);
   kern<<<grid, THREADS, smem, st>>>(g, q, s, o, M, K, N);
   return cudaSuccess;
 }
 
 }  // namespace
 
-// g (M, N) f32 or bf16 (g_bf16 != 0), 16-byte aligned; q (K, N) int8,
-// 16-byte aligned; scale (K, N/256) f32; out (M, K) f32; N % 256 == 0;
-// (M + 127) / 128 <= 65535. Returns cudaGetLastError() after the launch.
-extern "C" int qgl_int8_matmul_t(const void* g, int g_bf16, const void* q, const void* scale,
-                                 void* out, int M, int K, int N, void* stream) {
-  if (M <= 0 || K <= 0) return 0;
+// E problems: g (E, M, N) f32 or bf16 (g_bf16 != 0), 16-byte aligned; q
+// (E, K, N) int8, 16-byte aligned; scale (E, K, N/256) f32; out (E, M, K)
+// f32; N % 256 == 0; (M + 127) / 128 <= 65535, E <= 65535. Returns
+// cudaGetLastError() after the launch.
+extern "C" int qgl_int8_matmul_t_batched(const void* g, int g_bf16, const void* q,
+                                         const void* scale, void* out, int E, int M, int K,
+                                         int N, void* stream) {
+  if (E <= 0 || M <= 0 || K <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* qc = static_cast<const int8_t*>(q);
   const float* sc = static_cast<const float*>(scale);
   float* o = static_cast<float*>(out);
   const cudaError_t err =
-      g_bf16 ? launch(static_cast<const __nv_bfloat16*>(g), qc, sc, o, M, K, N, st)
-             : launch(static_cast<const float*>(g), qc, sc, o, M, K, N, st);
+      g_bf16 ? launch(static_cast<const __nv_bfloat16*>(g), qc, sc, o, E, M, K, N, st)
+             : launch(static_cast<const float*>(g), qc, sc, o, E, M, K, N, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One problem: g (M, N) @ deq(q (K, N), scale)^T -> out (M, K), the
+// batched entry at E = 1.
+extern "C" int qgl_int8_matmul_t(const void* g, int g_bf16, const void* q, const void* scale,
+                                 void* out, int M, int K, int N, void* stream) {
+  return qgl_int8_matmul_t_batched(g, g_bf16, q, scale, out, 1, M, K, N, stream);
 }

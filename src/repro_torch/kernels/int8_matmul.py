@@ -36,6 +36,15 @@ round differently.
 ``int8_matmul_t`` has one design: ``mma.sync`` on 128 x 128 output tiles,
 the whole contraction in one block, the group scale an epilogue on each
 group's f32 sums (one pass for bf16 g, two for f32 g).
+
+:func:`int8_matmul_batched` and :func:`int8_matmul_t_batched` take an MoE
+layer's expert stacks, ``x (E, M, K)`` against ``q (E, K, N)``: the
+reference's ``vmap`` of the 2-D op, which in JAX is the same kernel with
+one more grid axis. Here too: one launch covers the E problems, the
+expert on a grid axis of the same kernels, so each expert's rows are the
+2-D kernel's output on that expert's problem at the same plan. For a CPU
+tensor they run ``ref.int8_matmul_batched_ref`` and
+``ref.int8_matmul_t_batched_ref``; they never loop over the experts.
 """
 from __future__ import annotations
 
@@ -73,10 +82,11 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
-    """Launch plan for an (M, K) x (K, N) problem.
+def plan(M: int, K: int, N: int, sms: int = H100_SMS, E: int = 1) -> Plan:
+    """Launch plan for ``E`` (M, K) x (K, N) problems in one launch (E = 1:
+    one problem).
 
-    The small path has N/128 column tiles; K is split until about four
+    The small path has E x N/128 column tiles; K is split until about four
     blocks per SM are in flight, into at most ``MAX_CLUSTER`` splits of
     whole 64-row k tiles, all of one cluster; K beyond ``MAX_CLUSTER *
     SMALL_KC_MAX`` rows goes to the tiled path at any M. The tiled path
@@ -89,7 +99,7 @@ def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
     with the number of rows in the call.
     """
     if M <= SMALL_M and K <= MAX_CLUSTER * SMALL_KC_MAX:
-        want = _cdiv(4 * sms, N // SMALL_N)
+        want = _cdiv(4 * sms, E * (N // SMALL_N))
         splits = max(1, min(want, MAX_CLUSTER, _cdiv(K, SMALL_K)))
         kc = _cdiv(_cdiv(K, splits), SMALL_K) * SMALL_K
         splits = _cdiv(K, kc)
@@ -101,20 +111,25 @@ def plan(M: int, K: int, N: int, sms: int = H100_SMS) -> Plan:
 
 
 def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-           block: int, axis: int = 0) -> None:
-    """``x``'s last axis must match axis ``axis`` of ``q``: K for
-    :func:`int8_matmul`, the padded N for :func:`int8_matmul_t`."""
-    if x.ndim != 2 or q.ndim != 2 or scale.ndim != 2:
-        raise ValueError(f"need 2-D x, q, scale; got {tuple(x.shape)}, "
+           block: int, axis: int = 0, batched: bool = False) -> None:
+    """``x``'s last axis must match axis ``axis`` of ``q``'s (K, N): K for
+    :func:`int8_matmul`, the padded N for :func:`int8_matmul_t`. With
+    ``batched`` every operand leads with the same expert axis E."""
+    nd = 3 if batched else 2
+    if x.ndim != nd or q.ndim != nd or scale.ndim != nd:
+        raise ValueError(f"need {nd}-D x, q, scale; got {tuple(x.shape)}, "
                          f"{tuple(q.shape)}, {tuple(scale.shape)}")
-    K, N = q.shape
-    if x.shape[1] != q.shape[axis]:
-        raise ValueError(f"x has {'KN'[axis]}={x.shape[1]}, q has shape "
+    if batched and not x.shape[0] == q.shape[0] == scale.shape[0]:
+        raise ValueError(f"expert axes differ: {tuple(x.shape)}, "
+                         f"{tuple(q.shape)}, {tuple(scale.shape)}")
+    K, N = q.shape[-2:]
+    if x.shape[-1] != (K, N)[axis]:
+        raise ValueError(f"x has {'KN'[axis]}={x.shape[-1]}, q has shape "
                          f"{tuple(q.shape)}")
     if block != GROUP or N % GROUP:
         raise ValueError(f"need quant block {GROUP} and N % {GROUP} == 0, "
                          f"got block={block}, N={N}")
-    if tuple(scale.shape) != (K, N // block):
+    if tuple(scale.shape[-2:]) != (K, N // block):
         raise ValueError(f"scale shape {tuple(scale.shape)} != "
                          f"{(K, N // block)}")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -134,40 +149,60 @@ def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                block: int = GROUP) -> torch.Tensor:
+                block: int = GROUP, p: Plan = None) -> torch.Tensor:
     """``x (M, K) @ deq(q, scale)`` → ``(M, N)`` float32, N the padded
-    width of ``q``."""
+    width of ``q``. ``p`` replaces :func:`plan`'s launch plan (a test
+    holds :func:`int8_matmul_batched`'s rows against this kernel at the
+    batched call's plan)."""
     _check(x, q, scale, block)
     if x.device.type == "cpu":
         return ref.int8_matmul_ref(x, q, scale, block)
+    return _launch("int8_matmul", x[None], q[None], scale[None], p)[0]
+
+
+def int8_matmul_batched(x: torch.Tensor, q: torch.Tensor,
+                        scale: torch.Tensor, block: int = GROUP
+                        ) -> torch.Tensor:
+    """``x (E, M, K) @ deq(q (E, K, N), scale (E, K, N/256))`` → ``(E, M,
+    N)`` float32: E experts' problems in one launch, the expert a grid axis
+    of the ``int8_matmul`` kernel (:func:`plan` with ``E``)."""
+    _check(x, q, scale, block, batched=True)
+    if x.device.type == "cpu":
+        return ref.int8_matmul_batched_ref(x, q, scale, block)
+    return _launch("int8_matmul_batched", x, q, scale, None)
+
+
+def _launch(name: str, x, q, scale, p) -> torch.Tensor:
     if q.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned")
-    M, K = x.shape
-    N = q.shape[1]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    p = plan(M, K, N, sms)
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    ws = (torch.empty((p.splits, M, N), dtype=torch.float32,
+    E, M, K = x.shape
+    N = q.shape[2]
+    if p is None:
+        sms = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        p = plan(M, K, N, sms, E)
+    out = torch.empty((E, M, N), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((p.splits, E, M, N), dtype=torch.float32,
                       device=x.device) if p.path == 1 and p.splits > 1
           else out)
     fn = _entry()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    LAUNCHES["int8_matmul"] += 1
+    LAUNCHES[name] += 1
     err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
-             scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, K, N,
+             scale.data_ptr(), out.data_ptr(), ws.data_ptr(), E, M, K, N,
              p.path, p.m_tile, p.kc, p.splits, stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul launch failed: CUDA error {err} "
-                           f"(M={M}, K={K}, N={N}, {p})")
+                           f"(E={E}, M={M}, K={K}, N={N}, {p})")
     return out
 
 
 def _entry():
     lib = build.load("int8_matmul")
-    fn = lib.qgl_int8_matmul
+    fn = lib.qgl_int8_matmul_batched
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+        fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
         fn.restype = i
     return fn
 
@@ -182,29 +217,46 @@ def int8_matmul_t(g: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     _check(g, q, scale, block, axis=1)
     if g.device.type == "cpu":
         return ref.int8_matmul_t_ref(g, q, scale, block)
+    return _launch_t("int8_matmul_t", g[None], q[None], scale[None])[0]
+
+
+def int8_matmul_t_batched(g: torch.Tensor, q: torch.Tensor,
+                          scale: torch.Tensor, block: int = GROUP
+                          ) -> torch.Tensor:
+    """``g (E, M, N) @ deq(q (E, K, N), scale)^T`` → ``(E, M, K)`` float32:
+    E experts' problems in one launch, the expert a grid axis of the
+    ``int8_matmul_t`` kernel."""
+    _check(g, q, scale, block, axis=1, batched=True)
+    if g.device.type == "cpu":
+        return ref.int8_matmul_t_batched_ref(g, q, scale, block)
+    return _launch_t("int8_matmul_t_batched", g, q, scale)
+
+
+def _launch_t(name: str, g, q, scale) -> torch.Tensor:
     if q.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("g and q must be 16-byte aligned")
-    M, N = g.shape
-    K = q.shape[0]
-    if _cdiv(M, TILE_M_T) > 65535:
-        raise ValueError(f"too many rows for one launch: {M}")
-    out = torch.empty((M, K), dtype=torch.float32, device=g.device)
+    E, M, N = g.shape
+    K = q.shape[1]
+    if _cdiv(M, TILE_M_T) > 65535 or E > 65535:
+        raise ValueError(f"too many rows or experts for one launch: "
+                         f"E={E}, M={M}")
+    out = torch.empty((E, M, K), dtype=torch.float32, device=g.device)
     fn = _entry_t()
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    LAUNCHES["int8_matmul_t"] += 1
+    LAUNCHES[name] += 1
     err = fn(g.data_ptr(), int(g.dtype == torch.bfloat16), q.data_ptr(),
-             scale.data_ptr(), out.data_ptr(), M, K, N, stream)
+             scale.data_ptr(), out.data_ptr(), E, M, K, N, stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul_t launch failed: CUDA error {err} "
-                           f"(M={M}, K={K}, N={N})")
+                           f"(E={E}, M={M}, K={K}, N={N})")
     return out
 
 
 def _entry_t():
     lib = build.load("int8_matmul_t")
-    fn = lib.qgl_int8_matmul_t
+    fn = lib.qgl_int8_matmul_t_batched
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, i, vp, vp, vp, i, i, i, vp]
+        fn.argtypes = [vp, i, vp, vp, vp, i, i, i, i, vp]
         fn.restype = i
     return fn

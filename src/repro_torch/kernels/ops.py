@@ -11,6 +11,11 @@
 * :func:`quantized_dense_t` — ``x @ deq(W)^T`` over the same stored
   blocks (the tied-embedding head): its forward is ``int8_matmul_t``, its
   ``dL/dx`` ``int8_matmul``, and ``dL/dW = g^T x`` lands on the shadow.
+* :func:`quantized_dense_batched` — ``x (E, C, K) @ deq(W (E, K, N))``,
+  an MoE layer's expert stacks: one ``int8_matmul_batched`` launch
+  forward, one ``int8_matmul_t_batched`` launch for ``dL/dx``, and
+  ``dL/dW`` (float32, a library batched matmul) on the ``(E, K, N)``
+  shadow.
 * :func:`fused_qgalore_update` — the fused optimizer step for one weight:
   pads its operands to the kernel's layout and crops the results.
 * :func:`flash_attention` — online-softmax attention with native GQA (the
@@ -22,8 +27,8 @@
 
 On a CUDA tensor each op launches its kernel; on a CPU tensor it runs the
 JAX package's CPU path: dequantize, then one float32 matmul
-(``ref.deq_matmul``, ``ref.deq_matmul_t``), and the other kernels' plain
-versions.
+(``ref.deq_matmul``, ``ref.deq_matmul_t`` and their batched forms), and
+the other kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -42,30 +47,36 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import sr_requant as _sr
 
 
-def _check_weight(qt: QTensor) -> None:
+def _check_weight(qt: QTensor, ndim: int = 2) -> None:
     if not isinstance(qt, QTensor) or qt.bits != 8 or qt.zero is not None:
         raise TypeError("need a symmetric INT8 QTensor weight")
-    if qt.ndim != 2:
-        raise ValueError(f"need a 2-D weight, got {qt.shape}")
+    if qt.ndim != ndim:
+        raise ValueError(f"need a {ndim}-D weight, got {qt.shape}")
 
 
 def _fwd(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """x2 (M, K) @ deq(qt)[:, :orig] → (M, orig) float32."""
+    """x2 (M, K) @ deq(qt)[:, :orig] → (M, orig) float32; with an expert
+    axis, x2 (E, M, K) against qt (E, K, N), all experts in one call."""
+    batched = x2.ndim == 3
     if x2.device.type == "cpu":
-        return ref.deq_matmul(x2, qt.q, qt.scale, qt.block, qt.orig_last)
-    return _i8mm.int8_matmul(x2.contiguous(), qt.q, qt.scale,
-                             qt.block)[:, : qt.orig_last]
+        fn = ref.deq_matmul_batched if batched else ref.deq_matmul
+        return fn(x2, qt.q, qt.scale, qt.block, qt.orig_last)
+    fn = _i8mm.int8_matmul_batched if batched else _i8mm.int8_matmul
+    return fn(x2.contiguous(), qt.q, qt.scale, qt.block)[..., : qt.orig_last]
 
 
 def _dx(g2: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """g2 (M, orig) @ deq(qt)[:, :orig]^T → (M, K) float32 (the forward of
-    :func:`quantized_dense_t` too)."""
+    :func:`quantized_dense_t` too); with an expert axis as :func:`_fwd`."""
+    batched = g2.ndim == 3
     if g2.device.type == "cpu":
-        return ref.deq_matmul_t(g2, qt.q, qt.scale, qt.block)
-    pad = qt.q.shape[1] - g2.shape[1]
+        fn = ref.deq_matmul_t_batched if batched else ref.deq_matmul_t
+        return fn(g2, qt.q, qt.scale, qt.block)
+    pad = qt.q.shape[-1] - g2.shape[-1]
     if pad:     # padded weight columns dequantize to zero
         g2 = F.pad(g2, (0, pad))
-    return _i8mm.int8_matmul_t(g2.contiguous(), qt.q, qt.scale, qt.block)
+    fn = _i8mm.int8_matmul_t_batched if batched else _i8mm.int8_matmul_t
+    return fn(g2.contiguous(), qt.q, qt.scale, qt.block)
 
 
 class _QDense(torch.autograd.Function):
@@ -74,7 +85,8 @@ class _QDense(torch.autograd.Function):
     inside the Function, so the backward receives g in the activation
     dtype: a bf16 g is one tensor-core pass of ``int8_matmul_t``, and
     half the bytes of the f32 gradient of an outside cast (the same
-    values)."""
+    values). With an expert axis (x2 (E, M, K), W (E, K, N)) each
+    direction is one batched launch and ``dL/dW`` is per expert."""
 
     @staticmethod
     def forward(ctx, x2, shadow, qt, dtype):
@@ -90,7 +102,8 @@ class _QDense(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = _dx(g, qt).to(x2.dtype)
         if ctx.needs_input_grad[1]:
-            dw = torch.matmul(x2.to(torch.float32).T, g.to(torch.float32))
+            dw = torch.matmul(x2.to(torch.float32).transpose(-1, -2),
+                              g.to(torch.float32))
         return dx, dw, None, None
 
 
@@ -158,6 +171,30 @@ def quantized_dense_t(x: torch.Tensor, w, dtype: torch.dtype = torch.bfloat16
     else:
         out = _dx(x2, qt).to(dtype)
     return out.reshape(*lead, qt.q.shape[0])
+
+
+def quantized_dense_batched(x: torch.Tensor, w,
+                            dtype: torch.dtype = torch.bfloat16
+                            ) -> torch.Tensor:
+    """``x (E, ..., K) @ deq(W (E, K, N))`` → ``(E, ..., N)`` in ``dtype``
+    with W consumed as INT8 codes (``repro/kernels/ops.py:368``): the MoE
+    expert stacks, all E experts in one kernel launch a direction. ``w`` is
+    a 3-D QTensor (no weight gradient) or QVirtual (``dL/dW`` lands on its
+    ``(E, K, N)`` shadow)."""
+    qt = w.qt if isinstance(w, QVirtual) else w
+    _check_weight(qt, 3)
+    E, K = x.shape[0], x.shape[-1]
+    if E != qt.q.shape[0]:
+        raise ValueError(f"x has {E} experts, the weight {tuple(qt.shape)}")
+    mid = x.shape[1:-1]
+    x3 = x.reshape(E, -1, K)
+    if isinstance(w, QVirtual):
+        out = _QDense.apply(x3, w.shadow, qt, dtype)
+    elif torch.is_grad_enabled() and x.requires_grad:
+        out = _QDense.apply(x3, None, qt, dtype)
+    else:
+        out = _fwd(x3, qt).to(dtype)
+    return out.reshape(E, *mid, qt.orig_last)
 
 
 def fused_qgalore_update(param: QTensor, low_g: torch.Tensor,

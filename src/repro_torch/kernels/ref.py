@@ -76,6 +76,59 @@ def deq_matmul_t(g: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return g.to(torch.float32) @ w.T
 
 
+def int8_matmul_batched_ref(x: torch.Tensor, q: torch.Tensor,
+                            scale: torch.Tensor, block: int) -> torch.Tensor:
+    """x (E, M, K) @ dequant(q (E, K, N), scale (E, K, N/block)) → (E, M, N)
+    f32: :func:`int8_matmul_ref`'s arithmetic for each expert, batched (the
+    reference's ``vmap`` of the 2-D op)."""
+    LAUNCHES["int8_matmul_batched_ref"] += 1
+    E, K, N = q.shape
+    G = N // block
+    q4 = q.to(torch.float32).reshape(E, K, G, block)
+    xs = x.to(torch.float32)[..., None] * scale[:, None]   # (E, M, K, G)
+    return torch.einsum("emkg,ekgb->emgb", xs, q4).reshape(E, x.shape[1], N)
+
+
+def int8_matmul_t_batched_ref(g: torch.Tensor, q: torch.Tensor,
+                              scale: torch.Tensor, block: int
+                              ) -> torch.Tensor:
+    """g (E, M, N) @ dequant(q (E, K, N), scale)^T → (E, M, K) f32:
+    :func:`int8_matmul_t_ref`'s arithmetic for each expert, batched."""
+    LAUNCHES["int8_matmul_t_batched_ref"] += 1
+    E, K, N = q.shape
+    G = N // block
+    g4 = g.to(torch.float32).reshape(E, g.shape[1], G, block)
+    q4 = q.to(torch.float32).reshape(E, K, G, block)
+    pdot = torch.einsum("emgb,ekgb->emgk", g4, q4)
+    return torch.einsum("emgk,ekg->emk", pdot, scale)
+
+
+def deq_matmul_batched(x: torch.Tensor, q: torch.Tensor,
+                       scale: torch.Tensor, block: int, orig: int
+                       ) -> torch.Tensor:
+    """x (E, M, K) @ deq(q (E, K, Np))[..., :orig] → (E, M, orig) f32: the
+    CPU model path of the expert stacks (the reference's ``vmap`` of
+    ``deq_matmul``'s dequantize-then-matmul)."""
+    LAUNCHES["deq_matmul_batched"] += 1
+    E, K, Np = q.shape
+    w = (q.to(torch.float32).reshape(E, K, Np // block, block)
+         * scale[..., None]).reshape(E, K, Np)
+    if orig != Np:
+        w = w[..., :orig]
+    return torch.bmm(x.to(torch.float32), w)
+
+
+def deq_matmul_t_batched(g: torch.Tensor, q: torch.Tensor,
+                         scale: torch.Tensor, block: int) -> torch.Tensor:
+    """g (E, M, orig) @ deq(q (E, K, Np))[..., :orig]^T → (E, M, K) f32:
+    the CPU model path of the expert stacks' ``dL/dx``."""
+    LAUNCHES["deq_matmul_t_batched"] += 1
+    E, K, Np = q.shape
+    w = (q.to(torch.float32).reshape(E, K, Np // block, block)
+         * scale[..., None]).reshape(E, K, Np)[..., : g.shape[-1]]
+    return torch.bmm(g.to(torch.float32), w.transpose(1, 2))
+
+
 def fused_qgalore_update_ref(g, m, v, p_packed, p_scale, p_zero, q, wscale,
                              u01, count: float, lr: float, *, side: str,
                              pblock: int, wblock: int, beta1: float = 0.9,

@@ -6,8 +6,10 @@ of ``repro/models/base.py``)::
 Each segment is a stack of identical blocks whose parameter leaves carry a
 leading layer axis ``(L, ...)``; the engine walks the layers with a Python
 loop and hands each block its slice (:func:`layer_params`). ``carry`` is a
-dict holding at least ``h`` (hidden states); ``ctx`` is shared read-only
-state (positions, lengths) built by ``embed``.
+dict holding ``h`` (hidden states) and, for an MoE model, ``aux`` (the
+routers' load-balance loss, a 0-d float32 that the blocks accumulate and
+``head_loss`` adds); ``ctx`` is shared read-only state (positions,
+lengths) built by ``embed``.
 """
 from __future__ import annotations
 
@@ -53,6 +55,10 @@ class ModelBundle:
     head_logits: Callable                  # (params, carry) -> logits (last pos)
     head_loss: Callable                    # (params, carry, batch) -> (loss, metrics)
     flash_attention: bool = False          # prefill attention via the flash kernel
+    # right-padded (ragged) prefill is exact only when rows cannot interact;
+    # capacity-limited MoE routing couples them through the shared expert
+    # buffers, so such bundles prefill one unpadded prompt at a time
+    ragged_prefill_ok: bool = False
 
     def seg_key(self, i: int) -> str:
         return f"seg{i}_{self.segments[i].name}"

@@ -1,10 +1,11 @@
 """Shared building blocks (the counterpart of ``repro/models/layers.py``).
 
 Every matmul goes through :func:`dense`, which streams INT8 QTensor weights
-through ``kernels.ops.quantized_dense``; embedding tables are read through
-:func:`embed_lookup`, which gathers INT8 rows per token. Parameter trees
-are nested dicts with the JAX package's leaf names (wq/wk/wv/wo, wi/wg/wd,
-embedding, head, *_norm).
+through ``kernels.ops.quantized_dense`` (:func:`dense_batched`, an MoE
+layer's expert stacks, through ``quantized_dense_batched``); embedding
+tables are read through :func:`embed_lookup`, which gathers INT8 rows per
+token. Parameter trees are nested dicts with the JAX package's leaf names
+(wq/wk/wv/wo, wi/wg/wd, embedding, head, *_norm).
 
 For training a weight arrives as a ``QVirtual`` (codes plus a zeros
 ``shadow`` that requires grad): matmuls route ``dL/dW`` to the shadow
@@ -84,6 +85,18 @@ def dense_t(x: torch.Tensor, w, dtype=torch.bfloat16) -> torch.Tensor:
             and qt.ndim == 2:
         return kops.quantized_dense_t(x, w, dtype=dtype)
     return torch.einsum("...d,vd->...v", x.to(dtype), materialize(w, dtype))
+
+
+def dense_batched(x: torch.Tensor, w, dtype=torch.bfloat16) -> torch.Tensor:
+    """Paired-leading-axis matmul x (E, ..., d) @ w (E, d, f) → (E, ..., f)
+    (MoE expert stacks); INT8 expert stacks stream through
+    ``quantized_dense_batched``, one launch for all experts."""
+    qt = w.qt if isinstance(w, QVirtual) else w
+    if isinstance(qt, QTensor) and qt.bits == 8 and qt.zero is None \
+            and qt.ndim == 3:
+        return kops.quantized_dense_batched(x, w, dtype=dtype)
+    return torch.einsum("e...d,edf->e...f", x.to(dtype),
+                        materialize(w, dtype))
 
 
 def embed_lookup(w, tokens: torch.Tensor, dtype=torch.bfloat16

@@ -1,7 +1,9 @@
 """Architecture registry of the port: the dense decoder-only family (the
-LLaMA configs, mistral-nemo-12b, yi-9b, qwen3-32b, gemma-7b) and the VLM
-backbone internvl2-2b. The other families of the JAX package are refused
-by name, with the ROADMAP sub-slice that brings each."""
+LLaMA configs, mistral-nemo-12b, yi-9b, qwen3-32b, gemma-7b), the VLM
+backbone internvl2-2b and the mixture of experts qwen3-moe-30b-a3b. The
+other families of the JAX package (MLA/MTP, xLSTM, the SSM hybrid,
+encoder-decoder) are refused by name, with the ROADMAP sub-slice that
+brings each."""
 from __future__ import annotations
 
 import importlib
@@ -16,15 +18,14 @@ from repro_torch.models.base import ModelBundle
 
 ARCH_IDS = ("llama-60m", "llama-130m", "llama-350m", "llama-1b",
             "llama-7b", "mistral-nemo-12b", "yi-9b", "qwen3-32b",
-            "gemma-7b", "internvl2-2b")
+            "gemma-7b", "internvl2-2b", "qwen3-moe-30b-a3b")
 
 # the JAX package's other architectures, and the ROADMAP queue 1 sub-slice
 # that ports each
-LATER = {"qwen3-moe-30b-a3b": "4b (MoE)", "deepseek-v3-671b": "4c (MLA, MTP)",
+LATER = {"deepseek-v3-671b": "4c (MLA, MTP)",
          "xlstm-125m": "4d (xLSTM)", "zamba2-2.7b": "4e (the SSM hybrid)",
          "seamless-m4t-medium": "4f (encoder-decoder)"}
-_FAMILY_SLICE = {"moe": LATER["qwen3-moe-30b-a3b"],
-                 "xlstm": LATER["xlstm-125m"], "ssm": LATER["zamba2-2.7b"],
+_FAMILY_SLICE = {"xlstm": LATER["xlstm-125m"], "ssm": LATER["zamba2-2.7b"],
                  "hybrid": LATER["zamba2-2.7b"],
                  "encdec": LATER["seamless-m4t-medium"]}
 FLASH_MAX_HEAD_DIM = 128    # csrc/flash_attention.cu takes d <= 128
@@ -49,19 +50,18 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
 
 def check_config(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP sub-slice for any
-    part of ``cfg`` the port does not have: families other than ``dense``
-    and ``vlm``, MLA, MoE and MTP. qk-norm, GeGLU, tied embeddings and the
-    VLM prefix are ported."""
+    part of ``cfg`` the port does not have: families other than ``dense``,
+    ``vlm`` and ``moe``, MLA and MTP. qk-norm, GeGLU, tied embeddings, the
+    VLM prefix and a mixture of experts (``cfg.moe``, with shared experts
+    and leading dense layers) are ported."""
     if cfg.family in _FAMILY_SLICE:
         _refuse(cfg, f"the {cfg.family} family", _FAMILY_SLICE[cfg.family])
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     if cfg.attention == "mla" or cfg.mla is not None:
         _refuse(cfg, "MLA attention", LATER["deepseek-v3-671b"])
     if cfg.mtp_depth:
         _refuse(cfg, "multi-token prediction", LATER["deepseek-v3-671b"])
-    if cfg.moe is not None:
-        _refuse(cfg, "a mixture of experts", LATER["qwen3-moe-30b-a3b"])
     if cfg.attention != "gqa":
         raise ValueError(f"{cfg.name}: unknown attention {cfg.attention!r}")
     if cfg.ffn_activation not in ("silu", "gelu"):

@@ -1,0 +1,192 @@
+"""Mixture-of-experts FFN with sort-based capacity dispatch (the
+counterpart of ``repro/models/moe.py``).
+
+Token→expert routing is a stable sort by expert and a scatter into
+per-expert buffers of fixed capacity ``C``, followed by the batched expert
+FFN ``(E, C, d) × (E, d, f)``: three ``layers.dense_batched`` calls, each
+one kernel launch for all E experts when the stacks are INT8. Tokens past
+an expert's capacity fall into a garbage row and contribute zero.
+
+The combine adds each token's kept contributions in float32, starting
+from zero, in ascending expert order: the order in which the reference's
+scatter-add over the stably sorted list reaches them. It uses no atomics,
+so a run gives the same bits every time.
+
+Top-k takes, among equal probabilities, the lower expert index first, as
+``jax.lax.top_k`` does: it is a stable descending sort (``torch.topk``
+promises no order among ties).
+
+Expert parallelism (the reference's ``moe_apply_ep`` / ``moe_ep_sharded``)
+is not ported: it waits for distributed training, ROADMAP queue 1 item 5.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig, MoEConfig
+from repro_torch.models import layers
+from repro_torch.models.layers import dense, dense_init
+
+EP_SLICE = "ROADMAP queue 1 item 5"
+DROP_FREE_TK = 4096     # T·k up to which every token keeps its experts
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, *,
+             num: Optional[int] = None, device="cpu") -> dict:
+    """Router (d, E), expert stacks (E, d, f), (E, d, f), (E, f, d) and
+    the optional shared experts, in the reference's distributions; ``num``
+    stacks a layer axis in front."""
+    mc: MoEConfig = cfg.moe
+    d, f, E = cfg.d_model, mc.expert_ff, mc.num_experts
+    lead = () if num is None else (num,)
+
+    def expert_stack(din, dout):
+        w = torch.empty(lead + (E, din, dout), dtype=torch.float32,
+                        device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return w.mul_(1.0 / math.sqrt(din))
+
+    p = {
+        "router": dense_init(gen, d, E, scale=1.0 / math.sqrt(d), num=num,
+                             device=device),
+        "experts_wi": expert_stack(d, f),
+        "experts_wg": expert_stack(d, f),
+        "experts_wd": expert_stack(f, d),
+    }
+    if mc.num_shared_experts:
+        p["shared"] = layers.ffn_init(gen, d, f * mc.num_shared_experts,
+                                      num=num, device=device)
+    return p
+
+
+def _route(router_w, x: torch.Tensor, mc: MoEConfig):
+    """Top-k routing: x (T, d) → (weights (T, k) in x's dtype, experts
+    (T, k), the Switch load-balance loss)."""
+    logits = dense(x, router_w, torch.float32)            # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k: descending, the lower index first among ties
+    top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, experts = top[:, : mc.top_k], idx[:, : mc.top_k]
+    weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
+    E = logits.shape[-1]
+    density = F.one_hot(experts[:, 0], E).to(torch.float32).mean(0)
+    aux = torch.sum(density * probs.mean(0)) * E * mc.router_aux_coef
+    return weights.to(x.dtype), experts, aux
+
+
+def capacity_for(T: int, mc: MoEConfig, capacity_factor: float = 1.25,
+                 capacity: Optional[int] = None) -> int:
+    """The per-expert buffer rows: ``capacity`` when given (decode passes
+    ``B·S``, drop-free), all T tokens while ``T·k <= 4096``, else
+    ``ceil(T·k/E · capacity_factor)`` (``repro/models/moe.py:83-88``)."""
+    if capacity is not None:
+        return capacity
+    if T * mc.top_k <= DROP_FREE_TK:
+        return T
+    return max(1, int(math.ceil(T * mc.top_k / mc.num_experts
+                                * capacity_factor)))
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              capacity_factor: float = 1.25,
+              capacity: Optional[int] = None,
+              dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) → (out (B, S, d), aux_loss 0-d float32). ``capacity``
+    overrides the factor-derived buffer (:func:`capacity_for`)."""
+    mc: MoEConfig = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, k = mc.num_experts, mc.top_k
+    xt = x.reshape(T, d)
+    dev = x.device
+
+    weights, experts, aux = _route(p["router"], xt, mc)
+    C = capacity_for(T, mc, capacity_factor, capacity)
+
+    # ---- sort-based dispatch (stable: the kept set is the reference's) ----
+    e_flat = experts.reshape(-1)                         # (T*k,) t-major
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    group_start = torch.searchsorted(
+        e_sorted, torch.arange(E, dtype=e_sorted.dtype, device=dev),
+        side="left")
+    pos_in_group = torch.arange(T * k, device=dev) - group_start[e_sorted]
+    keep = pos_in_group < C
+    slot = torch.where(keep, e_sorted * C + pos_in_group,
+                       torch.full_like(pos_in_group, E * C))  # garbage row
+
+    # each (token, choice) row of x, in sorted order; the garbage row E·C
+    # takes every dropped one and is cut off
+    xk = xt[:, None].expand(T, k, d).reshape(T * k, d)[order].to(dtype)
+    buf = torch.zeros((E * C + 1, d), dtype=dtype, device=dev)
+    buf = buf.index_put((slot,), xk)
+    expert_in = buf[: E * C].reshape(E, C, d)
+
+    # ---- batched expert FFN (INT8 stacks: one launch a matrix) ----
+    h = F.silu(layers.dense_batched(expert_in, p["experts_wg"], dtype)) \
+        * layers.dense_batched(expert_in, p["experts_wi"], dtype)
+    expert_out = layers.dense_batched(h, p["experts_wd"], dtype)  # (E, C, d)
+
+    # ---- combine: no atomics, each token's sum in ascending expert order --
+    out_flat = expert_out.reshape(E * C, d)
+    slot_tk = torch.empty_like(slot)
+    slot_tk[order] = slot                                # back to (t, j)
+    slot_tk = slot_tk.reshape(T, k)
+    by_expert = torch.argsort(experts, dim=-1)           # distinct experts
+    slot_tk = torch.gather(slot_tk, 1, by_expert)
+    w_tk = torch.gather(weights, 1, by_expert).to(torch.float32)
+    kept = slot_tk < E * C
+    rows = out_flat[torch.clamp_max(slot_tk, E * C - 1)]  # (T, k, d)
+    contrib = torch.where(kept[..., None], rows, torch.zeros((), dtype=dtype,
+                                                             device=dev))
+    contrib = contrib.to(torch.float32) * w_tk[..., None]
+    y = torch.zeros((T, d), dtype=torch.float32, device=dev)
+    for j in range(k):
+        y = y + contrib[:, j]
+    out = y.to(dtype)
+
+    if mc.num_shared_experts:
+        out = out + layers.ffn_apply(p["shared"], xt, cfg.ffn_activation,
+                                     dtype)
+    return out.reshape(B, S, d), aux
+
+
+def moe_apply_ep(*_a, **_k):
+    raise NotImplementedError(
+        f"expert-parallel MoE (moe_apply_ep) is not ported yet ({EP_SLICE})")
+
+
+def moe_ep_sharded(*_a, **_k):
+    raise NotImplementedError(
+        f"expert-parallel MoE (moe_ep_sharded) is not ported yet "
+        f"({EP_SLICE})")
+
+
+def moe_ref(p: dict, x: torch.Tensor, cfg: ModelConfig,
+            dtype=torch.float32) -> torch.Tensor:
+    """Oracle: a dense per-token loop over each token's experts (no
+    capacity drops, the weights dequantized), as the reference's
+    ``moe_ref``; the choices are summed in top-k order."""
+    mc: MoEConfig = cfg.moe
+    B, S, d = x.shape
+    xt = x.reshape(-1, d)
+    weights, experts, _ = _route(p["router"], xt, mc)
+    wi = layers.materialize(p["experts_wi"], dtype)
+    wg = layers.materialize(p["experts_wg"], dtype)
+    wd = layers.materialize(p["experts_wd"], dtype)
+    xv = xt.to(dtype)
+    ws = weights.to(dtype)
+    out = 0
+    for i in range(mc.top_k):
+        e = experts[:, i]
+        h = F.silu(torch.einsum("td,tdf->tf", xv, wg[e])) \
+            * torch.einsum("td,tdf->tf", xv, wi[e])
+        out = out + ws[:, i, None] * torch.einsum("tf,tfd->td", h, wd[e])
+    if mc.num_shared_experts:
+        out = out + layers.ffn_apply(p["shared"], xt, cfg.ffn_activation,
+                                     dtype)
+    return out.reshape(B, S, d)

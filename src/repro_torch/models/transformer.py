@@ -1,7 +1,8 @@
-"""Dense decoder-only transformer: the counterpart of the dense GQA path
-of ``repro/models/transformer.py`` (the LLaMA family, mistral-nemo-12b,
+"""Decoder-only transformer: the counterpart of the GQA paths of
+``repro/models/transformer.py`` (the LLaMA family, mistral-nemo-12b,
 yi-9b, qwen3-32b with qk-norm, gemma-7b with GeGLU and the tied INT8
-head, and the VLM backbone of internvl2-2b with its prefix embeddings)."""
+head, the VLM backbone of internvl2-2b with its prefix embeddings, and
+the mixture of experts qwen3-moe-30b-a3b)."""
 from __future__ import annotations
 
 import functools
@@ -12,7 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant import QTensor
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe as moe_lib
 from repro_torch.models.base import ModelBundle, SegmentDef
 from repro_torch.models.layers import dense, dense_init, dense_t, \
     embed_init, ffn_apply, ffn_init, rmsnorm, rmsnorm_init, softcap
@@ -27,6 +28,19 @@ def _map_leaves(tree, fn, keys: tuple):
     return fn(keys, tree)
 
 
+def _ffn(lp, carry, x, cfg: ModelConfig, dtype, capacity=None):
+    """The block's FFN on x: the dense FFN, or the MoE layer, whose aux
+    loss the carry accumulates (``capacity``: decode's drop-free buffer,
+    whose aux is not kept)."""
+    if "moe" not in lp:
+        return ffn_apply(lp["ffn"], x, cfg.ffn_activation, dtype), carry
+    f, aux = moe_lib.moe_apply(lp["moe"], x, cfg, dtype=dtype,
+                               capacity=capacity)
+    if capacity is None:
+        carry = {**carry, "aux": carry["aux"] + aux}
+    return f, carry
+
+
 def block_apply(lp, carry, ctx, cfg: ModelConfig, *, dtype,
                 flash: bool = False):
     h = carry["h"]
@@ -35,7 +49,7 @@ def block_apply(lp, carry, ctx, cfg: ModelConfig, *, dtype,
                                 positions=ctx["positions"],
                                 q_chunk=Q_CHUNK, dtype=dtype, flash=flash)
     x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
-    f = ffn_apply(lp["ffn"], x, cfg.ffn_activation, dtype)
+    f, carry = _ffn(lp, carry, x, cfg, dtype)
     return {**carry, "h": h + f}
 
 
@@ -53,19 +67,21 @@ def block_prefill(lp, carry, ctx, cfg: ModelConfig, *, dtype,
         cache = tuple(F.pad(c, (0, 0, 0, 0, 0, pad)) for c in cache)
     h = h + a
     x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
-    f = ffn_apply(lp["ffn"], x, cfg.ffn_activation, dtype)
+    f, carry = _ffn(lp, carry, x, cfg, dtype)
     return {**carry, "h": h + f}, cache
 
 
 def block_decode(lp, carry, cache, ctx, cfg: ModelConfig, *, dtype):
-    """One token per row; the cache slices are written in place."""
+    """One token per row; the cache slices are written in place. An MoE
+    layer runs at the drop-free capacity B·S."""
     h = carry["h"]                              # (B, 1, D)
     x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
     a, cache = attention.gqa_decode(lp["attn"], x, cfg, cache=cache,
                                     length=ctx["length"], dtype=dtype)
     h = h + a
     x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
-    f = ffn_apply(lp["ffn"], x, cfg.ffn_activation, dtype)
+    f, carry = _ffn(lp, carry, x, cfg, dtype,
+                    capacity=x.shape[0] * x.shape[1])
     return {**carry, "h": h + f}, cache
 
 
@@ -115,18 +131,35 @@ def _write_layer(stack, i: int, leaf) -> None:
         stack[i].copy_(leaf)
 
 
+def _paths(tree, keys: tuple = ()):
+    """``(keys, leaf)`` of a nested dict, in its order."""
+    if isinstance(tree, dict):
+        return [kl for k, v in tree.items() for kl in _paths(v, keys + (k,))]
+    return [(keys, tree)]
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for keys, leaf in flat.items():
+        node = out
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    return out
+
+
 def _draw_by_layer(draw, n: int, fin):
     """A stacked group drawn one layer at a time: ``draw()`` gives one
-    layer's leaves; each matrix is mapped by ``fin(keys, leaf)`` at once
-    and written into its stack (allocated at layer 0), so one layer's
-    float group is all the float the device holds. 1-D leaves (norm
-    scales) are stacked first and mapped whole, as the whole-group draw
-    maps them."""
+    layer's leaves (a nested dict); each matrix is mapped by ``fin(leaf,
+    keys)`` at once and written into its stack (allocated at layer 0), so
+    one layer's float group is all the float the device holds. 1-D leaves
+    (norm scales) are stacked first and mapped whole, as the whole-group
+    draw maps them."""
     stacks, vectors, order = {}, {}, None
     for i in range(n):
-        group = draw()
-        order = list(group)
-        for k, leaf in group.items():
+        group = _paths(draw())
+        order = [k for k, _ in group]
+        for k, leaf in group:
             if leaf.ndim < 2:
                 vectors.setdefault(k, []).append(leaf)
                 continue
@@ -137,15 +170,15 @@ def _draw_by_layer(draw, n: int, fin):
         del group
     for k, vs in vectors.items():
         stacks[k] = fin(torch.stack(vs), k)
-    return {k: stacks[k] for k in order}
+    return _nest({k: stacks[k] for k in order})
 
 
 def build(cfg: ModelConfig, *, device: torch.device,
           dtype=torch.bfloat16, flash_attention: bool = False,
           split_layers: int = 0) -> ModelBundle:
-    """Dense LM bundle (families ``dense`` and ``vlm``). ``device`` is where
-    ``init_params`` puts the weights by default and where the engine places
-    its inputs. ``flash_attention`` routes every full causal self-attention
+    """LM bundle (families ``dense``, ``vlm`` and ``moe``). ``device`` is
+    where ``init_params`` puts the weights by default and where the engine
+    places its inputs. ``flash_attention`` routes every full causal self-attention
     (prefill, the full-sequence forward) through the flash kernel; decode
     never takes it.
 
@@ -156,20 +189,45 @@ def build(cfg: ModelConfig, *, device: torch.device,
     param-group rules address a range of layers by path (the fine-tune
     rules freeze ``seg0_``).
 
+    ``cfg.moe`` makes the blocks MoE blocks (an ``moe`` leaf in place of
+    ``ffn``), in segment ``seg0_moe``, after ``seg0_dense`` when
+    ``moe.first_dense_layers`` keeps the first blocks dense (their FFN
+    width ``moe.dense_ff or d_ff``); ``split_layers`` is refused for them,
+    as by the reference. The carry then holds ``aux``, the routers'
+    load-balance loss, which ``head_loss`` adds to the loss. MoE segments
+    have no chunk-append, and ``ragged_prefill_ok`` is False: capacity-
+    limited routing couples the rows of a padded prefill.
+
     ``cfg.tie_embeddings`` drops the ``head`` leaf: the logits are
     ``h @ E^T`` through ``layers.dense_t``. ``cfg.embed_scale`` (gemma) scales
     the embeddings by sqrt(d_model). A ``vlm``
     bundle puts ``batch["patch_embeds"]`` (B, P, d_model) in front of the
     token embeddings, and its loss drops those P positions."""
     is_vlm = cfg.family == "vlm"
+    mc = cfg.moe
     if split_layers and not 0 < split_layers < cfg.num_layers:
         # a split ignored in silence would leave one segment named
         # seg0_dense, and a rule freezing "seg0_" would freeze every block
         raise ValueError(
             f"split_layers={split_layers} out of range for "
             f"num_layers={cfg.num_layers} (need 0 < split < num_layers)")
-    sizes = ((split_layers, cfg.num_layers - split_layers) if split_layers
-             else (cfg.num_layers,))
+    # segments as (name, layers, MoE blocks, dense FFN width)
+    if mc is not None and mc.first_dense_layers:
+        if split_layers:
+            raise ValueError("split_layers unsupported for MoE models with "
+                             "first_dense_layers (already two segments)")
+        segs = (("dense", mc.first_dense_layers, False,
+                 mc.dense_ff or cfg.d_ff),
+                ("moe", cfg.num_layers - mc.first_dense_layers, True, 0))
+    elif mc is not None:
+        if split_layers:
+            raise ValueError("split_layers unsupported for MoE models")
+        segs = (("moe", cfg.num_layers, True, 0),)
+    elif split_layers:
+        segs = (("dense", split_layers, False, cfg.d_ff),
+                ("dense", cfg.num_layers - split_layers, False, cfg.d_ff))
+    else:
+        segs = (("dense", cfg.num_layers, False, cfg.d_ff),)
 
     def init_params(gen: torch.Generator, device_=None, leaf_fn=None,
                     by_layer: bool = False):
@@ -198,11 +256,11 @@ def build(cfg: ModelConfig, *, device: torch.device,
             if not by_layer:
                 return fin(init(n), *keys)
             return _draw_by_layer(lambda: init(None), n,
-                                  lambda leaf, k: fin(leaf, *keys, k))
+                                  lambda leaf, ks: fin(leaf, *keys, *ks))
 
         params = {}
-        for i, n in enumerate(sizes):
-            key = f"seg{i}_dense"
+        for i, (name, n, is_moe, d_ff) in enumerate(segs):
+            key = f"seg{i}_{name}"
             params[key] = {
                 "attn_norm": fin(rmsnorm_init(cfg.d_model, num=n,
                                               device=dev), key, "attn_norm"),
@@ -210,10 +268,13 @@ def build(cfg: ModelConfig, *, device: torch.device,
                     gen, cfg, num=m, device=dev), n, key, "attn"),
                 "ffn_norm": fin(rmsnorm_init(cfg.d_model, num=n, device=dev),
                                 key, "ffn_norm"),
-                "ffn": group(lambda m: ffn_init(
-                    gen, cfg.d_model, cfg.d_ff, num=m, device=dev), n, key,
-                    "ffn"),
             }
+            if is_moe:
+                params[key]["moe"] = group(lambda m: moe_lib.moe_init(
+                    gen, cfg, num=m, device=dev), n, key, "moe")
+            else:
+                params[key]["ffn"] = group(lambda m, f=d_ff: ffn_init(
+                    gen, cfg.d_model, f, num=m, device=dev), n, key, "ffn")
         top = {
             "embedding": fin(embed_init(gen, cfg.vocab_size, cfg.d_model,
                                         device=dev), "embedding"),
@@ -239,34 +300,46 @@ def build(cfg: ModelConfig, *, device: torch.device,
         B, S = h.shape[:2]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device)[None].expand(B, S)
-        return {"h": h}, {"positions": positions}
+        carry = {"h": h}
+        if mc is not None:
+            carry["aux"] = torch.zeros((), dtype=torch.float32,
+                                       device=h.device)
+        return carry, {"positions": positions}
 
     def head_logits(params, carry):
         return _head_logits(params, carry["h"][:, -1:], cfg, dtype)
 
     def head_loss(params, carry, batch):
         """Next-token loss: logits[t] predicts labels[t + 1]; a VLM's
-        prefix positions carry no labels and are dropped first."""
+        prefix positions carry no labels and are dropped first. An MoE
+        model adds the carry's ``aux`` (its ``aux_loss`` metric)."""
         h = carry["h"]
         if is_vlm:
             h = h[:, h.shape[1] - batch["labels"].shape[1]:]
         logits = _head_logits(params, h, cfg, dtype)
         loss, metrics = layers.cross_entropy(logits[:, :-1],
                                              batch["labels"][:, 1:])
-        return loss, {**metrics, "ce_loss": loss}
+        if "aux" not in carry:
+            return loss, {**metrics, "ce_loss": loss}
+        return loss + carry["aux"], {**metrics, "ce_loss": loss,
+                                     "aux_loss": carry["aux"]}
 
     segments = tuple(SegmentDef(
-        name="dense", n_layers=n,
+        name=name, n_layers=n,
         apply=functools.partial(block_apply, cfg=cfg, dtype=dtype,
                                 flash=flash_attention),
         prefill=functools.partial(block_prefill, cfg=cfg, dtype=dtype,
                                   flash=flash_attention),
         decode=functools.partial(block_decode, cfg=cfg, dtype=dtype),
         cache_shapes=functools.partial(_cache_shapes, cfg),
-        append=functools.partial(block_append, cfg=cfg, dtype=dtype))
-        for n in sizes)
+        # routing capacity depends on the tokens routed together, so a
+        # chunked prompt would not drop what the whole prompt drops
+        append=(None if is_moe else
+                functools.partial(block_append, cfg=cfg, dtype=dtype)))
+        for name, n, is_moe, _ in segs)
     return ModelBundle(cfg=cfg, device=torch.device(device), dtype=dtype,
                        init_params=init_params, embed=embed,
                        segments=segments, head_logits=head_logits,
                        head_loss=head_loss,
-                       flash_attention=flash_attention)
+                       flash_attention=flash_attention,
+                       ragged_prefill_ok=mc is None)

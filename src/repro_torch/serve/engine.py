@@ -63,8 +63,17 @@ def build_prefill(bundle: ModelBundle, max_len: int,
     run. Logits are taken at each row's last valid position (clamped to
     position 0 for an empty row); causal attention keeps the pads (to the
     right) out of valid positions, and decode masks their K/V beyond
-    ``lengths`` until it is overwritten.
+    ``lengths`` until it is overwritten. A bundle without
+    ``ragged_prefill_ok`` (MoE: capacity-limited routing couples the rows)
+    refuses ``pad_id``; send it unpadded prompts (full-length
+    ``batch["lengths"]`` stay legal).
     """
+    if pad_id is not None and not bundle.ragged_prefill_ok:
+        raise ValueError(
+            f"{bundle.cfg.name}: ragged (right-padded) prefill is not "
+            "exact for this architecture (ragged_prefill_ok=False); "
+            "prefill unpadded prompts instead of passing pad_id")
+
     @torch.no_grad()
     def prefill(params, batch):
         carry, ctx = bundle.embed(params, batch)
@@ -117,10 +126,13 @@ def _run_cached(seg, method, stack, caches, carry, ctx, capture):
 
 def append_ok(bundle: ModelBundle) -> bool:
     """True when the bundle supports chunk-append prefill, the substrate of
-    the paged serving runtime (``serve/paged.py``): every segment offers
-    ``SegmentDef.append``. (The JAX package also asks for ragged prefill
-    and no ``decode_extras``; every bundle of the port has both.)"""
-    return all(seg.append is not None for seg in bundle.segments)
+    the paged serving runtime (``serve/paged.py``): ragged prompts are
+    exact (``ragged_prefill_ok``: a chunk's tail is right-padded) and every
+    segment offers ``SegmentDef.append``. An MoE bundle has neither. (The
+    JAX package also asks for no ``decode_extras``, which the port does
+    not have.)"""
+    return bundle.ragged_prefill_ok and \
+        all(seg.append is not None for seg in bundle.segments)
 
 
 def build_append(bundle: ModelBundle, max_len: int, capture=None):

@@ -9,12 +9,15 @@
 * :func:`insert_requests` writes the rows of a group prefill into their
   slots, in place;
 * :class:`Scheduler` admits pending requests into free slots (one ragged
-  group prefill per admission round), runs one batched decode step over
-  the in-flight rows, and retires rows on EOS or ``max_new_tokens``.
+  group prefill per admission round; a bundle without
+  ``ragged_prefill_ok``, MoE, one unpadded request per prefill), runs one
+  batched decode step over the in-flight rows, and retires rows on EOS or
+  ``max_new_tokens``.
 
-Rows never interact (attention and FFN reduce within a row), so under
-greedy sampling the scheduler emits the same tokens as the lockstep
-``engine.generate``.
+Rows never interact in a prefill (attention and FFN reduce within a row,
+and an MoE prompt is prefilled alone) nor in decode (MoE decode runs at
+the drop-free capacity), so under greedy sampling the scheduler emits the
+same tokens as the lockstep ``engine.generate``.
 """
 from __future__ import annotations
 
@@ -202,10 +205,18 @@ class Scheduler:
     def _admit_group(self, slot_ids: List[int],
                      group: List[Request]) -> None:
         """Prefill a group as ONE right-padded batch and write every row
-        into its slot; per-row ``lengths`` keep padded rows exact."""
+        into its slot; per-row ``lengths`` keep padded rows exact. A bundle
+        without ragged prefill takes one request at its exact length."""
         B = len(group)
         lens = [len(req.tokens) for req in group]
-        Lp = min(_bucket(max(lens), self.prompt_bucket), self.max_len)
+        if self.bundle.ragged_prefill_ok:
+            Lp = min(_bucket(max(lens), self.prompt_bucket), self.max_len)
+        else:
+            # routing couples padded rows: exact length, one at a time
+            if B != 1:
+                raise ValueError("padded group admission needs "
+                                 "ragged_prefill_ok")
+            Lp = lens[0]
         padded = np.full((B, Lp), self.pad_id, np.int32)
         for i, req in enumerate(group):
             padded[i, : lens[i]] = np.asarray(req.tokens, np.int32)
@@ -260,10 +271,12 @@ class Scheduler:
         """Admit pending requests into free slots, then run one batched
         decode step. Returns False when idle (nothing active or pending)."""
         free = self._free_slots()
-        if free and self.pending:
-            n = min(len(free), len(self.pending))
+        while free and self.pending:
+            n = min(len(free), len(self.pending)) \
+                if self.bundle.ragged_prefill_ok else 1
             self._admit_group(free[:n],
                               [self.pending.popleft() for _ in range(n)])
+            free = free[n:]
 
         if not self.active.any():
             return bool(self.pending)
@@ -321,9 +334,9 @@ def make_scheduler(bundle: ModelBundle, params, *, backend: str = "auto",
     ``backend``: ``"slot"``, the contiguous per-slot pool above;
     ``"paged"``, the block-pool runtime with radix prefix sharing and
     chunked prefill (``serve/paged.py``, requires ``engine.append_ok``);
-    ``"auto"``, paged when the bundle supports it (every bundle of the
-    port does), slot otherwise. The slot backend ignores the paged-only
-    keywords. At f32 both give the same tokens under greedy decode. At
+    ``"auto"``, paged when the bundle supports it (``engine.append_ok``:
+    the dense bundles), slot otherwise (MoE). The slot backend ignores
+    the paged-only keywords. At f32 both give the same tokens under greedy decode. At
     bf16 a row's matmuls no longer depend on the rows that share its
     dispatch (``kernels.int8_matmul.plan``), but chunked and one-shot
     prefill still take attention's sums in other orders, and a prompt of

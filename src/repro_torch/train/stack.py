@@ -6,9 +6,12 @@ an explicit loop.
   (``no_grad``): activation memory is one carry per layer.
 * The backward walks the layers in reverse. Per layer it recomputes the
   block with grad enabled and calls ``torch.autograd.grad`` on (carry in,
-  the layer's weight shadows and float leaves); each GaLore cotangent is
-  projected to rank r at once, so only one layer's full-rank ``dL/dW``
-  exists at any moment.
+  the layer's weight shadows and float leaves), with a cotangent for every
+  float entry of the carry (``h``; an MoE model's ``aux`` too, whose
+  ``dL/daux`` comes from the head); each GaLore cotangent is projected to
+  rank r at once, so only one layer's full-rank ``dL/dW`` exists at any
+  moment. The recompute runs the forward's kernels at the forward's
+  shapes, so it takes the routing decisions the forward took.
 * The head and embedding run with grad around the stack; their GaLore
   cotangents (the head) are projected after their own backward.
 
@@ -76,10 +79,17 @@ def project_leaf(g: torch.Tensor, P, side: Optional[str] = None):
 
 
 def _grads(out, inputs: List[torch.Tensor], grad_out):
+    """``d out / d inputs`` (zeros where unused); ``out`` a tensor or a
+    list of tensors with ``grad_out`` the matching cotangents."""
     got = torch.autograd.grad(out, inputs, grad_outputs=grad_out,
                               allow_unused=True)
     return [torch.zeros_like(x) if g is None else g
             for x, g in zip(inputs, got)]
+
+
+def _float_keys(carry) -> List[str]:
+    """The carry's differentiable entries, in sorted order."""
+    return sorted(k for k, v in carry.items() if v.is_floating_point())
 
 
 def fused_value_and_grad(bundle: ModelBundle, params, batch,
@@ -115,11 +125,12 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
                 ins.append(carry)
                 carry = seg.apply(layer_params(stack, layer), carry, ctx)
             saved.append(ins)
+    keys = _float_keys(carry)
     c_top = {k: v.detach().requires_grad_(True) for k, v in carry.items()}
     with torch.enable_grad():
         loss, metrics = bundle.head_loss(full, c_top, batch)
-        g_all = _grads(loss, [c_top["h"]] + ns_leaves, None)
-    g_h, g_ns = g_all[0], g_all[1:]
+        g_all = _grads(loss, [c_top[k] for k in keys] + ns_leaves, None)
+    g_c, g_ns = g_all[: len(keys)], g_all[len(keys):]
 
     # ---- backward: per layer, recompute + grad + project ----
     g_segs = {}
@@ -136,12 +147,13 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
                     for k, v in saved[i][layer].items()}
             with torch.enable_grad():
                 res = seg.apply(lp_v, c_in, ctx)
-                got = _grads(res["h"], [c_in["h"]] + leaves, g_h)
-            g_h = got[0]
+                got = _grads([res[k] for k in keys],
+                             [c_in[k] for k in keys] + leaves, g_c)
+            g_c = got[: len(keys)]
             del res
             Ps = (_leaves(layer_params(P_tree, layer))
                   if P_tree is not None else [None] * len(leaves))
-            gl = [project_leaf(g, P) for g, P in zip(got[1:], Ps)]
+            gl = [project_leaf(g, P) for g, P in zip(got[len(keys):], Ps)]
             del got, lp_v, leaves, c_in
             if out is None:
                 out = [torch.empty((seg.n_layers,) + tuple(g.shape),
@@ -156,8 +168,11 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
         g_segs[seg_keys[i]] = _like(stack, out)
         saved[i] = None
 
+    # the embedding's cotangents (``aux`` starts as a constant zero)
+    outs = [(carry0[k], g) for k, g in zip(keys, g_c)
+            if carry0[k].requires_grad]
     with torch.enable_grad():
-        g_emb = _grads(carry0["h"], ns_leaves, g_h)
+        g_emb = _grads([o for o, _ in outs], ns_leaves, [g for _, g in outs])
     g_ns = [a + b for a, b in zip(g_ns, g_emb)]
     g_nonseg = _like(nonseg_v, g_ns)
     for k, P_sub in proj_trees.items():

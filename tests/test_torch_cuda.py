@@ -766,3 +766,106 @@ def test_gemma_smoke_serves_on_the_card(cuda):
     assert out["cuda"][0] == out["cpu"][0]
     assert set(out["cuda"][1]) == {"int8_matmul", "int8_matmul_t"}
     assert set(out["cpu"][1]) == {"deq_matmul", "deq_matmul_t"}
+
+
+# an MoE layer's expert problems at small widths: the small-M path (C <=
+# 16, one split or a cluster of them), the tiled path (64- and 128-row
+# tiles, a K split past TILED_KC), a padded N
+BATCHED = [(E, M, K, N) for E in (1, 5) for M in (1, 4, 16, 17, 160)
+           for K, N in ((64, 256), (300, 768), (768, 512))]
+BATCHED += [(3, 40, 4200, 256), (128, 4, 2048, 768)]
+
+
+def _batched_case(dev, E, M, K, N, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qt = quant.quantize_blockwise(torch.randn((E, K, N), generator=g,
+                                              device=dev), 8, symmetric=True)
+    x = torch.randn((E, M, K), generator=g, device=dev).to(dtype)
+    gr = torch.randn((E, M, qt.q.shape[-1]), generator=g,
+                     device=dev).to(dtype)
+    return qt, x, gr
+
+
+@pytest.mark.parametrize("E,M,K,N", BATCHED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_kernels_match_plain(cuda, E, M, K, N, dtype):
+    """``int8_matmul_batched`` and ``int8_matmul_t_batched`` against their
+    plain versions, one launch each for all E experts: phase 2's bars
+    (1e-4 where the kernel takes two passes, else 2e-2) and 1e-4 for the
+    transpose (bf16 g is exact in its products)."""
+    qt, x, gr = _batched_case(cuda, E, M, K, N, dtype, E * 31 + M + K)
+    LAUNCHES.clear()
+    got = ti8.int8_matmul_batched(x, qt.q, qt.scale)
+    got_t = ti8.int8_matmul_t_batched(gr, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert LAUNCHES["int8_matmul_batched"] == 1
+    assert LAUNCHES["int8_matmul_t_batched"] == 1
+    assert not LAUNCHES["int8_matmul"] and not LAUNCHES["int8_matmul_t"]
+    want = ref.int8_matmul_batched_ref(x, qt.q, qt.scale, 256)
+    want_t = ref.int8_matmul_t_batched_ref(gr, qt.q, qt.scale, 256)
+    two_pass = ti8.plan(M, K, qt.q.shape[-1], E=E).path == 0 or \
+        dtype == torch.float32
+    assert _rel(got, want) <= (1e-4 if two_pass else 2e-2)
+    assert _rel(got_t, want_t) <= 1e-4
+
+
+@pytest.mark.parametrize("E,M,K,N", [(5, 4, 300, 768), (5, 160, 768, 512),
+                                     (128, 4, 2048, 768),
+                                     (3, 40, 4200, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_rows_bit_equal_to_the_2d_kernel(cuda, E, M, K, N, dtype):
+    """Each expert's rows of one batched launch equal, bit for bit, the
+    2-D kernel on that expert's problem at the batched call's plan (the
+    expert axis changes no summation order), and the transpose's equal the
+    2-D ``int8_matmul_t``'s."""
+    qt, x, gr = _batched_case(cuda, E, M, K, N, dtype, 7 + M)
+    got = ti8.int8_matmul_batched(x, qt.q, qt.scale)
+    got_t = ti8.int8_matmul_t_batched(gr, qt.q, qt.scale)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    p = ti8.plan(M, K, qt.q.shape[-1], sms, E)
+    for e in range(E):
+        one = ti8.int8_matmul(x[e].contiguous(), qt.q[e], qt.scale[e], p=p)
+        one_t = ti8.int8_matmul_t(gr[e].contiguous(), qt.q[e], qt.scale[e])
+        assert torch.equal(got[e], one), e
+        assert torch.equal(got_t[e], one_t), e
+
+
+def test_moe_serving_on_the_card_matches_cpu(cuda):
+    """qwen3-moe smoke (f32) on the card and on the CPU, the same codes:
+    the slot scheduler (``make_scheduler("auto")``) gives equal greedy
+    tokens; the card runs the batched kernels and no plain version."""
+    import numpy as np
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.params import quantize_leaf
+    from repro_torch.serve.scheduler import Request, make_scheduler
+    bundles = {dev: model_zoo.build_arch("qwen3-moe-30b-a3b", smoke=True,
+                                         device=dev, dtype=torch.float32)
+               for dev in ("cpu", "cuda")}
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p_gpu = bundles["cuda"].init_params(
+        gen, leaf_fn=lambda _, t: quantize_leaf(t))
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        return t.to("cpu")
+
+    params = {"cpu": to_cpu(p_gpu), "cuda": p_gpu}
+    rng = np.random.default_rng(4)
+    reqs = [(i, rng.integers(1, 512, size=int(rng.integers(3, 30)))
+             .astype(np.int32).tolist(), int(rng.integers(2, 8)))
+            for i in range(6)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sched = make_scheduler(bundles[dev], params[dev], num_slots=3,
+                               max_len=48, dtype=torch.float32, device=dev)
+        assert type(sched).__name__ == "Scheduler"
+        LAUNCHES.clear()
+        comps = sched.run([Request(*r) for r in reqs])
+        out[dev] = ({c.rid: c.tokens for c in comps}, dict(LAUNCHES))
+    (t_c, n_c), (t_g, n_g) = out["cpu"], out["cuda"]
+    assert t_g == t_c
+    assert n_g.get("int8_matmul_batched") and n_g.get("int8_matmul")
+    assert not any(k.endswith("_ref") or k.startswith("deq_")
+                   for k in n_g)
+    assert n_c.get("deq_matmul_batched")

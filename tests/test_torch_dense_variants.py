@@ -292,8 +292,13 @@ def test_refusals_name_the_sub_slice():
         model_zoo.build(gemma, device="meta", flash_attention=True)
     model_zoo.build(gemma, device="meta")       # the einsum path is fine
     base_cfg = model_zoo.get_config("llama-60m", smoke=True)
-    for cfg, sub in ((replace(base_cfg, family="moe",
-                              moe=MoEConfig(num_experts=4)), "4b"),
+    # MoE (4b) is ported: built, not refused
+    moe_cfg = replace(base_cfg, family="moe", moe=MoEConfig(
+        num_experts=4, top_k=2, expert_ff=32))
+    assert not model_zoo.build(moe_cfg, device="cpu").ragged_prefill_ok
+    assert "qwen3-moe-30b-a3b" not in model_zoo.LATER
+    for cfg, sub in ((replace(moe_cfg, attention="mla", mla=MLAConfig()),
+                      "4c"),
                      (replace(base_cfg, attention="mla", mla=MLAConfig()),
                       "4c"),
                      (replace(base_cfg, mtp_depth=1), "4c"),

@@ -55,7 +55,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.configs.mistral_nemo_12b, "
             "repro_torch.configs.yi_9b, repro_torch.configs.qwen3_32b, "
             "repro_torch.configs.gemma_7b, "
-            "repro_torch.configs.internvl2_2b; "
+            "repro_torch.configs.internvl2_2b, repro_torch.models.moe, "
+            "repro_torch.configs.qwen3_moe_30b_a3b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")
@@ -97,13 +98,18 @@ def test_entry_points_refuse_without_device(no_card):
 def test_unported_architectures_raise():
     with pytest.raises(ValueError, match="not ported"):
         model_zoo.get_config("gpt-2")
-    with pytest.raises(NotImplementedError, match="sub-slice 4b"):
-        model_zoo.get_config("qwen3-moe-30b-a3b")
+    # MoE (sub-slice 4b) is ported; MLA/MTP (4c) still raises by name
+    with pytest.raises(NotImplementedError, match="sub-slice 4c"):
+        model_zoo.get_config("deepseek-v3-671b")
     base = model_zoo.get_config("llama-60m", smoke=True)
-    from repro_torch.config import MoEConfig, replace
-    with pytest.raises(NotImplementedError, match="sub-slice 4b"):
-        model_zoo.build(replace(base, moe=MoEConfig(num_experts=4)),
+    from repro_torch.config import MLAConfig, MoEConfig, replace
+    with pytest.raises(NotImplementedError, match="sub-slice 4c"):
+        model_zoo.build(replace(base, attention="mla", mla=MLAConfig()),
                         device="cpu")
+    moe = model_zoo.build(replace(base, moe=MoEConfig(
+        num_experts=4, top_k=2, expert_ff=32)), device="cpu")
+    assert [s.name for s in moe.segments] == ["moe"]
+    assert model_zoo.get_config("qwen3-moe-30b-a3b").moe.num_experts == 128
     with pytest.raises(ValueError, match="unknown serving backend"):
         scheduler.make_scheduler(None, None, backend="bogus", num_slots=1,
                                  max_len=8)
