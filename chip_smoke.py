@@ -208,16 +208,38 @@ Phases (any failure exits non-zero):
    ``int8_matmul_t_batched``, 779 ``fused_qgalore_update``) with no plain
    version, and the batched transpose's problems against its plain
    version as phase 5 holds ``int8_matmul_t``.
+13. MLA and multi-token prediction. (a) deepseek-v3-671b at full width
+   and 7 of its 61 layers (the 3 leading dense layers and 4 MoE layers
+   of 256 experts top-8 with a shared expert; all 61 are ~625 GiB of
+   INT8, 7 are ~47.6), bf16, drawn on the card one layer and 32 experts
+   at a time, phase 12a's traffic through ``make_scheduler("auto")``
+   (the slot scheduler, 4 slots): a prefill launches ``int8_matmul`` 61
+   times (``wq_a``, ``wq_b``, ``wkv_a``, ``wkv_b``, ``wo``, the FFN's
+   three or the router and shared expert's three a layer, the head) and
+   a decode dispatch 54 (``wkv_b`` materialized for the absorbed form),
+   each ``int8_matmul_batched`` 12 times, with no plain version; every
+   distinct problem of both against its plain version. Printed as 12a's.
+   (b) The bf16 decode against the forward (0.1 of max|logits|), and at
+   f32, 2 layers (one dense) and 16 of the 256 experts the card against
+   the CPU (1e-4 of max|logits|, equal greedy tokens): a prefill, then
+   the absorbed decode. (c) Both batched kernels at E 256, (K, N) =
+   (7168, 2048) and (2048, 7168), C 4 and 512, bf16, against their plain
+   versions and timed as 12c; then 3 Q-GaLore steps with MTP at full
+   width, 2 layers (one dense) and 32 of the 256 experts (rank 128,
+   randomized subspace, 8 x 256 tokens), every step's launches held to
+   what the code implies, ``fused_qgalore_update`` on the steady steps.
+   Every cut is printed.
 
-``python3 chip_smoke.py --only 12`` (or ``1,12``, ``11``) runs those
-phases alone for development and prints no kernels line and no result.
+``python3 chip_smoke.py --only 12`` (or ``1,12``, ``11``, ``13``) runs
+those phases alone for development and prints no kernels line and no
+result.
 
 The last three lines are the kernels JSON (all seven kernels;
 ``int8_matmul``'s and ``int8_matmul_t``'s training step, flash's prefill
 and ``int4_matmul``'s projections with ``factor`` = ms / library_ms; the
 three training kernels also carry their LLaMA-7B pre-training and
 fine-tuning rows, ``int8_matmul`` its paged serving runs and both INT8
-matmuls phase 11's and 12's (the expert grid axis counted apart),
+matmuls phase 11's, 12's and 13's (the expert grid axis counted apart),
 ``int8_matmul_t`` the tied head's rows),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository's ``src/``
@@ -251,7 +273,14 @@ KN = [(2048, 2048), (2048, 5461), (5461, 2048), (2048, 32000)]
 MS = [1, 4, 8, 64, 512, 2048, 4096]
 
 
+T0 = time.monotonic()
+
+
 def log(*a):
+    # a phase's header carries the seconds since the start, so a run's log
+    # gives each phase's wall time
+    if a and str(a[0]).startswith("== "):
+        a = (f"[{time.monotonic() - T0:.1f} s]",) + a
     print(*a, flush=True)
 
 
@@ -932,6 +961,7 @@ def run_counted(tr, steps: int, names, at_step=None) -> list:
         row = {"step": s, "loss": h["loss"], "grad_norm": h["grad_norm"],
                "s": h["dt"], "launches": {n: snaps[s + 1][n] - snaps[s][n]
                                           for n in names}}
+        row.update({k: h[k] for k in ("mtp_loss", "aux_loss") if k in h})
         rows.append(row)
         log(f"  step {s}: loss {row['loss']:.4f} grad_norm "
             f"{row['grad_norm']:.4f} {row['s']:.3f} s launches "
@@ -2857,19 +2887,20 @@ def serve_dense(arch: str, seed: int) -> dict:
     return out
 
 
-def f32_parity_dense(arch: str, seed: int) -> dict:
-    """Phase 11b (and 12b) at f32: 2 layers at full width, the same INT8
-    codes on the card and the CPU; a prompt's prefill and 3 teacher-forced
-    decode steps (and for the VLM the full forward over a patch prefix),
-    the card's logits within ``PARITY_TOL`` of the CPU's and the same
-    greedy token at each; the card launches the kernels (an MoE model the
-    batched one too), the CPU the plain versions."""
+def f32_parity_dense(arch: str, seed: int, cfg=None) -> dict:
+    """Phase 11b (and 12b, 13b) at f32: 2 layers at full width (or
+    ``cfg``), the same INT8 codes on the card and the CPU; a prompt's
+    prefill and 3 teacher-forced decode steps (and for the VLM the full
+    forward over a patch prefix), the card's logits within ``PARITY_TOL``
+    of the CPU's and the same greedy token at each; the card launches the
+    kernels (an MoE model the batched one too), the CPU the plain
+    versions."""
     from repro_torch.config import replace
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import base, model_zoo
     from repro_torch.serve import engine
     from repro_torch.serve.params import quantize_leaf
-    cfg = replace(model_zoo.get_config(arch), num_layers=2)
+    cfg = cfg or replace(model_zoo.get_config(arch), num_layers=2)
     gpu = model_zoo.build(cfg, device="cuda", dtype=torch.float32)
     cpu = model_zoo.build(cfg, device="cpu", dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(seed + 13)
@@ -2914,7 +2945,8 @@ def f32_parity_dense(arch: str, seed: int) -> dict:
         kernels.add("int8_matmul_batched")
         plain.add("deq_matmul_batched")
     prefix = "" if patches is None else " and the forward over a patch prefix"
-    log(f"  {arch} f32, 2 layers, card against CPU: rel err {rel:.2e} "
+    log(f"  {arch} f32, {cfg.num_layers} layers, card against CPU: rel err "
+        f"{rel:.2e} "
         f"(tolerance {PARITY_TOL}) over the prefill, 3 decode steps{prefix}"
         f", greedy tokens {'equal' if same_greedy else 'DIFFER'}; launches "
         f"card {n_g} CPU {n_c}")
@@ -3063,31 +3095,59 @@ def bound_batched(E, M, K, N, itemsize, transposed=False):
                                        else "operations")
 
 
+EXPERT_CHUNK = 32    # experts a plain call or a random stack takes at once
+
+
+def random_stack(E, K, N, gen):
+    """A random INT8 expert stack (codes, scales), quantized
+    ``EXPERT_CHUNK`` experts at a time (deepseek-v3's (256, 7168, 2048)
+    is 15 GB of float32 whole)."""
+    from repro_torch.core import quant
+    q = torch.empty((E, K, N), dtype=torch.int8, device="cuda")
+    s = torch.empty((E, K, N // 256), dtype=torch.float32, device="cuda")
+    for e in range(0, E, EXPERT_CHUNK):
+        n = min(EXPERT_CHUNK, E - e)
+        qt = quant.quantize_blockwise(
+            torch.randn((n, K, N), generator=gen, device="cuda") * 0.02,
+            bits=8, symmetric=True)
+        q[e: e + n].copy_(qt.q)
+        s[e: e + n].copy_(qt.scale)
+        del qt
+    return q, s
+
+
+def plain_batched(x, q, s, transposed=False):
+    """The batched kernels' plain versions, ``EXPERT_CHUNK`` experts a call
+    (at E 256 and 512 rows one call's float32 partials are 30 GB)."""
+    from repro_torch.kernels import ref
+    fn = ref.int8_matmul_t_batched_ref if transposed \
+        else ref.int8_matmul_batched_ref
+    return torch.cat([fn(x[e: e + EXPERT_CHUNK], q[e: e + EXPERT_CHUNK],
+                         s[e: e + EXPERT_CHUNK], 256)
+                      for e in range(0, q.shape[0], EXPERT_CHUNK)])
+
+
 def check_batched(shapes, seed: int) -> dict:
     """Hold ``int8_matmul_batched`` against its plain version at every (E,
     M, K, N, dtype) of a run, on fresh seeded inputs (phase 2's bars)."""
-    from repro_torch.core import quant
     from repro_torch.kernels import int8_matmul as ti8
-    from repro_torch.kernels import ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 21)
     max_abs, max_rel, failed = 0.0, 0.0, []
     for E, K, N in sorted({s[:1] + s[2:4] for s in shapes}):
-        qt = quant.quantize_blockwise(
-            torch.randn((E, K, N), generator=gen, device=dev) * 0.02,
-            bits=8, symmetric=True)
+        q, sc = random_stack(E, K, N, gen)
         for _, M, _, _, dt in sorted(s for s in shapes
                                      if (s[0],) + s[2:4] == (E, K, N)):
             x = torch.randn((E, M, K), generator=gen, device=dev).to(dt)
-            got = ti8.int8_matmul_batched(x, qt.q, qt.scale)
-            want = ref.int8_matmul_batched_ref(x, qt.q, qt.scale, 256)
+            got = ti8.int8_matmul_batched(x, q, sc)
+            want = plain_batched(x, q, sc)
             abs_err = (got - want).abs().max().item()
             rel = abs_err / max(want.abs().max().item(), 1e-30)
             max_abs, max_rel = max(max_abs, abs_err), max(max_rel, rel)
             if rel > batched_tol(E, M, K, N, dt):
                 failed.append((E, M, K, N, str(dt), rel))
             del x, got, want
-        del qt
+        del q, sc
     torch.cuda.empty_cache()
     log(f"  {len(shapes)} distinct int8_matmul_batched problems of the run "
         f"(M in {sorted({s[1] for s in shapes})}) against the plain "
@@ -3155,19 +3215,23 @@ def padded_share(routed: list, E: int, decode_c: int) -> dict:
     return out
 
 
-def serve_moe(seed: int) -> dict:
+def serve_moe(seed: int, cfg=None, want_by=None, tag: str = "12a") -> dict:
     """Phase 12a and 12b's bf16 half: qwen3-moe-30b-a3b at full width and
     depth through ``make_scheduler(backend="auto")`` (the slot scheduler),
     every prefill one unpadded request, every prefill and decode dispatch
     held to ``moe_launches``; then the decode-against-forward check and
-    every distinct 2-D and batched problem against its plain version."""
+    every distinct 2-D and batched problem against its plain version.
+    Phase 13a passes deepseek-v3's ``cfg`` and ``want_by``, the launches
+    of a prefill (``_prefill``) and of a decode dispatch (``_step``)."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels import int8_matmul as ti8
     from repro_torch.models import model_zoo, moe
     from repro_torch.serve.params import quantize_leaf
     from repro_torch.serve.scheduler import Request, Scheduler, \
         make_scheduler
-    cfg = model_zoo.get_config(MOE_ARCH)
+    cfg = cfg or model_zoo.get_config(MOE_ARCH)
+    if want_by is None:
+        want_by = {"_prefill": moe_launches(cfg), "_step": moe_launches(cfg)}
     bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3182,9 +3246,15 @@ def serve_moe(seed: int) -> dict:
     st = tree_stats(params)
     want_params = model_zoo.count_params(cfg)
     mc = cfg.moe
-    log(f"  {MOE_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim}, "
-        f"qk-norm, {mc.num_experts} experts top-{mc.top_k}, expert_ff "
+    attn = (f"MLA (q_lora {cfg.mla.q_lora_rank}, kv_lora "
+            f"{cfg.mla.kv_lora_rank}, nope/rope/v {cfg.mla.qk_nope_head_dim}"
+            f"/{cfg.mla.qk_rope_head_dim}/{cfg.mla.v_head_dim}), "
+            f"{mc.first_dense_layers} dense layers at d_ff {mc.dense_ff}, "
+            f"{mc.num_shared_experts} shared expert, MTP {cfg.mtp_depth}"
+            if cfg.attention == "mla" else "qk-norm")
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} x {model_zoo.qk_width(cfg)}, "
+        f"{attn}, {mc.num_experts} experts top-{mc.top_k}, expert_ff "
         f"{mc.expert_ff}, vocab {cfg.vocab_size}: {st['params'] / 1e9:.2f} B "
         f"parameters ({want_params / 1e9:.2f} B counted on the meta device), "
         f"INT8 codes and scales {st['int8_bytes'] / 2**30:.2f} GiB, float "
@@ -3203,8 +3273,7 @@ def serve_moe(seed: int) -> dict:
     sched.run([Request(rid=-1, tokens=reqs[0].tokens[:64],
                        max_new_tokens=2)])           # warm-up
     sched.reset()
-    want = moe_launches(cfg)
-    names = tuple(want)
+    names = tuple(want_by["_step"])
     ms = {"_prefill": [], "_step": []}
     got_by = {n: [] for n in ms}
     prefill_rows = []
@@ -3263,10 +3332,10 @@ def serve_moe(seed: int) -> dict:
     counts, stats = dict(LAUNCHES), dict(sched.stats)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for name, rows in got_by.items():
-        bad = [g for g in rows if g != want]
+        bad = [g for g in rows if g != want_by[name]]
         if bad:
             problems.append(f"{name}: {len(bad)} dispatches launched "
-                            f"{bad[0]}, want {want}")
+                            f"{bad[0]}, want {want_by[name]}")
     by_rid = {c.rid: c for c in comps}
     lens = [len(r.tokens) for r in reqs]
     if sorted(prefill_rows) != sorted((1, n) for n in lens):
@@ -3281,8 +3350,9 @@ def serve_moe(seed: int) -> dict:
     share = padded_share(routed, mc.num_experts, DENSE_SLOTS)
     del routed
     n_tok = sum(len(c.tokens) for c in comps)
-    per_decode = {n: sum(g[n] for g in got_by["_step"])
-                  / len(got_by["_step"]) for n in names}
+    per_decode, per_prefill = ({n: sum(g[n] for g in got_by[k])
+                                / len(got_by[k]) for n in names}
+                               for k in ("_step", "_prefill"))
     out = {"layers": cfg.num_layers, "params": st["params"],
            "int8_gib": st["int8_bytes"] / 2 ** 30, "init_s": init_s,
            "init_peak_gib": init_peak, "tokens_per_s": n_tok / wall,
@@ -3292,18 +3362,22 @@ def serve_moe(seed: int) -> dict:
            "median_prefill_ms": statistics.median(ms["_prefill"]),
            "dispatches": {n: len(v) for n, v in ms.items()},
            "launches": counts, "launches_per_decode_dispatch": per_decode,
-           "launches_per_dispatch_want": want, "peak_gib": peak,
+           "launches_per_prefill": per_prefill,
+           "launches_per_dispatch_want": want_by["_step"],
+           "launches_per_prefill_want": want_by["_prefill"],
+           "peak_gib": peak,
            "stats": stats, "padded": share}
     log(f"  {n_tok} tokens in {wall:.2f} s -> {out['tokens_per_s']:.1f} "
         f"tok/s; mean TTFT {out['mean_ttft_s']:.3f} s; median decode "
         f"dispatch {out['median_decode_step_ms']:.2f} ms, prefill "
         f"{out['median_prefill_ms']:.2f} ms; dispatches {out['dispatches']};"
-        f" peak {peak:.2f} GiB; launches {counts}; a decode dispatch "
-        f"{per_decode} (want {want}); padded {share}")
+        f" peak {peak:.2f} GiB; launches {counts}; measured a prefill "
+        f"{per_prefill} (want {want_by['_prefill']}), a decode dispatch "
+        f"{per_decode} (want {want_by['_step']}); padded {share}")
     out.update(profile_decode(sched, reqs[:DENSE_SLOTS]))
     del sched
     errs = decode_vs_forward(bundle, params, seed)
-    log(f"  {MOE_ARCH} bf16 decode against the full forward (prefill, then "
+    log(f"  {cfg.name} bf16 decode against the full forward (prefill, then "
         f"4 teacher-forced steps), rel err {['%.2e' % e for e in errs]} "
         f"(tolerance {BF16_PATH_TOL})")
     if max(errs) > BF16_PATH_TOL:
@@ -3315,36 +3389,38 @@ def serve_moe(seed: int) -> dict:
     out.update(check_shapes(shapes, seed))
     out["batched"] = check_batched(brec.i, seed)
     if problems:
-        raise AssertionError("phase 12a: " + "; ".join(problems))
+        raise AssertionError(f"phase {tag}: " + "; ".join(problems))
     return out
 
 
-def moe_expert_rows(seed: int) -> dict:
-    """Phase 12c: both batched kernels at the expert problems (E 128, (K,
-    N) = (2048, 768) and (768, 2048), C in ``MOE_CS``, bf16 and f32),
-    each against its plain version and timed (cold L2, median of 20)
-    beside 128 launches of the 2-D kernel (one an expert, each at its own
-    plan; never on the path), one ``torch.bmm`` on the bf16 stack
-    dequantized beforehand, and the bound."""
+def moe_expert_rows(seed: int, arch: str = MOE_ARCH, cs=MOE_CS,
+                    dtypes=(torch.bfloat16, torch.float32)) -> dict:
+    """Phase 12c (and 13c): both batched kernels at ``arch``'s expert
+    problems (qwen3-moe: E 128, (K, N) = (2048, 768) and (768, 2048), C in
+    ``MOE_CS``, bf16 and f32), each against its plain version and timed
+    (cold L2, median of 20) beside E launches of the 2-D kernel (one an
+    expert, each at its own plan; never on the path), one ``torch.bmm`` on
+    the bf16 stack dequantized beforehand, and the bound."""
     from repro_torch.core import quant
     from repro_torch.kernels import int8_matmul as ti8
-    from repro_torch.kernels import ref
     from repro_torch.models import model_zoo
-    mc = model_zoo.get_config(MOE_ARCH).moe
+    cfg = model_zoo.get_config(arch)
+    mc = cfg.moe
     E = mc.num_experts
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 22)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     rows = {"int8_matmul_batched": [], "int8_matmul_t_batched": []}
     failed = []
-    for K, N in ((2048, mc.expert_ff), (mc.expert_ff, 2048)):
-        qt = quant.quantize_blockwise(
-            torch.randn((E, K, N), generator=gen, device=dev) * 0.02,
-            bits=8, symmetric=True)
-        q, s = qt.q, qt.scale
-        w_lib = quant.dequantize(qt, torch.bfloat16)
-        for C in MOE_CS:
-            for dt in (torch.bfloat16, torch.float32):
+    for K, N in ((cfg.d_model, mc.expert_ff), (mc.expert_ff, cfg.d_model)):
+        q, s = random_stack(E, K, N, gen)
+        w_lib = torch.empty((E, K, N), dtype=torch.bfloat16, device=dev)
+        for e in range(0, E, EXPERT_CHUNK):
+            w_lib[e: e + EXPERT_CHUNK] = quant.dequantize(quant.QTensor(
+                q[e: e + EXPERT_CHUNK], s[e: e + EXPERT_CHUNK], None, 8, 256,
+                N, "float32"), torch.bfloat16)
+        for C in cs:
+            for dt in dtypes:
                 for name in rows:
                     t = name == "int8_matmul_t_batched"
                     x = torch.randn((E, C, N if t else K), generator=gen,
@@ -3352,16 +3428,14 @@ def moe_expert_rows(seed: int) -> dict:
                     xl = x.to(torch.bfloat16)
                     if t:
                         run = lambda: ti8.int8_matmul_t_batched(x, q, s)
-                        plain = lambda: ref.int8_matmul_t_batched_ref(
-                            x, q, s, 256)
+                        plain = lambda: plain_batched(x, q, s, True)
                         per = lambda: [ti8.int8_matmul_t(x[e], q[e], s[e])
                                        for e in range(E)]
                         lib = lambda: torch.bmm(xl, w_lib.transpose(1, 2))
                         tol = F32_X_TOL
                     else:
                         run = lambda: ti8.int8_matmul_batched(x, q, s)
-                        plain = lambda: ref.int8_matmul_batched_ref(
-                            x, q, s, 256)
+                        plain = lambda: plain_batched(x, q, s)
                         per = lambda: [ti8.int8_matmul(x[e], q[e], s[e])
                                        for e in range(E)]
                         lib = lambda: torch.bmm(xl, w_lib)
@@ -3403,7 +3477,7 @@ def moe_expert_rows(seed: int) -> dict:
                         f"tflops={row['tflops']:.1f} [{row['design']}] "
                         f"rel_err={rel:.2e} {'ok' if ok else 'FAIL'}")
                     del x, xl
-        del qt, q, s, w_lib
+        del q, s, w_lib
         torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"batched kernels disagree with their plain "
@@ -3453,18 +3527,21 @@ def check_batched_t(probs: dict, seed: int) -> list:
     return rows
 
 
-def train_moe(seed: int) -> dict:
+def train_moe(seed: int, cfg=None, want=None) -> dict:
     """Phase 12c's training run: qwen3-moe-30b-a3b at full width and 2
     layers, the ``qgalore`` preset at rank 128 with the randomized
     subspace method, 8 x 256 tokens, 3 steps. Each steady step's launches
-    are held to what the code implies, and the batched transpose's
-    problems against its plain version."""
+    are held to what the code implies (``want``, a steady step's; the
+    refresh step launches no update), and the batched transpose's
+    problems against its plain version. Phase 13c passes deepseek-v3's
+    ``cfg`` and ``want``."""
     from repro_torch.config import QGaLoreConfig, TrainConfig, replace
     from repro_torch.core.optimizers import preset
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import model_zoo
     from repro_torch.train.trainer import Trainer
-    cfg = replace(model_zoo.get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    cfg = cfg or replace(model_zoo.get_config(MOE_ARCH),
+                         num_layers=MOE_TRAIN_LAYERS)
     bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
     qcfg = preset("qgalore", QGaLoreConfig(rank=MOE_RANK,
                                            subspace_method="randomized"))
@@ -3479,15 +3556,16 @@ def train_moe(seed: int) -> dict:
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     units = sum(s.nbatch for s in tr.specs if s.galore)
-    fwd = moe_launches(cfg)
     L = cfg.num_layers
-    # forward + recompute of every block (the head and embedding are not
-    # recomputed), dL/dx of every INT8 matmul, one update a GaLore unit
-    want = {"int8_matmul": 2 * fwd["int8_matmul"] - 1,
-            "int8_matmul_batched": 2 * fwd["int8_matmul_batched"],
-            "int8_matmul_t": fwd["int8_matmul"],
-            "int8_matmul_t_batched": 3 * L,
-            "fused_qgalore_update": units}
+    if want is None:
+        fwd = moe_launches(cfg)
+        # forward + recompute of every block (the head and embedding are
+        # not recomputed), dL/dx of every INT8 matmul, one update a unit
+        want = {"int8_matmul": 2 * fwd["int8_matmul"] - 1,
+                "int8_matmul_batched": 2 * fwd["int8_matmul_batched"],
+                "int8_matmul_t": fwd["int8_matmul"],
+                "int8_matmul_t_batched": 3 * L}
+    want = dict(want, fused_qgalore_update=units)
     names = tuple(want) + PLAIN_NAMES + ("int8_matmul_batched_ref",
                                          "int8_matmul_t_batched_ref",
                                          "deq_matmul_batched",
@@ -3527,6 +3605,8 @@ def train_moe(seed: int) -> dict:
     steady = [r["s"] for r in rows[1:]]
     out = {"layers": L, "rank": MOE_RANK, "units": units, "init_s": init_s,
            "losses": [r["loss"] for r in rows],
+           "metrics": [{k: r[k] for k in ("mtp_loss", "aux_loss")
+                        if k in r} for r in rows],
            "refresh_step_s": rows[0]["s"], "refresh_subspace_s": sum(sub_s),
            "median_steady_step_ms": statistics.median(steady) * 1e3,
            "tokens_per_s": tcfg.global_batch * tcfg.seq_len
@@ -3535,7 +3615,8 @@ def train_moe(seed: int) -> dict:
            "launches_per_steady_step": rows[-1]["launches"],
            "launches_want": want}
     log(f"  training {L} layers at full width: {units} GaLore units; losses "
-        f"{[round(x, 4) for x in out['losses']]}; refresh step "
+        f"{[round(x, 4) for x in out['losses']]} {out['metrics']}; refresh "
+        f"step "
         f"{out['refresh_step_s']:.2f} s (subspace {sum(sub_s):.2f} s); "
         f"median steady step {out['median_steady_step_ms']:.1f} ms; peak "
         f"{peak:.2f} GiB; a steady step launched "
@@ -3545,7 +3626,7 @@ def train_moe(seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     if problems:
-        raise AssertionError("phase 12c training: " + "; ".join(problems))
+        raise AssertionError(f"{cfg.name} training: " + "; ".join(problems))
     out["int8_matmul_t_batched"] = check_batched_t(brec.t, seed)
     out["batched_forward"] = check_batched(brec.i, seed)
     return out
@@ -3578,6 +3659,109 @@ def phase_moe(seed: int) -> dict:
             "training": training, "wall_s": wall, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: MLA and multi-token prediction
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v3-671b"
+# the cuts: 7 of 61 layers serve (the 3 dense and 4 MoE layers, 47.6 GiB of
+# INT8; 61 are ~625 GiB); the CPU parity holds 16 of the 256 experts (the
+# CPU's plain expert stack would be 45 GB of float32 a layer); training
+# holds 32 (a refresh's full-rank expert gradient would be 45 GB a layer)
+MLA_SERVE_LAYERS = 7
+MLA_PARITY_EXPERTS, MLA_TRAIN_EXPERTS = 16, 32
+MLA_CS = (4, 512)                   # decode (4 slots), a 512-token prompt
+
+
+def mla_launches(cfg, decode: bool) -> dict:
+    """One forward's launches at full width: ``int8_matmul`` for
+    ``wq_a``, ``wq_b``, ``wkv_a``, ``wo`` and (but in the absorbed decode,
+    which materializes it) ``wkv_b`` a layer, the FFN's three a dense
+    layer, the router and the shared expert's three an MoE layer, and the
+    head; ``int8_matmul_batched`` for the three expert stacks a layer."""
+    mc = cfg.moe
+    attn = 4 if decode else 5
+    n_moe = cfg.num_layers - mc.first_dense_layers
+    return {"int8_matmul": mc.first_dense_layers * (attn + 3)
+            + n_moe * (attn + 1 + 3) + 1,
+            "int8_matmul_batched": 3 * n_moe}
+
+
+def mla_train_launches(cfg) -> dict:
+    """A training step's launches but the updates: the blocks' forward and
+    their recompute, the head's loss once (the head, ``mtp_proj``, the MTP
+    block's attention and FFN, the head again), ``dL/dx`` of each."""
+    fwd = mla_launches(cfg, decode=False)
+    blocks = fwd["int8_matmul"] - 1
+    head = 1 + 1 + (5 + 3) + 1
+    return {"int8_matmul": 2 * blocks + head,
+            "int8_matmul_batched": 2 * fwd["int8_matmul_batched"],
+            "int8_matmul_t": blocks + head,
+            "int8_matmul_t_batched": fwd["int8_matmul_batched"]}
+
+
+def phase_mla(seed: int) -> dict:
+    """Phase 13: deepseek-v3-671b served at full width and 7 layers (13a),
+    its answers (13b: bf16 decode against the forward inside 13a; f32 card
+    against CPU at 2 layers and 16 experts), both batched kernels at its
+    expert problems and 3 training steps with MTP at 2 layers and 32
+    experts (13c)."""
+    from repro_torch.config import replace
+    from repro_torch.models import model_zoo
+    full = model_zoo.get_config(MLA_ARCH)
+    mc = full.moe
+    cfg = replace(full, num_layers=MLA_SERVE_LAYERS)
+    log(f"== phase 13: {MLA_ARCH} (MLA, {mc.num_experts} experts top-"
+        f"{mc.top_k}, MTP) through the slot scheduler ({DENSE_SLOTS} slots, "
+        f"{DENSE_REQS} requests, prompts {DENSE_PROMPT[0]}-{DENSE_PROMPT[1]}"
+        f", {DENSE_NEW} new)")
+    card = nvidia_smi_line()
+    log("card:", card)
+    log(f"  cuts: 13a serves {MLA_SERVE_LAYERS} of {full.num_layers} layers "
+        f"({mc.first_dense_layers} dense, "
+        f"{MLA_SERVE_LAYERS - mc.first_dense_layers} MoE; all "
+        f"{full.num_layers} would not fit 80 GB); 13b 2 layers and "
+        f"{MLA_PARITY_EXPERTS} of {mc.num_experts} experts (the CPU's plain "
+        f"expert stacks); 13c 2 layers and {MLA_TRAIN_EXPERTS} experts (a "
+        f"refresh's full-rank expert gradients); every width as published")
+    t0 = time.monotonic()
+    want_by = {"_prefill": mla_launches(cfg, decode=False),
+               "_step": mla_launches(cfg, decode=True)}
+    serve = serve_moe(seed, cfg=cfg, want_by=want_by, tag="13a")
+    log(f"  13a {MLA_ARCH} at {MLA_SERVE_LAYERS} layers: "
+        f"{serve['tokens_per_s']:.1f} tok/s, mean TTFT "
+        f"{serve['mean_ttft_s']:.3f} s, median decode dispatch "
+        f"{serve['median_decode_step_ms']:.2f} ms, INT8 weights "
+        f"{serve['int8_gib']:.2f} GiB, init peak "
+        f"{serve['init_peak_gib']:.2f} GiB, peak {serve['peak_gib']:.2f} GiB,"
+        f" decode idle share {serve['device_idle_share']}, device "
+        f"{serve['profile_step_device_ms']} ms a decode step, measured "
+        f"launches a prefill {serve['launches_per_prefill']}, a decode "
+        f"dispatch {serve['launches_per_decode_dispatch']}, padded "
+        f"{serve['padded']} [{card}]")
+
+    def cut(layers, experts):
+        return replace(full, num_layers=layers, moe=replace(
+            mc, num_experts=experts, first_dense_layers=1))
+
+    parity = f32_parity_dense(MLA_ARCH, seed, cfg=cut(2, MLA_PARITY_EXPERTS))
+    kernels = moe_expert_rows(seed, arch=MLA_ARCH, cs=MLA_CS,
+                              dtypes=(torch.bfloat16,))
+    tcfg = cut(2, MLA_TRAIN_EXPERTS)
+    training = train_moe(seed, cfg=tcfg, want=mla_train_launches(tcfg))
+    if not all(np.isfinite(m["mtp_loss"]) for m in training["metrics"]):
+        raise AssertionError(f"13c mtp_loss {training['metrics']}")
+    wall = time.monotonic() - t0
+    log(f"  phase 13 in {wall:.1f} s")
+    return {"serving": serve, "f32_parity": parity, "kernels": kernels,
+            "training": training, "wall_s": wall, "card": card,
+            "cuts": {"serve_layers": MLA_SERVE_LAYERS,
+                     "parity": {"layers": 2,
+                                "experts": MLA_PARITY_EXPERTS},
+                     "training": {"layers": 2,
+                                  "experts": MLA_TRAIN_EXPERTS}}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3601,7 +3785,7 @@ def main() -> int:
     t0 = time.monotonic()
     if args.only:
         phases = {"1": phase_environment, "11": phase_dense_variants,
-                  "12": phase_moe}
+                  "12": phase_moe, "13": phase_mla}
         for name in args.only.split(","):
             fn = phases[name]
             fn() if name == "1" else fn(args.seed)
@@ -3623,6 +3807,7 @@ def main() -> int:
              "parity": phase_paged_parity(args.seed)}
     dense = phase_dense_variants(args.seed)
     moe = phase_moe(args.seed)
+    mla = phase_mla(args.seed)
     log(f"  serving, route off / flash route: tokens/s "
         f"{serving['tokens_per_s']:.1f} / {flash_serving['tokens_per_s']:.1f}"
         f", mean TTFT {serving['mean_ttft_s']:.3f} / "
@@ -3639,7 +3824,7 @@ def main() -> int:
                                   serving, parity, training, flash_rows,
                                   flash_serving, flash_parity, unfused,
                                   training_7b, finetune, paged, dense,
-                                  moe)))
+                                  moe, mla)))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3649,7 +3834,8 @@ def main() -> int:
 
 def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                  training, flash_rows, flash_serving, flash_parity,
-                 unfused, training_7b, finetune, paged, dense, moe) -> dict:
+                 unfused, training_7b, finetune, paged, dense, moe,
+                 mla) -> dict:
     """The ``kernels`` line: every kernel with its launches on the main
     paths, errors against its plain version, and times beside its bound;
     the three training kernels also carry their LLaMA-7B rows
@@ -3657,9 +3843,9 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     LLaMA-7B fine-tune rows at rank 8 (``llama_7b_finetune``);
     ``int8_matmul`` and ``int8_matmul_t`` their phase 11 serving launches,
     ``int8_matmul_t`` the tied head's rows (``tied_head``); the three
-    their phase 12 launches (the expert grid axis counted apart as
+    their phase 12 and 13 launches (the expert grid axis counted apart as
     ``*_batched``) and both INT8 matmuls the expert problems' rows
-    (``moe``)."""
+    (``moe``, ``mla``)."""
     layers = num_layers()
     flash_pick, flash_f32 = (
         next(r for r in flash_rows if (r["B"], r["S"], r["dv"], r["causal"],
@@ -3696,17 +3882,25 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     dl = {n: sum(r["launches"].get(n, 0) for r in dense["serving"].values())
           for n in ("int8_matmul", "int8_matmul_t")}
     ms_, mt_ = moe["serving"]["launches"], moe["training"]["launches"]
-    moe_paths = {n: {"moe_serving": ms_.get(n, 0) + ms_.get(n + "_batched", 0),
-                     "moe_serving_batched": ms_.get(n + "_batched", 0),
-                     "moe_training": mt_.get(n, 0)
-                     + mt_.get(n + "_batched", 0),
-                     "moe_training_batched": mt_.get(n + "_batched", 0)}
-                 for n in ("int8_matmul", "int8_matmul_t")}
-    mk = moe["kernels"]
+    ls_, lt_ = mla["serving"]["launches"], mla["training"]["launches"]
+    def grid_paths(name):
+        # each MoE path's launches, 2-D and batched together, and the
+        # batched (expert grid axis) apart
+        out = {}
+        for path, got in (("moe_serving", ms_), ("moe_training", mt_),
+                          ("mla_serving", ls_), ("mla_training", lt_)):
+            out[path] = got.get(name, 0) + got.get(name + "_batched", 0)
+            out[path + "_batched"] = got.get(name + "_batched", 0)
+        return out
+
+    moe_paths = {n: grid_paths(n) for n in ("int8_matmul", "int8_matmul_t")}
+    mk, lk = moe["kernels"], mla["kernels"]
     moe_timed = ("E 128 expert problems, per-call median of 20 after an L2 "
                  "flush; per_expert_ms: the same work as 128 launches of "
                  "the 2-D kernel (median of 10); library: one torch.bmm on "
                  "the bf16 stack dequantized beforehand")
+    mla_timed = moe_timed.replace("128", "256") + (
+        "; plain: the plain version 32 experts a call")
 
     def ft_paths(name):
         return {"finetune_cli": lc.get(name, 0),
@@ -3723,8 +3917,10 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "launches": serving["launches"].get("int8_matmul", 0)
         + tl.get("int8_matmul", 0) + l7.get("int8_matmul", 0)
         + sum(ft_paths("int8_matmul").values()) + ps["launches"]
-        + dl["int8_matmul"] + moe_paths["int8_matmul"]["moe_serving"]
-        + moe_paths["int8_matmul"]["moe_training"],
+        + dl["int8_matmul"] + sum(
+            moe_paths["int8_matmul"][k] for k in (
+                "moe_serving", "moe_training", "mla_serving",
+                "mla_training")),
         "launches_by_path": {"serving": serving["launches"].get(
             "int8_matmul", 0), "training": tl.get("int8_matmul", 0),
             "training_7b": l7.get("int8_matmul", 0),
@@ -3734,21 +3930,27 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "max_abs_err": max([max_abs, serving["check_max_abs_err"],
                             ps["check_max_abs_err"],
                             moe["serving"]["check_max_abs_err"],
-                            moe["serving"]["batched"]["check_max_abs_err"]]
+                            moe["serving"]["batched"]["check_max_abs_err"],
+                            mla["serving"]["check_max_abs_err"],
+                            mla["serving"]["batched"]["check_max_abs_err"]]
                            + [r["max_abs_err"]
                               for r in i8_7b["per_shape"]
                               + i8f["per_shape"]
-                              + mk["int8_matmul_batched"]]
+                              + mk["int8_matmul_batched"]
+                              + lk["int8_matmul_batched"]]
                            + [r["check_max_abs_err"]
                               for r in dense["serving"].values()]),
         "max_rel_err": max([max_rel, serving["check_max_rel_err"],
                             ps["check_max_rel_err"],
                             moe["serving"]["check_max_rel_err"],
-                            moe["serving"]["batched"]["check_max_rel_err"]]
+                            moe["serving"]["batched"]["check_max_rel_err"],
+                            mla["serving"]["check_max_rel_err"],
+                            mla["serving"]["batched"]["check_max_rel_err"]]
                            + [r["check_max_rel_err"]
                               for r in dense["serving"].values()]
                            + [r["rel_err"]
-                              for r in mk["int8_matmul_batched"]]),
+                              for r in mk["int8_matmul_batched"]
+                              + lk["int8_matmul_batched"]]),
         "dense_variants": {
             "card": dense["card"], "wall_s": dense["wall_s"],
             "serving": dense["serving"], "f32_parity": dense["f32_parity"]},
@@ -3756,6 +3958,11 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                 "serving": moe["serving"], "f32_parity": moe["f32_parity"],
                 "expert_rows": mk["int8_matmul_batched"],
                 "timed_as": moe_timed},
+        "mla": {"card": mla["card"], "wall_s": mla["wall_s"],
+                "cuts": mla["cuts"], "serving": mla["serving"],
+                "f32_parity": mla["f32_parity"],
+                "expert_rows": lk["int8_matmul_batched"],
+                "timed_as": mla_timed},
         "paged_serving": dict(paged["serving"], parity=paged["parity"]),
         "max_rel_err_7b": max(r["rel_err"] for r in i8_7b["per_shape"]
                               + i8f["per_shape"]),
@@ -3803,7 +4010,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "launches": tl.get("int8_matmul_t", 0)
         + l7.get("int8_matmul_t", 0)
         + sum(ft_paths("int8_matmul_t").values()) + dl["int8_matmul_t"]
-        + moe_paths["int8_matmul_t"]["moe_training"],
+        + moe_paths["int8_matmul_t"]["moe_training"]
+        + moe_paths["int8_matmul_t"]["mla_training"],
         "launches_by_path": {"training": tl.get("int8_matmul_t", 0),
                              "training_7b": l7.get("int8_matmul_t", 0),
                              **ft_paths("int8_matmul_t"),
@@ -3812,13 +4020,17 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "max_abs_err": max(r["max_abs_err"] for r in tk["int8_matmul_t"]
                            + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]
                            + dense["tied_head"]
-                           + mk["int8_matmul_t_batched"]),
+                           + mk["int8_matmul_t_batched"]
+                           + lk["int8_matmul_t_batched"]),
         "max_rel_err": max(r["rel_err"] for r in tk["int8_matmul_t"]
                            + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]
                            + dense["tied_head"]),
         "moe": {"expert_rows": mk["int8_matmul_t_batched"],
                 "training_check": moe["training"]["int8_matmul_t_batched"],
                 "timed_as": moe_timed},
+        "mla": {"expert_rows": lk["int8_matmul_t_batched"],
+                "training_check": mla["training"]["int8_matmul_t_batched"],
+                "timed_as": mla_timed},
         "tied_head": {"per_shape": dense["tied_head"], "timed_as": (
             "gemma-7b's tied head h (M, 3072) bf16 @ deq(E (256000, 3072))^T"
             ", per-call median after an L2 flush; library: cuBLAS bf16 "
@@ -3852,12 +4064,15 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "launches": tl.get("fused_qgalore_update", 0)
         + l7.get("fused_qgalore_update", 0)
         + sum(ft_paths("fused_qgalore_update").values())
-        + mt_.get("fused_qgalore_update", 0),
+        + mt_.get("fused_qgalore_update", 0)
+        + lt_.get("fused_qgalore_update", 0),
         "launches_by_path": {"training": tl.get("fused_qgalore_update", 0),
                              "training_7b": l7.get("fused_qgalore_update",
                                                    0),
                              **ft_paths("fused_qgalore_update"),
                              "moe_training": mt_.get("fused_qgalore_update",
+                                                     0),
+                             "mla_training": lt_.get("fused_qgalore_update",
                                                      0)},
         "max_abs_err": max(r["max_abs_err"]
                            for r in tk["fused_qgalore_update"]
@@ -3991,6 +4206,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                          if k not in ("int8_matmul", "train_kernels",
                                       "train_kernel_step_sums")}},
         "moe_training": {k: v for k, v in moe["training"].items()
+                         if k != "int8_matmul_t_batched"},
+        "mla_training": {k: v for k, v in mla["training"].items()
                          if k != "int8_matmul_t_batched"}}
     return kernels
 

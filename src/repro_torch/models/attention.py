@@ -1,8 +1,9 @@
-"""GQA attention with prefill and decode variants (the counterpart of the
-GQA half of ``repro/models/attention.py``, qk-norm included: with
-``cfg.qk_norm`` q and k are RMS-normalised over the head width before
-RoPE). Layouts follow the JAX package: ``(B, S, H, hd)`` activations,
-``(B, Smax, KH, hd)`` caches.
+"""GQA and Multi-head Latent Attention with prefill and decode variants
+(the counterpart of ``repro/models/attention.py`` but cross-attention;
+qk-norm included: with ``cfg.qk_norm`` q and k are RMS-normalised over the
+head width before RoPE). Layouts follow the JAX package: ``(B, S, H, hd)``
+activations, ``(B, Smax, KH, hd)`` GQA caches, and MLA's compressed
+caches ``(B, Smax, kv_lora_rank)`` and ``(B, Smax, qk_rope_head_dim)``.
 
 The chunked einsum path is the reference numerics (the JAX package's flash
 kernel is off by default): scores for one query chunk at a time,
@@ -21,8 +22,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import MLAConfig, ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models import layers
 from repro_torch.models.layers import apply_rope, dense, dense_init, \
     rmsnorm, rmsnorm_init, rope_angles
 
@@ -128,6 +130,17 @@ def decode_attention(q, k_cache, v_cache, length) -> torch.Tensor:
     return o.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
 
 
+def _write_row(cache, rows, length, new) -> None:
+    """Write ``new`` (B, ...) at position ``length`` of each row of
+    ``cache`` (B, Smax, ...) IN PLACE; rows with ``length >= Smax`` write
+    nothing (the JAX package's one-hot blend)."""
+    S = cache.shape[1]
+    pos = length.clamp(max=S - 1).long()
+    keep = (length < S).reshape((-1,) + (1,) * (new.ndim - 1))
+    cache[rows, pos] = torch.where(keep, new.to(cache.dtype),
+                                   cache[rows, pos])
+
+
 # ---------------------------------------------------------------------------
 # GQA layer
 # ---------------------------------------------------------------------------
@@ -207,14 +220,9 @@ def gqa_decode(p, x, cfg: ModelConfig, *, cache: Tuple, length,
                            cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
-    S = k_cache.shape[1]
     rows = torch.arange(B, device=x.device)
-    pos = length.clamp(max=S - 1).long()
-    keep = (length < S)[:, None, None]
-    k_cache[rows, pos] = torch.where(keep, k[:, 0].to(k_cache.dtype),
-                                     k_cache[rows, pos])
-    v_cache[rows, pos] = torch.where(keep, v[:, 0].to(v_cache.dtype),
-                                     v_cache[rows, pos])
+    _write_row(k_cache, rows, length, k[:, 0])
+    _write_row(v_cache, rows, length, v[:, 0])
     o = decode_attention(q, k_cache, v_cache, length + 1)
     return dense(o.reshape(B, 1, -1), p["wo"], dtype), (k_cache, v_cache)
 
@@ -245,3 +253,140 @@ def gqa_append(p, x, cfg: ModelConfig, *, cache: Tuple, positions, mask,
                                      v_cache[rows, pos])
     o = append_attention(q, k_cache, v_cache, positions)
     return dense(o.reshape(B, C, -1), p["wo"], dtype), (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig, *,
+             num: Optional[int] = None, device="cpu") -> dict:
+    """The low-rank query path (``wq_a``, ``q_a_norm``, ``wq_b``), the
+    compressed KV latent with its shared RoPE key (``wkv_a``,
+    ``kv_a_norm``), its up-projection ``wkv_b`` and ``wo``; ``num``
+    stacks a layer axis in front."""
+    m: MLAConfig = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": dense_init(gen, d, m.q_lora_rank, num=num, device=device),
+        "q_a_norm": rmsnorm_init(m.q_lora_rank, num=num, device=device),
+        "wq_b": dense_init(gen, m.q_lora_rank, H * qk, num=num,
+                           device=device),
+        "wkv_a": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                            num=num, device=device),
+        "kv_a_norm": rmsnorm_init(m.kv_lora_rank, num=num, device=device),
+        "wkv_b": dense_init(gen, m.kv_lora_rank,
+                            H * (m.qk_nope_head_dim + m.v_head_dim),
+                            num=num, device=device),
+        "wo": dense_init(gen, H * m.v_head_dim, d,
+                         scale=1.0 / math.sqrt(H * m.v_head_dim), num=num,
+                         device=device),
+    }
+
+
+def _mla_qkv(p, x, cfg: ModelConfig, positions, dtype):
+    """(q_nope, q_rope (B,S,H,·), c_kv (B,S,kv_lora), k_rope (B,S,1,rope)):
+    queries through the normed low-rank bottleneck, the normed KV latent,
+    RoPE on q_rope and on the one key head all query heads share."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_c = rmsnorm(dense(x, p["wq_a"], dtype), p["q_a_norm"], cfg.rmsnorm_eps)
+    q = dense(q_c, p["wq_b"], dtype).reshape(
+        B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    kv_a = dense(x, p["wkv_a"], dtype)
+    c_kv, k_rope = kv_a.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    c_kv = rmsnorm(c_kv, p["kv_a_norm"], cfg.rmsnorm_eps)
+    sin, cos = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return (q_nope, apply_rope(q_rope, sin, cos), c_kv,
+            apply_rope(k_rope[:, :, None, :], sin, cos))
+
+
+def _mla_expand_kv(p, c_kv, cfg: ModelConfig, dtype):
+    """The latent's up-projection, split into (k_nope, v)."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = c_kv.shape
+    kv = dense(c_kv, p["wkv_b"], dtype).reshape(
+        B, S, cfg.num_heads, m.qk_nope_head_dim + m.v_head_dim)
+    return kv.split([m.qk_nope_head_dim, m.v_head_dim], -1)
+
+
+def _mla_attend(p, x, cfg: ModelConfig, positions, q_chunk, dtype):
+    """Full-sequence MLA: q = [q_nope; q_rope], k = [k_nope; k_rope] with
+    the rope key broadcast to every head (qk width nope + rope, v width
+    v_head_dim) through :func:`chunked_attention`, then ``wo``. Returns
+    the output and the compressed cache (c_kv, k_rope (B,S,rope))."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions, dtype)
+    k_nope, v = _mla_expand_kv(p, c_kv, cfg, dtype)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, cfg.num_heads,
+                                         m.qk_rope_head_dim)], dim=-1)
+    o = chunked_attention(q, k, v, causal=True, q_chunk=q_chunk)
+    return dense(o.reshape(B, S, -1), p["wo"], dtype), (c_kv, k_rope[:, :, 0])
+
+
+def mla_apply(p: dict, x, cfg: ModelConfig, *, positions,
+              q_chunk: int = 1024, dtype=torch.bfloat16) -> torch.Tensor:
+    """Full-sequence MLA (never the flash kernel: its qk width is refused
+    by ``model_zoo.build``)."""
+    return _mla_attend(p, x, cfg, positions, q_chunk, dtype)[0]
+
+
+def mla_prefill(p, x, cfg: ModelConfig, *, positions, q_chunk=1024,
+                dtype=torch.bfloat16):
+    """Like :func:`mla_apply`, and also returns the compressed cache
+    ``(c_kv (B,S,kv_lora), k_rope (B,S,rope))``, the memory-defining
+    feature of MLA."""
+    return _mla_attend(p, x, cfg, positions, q_chunk, dtype)
+
+
+def mla_decode(p, x, cfg: ModelConfig, *, cache: Tuple, length,
+               dtype=torch.bfloat16):
+    """x (B,1,D); cache ``(c_kv (B,Smax,kv_lora), k_rope (B,Smax,rope))``;
+    length (B,). The absorbed form: ``W_uk`` is folded into the query and
+    ``W_uv`` into the read-out, so attention runs over the latents and
+    the (B,S,H,·) keys and values never exist.
+
+    Writes the new latent and rope key at position ``length`` IN PLACE
+    (rows with ``length >= Smax`` write nothing, as the JAX package's
+    one-hot blend). ``wkv_b`` is materialized in the activation dtype
+    (the one dequantization of the decode path, as in the reference);
+    ``q_abs`` is rounded to that dtype before the float32 scores, scaled
+    by 1/sqrt(nope + rope)."""
+    m: MLAConfig = cfg.mla
+    c_cache, r_cache = cache
+    B = x.shape[0]
+    H = cfg.num_heads
+    q_nope, q_rope, c_new, r_new = _mla_qkv(
+        p, x, cfg, length[:, None].to(torch.float32), dtype)
+    rows = torch.arange(B, device=x.device)
+    _write_row(c_cache, rows, length, c_new[:, 0])
+    _write_row(r_cache, rows, length, r_new[:, 0, 0])
+    w_ukv = layers.materialize(p["wkv_b"], dtype).reshape(
+        m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)
+    w_uk = w_ukv[..., : m.qk_nope_head_dim]          # (rank, H, nope)
+    w_uv = w_ukv[..., m.qk_nope_head_dim:]           # (rank, H, v)
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)[:, 0]  # (B,H,rank)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    cf = c_cache.to(torch.float32)
+    s = (torch.einsum("bhr,bkr->bhk", q_abs.to(torch.float32), cf)
+         + torch.einsum("bshr,bkr->bhk", q_rope.to(torch.float32),
+                        r_cache.to(torch.float32))) * scale
+    kpos = torch.arange(c_cache.shape[1], device=x.device)
+    s = torch.where(kpos[None, None] < (length + 1)[:, None, None], s,
+                    torch.full((), NEG_INF, device=x.device))
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhk,bkr->bhr", w, cf)                    # (B,H,rank)
+    o = torch.einsum("bhr,rhv->bhv", ctx, w_uv.to(torch.float32))
+    o = o.reshape(B, 1, H * m.v_head_dim).to(dtype)
+    return dense(o, p["wo"], dtype), (c_cache, r_cache)
+
+
+def mla_cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    m: MLAConfig = cfg.mla
+    return ((batch, max_len, m.kv_lora_rank),
+            (batch, max_len, m.qk_rope_head_dim))

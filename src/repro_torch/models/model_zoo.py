@@ -1,9 +1,10 @@
 """Architecture registry of the port: the dense decoder-only family (the
 LLaMA configs, mistral-nemo-12b, yi-9b, qwen3-32b, gemma-7b), the VLM
-backbone internvl2-2b and the mixture of experts qwen3-moe-30b-a3b. The
-other families of the JAX package (MLA/MTP, xLSTM, the SSM hybrid,
-encoder-decoder) are refused by name, with the ROADMAP sub-slice that
-brings each."""
+backbone internvl2-2b, the mixture of experts qwen3-moe-30b-a3b, and
+deepseek-v3-671b (MLA, shared experts, leading dense layers, multi-token
+prediction). The other families of the JAX package (xLSTM, the SSM
+hybrid, encoder-decoder) are refused by name, with the ROADMAP sub-slice
+that brings each."""
 from __future__ import annotations
 
 import importlib
@@ -18,17 +19,25 @@ from repro_torch.models.base import ModelBundle
 
 ARCH_IDS = ("llama-60m", "llama-130m", "llama-350m", "llama-1b",
             "llama-7b", "mistral-nemo-12b", "yi-9b", "qwen3-32b",
-            "gemma-7b", "internvl2-2b", "qwen3-moe-30b-a3b")
+            "gemma-7b", "internvl2-2b", "qwen3-moe-30b-a3b",
+            "deepseek-v3-671b")
 
 # the JAX package's other architectures, and the ROADMAP queue 1 sub-slice
 # that ports each
-LATER = {"deepseek-v3-671b": "4c (MLA, MTP)",
-         "xlstm-125m": "4d (xLSTM)", "zamba2-2.7b": "4e (the SSM hybrid)",
+LATER = {"xlstm-125m": "4d (xLSTM)", "zamba2-2.7b": "4e (the SSM hybrid)",
          "seamless-m4t-medium": "4f (encoder-decoder)"}
 _FAMILY_SLICE = {"xlstm": LATER["xlstm-125m"], "ssm": LATER["zamba2-2.7b"],
                  "hybrid": LATER["zamba2-2.7b"],
                  "encdec": LATER["seamless-m4t-medium"]}
 FLASH_MAX_HEAD_DIM = 128    # csrc/flash_attention.cu takes d <= 128
+
+
+def qk_width(cfg: ModelConfig) -> int:
+    """The width of a query and key head: ``qk_nope_head_dim +
+    qk_rope_head_dim`` for MLA, else the head dim."""
+    if cfg.attention == "mla":
+        return cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+    return cfg.resolved_head_dim
 
 
 def _refuse(cfg: ModelConfig, what: str, sub_slice: str):
@@ -51,19 +60,27 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
 def check_config(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP sub-slice for any
     part of ``cfg`` the port does not have: families other than ``dense``,
-    ``vlm`` and ``moe``, MLA and MTP. qk-norm, GeGLU, tied embeddings, the
-    VLM prefix and a mixture of experts (``cfg.moe``, with shared experts
-    and leading dense layers) are ported."""
+    ``vlm`` and ``moe``. qk-norm, GeGLU, tied embeddings, the VLM prefix,
+    a mixture of experts (``cfg.moe``, with shared experts and leading
+    dense layers), MLA (``attention == "mla"`` with ``cfg.mla``) and
+    multi-token prediction at ``mtp_depth`` 1 are ported.
+
+    ``mtp_depth`` above 1 is refused by name: the JAX package builds one
+    MTP block whatever the depth, so the port would compute depth 1 under
+    another number (ROADMAP queue 3, a deviation by design)."""
     if cfg.family in _FAMILY_SLICE:
         _refuse(cfg, f"the {cfg.family} family", _FAMILY_SLICE[cfg.family])
     if cfg.family not in ("dense", "vlm", "moe"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
-    if cfg.attention == "mla" or cfg.mla is not None:
-        _refuse(cfg, "MLA attention", LATER["deepseek-v3-671b"])
-    if cfg.mtp_depth:
-        _refuse(cfg, "multi-token prediction", LATER["deepseek-v3-671b"])
-    if cfg.attention != "gqa":
+    if cfg.attention not in ("gqa", "mla"):
         raise ValueError(f"{cfg.name}: unknown attention {cfg.attention!r}")
+    if cfg.attention == "mla" and cfg.mla is None:
+        raise ValueError(f"{cfg.name}: attention 'mla' needs cfg.mla")
+    if cfg.mtp_depth > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: mtp_depth {cfg.mtp_depth} is refused: the JAX "
+            "package builds one MTP block whatever the depth (ROADMAP "
+            "queue 3); use mtp_depth 1")
     if cfg.ffn_activation not in ("silu", "gelu"):
         raise ValueError(f"{cfg.name}: unknown FFN activation "
                          f"{cfg.ffn_activation!r}")
@@ -75,16 +92,19 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
     """Bundle for ``cfg`` on ``device`` (default ``cuda``, which must be
     present). ``flash_attention`` routes prefill attention through the
     flash kernel (the JAX package's ``REPRO_FLASH_ATTENTION=1``), which
-    takes head widths up to 128 only: a wider head (gemma-7b's 256) is
-    refused here, never sent to the einsum path in silence;
+    takes head widths up to 128 only: a wider head (gemma-7b's 256, MLA's
+    query and key width 192) is refused here, never sent to the einsum
+    path in silence;
     ``split_layers`` splits the block stack into two segments
     (``transformer.build``)."""
     check_config(cfg)
-    if flash_attention and cfg.resolved_head_dim > FLASH_MAX_HEAD_DIM:
+    if flash_attention and qk_width(cfg) > FLASH_MAX_HEAD_DIM:
+        what = ("MLA's query and key width (qk_nope_head_dim + "
+                "qk_rope_head_dim)" if cfg.attention == "mla" else "head_dim")
         raise NotImplementedError(
             f"{cfg.name}: the flash kernel takes head_dim <= "
-            f"{FLASH_MAX_HEAD_DIM}, this config has {cfg.resolved_head_dim} "
-            "(ROADMAP queue 2 #4: flash d = 256)")
+            f"{FLASH_MAX_HEAD_DIM}; {what} is {qk_width(cfg)} "
+            "(ROADMAP queue 2 #4: flash d > 128)")
     from repro_torch.models import transformer
     return transformer.build(cfg, device=resolve_device(device), dtype=dtype,
                              flash_attention=flash_attention,
@@ -97,8 +117,9 @@ def build_arch(arch_id: str, smoke: bool = False,
 
 
 def count_params(cfg: ModelConfig) -> int:
-    """Total parameters of ``cfg``, drawn on the meta device (nothing is
-    allocated): the counterpart of ``count_params_analytic``."""
+    """Total parameters of ``cfg`` (the MTP block, norm and projection
+    included), drawn on the meta device (nothing is allocated): the
+    counterpart of ``count_params_analytic``."""
     bundle = build(cfg, device="meta", dtype=torch.float32)
     params = bundle.init_params(torch.Generator())
 

@@ -33,22 +33,47 @@ from repro_torch.models.layers import dense, dense_init
 
 EP_SLICE = "ROADMAP queue 1 item 5"
 DROP_FREE_TK = 4096     # T·k up to which every token keeps its experts
+# experts an expert stack is drawn at a time in a by-layer draw: 32 of
+# deepseek-v3's (7168, 2048) matrices are 1.9 GB of float32
+EXPERT_SLICE = 32
+
+
+class ExpertSlices:
+    """An expert stack of ``num`` experts not drawn yet: iterating draws
+    it ``step`` experts at a time and yields ``(first expert, slice)``, so
+    one slice is all of it that exists as float (``transformer.
+    _draw_by_layer`` maps and writes each slice before the next)."""
+
+    def __init__(self, draw, num: int, step: int):
+        self.draw, self.num, self.step = draw, num, step
+
+    def __iter__(self):
+        for e0 in range(0, self.num, self.step):
+            yield e0, self.draw(min(self.step, self.num - e0))
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, *,
-             num: Optional[int] = None, device="cpu") -> dict:
+             num: Optional[int] = None, device="cpu",
+             expert_slice: Optional[int] = None) -> dict:
     """Router (d, E), expert stacks (E, d, f), (E, d, f), (E, f, d) and
     the optional shared experts, in the reference's distributions; ``num``
-    stacks a layer axis in front."""
+    stacks a layer axis in front. ``expert_slice`` (one layer, ``num``
+    None) leaves each expert stack undrawn, an :class:`ExpertSlices` of
+    that many experts a draw."""
     mc: MoEConfig = cfg.moe
     d, f, E = cfg.d_model, mc.expert_ff, mc.num_experts
     lead = () if num is None else (num,)
 
     def expert_stack(din, dout):
-        w = torch.empty(lead + (E, din, dout), dtype=torch.float32,
-                        device=device)
-        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        return w.mul_(1.0 / math.sqrt(din))
+        def draw(n_e):
+            w = torch.empty(lead + (n_e, din, dout), dtype=torch.float32,
+                            device=device)
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                        generator=gen)
+            return w.mul_(1.0 / math.sqrt(din))
+        if expert_slice:
+            return ExpertSlices(draw, E, expert_slice)
+        return draw(E)
 
     p = {
         "router": dense_init(gen, d, E, scale=1.0 / math.sqrt(d), num=num,

@@ -1,8 +1,9 @@
-"""Decoder-only transformer: the counterpart of the GQA paths of
+"""Decoder-only transformer: the counterpart of
 ``repro/models/transformer.py`` (the LLaMA family, mistral-nemo-12b,
 yi-9b, qwen3-32b with qk-norm, gemma-7b with GeGLU and the tied INT8
-head, the VLM backbone of internvl2-2b with its prefix embeddings, and
-the mixture of experts qwen3-moe-30b-a3b)."""
+head, the VLM backbone of internvl2-2b with its prefix embeddings, the
+mixture of experts qwen3-moe-30b-a3b, and deepseek-v3-671b: MLA, shared
+experts, leading dense layers and multi-token prediction)."""
 from __future__ import annotations
 
 import functools
@@ -45,9 +46,15 @@ def block_apply(lp, carry, ctx, cfg: ModelConfig, *, dtype,
                 flash: bool = False):
     h = carry["h"]
     x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
-    h = h + attention.gqa_apply(lp["attn"], x, cfg,
-                                positions=ctx["positions"],
-                                q_chunk=Q_CHUNK, dtype=dtype, flash=flash)
+    if cfg.attention == "mla":
+        a = attention.mla_apply(lp["attn"], x, cfg,
+                                positions=ctx["positions"], q_chunk=Q_CHUNK,
+                                dtype=dtype)
+    else:
+        a = attention.gqa_apply(lp["attn"], x, cfg,
+                                positions=ctx["positions"], q_chunk=Q_CHUNK,
+                                dtype=dtype, flash=flash)
+    h = h + a
     x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
     f, carry = _ffn(lp, carry, x, cfg, dtype)
     return {**carry, "h": h + f}
@@ -57,14 +64,21 @@ def block_prefill(lp, carry, ctx, cfg: ModelConfig, *, dtype,
                   flash: bool = False):
     h = carry["h"]
     x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
-    a, cache = attention.gqa_prefill(lp["attn"], x, cfg,
-                                     positions=ctx["positions"],
-                                     q_chunk=Q_CHUNK, dtype=dtype,
-                                     flash=flash)
+    if cfg.attention == "mla":
+        a, cache = attention.mla_prefill(lp["attn"], x, cfg,
+                                         positions=ctx["positions"],
+                                         q_chunk=Q_CHUNK, dtype=dtype)
+    else:
+        a, cache = attention.gqa_prefill(lp["attn"], x, cfg,
+                                         positions=ctx["positions"],
+                                         q_chunk=Q_CHUNK, dtype=dtype,
+                                         flash=flash)
     if "max_len" in ctx:
-        # grow the cache to the serving window (time axis = 1)
+        # grow the cache to the serving window along time (axis 1), whatever
+        # its rank: GQA's (B, S, KH, hd), MLA's (B, S, rank)
         pad = ctx["max_len"] - cache[0].shape[1]
-        cache = tuple(F.pad(c, (0, 0, 0, 0, 0, pad)) for c in cache)
+        cache = tuple(F.pad(c, (0, 0) * (c.ndim - 2) + (0, pad))
+                      for c in cache)
     h = h + a
     x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
     f, carry = _ffn(lp, carry, x, cfg, dtype)
@@ -76,8 +90,10 @@ def block_decode(lp, carry, cache, ctx, cfg: ModelConfig, *, dtype):
     layer runs at the drop-free capacity B·S."""
     h = carry["h"]                              # (B, 1, D)
     x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
-    a, cache = attention.gqa_decode(lp["attn"], x, cfg, cache=cache,
-                                    length=ctx["length"], dtype=dtype)
+    decode = attention.mla_decode if cfg.attention == "mla" \
+        else attention.gqa_decode
+    a, cache = decode(lp["attn"], x, cfg, cache=cache, length=ctx["length"],
+                      dtype=dtype)
     h = h + a
     x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
     f, carry = _ffn(lp, carry, x, cfg, dtype,
@@ -101,6 +117,8 @@ def block_append(lp, carry, cache, ctx, cfg: ModelConfig, *, dtype):
 
 
 def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    if cfg.attention == "mla":
+        return attention.mla_cache_shapes(cfg, batch, max_len)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     return (shape, shape)
 
@@ -115,13 +133,17 @@ def _head_logits(params, h, cfg: ModelConfig, dtype):
     return softcap(logits, cfg.logit_softcap)
 
 
-def _empty_stack(leaf, n: int):
-    if isinstance(leaf, QTensor):
-        return leaf.map(lambda t: t.new_empty((n,) + tuple(t.shape)))
-    return leaf.new_empty((n,) + tuple(leaf.shape))
+def _empty_stack(leaf, n: int, rows=None):
+    """An uninitialised stack of ``n`` leaves like ``leaf``; ``rows``
+    gives the whole first axis of which ``leaf`` is a slice (experts)."""
+    def empty(t):
+        shape = tuple(t.shape) if rows is None else \
+            (rows,) + tuple(t.shape[1:])
+        return t.new_empty((n,) + shape)
+    return leaf.map(empty) if isinstance(leaf, QTensor) else empty(leaf)
 
 
-def _write_layer(stack, i: int, leaf) -> None:
+def _write_layer(stack, i, leaf) -> None:
     if isinstance(leaf, QTensor):
         for dst, src in ((stack.q, leaf.q), (stack.scale, leaf.scale),
                          (stack.zero, leaf.zero)):
@@ -152,14 +174,24 @@ def _draw_by_layer(draw, n: int, fin):
     """A stacked group drawn one layer at a time: ``draw()`` gives one
     layer's leaves (a nested dict); each matrix is mapped by ``fin(leaf,
     keys)`` at once and written into its stack (allocated at layer 0), so
-    one layer's float group is all the float the device holds. 1-D leaves
-    (norm scales) are stacked first and mapped whole, as the whole-group
-    draw maps them."""
+    one layer's float group is all the float the device holds. An expert
+    stack (``moe.ExpertSlices``) is drawn, mapped and written a slice of
+    experts at a time. 1-D leaves (norm scales) are stacked first and
+    mapped whole, as the whole-group draw maps them."""
     stacks, vectors, order = {}, {}, None
     for i in range(n):
         group = _paths(draw())
         order = [k for k, _ in group]
         for k, leaf in group:
+            if isinstance(leaf, moe_lib.ExpertSlices):
+                for e0, part in leaf:
+                    mapped = fin(part, k)
+                    if k not in stacks:
+                        stacks[k] = _empty_stack(mapped, n, leaf.num)
+                    _write_layer(stacks[k], (i, slice(e0, e0 + len(part))),
+                                 mapped)
+                    del part, mapped
+                continue
             if leaf.ndim < 2:
                 vectors.setdefault(k, []).append(leaf)
                 continue
@@ -176,7 +208,8 @@ def _draw_by_layer(draw, n: int, fin):
 def build(cfg: ModelConfig, *, device: torch.device,
           dtype=torch.bfloat16, flash_attention: bool = False,
           split_layers: int = 0) -> ModelBundle:
-    """LM bundle (families ``dense``, ``vlm`` and ``moe``). ``device`` is
+    """LM bundle (families ``dense``, ``vlm`` and ``moe``; GQA or MLA
+    attention). ``device`` is
     where ``init_params`` puts the weights by default and where the engine
     places its inputs. ``flash_attention`` routes every full causal self-attention
     (prefill, the full-sequence forward) through the flash kernel; decode
@@ -197,6 +230,15 @@ def build(cfg: ModelConfig, *, device: torch.device,
     load-balance loss, which ``head_loss`` adds to the loss. MoE segments
     have no chunk-append, and ``ragged_prefill_ok`` is False: capacity-
     limited routing couples the rows of a padded prefill.
+
+    ``cfg.attention == "mla"`` gives every block Multi-head Latent
+    Attention (``attention.mla_*``), whose cache is the compressed latent
+    and rope key; MLA segments have no chunk-append either (the absorbed
+    decode contracts in another order than the prefill, so a chunked
+    prompt cannot promise one-shot prefill's numbers). ``cfg.mtp_depth``
+    1 adds multi-token prediction to the loss (``mtp_block``, a dense
+    block of FFN width ``moe.dense_ff or d_ff``, ``mtp_norm``,
+    ``mtp_proj``; training only).
 
     ``cfg.tie_embeddings`` drops the ``head`` leaf: the logits are
     ``h @ E^T`` through ``layers.dense_t``. ``cfg.embed_scale`` (gemma) scales
@@ -228,12 +270,14 @@ def build(cfg: ModelConfig, *, device: torch.device,
                 ("dense", cfg.num_layers - split_layers, False, cfg.d_ff))
     else:
         segs = (("dense", cfg.num_layers, False, cfg.d_ff),)
+    mtp_ff = (mc.dense_ff or cfg.d_ff) if mc is not None else cfg.d_ff
 
     def init_params(gen: torch.Generator, device_=None, leaf_fn=None,
                     by_layer: bool = False):
         """Float32 parameters drawn from ``gen`` (the JAX package's
         distributions; its numbers cannot be reproduced): each segment's
-        blocks in order, then the embedding, final norm and (untied) head.
+        blocks in order, then the embedding, final norm, (untied) head and
+        the MTP block, norm and projection.
 
         ``leaf_fn(keys, leaf)`` (``keys``: the leaf's path in the tree)
         maps each leaf as soon as its group is drawn, so the whole float
@@ -245,7 +289,9 @@ def build(cfg: ModelConfig, *, device: torch.device,
         (qwen3-32b's FFN group is 100.7 GB of float32 whole). It gives other
         numbers than the default, whole-group draw, and needs a ``leaf_fn``
         that maps a stack as it maps each layer, as
-        ``serve.params.quantize_leaf`` does."""
+        ``serve.params.quantize_leaf`` does. It draws an expert stack
+        ``moe.EXPERT_SLICE`` experts at a time (deepseek-v3's three stacks
+        are 45.1 GB of float32 a layer)."""
         dev = device if device_ is None else device_
 
         def fin(tree, *keys):
@@ -258,20 +304,27 @@ def build(cfg: ModelConfig, *, device: torch.device,
             return _draw_by_layer(lambda: init(None), n,
                                   lambda leaf, ks: fin(leaf, *keys, *ks))
 
+        def attn_init(m):
+            init = attention.mla_init if cfg.attention == "mla" \
+                else attention.gqa_init
+            return init(gen, cfg, num=m, device=dev)
+
         params = {}
         for i, (name, n, is_moe, d_ff) in enumerate(segs):
             key = f"seg{i}_{name}"
             params[key] = {
                 "attn_norm": fin(rmsnorm_init(cfg.d_model, num=n,
                                               device=dev), key, "attn_norm"),
-                "attn": group(lambda m: attention.gqa_init(
-                    gen, cfg, num=m, device=dev), n, key, "attn"),
+                "attn": group(attn_init, n, key, "attn"),
                 "ffn_norm": fin(rmsnorm_init(cfg.d_model, num=n, device=dev),
                                 key, "ffn_norm"),
             }
             if is_moe:
+                # m is None only in a by-layer draw: slice the experts there
                 params[key]["moe"] = group(lambda m: moe_lib.moe_init(
-                    gen, cfg, num=m, device=dev), n, key, "moe")
+                    gen, cfg, num=m, device=dev,
+                    expert_slice=moe_lib.EXPERT_SLICE if m is None else None),
+                    n, key, "moe")
             else:
                 params[key]["ffn"] = group(lambda m, f=d_ff: ffn_init(
                     gen, cfg.d_model, f, num=m, device=dev), n, key, "ffn")
@@ -285,16 +338,35 @@ def build(cfg: ModelConfig, *, device: torch.device,
             top["head"] = fin(dense_init(gen, cfg.d_model, cfg.vocab_size,
                                          scale=1.0 / math.sqrt(cfg.d_model),
                                          device=dev), "head")
+        if cfg.mtp_depth:
+            mk = "mtp_block"
+            top[mk] = {
+                "attn_norm": fin(rmsnorm_init(cfg.d_model, device=dev), mk,
+                                 "attn_norm"),
+                "attn": fin(attn_init(None), mk, "attn"),
+                "ffn_norm": fin(rmsnorm_init(cfg.d_model, device=dev), mk,
+                                "ffn_norm"),
+                "ffn": fin(ffn_init(gen, cfg.d_model, mtp_ff, device=dev),
+                           mk, "ffn"),
+            }
+            top["mtp_norm"] = fin(rmsnorm_init(cfg.d_model, device=dev),
+                                  "mtp_norm")
+            top["mtp_proj"] = fin(dense_init(gen, 2 * cfg.d_model,
+                                             cfg.d_model, device=dev),
+                                  "mtp_proj")
         return {**top, **params}
 
-    def embed(params, batch):
-        tokens = batch["tokens"]
+    def embed_tokens(params, tokens):
         h = layers.embed_lookup(params["embedding"], tokens, dtype)
         if cfg.embed_scale:
             # the factor rounded to the activation dtype, as the JAX
             # package's weakly typed scalar is
             h = h * torch.full((), math.sqrt(cfg.d_model), dtype=h.dtype,
                                device=h.device)
+        return h
+
+    def embed(params, batch):
+        h = embed_tokens(params, batch["tokens"])
         if is_vlm and "patch_embeds" in batch:
             h = torch.cat([batch["patch_embeds"].to(h.dtype), h], dim=1)
         B, S = h.shape[:2]
@@ -312,13 +384,34 @@ def build(cfg: ModelConfig, *, device: torch.device,
     def head_loss(params, carry, batch):
         """Next-token loss: logits[t] predicts labels[t + 1]; a VLM's
         prefix positions carry no labels and are dropped first. An MoE
-        model adds the carry's ``aux`` (its ``aux_loss`` metric)."""
+        model adds the carry's ``aux`` (its ``aux_loss`` metric).
+
+        With ``mtp_depth`` the DeepSeek multi-token prediction term (the
+        reference's ``head_loss``): ``mtp_proj([h_t ; emb(label_{t+1})])``
+        on the final norm's input, one dense block at positions 0..S-2,
+        ``mtp_norm``, the same head, and cross-entropy against
+        ``labels[t + 2]``; the loss gains 0.3 of it (``mtp_loss``)."""
         h = carry["h"]
+        labels = batch["labels"]
         if is_vlm:
-            h = h[:, h.shape[1] - batch["labels"].shape[1]:]
+            h = h[:, h.shape[1] - labels.shape[1]:]
         logits = _head_logits(params, h, cfg, dtype)
-        loss, metrics = layers.cross_entropy(logits[:, :-1],
-                                             batch["labels"][:, 1:])
+        loss, metrics = layers.cross_entropy(logits[:, :-1], labels[:, 1:])
+        if cfg.mtp_depth:
+            emb_next = embed_tokens(params, labels)
+            hm = torch.cat([h[:, :-1], emb_next[:, 1:]], dim=-1)
+            hm = dense(hm, params["mtp_proj"], dtype)
+            B, S = hm.shape[:2]
+            pos = torch.arange(S, dtype=torch.int32,
+                               device=hm.device)[None].expand(B, S)
+            hm = block_apply(params["mtp_block"], {"h": hm},
+                             {"positions": pos}, cfg, dtype=dtype)["h"]
+            hm = rmsnorm(hm, params["mtp_norm"], cfg.rmsnorm_eps)
+            mtp_logits = _head_logits(params, hm, cfg, dtype)
+            mtp_loss, _ = layers.cross_entropy(mtp_logits[:, :-1],
+                                               labels[:, 2:])
+            loss = loss + 0.3 * mtp_loss
+            metrics = {**metrics, "mtp_loss": mtp_loss}
         if "aux" not in carry:
             return loss, {**metrics, "ce_loss": loss}
         return loss + carry["aux"], {**metrics, "ce_loss": loss,
@@ -333,8 +426,9 @@ def build(cfg: ModelConfig, *, device: torch.device,
         decode=functools.partial(block_decode, cfg=cfg, dtype=dtype),
         cache_shapes=functools.partial(_cache_shapes, cfg),
         # routing capacity depends on the tokens routed together, so a
-        # chunked prompt would not drop what the whole prompt drops
-        append=(None if is_moe else
+        # chunked prompt would not drop what the whole prompt drops; MLA's
+        # absorbed decode sums in another order than its prefill
+        append=(None if is_moe or cfg.attention == "mla" else
                 functools.partial(block_append, cfg=cfg, dtype=dtype)))
         for name, n, is_moe, _ in segs)
     return ModelBundle(cfg=cfg, device=torch.device(device), dtype=dtype,

@@ -4,7 +4,8 @@ contract, with stacked per-layer caches (the counterpart of
 
 INT8 QTensor parameters are consumed directly: every matmul streams codes
 through ``kernels.ops.quantized_dense``. Caches are ``(L, B, Smax, KH,
-hd)`` per segment. Per-row ``lengths`` drive every positional effect
+hd)`` per segment (MLA's compressed pair ``(L, B, Smax, kv_lora_rank)``
+and ``(L, B, Smax, qk_rope_head_dim)``). Per-row ``lengths`` drive every positional effect
 (RoPE, cache write slot, attention mask), so one decode step serves rows
 at different positions.
 
@@ -128,9 +129,10 @@ def append_ok(bundle: ModelBundle) -> bool:
     """True when the bundle supports chunk-append prefill, the substrate of
     the paged serving runtime (``serve/paged.py``): ragged prompts are
     exact (``ragged_prefill_ok``: a chunk's tail is right-padded) and every
-    segment offers ``SegmentDef.append``. An MoE bundle has neither. (The
-    JAX package also asks for no ``decode_extras``, which the port does
-    not have.)"""
+    segment offers ``SegmentDef.append``. An MoE bundle has neither, and
+    an MLA segment has no append (deepseek-v3 lacks both). (The JAX
+    package also asks for no ``decode_extras``, which the port does not
+    have.)"""
     return bundle.ragged_prefill_ok and \
         all(seg.append is not None for seg in bundle.segments)
 

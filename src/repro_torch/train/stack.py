@@ -78,6 +78,15 @@ def project_leaf(g: torch.Tensor, P, side: Optional[str] = None):
                              projector.maybe_dequantize(P), side)
 
 
+def _project_tree(g, P):
+    """:func:`project_leaf` over a subtree (a non-segment entry such as
+    ``mtp_block``), leaf by leaf, as the reference's
+    ``_project_cotangents``."""
+    if isinstance(g, dict) and P is not None:
+        return {k: _project_tree(v, P.get(k)) for k, v in g.items()}
+    return project_leaf(g, P)
+
+
 def _grads(out, inputs: List[torch.Tensor], grad_out):
     """``d out / d inputs`` (zeros where unused); ``out`` a tensor or a
     list of tensors with ``grad_out`` the matching cotangents."""
@@ -177,7 +186,7 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
     g_nonseg = _like(nonseg_v, g_ns)
     for k, P_sub in proj_trees.items():
         if k in g_nonseg and P_sub is not None:
-            g_nonseg[k] = project_leaf(g_nonseg[k], P_sub)
+            g_nonseg[k] = _project_tree(g_nonseg[k], P_sub)
     if acc is not None:
         for k in g_nonseg:
             for a, g in zip(_leaves(acc[k]), _leaves(g_nonseg[k])):

@@ -830,6 +830,36 @@ def test_batched_rows_bit_equal_to_the_2d_kernel(cuda, E, M, K, N, dtype):
         assert torch.equal(got_t[e], one_t), e
 
 
+@pytest.mark.parametrize("M", [4, 512])
+@pytest.mark.parametrize("K,N", [(7168, 2048), (2048, 7168)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_rows_bit_equal_at_deepseek_experts(cuda, M, K, N, dtype):
+    """deepseek-v3's expert problems (E 256, d 7168, expert_ff 2048; M 4 a
+    decode dispatch at 4 slots, 512 a prompt): each expert's rows of one
+    batched launch equal, bit for bit, the 2-D kernel at the batched
+    call's plan, and the transpose's the 2-D ``int8_matmul_t``'s. Codes
+    and scales are drawn directly (the float32 stack would be 15 GB)."""
+    E = 256
+    g = torch.Generator(device=cuda).manual_seed(K + M)
+    q = torch.randint(-127, 128, (E, K, N), generator=g, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand((E, K, N // 256), generator=g, device=cuda) * 1e-3
+    x = torch.randn((E, M, K), generator=g, device=cuda).to(dtype)
+    gr = torch.randn((E, M, N), generator=g, device=cuda).to(dtype)
+    LAUNCHES.clear()
+    got = ti8.int8_matmul_batched(x, q, s)
+    got_t = ti8.int8_matmul_t_batched(gr, q, s)
+    assert LAUNCHES["int8_matmul_batched"] == 1
+    assert LAUNCHES["int8_matmul_t_batched"] == 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    p = ti8.plan(M, K, N, sms, E)
+    for e in range(E):
+        one = ti8.int8_matmul(x[e].contiguous(), q[e], s[e], p=p)
+        one_t = ti8.int8_matmul_t(gr[e].contiguous(), q[e], s[e])
+        assert torch.equal(got[e], one), e
+        assert torch.equal(got_t[e], one_t), e
+
+
 def test_moe_serving_on_the_card_matches_cpu(cuda):
     """qwen3-moe smoke (f32) on the card and on the CPU, the same codes:
     the slot scheduler (``make_scheduler("auto")``) gives equal greedy

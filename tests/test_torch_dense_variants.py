@@ -297,6 +297,7 @@ def test_refusals_name_the_sub_slice():
         num_experts=4, top_k=2, expert_ff=32))
     assert not model_zoo.build(moe_cfg, device="cpu").ragged_prefill_ok
     assert "qwen3-moe-30b-a3b" not in model_zoo.LATER
+    # MLA and MTP (4c) are ported: built, not refused
     for cfg, sub in ((replace(moe_cfg, attention="mla", mla=MLAConfig()),
                       "4c"),
                      (replace(base_cfg, attention="mla", mla=MLAConfig()),
@@ -305,6 +306,13 @@ def test_refusals_name_the_sub_slice():
                      (replace(base_cfg, family="xlstm"), "4d"),
                      (replace(base_cfg, family="hybrid"), "4e"),
                      (replace(base_cfg, family="encdec"), "4f")):
+        if sub == "4c":
+            built = model_zoo.build(cfg, device="meta")
+            assert engine.append_ok(built) == (cfg.attention != "mla")
+            names = qgalore.flatten(built.init_params(torch.Generator()))
+            assert (("mtp_block", "attn", "wq") in [k for k, _ in names]) \
+                == bool(cfg.mtp_depth)
+            continue
         with pytest.raises(NotImplementedError, match=f"sub-slice {sub}"):
             model_zoo.build(cfg, device="cpu")
     for arch, sub in model_zoo.LATER.items():

@@ -56,7 +56,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.configs.yi_9b, repro_torch.configs.qwen3_32b, "
             "repro_torch.configs.gemma_7b, "
             "repro_torch.configs.internvl2_2b, repro_torch.models.moe, "
-            "repro_torch.configs.qwen3_moe_30b_a3b; "
+            "repro_torch.configs.qwen3_moe_30b_a3b, "
+            "repro_torch.configs.deepseek_v3_671b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")
@@ -98,14 +99,16 @@ def test_entry_points_refuse_without_device(no_card):
 def test_unported_architectures_raise():
     with pytest.raises(ValueError, match="not ported"):
         model_zoo.get_config("gpt-2")
-    # MoE (sub-slice 4b) is ported; MLA/MTP (4c) still raises by name
-    with pytest.raises(NotImplementedError, match="sub-slice 4c"):
-        model_zoo.get_config("deepseek-v3-671b")
+    # MoE (sub-slice 4b) and MLA/MTP (4c) are ported; xLSTM (4d) still
+    # raises by name
+    assert model_zoo.get_config("deepseek-v3-671b").attention == "mla"
+    with pytest.raises(NotImplementedError, match="sub-slice 4d"):
+        model_zoo.get_config("xlstm-125m")
     base = model_zoo.get_config("llama-60m", smoke=True)
     from repro_torch.config import MLAConfig, MoEConfig, replace
-    with pytest.raises(NotImplementedError, match="sub-slice 4c"):
-        model_zoo.build(replace(base, attention="mla", mla=MLAConfig()),
-                        device="cpu")
+    mla = model_zoo.build(replace(base, attention="mla", mla=MLAConfig()),
+                          device="cpu")
+    assert mla.segments[0].append is None and not engine.append_ok(mla)
     moe = model_zoo.build(replace(base, moe=MoEConfig(
         num_experts=4, top_k=2, expert_ff=32)), device="cpu")
     assert [s.name for s in moe.segments] == ["moe"]
