@@ -229,10 +229,28 @@ Phases (any failure exits non-zero):
    randomized subspace, 8 x 256 tokens), every step's launches held to
    what the code implies, ``fused_qgalore_update`` on the steady steps.
    Every cut is printed.
+14. xLSTM. (a) xlstm-125m at full width and depth (12 layers: 2 groups
+   of 5 mLSTM blocks and 1 sLSTM block), bf16, phase 11a's traffic
+   through ``make_scheduler("auto")`` (the slot scheduler, 4 slots,
+   one unpadded request a prefill): a prefill and a decode dispatch
+   each launch ``int8_matmul`` 59 times (5 an mLSTM block, 4 an sLSTM
+   block, the head), with no plain version; the pool's seven state
+   leaves must be float32 at a bf16 pool; the slot tokens must equal
+   per-request ``generate``'s; a decode step and a 421-token prefill
+   profiled (the sLSTM's loop over time and the mLSTM's chunk loop timed
+   apart); every distinct problem against its plain version. (b) The bf16
+   decode against the forward (0.1 of max|logits|); at f32, one group (6
+   layers) and a 300-token prompt (two chunks) the card against the CPU
+   (1e-4 of max|logits|, equal greedy tokens); the sLSTM gate projection
+   (768, 3072) at f32 x and M 1 and 4 against its plain version (1e-4,
+   ``hi_only_rel`` above it) and timed beside cuBLAS f32 and the bound.
+   (c) 4 Q-GaLore steps at full width and depth (rank 256, 4 x 512
+   tokens, a refresh at step 0), every step's launches held to what the
+   code implies, finite losses, one more steady step profiled.
 
-``python3 chip_smoke.py --only 12`` (or ``1,12``, ``11``, ``13``) runs
-those phases alone for development and prints no kernels line and no
-result.
+``python3 chip_smoke.py --only 12`` (or ``1,12``, ``11``, ``13``,
+``14``) runs those phases alone for development and prints no kernels
+line and no result.
 
 The last three lines are the kernels JSON (all seven kernels;
 ``int8_matmul``'s and ``int8_matmul_t``'s training step, flash's prefill
@@ -240,7 +258,9 @@ and ``int4_matmul``'s projections with ``factor`` = ms / library_ms; the
 three training kernels also carry their LLaMA-7B pre-training and
 fine-tuning rows, ``int8_matmul`` its paged serving runs and both INT8
 matmuls phase 11's, 12's and 13's (the expert grid axis counted apart),
-``int8_matmul_t`` the tied head's rows),
+``int8_matmul_t`` the tied head's rows; the three training kernels
+phase 14's launches, ``int8_matmul`` its serving run and the sLSTM
+gates' f32-x rows),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository's ``src/``
 beside it, the script exits non-zero and prints no result.
@@ -248,6 +268,7 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -2361,10 +2382,13 @@ SYSTEM_PROMPT = 256       # phase 10a's shared prefix, 16 blocks
 
 
 def pool_bytes_slot(bundle, slots: int, window: int) -> int:
-    """The bytes of the slot scheduler's KV pool (``init_pool``) in bf16."""
-    return sum(seg.n_layers * math.prod(shape) * 2
+    """The bytes of the slot scheduler's bf16 pool (``init_pool``): each
+    leaf in its own dtype where the segment names one (a recurrent
+    state's float32)."""
+    return sum(seg.n_layers * math.prod(shape)
+               * torch.empty((), dtype=dt or torch.bfloat16).element_size()
                for seg in bundle.segments
-               for shape in seg.cache_shapes(slots, window))
+               for shape, dt in seg.cache_shapes(slots, window))
 
 
 def first_divergence(got: dict, want: dict):
@@ -2887,14 +2911,15 @@ def serve_dense(arch: str, seed: int) -> dict:
     return out
 
 
-def f32_parity_dense(arch: str, seed: int, cfg=None) -> dict:
-    """Phase 11b (and 12b, 13b) at f32: 2 layers at full width (or
-    ``cfg``), the same INT8 codes on the card and the CPU; a prompt's
-    prefill and 3 teacher-forced decode steps (and for the VLM the full
-    forward over a patch prefix), the card's logits within ``PARITY_TOL``
-    of the CPU's and the same greedy token at each; the card launches the
-    kernels (an MoE model the batched one too), the CPU the plain
-    versions."""
+def f32_parity_dense(arch: str, seed: int, cfg=None, prompt: int = 12,
+                     tol: float = PARITY_TOL) -> dict:
+    """Phase 11b (and 12b, 13b, 14b) at f32: 2 layers at full width (or
+    ``cfg``), the same INT8 codes on the card and the CPU; a prefill of
+    ``prompt`` tokens and 3 teacher-forced decode steps (and for the VLM
+    the full forward over a patch prefix), the card's logits within
+    ``tol`` (``PARITY_TOL``) of the CPU's and the same greedy token at
+    each; the card launches the kernels (an MoE model the batched one
+    too), the CPU the plain versions."""
     from repro_torch.config import replace
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import base, model_zoo
@@ -2908,7 +2933,8 @@ def f32_parity_dense(arch: str, seed: int, cfg=None) -> dict:
                             by_layer=True)
     p_cpu = to_cpu(p_gpu)
     rng = np.random.default_rng(seed + 13)
-    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, 15))
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         size=(1, prompt + 3))
                             .astype(np.int32))
     patches = torch.from_numpy(rng.standard_normal(
         (1, cfg.num_prefix_embeddings, cfg.d_model)).astype(np.float32)) \
@@ -2918,11 +2944,11 @@ def f32_parity_dense(arch: str, seed: int, cfg=None) -> dict:
         dev = bundle.device
         t = toks.to(dev)
         LAUNCHES.clear()
-        logits, state = engine.build_prefill(bundle, 16)(
-            params, {"tokens": t[:, :12]})
+        logits, state = engine.build_prefill(bundle, prompt + 4)(
+            params, {"tokens": t[:, :prompt]})
         got = [logits[:, -1]]
         decode = engine.build_decode(bundle)
-        for i in range(12, 15):
+        for i in range(prompt, prompt + 3):
             logits, state = decode(params, state, t[:, i: i + 1])
             got.append(logits[:, -1])
         if patches is not None:
@@ -2947,7 +2973,8 @@ def f32_parity_dense(arch: str, seed: int, cfg=None) -> dict:
     prefix = "" if patches is None else " and the forward over a patch prefix"
     log(f"  {arch} f32, {cfg.num_layers} layers, card against CPU: rel err "
         f"{rel:.2e} "
-        f"(tolerance {PARITY_TOL}) over the prefill, 3 decode steps{prefix}"
+        f"(tolerance {tol:.2e}) over the prefill of {prompt} tokens, 3 "
+        f"decode steps{prefix}"
         f", greedy tokens {'equal' if same_greedy else 'DIFFER'}; launches "
         f"card {n_g} CPU {n_c}")
     problems = []
@@ -2955,9 +2982,9 @@ def f32_parity_dense(arch: str, seed: int, cfg=None) -> dict:
         problems.append(f"card launches {n_g}, want {kernels}")
     if set(n_c) != plain:
         problems.append(f"CPU launches {n_c}, want {plain}")
-    if rel > PARITY_TOL:
+    if rel > tol:
         problems.append(f"rel err {rel:.2e}")
-    if not same_greedy and cfg.moe is not None:
+    if not same_greedy and (cfg.moe is not None or cfg.family == "xlstm"):
         problems.append("greedy tokens differ")
     del p_gpu, p_cpu, gpu, cpu
     gc.collect()
@@ -3762,6 +3789,611 @@ def phase_mla(seed: int) -> dict:
                                   "experts": MLA_TRAIN_EXPERTS}}}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: xLSTM
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH = "xlstm-125m"
+# 14b: one group (5 mLSTM and 1 sLSTM block) of the two: the CPU's plain
+# matmuls at full width; a prompt of two mLSTM chunks of 256
+XLSTM_PARITY_LAYERS, XLSTM_PARITY_PROMPT = 6, 300
+# 14c: rank 256, the 130M-class row of benchmarks/table2_memory.py;
+# 4 x 512 tokens (two chunks); step 0 refreshes, steps 1-3 are steady
+XLSTM_RANK, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH = 256, 4, (4, 512)
+
+
+def xlstm_launches(cfg) -> dict:
+    """A forward's ``int8_matmul`` launches: ``w_up``, ``wq``, ``wk``,
+    ``wv`` and ``w_down`` of every mLSTM block (its ``w_gates``, 2H wide,
+    stays float), ``w_gates`` and the FFN's three of every sLSTM block,
+    and the head."""
+    every = cfg.xlstm.slstm_every
+    return {"int8_matmul": cfg.num_layers // every * (5 * (every - 1) + 4)
+            + 1}
+
+
+def profile_prefill(bundle, params, tokens) -> dict:
+    """One prompt's prefill under the profiler (device busy against the
+    host clock), then the same prefill with the mLSTM chunk loops and the
+    sLSTM time loops timed apart (a synchronize at each one's entry and
+    exit, so the rest is the matmuls and norms between them)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import xlstm
+    from repro_torch.serve import engine
+    prefill = engine.build_prefill(bundle, len(tokens) + 1)
+    batch = {"tokens": torch.from_numpy(tokens)[None].cuda()}
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    out = {"prompt": len(tokens)}
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = sum(t for _, t, _ in device_rows(prof)) / 1e3
+        out.update(profile_wall_ms=wall_ms, profile_device_ms=busy_ms,
+                   device_idle_share=1 - busy_ms / wall_ms)
+    except RuntimeError as e:
+        log(f"  PROFILER FAILED: {e}")
+        out.update(profile_wall_ms=None, profile_device_ms=None,
+                   device_idle_share=None, profile_error=str(e))
+    spent = {"mlstm_chunked": [], "slstm_scan": []}
+    saved = {n: getattr(xlstm, n) for n in spent}
+
+    def timed(name):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = saved[name](*a, **k)
+            torch.cuda.synchronize()
+            spent[name].append((time.perf_counter() - t) * 1e3)
+            return res
+        return run
+
+    for n in spent:
+        setattr(xlstm, n, timed(n))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        out["split_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, fn in saved.items():
+            setattr(xlstm, n, fn)
+    for n, ts in spent.items():
+        out[n + "_ms"] = sum(ts)
+        out[n + "_calls"] = len(ts)
+    log(f"  prefill of {len(tokens)} tokens: wall "
+        f"{out['profile_wall_ms']} ms, device busy "
+        f"{out['profile_device_ms']} ms, idle share "
+        f"{out['device_idle_share']}; timed apart: wall "
+        f"{out['split_wall_ms']:.1f} ms, sLSTM time loops "
+        f"{out['slstm_scan_ms']:.1f} ms ({out['slstm_scan_calls']} calls), "
+        f"mLSTM chunk loops {out['mlstm_chunked_ms']:.1f} ms "
+        f"({out['mlstm_chunked_calls']} calls)")
+    return out
+
+
+def xlstm_sensitivity(cfg, seed: int, prompt: int) -> dict:
+    """How far xLSTM's f32 logits move for a rounding-sized change of
+    their input: on the CPU (plain versions), one prompt's prefill with
+    the embeddings as drawn and scaled by ``1 + 2^-20 * sign(noise)``;
+    ``amplification`` is the logits' relative change over 2^-20. The
+    card's f32 matmuls each agree with their plain versions to
+    ``F32_X_TOL`` of max|plain| (two bf16 passes), so the f32 parity bar
+    for this model is ``amplification * F32_X_TOL``, not the
+    well-conditioned models' ``PARITY_TOL``."""
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import engine
+    from repro_torch.serve.params import quantize_leaf
+    bundle = model_zoo.build(cfg, device="cpu", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(seed + 24)
+    params = bundle.init_params(gen, leaf_fn=lambda _, t: quantize_leaf(t))
+    rng = np.random.default_rng(seed + 24)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, prompt))
+                            .astype(np.int32))
+    eps = 2.0 ** -20
+    sign = torch.from_numpy(np.sign(rng.standard_normal(
+        (1, prompt, cfg.d_model))).astype(np.float32))
+
+    def logits(scale):
+        def scaled(p, batch):
+            carry, ctx = bundle.embed(p, batch)
+            return {**carry, "h": carry["h"] * scale}, ctx
+        out, _ = engine.build_prefill(
+            dataclasses.replace(bundle, embed=scaled), prompt + 1)(
+            params, {"tokens": toks})
+        return out[:, -1]
+
+    base_l = logits(torch.ones(()))
+    moved = logits(1 + eps * sign)
+    change = ((moved - base_l).abs().max() / base_l.abs().max()).item()
+    amp = change / eps
+    log(f"  f32 sensitivity ({cfg.num_layers} layers, {prompt}-token "
+        f"prompt, CPU): the embeddings moved by 2^-20 move the logits by "
+        f"{change:.2e} of max|logits|, amplification {amp:.0f}; parity bar "
+        f"{amp:.0f} x {F32_X_TOL} = {amp * F32_X_TOL:.2e}")
+    return {"logit_change": change, "amplification": amp,
+            "parity_tol": amp * F32_X_TOL}
+
+
+def slot_tokens(bundle, params, reqs, slots: int, state_dtype=None) -> dict:
+    """Each request's tokens through a ``slots``-slot ``Scheduler`` at
+    bf16; ``state_dtype`` stores every pool leaf in that dtype instead (a
+    control: what a pool of one dtype would do to the states)."""
+    from repro_torch.serve import scheduler as sch
+    init = sch.init_pool
+
+    def recast(*a, **k):
+        pool = init(*a, **k)
+        return pool._replace(caches={
+            key: tuple(c.to(state_dtype) for c in leaves)
+            for key, leaves in pool.caches.items()})
+
+    if state_dtype is not None:
+        sch.init_pool = recast
+    try:
+        sched = sch.make_scheduler(bundle, params, backend="slot",
+                                   num_slots=slots, max_len=DENSE_WINDOW,
+                                   dtype=torch.bfloat16, device="cuda")
+        return {c.rid: c.tokens for c in sched.run(reqs)}
+    finally:
+        sch.init_pool = init
+
+
+def batch_dependence(bundle, params, reqs) -> dict:
+    """Whether a decode row depends on how many rows share the dispatch:
+    request 0's decode step alone (one slot) and as row 0 of four slots
+    (the other rows other requests), from the same prefill state; and two
+    of the step's plain PyTorch ops (the RMSNorm's mean, the mLSTM gates'
+    float32 matmul) on one row alone and in four."""
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.serve import engine
+    from repro_torch.serve.scheduler import init_pool, insert_requests
+    prefill = engine.build_prefill(bundle, DENSE_WINDOW)
+    decode = engine.build_decode(bundle)
+    rows = [prefill(params, {"tokens": torch.from_numpy(r.tokens)[None]
+                             .cuda()}) for r in reqs[:DENSE_SLOTS]]
+    toks = torch.stack([lg[:, -1].argmax(-1) for lg, _ in rows]) \
+        .to(torch.int32)
+    out = {}
+    for n in (1, DENSE_SLOTS):
+        pool = init_pool(bundle, n, DENSE_WINDOW, torch.bfloat16, "cuda")
+        for i in range(n):
+            insert_requests(pool, [i], rows[i][1])
+        logits, _ = decode(params, pool, toks[:n])
+        out[n] = logits[0].float()
+    d = (out[1] - out[DENSE_SLOTS]).abs().max().item()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((DENSE_SLOTS, 1, bundle.cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    w = torch.zeros((bundle.cfg.d_model,), device="cuda")
+    u = torch.randn((DENSE_SLOTS, 1536), generator=gen, device="cuda")
+    wg = torch.randn((1536, 8), generator=gen, device="cuda")
+    res = {"decode_row_max_abs_diff": d,
+           "decode_row_equal": d == 0.0,
+           "rmsnorm_row_equal": torch.equal(rmsnorm(x[:1], w),
+                                            rmsnorm(x, w)[:1]),
+           "gates_matmul_row_equal": torch.equal(u[:1] @ wg, (u @ wg)[:1])}
+    log(f"  batch dependence at bf16: request 0's decode logits alone and "
+        f"as row 0 of {DENSE_SLOTS} differ by {d:.3e} (max abs); one row "
+        f"alone and in {DENSE_SLOTS}, bit-equal: RMSNorm "
+        f"{res['rmsnorm_row_equal']}, f32 gates matmul "
+        f"{res['gates_matmul_row_equal']}")
+    return res
+
+
+def bf16_noise(bundle, params, seed: int, prompt: int = 32,
+               steps: int = 4) -> list:
+    """The bf16 forward's logits against the f32 forward's on the same
+    INT8 weights and ``decode_vs_forward``'s tokens (relative to
+    max|f32|): the rounding that the bf16 decode-against-forward check
+    sits beside."""
+    from repro_torch.models import base, model_zoo
+    rng = np.random.default_rng(seed + 12)
+    toks = torch.from_numpy(rng.integers(
+        1, bundle.cfg.vocab_size, size=(1, prompt + steps))
+        .astype(np.int32)).cuda()
+    f32 = model_zoo.build(bundle.cfg, device="cuda", dtype=torch.float32)
+
+    @torch.no_grad()
+    def last(b, upto):
+        carry, ctx = b.embed(params, {"tokens": toks[:, :upto]})
+        carry = base.run_segments(b, params, carry, ctx)
+        return b.head_logits(params, carry)[:, -1].float()
+
+    errs = []
+    for upto in range(prompt, prompt + steps + 1):
+        want = last(f32, upto)
+        errs.append(((last(bundle, upto) - want).abs().max()
+                     / want.abs().max()).item())
+    return errs
+
+
+def serve_xlstm(seed: int) -> dict:
+    """Phase 14a and 14b's bf16 half: xlstm-125m at full width and depth
+    through ``make_scheduler(backend="auto")`` (the slot scheduler, one
+    unpadded request a prefill), the pool's state leaves float32 at a
+    bf16 pool, every prefill and decode dispatch held to
+    ``xlstm_launches``; the slot tokens against per-request ``generate``,
+    the decode against the full forward, a prefill's profile and every
+    distinct ``int8_matmul`` problem against its plain version."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import engine
+    from repro_torch.serve.params import quantize_leaf
+    from repro_torch.serve.scheduler import Request, Scheduler, \
+        make_scheduler
+    cfg = model_zoo.get_config(XLSTM_ARCH)
+    want = xlstm_launches(cfg)
+    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = bundle.init_params(gen, leaf_fn=lambda _, t: quantize_leaf(t))
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    st = tree_stats(params)
+    want_params = model_zoo.count_params(cfg)
+    xc = cfg.xlstm
+    inner = int(xc.proj_factor * cfg.d_model)
+    groups = cfg.num_layers // xc.slstm_every
+    log(f"  {cfg.name}: {cfg.num_layers} layers ({groups} groups of "
+        f"{xc.slstm_every - 1} mLSTM and 1 sLSTM block), d {cfg.d_model}, "
+        f"{cfg.num_heads} heads, mLSTM inner "
+        f"{inner} (head {inner // cfg.num_heads}), chunk {xc.chunk_size}, "
+        f"vocab {cfg.vocab_size}: {st['params'] / 1e9:.3f} B parameters "
+        f"({want_params / 1e9:.3f} B counted on the meta device), INT8 "
+        f"codes and scales {st['int8_bytes'] / 2**30:.3f} GiB, float "
+        f"{st['float_bytes'] / 2**20:.3f} MiB; drawn and quantized in "
+        f"{init_s:.2f} s")
+    problems = []
+    if st["params"] != want_params:
+        problems.append(f"{st['params']} parameters drawn, "
+                        f"{want_params} counted")
+    reqs = dense_requests(seed, cfg.vocab_size)
+    sched = make_scheduler(bundle, params, backend="auto",
+                           num_slots=DENSE_SLOTS, max_len=DENSE_WINDOW,
+                           dtype=torch.bfloat16, device="cuda")
+    if type(sched) is not Scheduler:
+        raise AssertionError(f"backend auto gave {type(sched).__name__}")
+    leaves = sched.pool.caches["seg0_xlstm"]
+    pool = {"shapes": [list(c.shape) for c in leaves],
+            "dtypes": [str(c.dtype) for c in leaves],
+            "bytes": sum(c.nbytes for c in leaves)}
+    log(f"  slot pool ({DENSE_SLOTS} slots, a bf16 pool): leaves "
+        f"{list(zip(pool['shapes'], pool['dtypes']))}, "
+        f"{pool['bytes'] / 2**20:.2f} MiB")
+    if any(c.dtype != torch.float32 for c in leaves):
+        problems.append(f"pool state leaves {pool['dtypes']}")
+    if pool["bytes"] != pool_bytes_slot(bundle, DENSE_SLOTS, DENSE_WINDOW):
+        problems.append("pool_bytes_slot disagrees with the pool")
+    sched.run([Request(rid=-1, tokens=reqs[0].tokens[:64],
+                       max_new_tokens=2)])           # warm-up
+    sched.reset()
+    ms = {"_prefill": [], "_step": []}
+    got_by = {n: [] for n in ms}
+    prefill_rows = []
+
+    def timed(name, inner_fn):
+        def run(*a):
+            before = LAUNCHES["int8_matmul"]
+            if name == "_prefill":
+                prefill_rows.append(tuple(a[1]["tokens"].shape))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = inner_fn(*a)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t) * 1e3)
+            got_by[name].append(
+                {"int8_matmul": LAUNCHES["int8_matmul"] - before})
+            return res
+        return run
+
+    saved = {n: getattr(sched, n) for n in ms}
+    for n in ms:
+        setattr(sched, n, timed(n, saved[n]))
+    shapes: set = set()
+    kernel = ti8.int8_matmul
+
+    def recording(x, q, scale, block=256, p=None):
+        shapes.add((x.shape[0], q.shape[0], q.shape[1], x.dtype))
+        return kernel(x, q, scale, block, p)
+
+    ti8.int8_matmul = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.monotonic()
+    try:
+        comps = sched.run(reqs)
+        torch.cuda.synchronize()
+    finally:
+        ti8.int8_matmul = kernel
+        for n in ms:
+            setattr(sched, n, saved[n])
+    wall = time.monotonic() - t0
+    counts, stats = dict(LAUNCHES), dict(sched.stats)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, rows in got_by.items():
+        bad = [g for g in rows if g != want]
+        if bad:
+            problems.append(f"{name}: {len(bad)} dispatches launched "
+                            f"{bad[0]}, want {want}")
+    lens = [len(r.tokens) for r in reqs]
+    if sorted(prefill_rows) != sorted((1, n) for n in lens):
+        problems.append(f"prefills {prefill_rows}, want one row at each "
+                        f"prompt's length {lens}")
+    if any(c and (n.endswith("_ref") or n.startswith("deq_"))
+           for n, c in counts.items()):
+        problems.append(f"plain versions ran: {counts}")
+    got_toks = {c.rid: c.tokens for c in comps}
+    n_tok = sum(len(t) for t in got_toks.values())
+    per_decode, per_prefill = ({"int8_matmul": sum(
+        g["int8_matmul"] for g in got_by[k]) / len(got_by[k])}
+        for k in ("_step", "_prefill"))
+    out = {"layers": cfg.num_layers, "params": st["params"],
+           "int8_gib": st["int8_bytes"] / 2 ** 30, "init_s": init_s,
+           "tokens_per_s": n_tok / wall, "wall_s": wall, "tokens": n_tok,
+           "mean_ttft_s": float(np.mean([c.ttft for c in comps])),
+           "median_decode_step_ms": statistics.median(ms["_step"]),
+           "median_prefill_ms": statistics.median(ms["_prefill"]),
+           "prefill_ms_total": sum(ms["_prefill"]),
+           "dispatches": {n: len(v) for n, v in ms.items()},
+           "launches": counts, "launches_per_decode_dispatch": per_decode,
+           "launches_per_prefill": per_prefill,
+           "launches_per_dispatch_want": want, "peak_gib": peak,
+           "stats": stats, "pool": pool}
+    log(f"  {n_tok} tokens in {wall:.2f} s -> {out['tokens_per_s']:.1f} "
+        f"tok/s; mean TTFT {out['mean_ttft_s']:.3f} s; median decode "
+        f"dispatch {out['median_decode_step_ms']:.2f} ms, prefill "
+        f"{out['median_prefill_ms']:.2f} ms; dispatches {out['dispatches']};"
+        f" peak {peak:.3f} GiB; launches {counts}; measured a prefill "
+        f"{per_prefill}, a decode dispatch {per_decode} (want {want})")
+    # the slot tokens against per-request ``generate`` (which keeps the
+    # prefill's own float32 state: a pool that rounds it parts from it)
+    want_toks = {}
+    for r in reqs:
+        toks, _ = engine.generate(
+            bundle, params, {"tokens": torch.from_numpy(r.tokens)[None]},
+            steps=r.max_new_tokens - 1, max_len=DENSE_WINDOW,
+            device="cuda")
+        want_toks[r.rid] = toks[0].tolist()
+    # the 4-slot run decodes 4 rows a dispatch where ``generate`` decodes
+    # one: the plain ops' reductions may sum in another order (reported);
+    # one slot runs generate's shapes, so its tokens must be equal, and a
+    # pool that rounds the states to bf16 must part from them (control)
+    same4, first4 = first_divergence(got_toks, want_toks)
+    same1, first1 = first_divergence(
+        slot_tokens(bundle, params, reqs, 1), want_toks)
+    same_c, first_c = first_divergence(
+        slot_tokens(bundle, params, reqs, 1, torch.bfloat16), want_toks)
+    out.update(slot_equals_generate=same1, first_divergence=first1,
+               slot4_equals_generate=same4, slot4_first_divergence=first4,
+               bf16_pool_equals_generate=same_c,
+               bf16_pool_first_divergence=first_c)
+    log(f"  slot tokens against per-request generate (bf16): 1 slot "
+        f"{same1:.3f} of requests equal (first divergence {first1}); "
+        f"{DENSE_SLOTS} slots {same4:.3f} ({first4}); control, 1 slot with "
+        f"the states stored in bf16: {same_c:.3f} ({first_c})")
+    if same1 != 1.0:
+        problems.append(f"slot tokens differ from generate at {first1}")
+    out["batch_dependence"] = batch_dependence(bundle, params, reqs)
+    out.update(profile_decode(sched, reqs[:DENSE_SLOTS]))
+    del sched
+    longest = max(reqs, key=lambda r: len(r.tokens))
+    out["prefill_profile"] = profile_prefill(bundle, params, longest.tokens)
+    errs = decode_vs_forward(bundle, params, seed)
+    noise = bf16_noise(bundle, params, seed)
+    log(f"  {cfg.name} bf16 decode against the full forward (prefill, then "
+        f"4 teacher-forced steps), rel err {['%.2e' % e for e in errs]} "
+        f"(tolerance {BF16_PATH_TOL}); the bf16 forward against the f32 "
+        f"forward at the same lengths {['%.2e' % e for e in noise]}")
+    if max(errs) > BF16_PATH_TOL:
+        problems.append(f"decode against forward {errs}")
+    out["decode_vs_forward_rel"] = errs
+    out["bf16_forward_vs_f32_rel"] = noise
+    del params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(check_shapes(shapes, seed))
+    if problems:
+        raise AssertionError("phase 14a: " + "; ".join(problems))
+    return out
+
+
+def slstm_gate_rows(seed: int) -> list:
+    """Phase 14b: the sLSTM gate projection ``u (M, 768) @ deq(W (768,
+    3072))`` with f32 u (the f32 runs; at bf16 the block hands the kernel
+    bf16 u, as the reference's ``dense`` does) on ``int8_matmul``'s
+    small-M path at decode M 1 and 4: against its plain version (1e-4 of
+    max|plain|, and ``hi_only_rel`` above it), timed beside the plain
+    version, cuBLAS f32 on the weight dequantized and the bound."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.kernels import ref
+    from repro_torch.models import model_zoo
+    cfg = model_zoo.get_config(XLSTM_ARCH)
+    K, N = cfg.d_model, 4 * cfg.d_model
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 24)
+    qt = quant.quantize_blockwise(
+        torch.randn((K, N), generator=gen, device=dev) * 0.02, bits=8,
+        symmetric=True)
+    w_lib = quant.dequantize(qt, torch.float32)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for M in (1, DENSE_SLOTS):
+        x = torch.randn((M, K), generator=gen, device=dev)
+        abs_err, rel = check_against_plain(x, qt)
+        hi_only = i8_hi_only(x, qt)
+        ms = time_ms(lambda: ti8.int8_matmul(x, qt.q, qt.scale), flush)
+        plain_ms = time_ms(lambda: ref.int8_matmul_ref(x, qt.q, qt.scale,
+                                                       256), flush)
+        lib_ms = time_ms(lambda: torch.matmul(x, w_lib), flush)
+        b_ms, b_by = bound(M, K, N, 4)
+        row = {"M": M, "K": K, "N": N, "x": "float32", "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "max_abs_err": abs_err, "rel_err": rel,
+               "hi_only_rel": hi_only,
+               "design": i8_design(M, K, N, torch.float32),
+               "ok": rel <= F32_X_TOL and hi_only > F32_X_TOL}
+        rows.append(row)
+        log(f"  sLSTM gates M={M} K={K} N={N} f32 x: ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (cuBLAS f32) "
+            f"bound_ms={b_ms:.4f} ({b_by}) rel_err={rel:.2e} "
+            f"hi_only_rel={hi_only:.2e} {'ok' if row['ok'] else 'FAIL'}")
+    del qt, w_lib, flush
+    torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"int8_matmul at the sLSTM gates: {bad}")
+    return rows
+
+
+def train_xlstm(seed: int) -> dict:
+    """Phase 14c: xlstm-125m at full width and depth, the ``qgalore``
+    preset at rank 256, 4 x 512 tokens, 4 steps (a refresh at step 0),
+    each step's launches held to what the code implies (a steady step:
+    the forward, every group's recompute and ``dL/dx`` of each, one update
+    a GaLore unit), finite losses, then one more steady step profiled."""
+    from repro_torch.config import QGaLoreConfig, TrainConfig
+    from repro_torch.core import projector
+    from repro_torch.core.optimizers import preset
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import model_zoo
+    from repro_torch.train.trainer import Trainer
+    cfg = model_zoo.get_config(XLSTM_ARCH)
+    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
+    qcfg = preset("qgalore", QGaLoreConfig(rank=XLSTM_RANK))
+    B, S = XLSTM_TRAIN_BATCH
+    tcfg = TrainConfig(seed=seed, global_batch=B, seq_len=S,
+                       steps=XLSTM_TRAIN_STEPS, learning_rate=1e-3,
+                       warmup_steps=1, grad_clip=1.0, log_every=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tr = Trainer(bundle, tcfg, qcfg)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    units = sum(s.nbatch for s in tr.specs if s.galore)
+    fwd = xlstm_launches(cfg)["int8_matmul"]
+    want = {"int8_matmul": 2 * fwd - 1, "int8_matmul_t": fwd,
+            "fused_qgalore_update": units}
+    names = tuple(want) + PLAIN_NAMES
+    sub_s, sub = [], projector.compute_subspace
+
+    def timed_sub(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = sub(*a, **k)
+        torch.cuda.synchronize()
+        sub_s.append(time.perf_counter() - t)
+        return res
+
+    projector.compute_subspace = timed_sub
+    LAUNCHES.clear()
+    try:
+        rows = run_counted(tr, tcfg.steps, names)
+    finally:
+        projector.compute_subspace = sub
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    problems = []
+    for r in rows:
+        w = dict(want, **({"fused_qgalore_update": 0} if r["step"] == 0
+                          else {}))
+        got = {n: r["launches"][n] for n in w}
+        if got != w:
+            problems.append(f"step {r['step']} launches {got} != {w}")
+        plain = {n: c for n, c in r["launches"].items() if n not in w and c}
+        if plain:
+            problems.append(f"step {r['step']} ran plain versions {plain}")
+        if not np.isfinite(r["loss"]):
+            problems.append(f"step {r['step']} loss {r['loss']}")
+    steady = [r["s"] for r in rows[1:]]
+    out = {"layers": cfg.num_layers, "rank": XLSTM_RANK, "units": units,
+           "batch": [B, S], "init_s": init_s,
+           "losses": [r["loss"] for r in rows],
+           "refresh_step_s": rows[0]["s"], "refresh_subspace_s": sum(sub_s),
+           "median_steady_step_ms": statistics.median(steady) * 1e3,
+           "tokens_per_s": B * S / statistics.median(steady),
+           "peak_gib": peak, "launches": dict(LAUNCHES),
+           "launches_per_steady_step": rows[-1]["launches"],
+           "launches_want": want}
+    log(f"  training {cfg.num_layers} layers at full width, rank "
+        f"{XLSTM_RANK}, {B} x {S} tokens: {units} GaLore units; losses "
+        f"{[round(x, 4) for x in out['losses']]}; refresh step "
+        f"{out['refresh_step_s']:.2f} s (subspace {sum(sub_s):.2f} s); "
+        f"median steady step {out['median_steady_step_ms']:.1f} ms; peak "
+        f"{peak:.3f} GiB; a steady step launched "
+        f"{ {n: out['launches_per_steady_step'][n] for n in want} } (want "
+        f"{want})")
+    if problems:
+        raise AssertionError(f"{cfg.name} training: " + "; ".join(problems))
+    out.update(profile_train_step(tr))
+    del tr, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_xlstm(seed: int) -> dict:
+    """Phase 14: xlstm-125m served at full width and depth (14a), its
+    answers (14b: slot tokens against ``generate`` and the bf16 decode
+    against the forward inside 14a; f32 card against CPU at one group;
+    the sLSTM gates at f32 x) and trained at full width and depth
+    (14c)."""
+    from repro_torch.config import replace
+    from repro_torch.models import model_zoo
+    full = model_zoo.get_config(XLSTM_ARCH)
+    log(f"== phase 14: {XLSTM_ARCH} (mLSTM and sLSTM) through the slot "
+        f"scheduler ({DENSE_SLOTS} slots, {DENSE_REQS} requests, prompts "
+        f"{DENSE_PROMPT[0]}-{DENSE_PROMPT[1]}, {DENSE_NEW} new) and trained")
+    card = nvidia_smi_line()
+    log("card:", card)
+    log(f"  cuts: 14a and 14c none (all {full.num_layers} layers at full "
+        f"width); 14b {XLSTM_PARITY_LAYERS} layers, one group (the CPU's "
+        f"plain matmuls), a {XLSTM_PARITY_PROMPT}-token prompt (two chunks "
+        f"of {full.xlstm.chunk_size})")
+    t0 = time.monotonic()
+    serve = serve_xlstm(seed)
+    split = {"14a": time.monotonic() - t0}
+    log(f"  14a {XLSTM_ARCH}: {serve['tokens_per_s']:.1f} tok/s, mean TTFT "
+        f"{serve['mean_ttft_s']:.3f} s, median decode dispatch "
+        f"{serve['median_decode_step_ms']:.2f} ms, INT8 weights "
+        f"{serve['int8_gib']:.3f} GiB, peak {serve['peak_gib']:.3f} GiB, "
+        f"decode idle share {serve['device_idle_share']}, device "
+        f"{serve['profile_step_device_ms']} ms a decode step, measured "
+        f"launches a prefill {serve['launches_per_prefill']}, a decode "
+        f"dispatch {serve['launches_per_decode_dispatch']}, pool "
+        f"{serve['pool']['dtypes']} [{card}]")
+    pcfg = replace(full, num_layers=XLSTM_PARITY_LAYERS)
+    sens = xlstm_sensitivity(pcfg, seed, XLSTM_PARITY_PROMPT)
+    parity = f32_parity_dense(XLSTM_ARCH, seed, cfg=pcfg,
+                              prompt=XLSTM_PARITY_PROMPT,
+                              tol=max(PARITY_TOL, sens["parity_tol"]))
+    parity["sensitivity"] = sens
+    gates = slstm_gate_rows(seed)
+    split["14b"] = time.monotonic() - t0 - split["14a"]
+    training = train_xlstm(seed)
+    wall = time.monotonic() - t0
+    split["14c"] = wall - split["14a"] - split["14b"]
+    parts = ", ".join(f"{k} {v:.1f} s" for k, v in split.items())
+    log(f"  phase 14 in {wall:.1f} s ({parts})")
+    return {"serving": serve, "f32_parity": parity, "slstm_gates": gates,
+            "training": training, "wall_s": wall, "split_s": split,
+            "card": card,
+            "cuts": {"parity": {"layers": XLSTM_PARITY_LAYERS,
+                                "prompt": XLSTM_PARITY_PROMPT}}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3785,7 +4417,7 @@ def main() -> int:
     t0 = time.monotonic()
     if args.only:
         phases = {"1": phase_environment, "11": phase_dense_variants,
-                  "12": phase_moe, "13": phase_mla}
+                  "12": phase_moe, "13": phase_mla, "14": phase_xlstm}
         for name in args.only.split(","):
             fn = phases[name]
             fn() if name == "1" else fn(args.seed)
@@ -3808,6 +4440,7 @@ def main() -> int:
     dense = phase_dense_variants(args.seed)
     moe = phase_moe(args.seed)
     mla = phase_mla(args.seed)
+    xl = phase_xlstm(args.seed)
     log(f"  serving, route off / flash route: tokens/s "
         f"{serving['tokens_per_s']:.1f} / {flash_serving['tokens_per_s']:.1f}"
         f", mean TTFT {serving['mean_ttft_s']:.3f} / "
@@ -3824,7 +4457,7 @@ def main() -> int:
                                   serving, parity, training, flash_rows,
                                   flash_serving, flash_parity, unfused,
                                   training_7b, finetune, paged, dense,
-                                  moe, mla)))
+                                  moe, mla, xl)))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3835,7 +4468,7 @@ def main() -> int:
 def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                  training, flash_rows, flash_serving, flash_parity,
                  unfused, training_7b, finetune, paged, dense, moe,
-                 mla) -> dict:
+                 mla, xl) -> dict:
     """The ``kernels`` line: every kernel with its launches on the main
     paths, errors against its plain version, and times beside its bound;
     the three training kernels also carry their LLaMA-7B rows
@@ -3845,7 +4478,9 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     ``int8_matmul_t`` the tied head's rows (``tied_head``); the three
     their phase 12 and 13 launches (the expert grid axis counted apart as
     ``*_batched``) and both INT8 matmuls the expert problems' rows
-    (``moe``, ``mla``)."""
+    (``moe``, ``mla``); the three their phase 14 launches (xLSTM serving
+    and training), ``int8_matmul`` phase 14's serving, parity and the
+    sLSTM gates' f32-x rows (``xlstm``)."""
     layers = num_layers()
     flash_pick, flash_f32 = (
         next(r for r in flash_rows if (r["B"], r["S"], r["dv"], r["causal"],
@@ -3883,6 +4518,12 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
           for n in ("int8_matmul", "int8_matmul_t")}
     ms_, mt_ = moe["serving"]["launches"], moe["training"]["launches"]
     ls_, lt_ = mla["serving"]["launches"], mla["training"]["launches"]
+    xs_, xt_ = xl["serving"]["launches"], xl["training"]["launches"]
+
+    def xl_paths(name):
+        return {"xlstm_serving": xs_.get(name, 0),
+                "xlstm_training": xt_.get(name, 0)}
+
     def grid_paths(name):
         # each MoE path's launches, 2-D and batched together, and the
         # batched (expert grid axis) apart
@@ -3920,19 +4561,21 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         + dl["int8_matmul"] + sum(
             moe_paths["int8_matmul"][k] for k in (
                 "moe_serving", "moe_training", "mla_serving",
-                "mla_training")),
+                "mla_training")) + sum(xl_paths("int8_matmul").values()),
         "launches_by_path": {"serving": serving["launches"].get(
             "int8_matmul", 0), "training": tl.get("int8_matmul", 0),
             "training_7b": l7.get("int8_matmul", 0),
             **ft_paths("int8_matmul"), "paged_serving": ps["launches"],
             "dense_variants_serving": dl["int8_matmul"],
-            **moe_paths["int8_matmul"]},
+            **moe_paths["int8_matmul"], **xl_paths("int8_matmul")},
         "max_abs_err": max([max_abs, serving["check_max_abs_err"],
                             ps["check_max_abs_err"],
                             moe["serving"]["check_max_abs_err"],
                             moe["serving"]["batched"]["check_max_abs_err"],
                             mla["serving"]["check_max_abs_err"],
-                            mla["serving"]["batched"]["check_max_abs_err"]]
+                            mla["serving"]["batched"]["check_max_abs_err"],
+                            xl["serving"]["check_max_abs_err"]]
+                           + [r["max_abs_err"] for r in xl["slstm_gates"]]
                            + [r["max_abs_err"]
                               for r in i8_7b["per_shape"]
                               + i8f["per_shape"]
@@ -3945,7 +4588,9 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                             moe["serving"]["check_max_rel_err"],
                             moe["serving"]["batched"]["check_max_rel_err"],
                             mla["serving"]["check_max_rel_err"],
-                            mla["serving"]["batched"]["check_max_rel_err"]]
+                            mla["serving"]["batched"]["check_max_rel_err"],
+                            xl["serving"]["check_max_rel_err"]]
+                           + [r["rel_err"] for r in xl["slstm_gates"]]
                            + [r["check_max_rel_err"]
                               for r in dense["serving"].values()]
                            + [r["rel_err"]
@@ -3963,6 +4608,14 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                 "f32_parity": mla["f32_parity"],
                 "expert_rows": lk["int8_matmul_batched"],
                 "timed_as": mla_timed},
+        "xlstm": {"card": xl["card"], "wall_s": xl["wall_s"],
+                  "cuts": xl["cuts"], "serving": xl["serving"],
+                  "f32_parity": xl["f32_parity"],
+                  "slstm_gates_f32_x": xl["slstm_gates"],
+                  "timed_as": ("the sLSTM gate projection (768, 3072) at "
+                               "f32 x, per-call median of 20 after an L2 "
+                               "flush; library: cuBLAS f32 (TF32 off) on "
+                               "the weight dequantized beforehand")},
         "paged_serving": dict(paged["serving"], parity=paged["parity"]),
         "max_rel_err_7b": max(r["rel_err"] for r in i8_7b["per_shape"]
                               + i8f["per_shape"]),
@@ -4011,12 +4664,15 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         + l7.get("int8_matmul_t", 0)
         + sum(ft_paths("int8_matmul_t").values()) + dl["int8_matmul_t"]
         + moe_paths["int8_matmul_t"]["moe_training"]
-        + moe_paths["int8_matmul_t"]["mla_training"],
+        + moe_paths["int8_matmul_t"]["mla_training"]
+        + xt_.get("int8_matmul_t", 0),
         "launches_by_path": {"training": tl.get("int8_matmul_t", 0),
                              "training_7b": l7.get("int8_matmul_t", 0),
                              **ft_paths("int8_matmul_t"),
                              "tied_head_serving": dl["int8_matmul_t"],
-                             **moe_paths["int8_matmul_t"]},
+                             **moe_paths["int8_matmul_t"],
+                             "xlstm_training": xt_.get("int8_matmul_t",
+                                                       0)},
         "max_abs_err": max(r["max_abs_err"] for r in tk["int8_matmul_t"]
                            + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]
                            + dense["tied_head"]
@@ -4065,7 +4721,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         + l7.get("fused_qgalore_update", 0)
         + sum(ft_paths("fused_qgalore_update").values())
         + mt_.get("fused_qgalore_update", 0)
-        + lt_.get("fused_qgalore_update", 0),
+        + lt_.get("fused_qgalore_update", 0)
+        + xt_.get("fused_qgalore_update", 0),
         "launches_by_path": {"training": tl.get("fused_qgalore_update", 0),
                              "training_7b": l7.get("fused_qgalore_update",
                                                    0),
@@ -4073,7 +4730,9 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                              "moe_training": mt_.get("fused_qgalore_update",
                                                      0),
                              "mla_training": lt_.get("fused_qgalore_update",
-                                                     0)},
+                                                     0),
+                             "xlstm_training": xt_.get(
+                                 "fused_qgalore_update", 0)},
         "max_abs_err": max(r["max_abs_err"]
                            for r in tk["fused_qgalore_update"]
                            + tk7["fused_qgalore_update"]
@@ -4208,7 +4867,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "moe_training": {k: v for k, v in moe["training"].items()
                          if k != "int8_matmul_t_batched"},
         "mla_training": {k: v for k, v in mla["training"].items()
-                         if k != "int8_matmul_t_batched"}}
+                         if k != "int8_matmul_t_batched"},
+        "xlstm_training": xl["training"]}
     return kernels
 
 

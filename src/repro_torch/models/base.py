@@ -9,7 +9,8 @@ loop and hands each block its slice (:func:`layer_params`). ``carry`` is a
 dict holding ``h`` (hidden states) and, for an MoE model, ``aux`` (the
 routers' load-balance loss, a 0-d float32 that the blocks accumulate and
 ``head_loss`` adds); ``ctx`` is shared read-only state (positions,
-lengths) built by ``embed``.
+lengths) built by ``embed``. A layer's cache is a tuple of leaves of any
+length: GQA's and MLA's pairs, an xLSTM group's seven states.
 """
 from __future__ import annotations
 
@@ -32,7 +33,11 @@ class SegmentDef:
     prefill: Callable
     # (layer_params, carry, cache_slice, ctx) -> (carry, cache_slice)
     decode: Callable
-    # (batch, max_len) -> per-layer cache shapes, each leading with batch
+    # (batch, max_len) -> per-layer cache leaves as ``(shape, dtype)``
+    # pairs: every shape leads with the batch axis (a recurrent state
+    # too; an inner block stack sits after it), and a dtype of None means
+    # the pool's dtype (attention K/V), while a recurrent state names its
+    # own (float32), which the pool keeps whatever its dtype
     cache_shapes: Callable
     # chunk-append (the paged runtime's prefill): (layer_params, carry,
     # cache_slice, ctx) -> (carry, cache_slice), where carry["h"] holds a

@@ -1,10 +1,11 @@
 """Architecture registry of the port: the dense decoder-only family (the
 LLaMA configs, mistral-nemo-12b, yi-9b, qwen3-32b, gemma-7b), the VLM
-backbone internvl2-2b, the mixture of experts qwen3-moe-30b-a3b, and
+backbone internvl2-2b, the mixture of experts qwen3-moe-30b-a3b,
 deepseek-v3-671b (MLA, shared experts, leading dense layers, multi-token
-prediction). The other families of the JAX package (xLSTM, the SSM
-hybrid, encoder-decoder) are refused by name, with the ROADMAP sub-slice
-that brings each."""
+prediction) and the recurrent xlstm-125m (mLSTM and sLSTM blocks,
+``models/xlstm_model.py``). The other families of the JAX package (the
+SSM hybrid, encoder-decoder) are refused by name, with the ROADMAP
+sub-slice that brings each."""
 from __future__ import annotations
 
 import importlib
@@ -20,14 +21,13 @@ from repro_torch.models.base import ModelBundle
 ARCH_IDS = ("llama-60m", "llama-130m", "llama-350m", "llama-1b",
             "llama-7b", "mistral-nemo-12b", "yi-9b", "qwen3-32b",
             "gemma-7b", "internvl2-2b", "qwen3-moe-30b-a3b",
-            "deepseek-v3-671b")
+            "deepseek-v3-671b", "xlstm-125m")
 
 # the JAX package's other architectures, and the ROADMAP queue 1 sub-slice
 # that ports each
-LATER = {"xlstm-125m": "4d (xLSTM)", "zamba2-2.7b": "4e (the SSM hybrid)",
+LATER = {"zamba2-2.7b": "4e (the SSM hybrid)",
          "seamless-m4t-medium": "4f (encoder-decoder)"}
-_FAMILY_SLICE = {"xlstm": LATER["xlstm-125m"], "ssm": LATER["zamba2-2.7b"],
-                 "hybrid": LATER["zamba2-2.7b"],
+_FAMILY_SLICE = {"ssm": LATER["zamba2-2.7b"], "hybrid": LATER["zamba2-2.7b"],
                  "encdec": LATER["seamless-m4t-medium"]}
 FLASH_MAX_HEAD_DIM = 128    # csrc/flash_attention.cu takes d <= 128
 
@@ -60,18 +60,30 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
 def check_config(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP sub-slice for any
     part of ``cfg`` the port does not have: families other than ``dense``,
-    ``vlm`` and ``moe``. qk-norm, GeGLU, tied embeddings, the VLM prefix,
-    a mixture of experts (``cfg.moe``, with shared experts and leading
-    dense layers), MLA (``attention == "mla"`` with ``cfg.mla``) and
-    multi-token prediction at ``mtp_depth`` 1 are ported.
+    ``vlm``, ``moe`` and ``xlstm``. qk-norm, GeGLU, tied embeddings, the
+    VLM prefix, a mixture of experts (``cfg.moe``, with shared experts and
+    leading dense layers), MLA (``attention == "mla"`` with ``cfg.mla``)
+    and multi-token prediction at ``mtp_depth`` 1 are ported.
 
     ``mtp_depth`` above 1 is refused by name: the JAX package builds one
     MTP block whatever the depth, so the port would compute depth 1 under
-    another number (ROADMAP queue 3, a deviation by design)."""
+    another number (ROADMAP queue 3, a deviation by design). So is a
+    nonzero ``xlstm.mlstm_head_dim``: the JAX package always splits the
+    mLSTM's inner width evenly over the heads, whatever the field says."""
     if cfg.family in _FAMILY_SLICE:
         _refuse(cfg, f"the {cfg.family} family", _FAMILY_SLICE[cfg.family])
-    if cfg.family not in ("dense", "vlm", "moe"):
+    if cfg.family not in ("dense", "vlm", "moe", "xlstm"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if cfg.family == "xlstm":
+        if cfg.xlstm is None:
+            raise ValueError(f"{cfg.name}: family 'xlstm' needs cfg.xlstm")
+        if cfg.xlstm.mlstm_head_dim:
+            raise NotImplementedError(
+                f"{cfg.name}: mlstm_head_dim {cfg.xlstm.mlstm_head_dim} is "
+                "refused: the JAX package splits the mLSTM's inner width "
+                "over the heads whatever it says (ROADMAP queue 3); use "
+                "mlstm_head_dim 0")
+        return
     if cfg.attention not in ("gqa", "mla"):
         raise ValueError(f"{cfg.name}: unknown attention {cfg.attention!r}")
     if cfg.attention == "mla" and cfg.mla is None:
@@ -96,8 +108,19 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
     query and key width 192) is refused here, never sent to the einsum
     path in silence;
     ``split_layers`` splits the block stack into two segments
-    (``transformer.build``)."""
+    (``transformer.build``). The xLSTM family (``xlstm_model.build``) has
+    neither: it has no attention for the flag to route, and the JAX
+    package refuses to split it."""
     check_config(cfg)
+    if cfg.family == "xlstm":
+        if flash_attention:
+            raise ValueError(f"{cfg.name}: flash_attention routes attention, "
+                             "and the xlstm family has none")
+        if split_layers:
+            raise ValueError("split_layers unsupported for family xlstm")
+        from repro_torch.models import xlstm_model
+        return xlstm_model.build(cfg, device=resolve_device(device),
+                                 dtype=dtype)
     if flash_attention and qk_width(cfg) > FLASH_MAX_HEAD_DIM:
         what = ("MLA's query and key width (qk_nope_head_dim + "
                 "qk_rope_head_dim)" if cfg.attention == "mla" else "head_dim")

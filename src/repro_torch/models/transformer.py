@@ -117,10 +117,14 @@ def block_append(lp, carry, cache, ctx, cfg: ModelConfig, *, dtype):
 
 
 def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    """The K/V (or MLA's latent and rope key) windows, in the pool's
+    dtype."""
     if cfg.attention == "mla":
-        return attention.mla_cache_shapes(cfg, batch, max_len)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return (shape, shape)
+        shapes = attention.mla_cache_shapes(cfg, batch, max_len)
+    else:
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        shapes = (shape, shape)
+    return tuple((s, None) for s in shapes)
 
 
 def _head_logits(params, h, cfg: ModelConfig, dtype):

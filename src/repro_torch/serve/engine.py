@@ -5,7 +5,8 @@ contract, with stacked per-layer caches (the counterpart of
 INT8 QTensor parameters are consumed directly: every matmul streams codes
 through ``kernels.ops.quantized_dense``. Caches are ``(L, B, Smax, KH,
 hd)`` per segment (MLA's compressed pair ``(L, B, Smax, kv_lora_rank)``
-and ``(L, B, Smax, qk_rope_head_dim)``). Per-row ``lengths`` drive every positional effect
+and ``(L, B, Smax, qk_rope_head_dim)``; an xLSTM group's seven float32
+states, which have no time axis). Per-row ``lengths`` drive every positional effect
 (RoPE, cache write slot, attention mask), so one decode step serves rows
 at different positions.
 
@@ -65,9 +66,10 @@ def build_prefill(bundle: ModelBundle, max_len: int,
     position 0 for an empty row); causal attention keeps the pads (to the
     right) out of valid positions, and decode masks their K/V beyond
     ``lengths`` until it is overwritten. A bundle without
-    ``ragged_prefill_ok`` (MoE: capacity-limited routing couples the rows)
-    refuses ``pad_id``; send it unpadded prompts (full-length
-    ``batch["lengths"]`` stay legal).
+    ``ragged_prefill_ok`` (MoE: capacity-limited routing couples the rows;
+    xLSTM: a recurrent state would run on through the pads) refuses
+    ``pad_id``; send it unpadded prompts (full-length ``batch["lengths"]``
+    stay legal).
     """
     if pad_id is not None and not bundle.ragged_prefill_ok:
         raise ValueError(
@@ -110,14 +112,14 @@ def build_prefill(bundle: ModelBundle, max_len: int,
 
 def _run_cached(seg, method, stack, caches, carry, ctx, capture):
     """Walk one segment's layers through ``method`` (``seg.decode`` or
-    ``seg.append``) on its cache slices; returns the carry and, with
-    ``capture``, each layer's captured pytree stacked along a new layer
-    axis (else None: the slices were written in place)."""
-    kc, vc = caches
+    ``seg.append``) on its cache slices (however many leaves a layer
+    has); returns the carry and, with ``capture``, each layer's captured
+    pytree stacked along a new layer axis (else None: the slices were
+    written in place)."""
     captured = []
     for layer in range(seg.n_layers):
         carry, cache = method(layer_params(stack, layer), carry,
-                              (kc[layer], vc[layer]), ctx)
+                              tuple(c[layer] for c in caches), ctx)
         if capture is not None:
             captured.append(capture(cache, ctx))
     if capture is None:

@@ -433,9 +433,9 @@ class PagedScheduler(Scheduler):
 
         self.caches = {
             bundle.seg_key(i): tuple(
-                torch.zeros((seg.n_layers,) + shape, dtype=dtype,
+                torch.zeros((seg.n_layers,) + shape, dtype=dt or dtype,
                             device=self.device)
-                for shape in seg.cache_shapes(num_blocks, block_size))
+                for shape, dt in seg.cache_shapes(num_blocks, block_size))
             for i, seg in enumerate(bundle.segments)}
         # two-phase step: the step programs read the pool (gather) and
         # return fresh K/V + a write plan; pool_write_kv then writes them

@@ -5,7 +5,7 @@
 
 * a **KV-cache pool**: one ``DecodeState`` whose batch axis is a fixed set
   of ``num_slots`` slots (cache tensors ``(L, num_slots, max_len, KH,
-  hd)``);
+  hd)``; a recurrent model's states ``(L, num_slots, ...)`` in float32);
 * :func:`insert_requests` writes the rows of a group prefill into their
   slots, in place;
 * :class:`Scheduler` admits pending requests into free slots (one ragged
@@ -88,12 +88,14 @@ class _Slot:
 
 def init_pool(bundle: ModelBundle, num_slots: int, max_len: int,
               dtype=torch.bfloat16, device=None) -> DecodeState:
-    """A zero-filled slot pool."""
+    """A zero-filled slot pool: each leaf in its own dtype where the
+    segment names one (a recurrent state's float32), else ``dtype``."""
     dev = resolve_device(device)
     caches = {
         bundle.seg_key(i): tuple(
-            torch.zeros((seg.n_layers,) + shape, dtype=dtype, device=dev)
-            for shape in seg.cache_shapes(num_slots, max_len))
+            torch.zeros((seg.n_layers,) + shape, dtype=dt or dtype,
+                        device=dev)
+            for shape, dt in seg.cache_shapes(num_slots, max_len))
         for i, seg in enumerate(bundle.segments)}
     return DecodeState(caches, torch.zeros((num_slots,), dtype=torch.int32,
                                            device=dev))

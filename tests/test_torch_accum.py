@@ -28,6 +28,7 @@ from repro_torch.train.trainer import Trainer
 
 from test_torch_train import (TCFG_KW, _jcfg, _tcfg, align_signs_to_jax,
                               jax_batches, jax_state_np, jax_uniforms)
+from torch_one_thread import one_thread  # noqa: F401
 
 STEPS = 8
 ACCUM = 2

@@ -35,6 +35,7 @@ from repro_torch.train.trainer import Trainer
 
 from test_torch_train import (_deq, align_signs_to_jax,
                               jax_batches, jax_state_np, jax_uniforms)
+from torch_one_thread import one_thread  # noqa: F401
 
 # tests/test_trainer.py's adaptive-rank configuration: a rank-8 -> 4 shrink
 # at step 8 of a 12-step run

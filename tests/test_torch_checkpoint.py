@@ -34,6 +34,7 @@ from repro_torch.train.trainer import Trainer
 
 from test_torch_train import (QCFG_KW, TCFG_KW, align_signs_to_jax,
                               jax_batches, jax_state_np, jax_uniforms)
+from torch_one_thread import one_thread  # noqa: F401
 
 CELL = ShapeCell("tiny", seq_len=32, global_batch=4, kind="train")
 ADA_KW = dict(QCFG_KW, galore_embeddings=True, adaptive_rank=True,

@@ -899,3 +899,66 @@ def test_moe_serving_on_the_card_matches_cpu(cuda):
     assert not any(k.endswith("_ref") or k.startswith("deq_")
                    for k in n_g)
     assert n_c.get("deq_matmul_batched")
+
+
+def test_int8_matmul_f32_x_slstm_gates(cuda):
+    """xlstm-125m's sLSTM gate projection at f32 x and decode M 4 (four
+    slots), K 768, N 3072: the small-M path's two passes within 1e-4 of
+    max|plain|."""
+    g = torch.Generator(device=cuda).manual_seed(768)
+    qt = quant.quantize_blockwise(torch.randn((768, 3072), generator=g,
+                                              device=cuda) * 0.02, 8,
+                                  symmetric=True)
+    x = torch.randn((4, 768), generator=g, device=cuda)
+    assert ti8.plan(4, 768, 3072).path == 0
+    LAUNCHES.clear()
+    got = ti8.int8_matmul(x, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert LAUNCHES["int8_matmul"] == 1
+    want = ref.int8_matmul_ref(x, qt.q, qt.scale, 256)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= 1e-4
+
+
+def test_xlstm_smoke_serves_on_the_card_matches_cpu(cuda):
+    """xlstm-125m smoke (f32) on the card and on the CPU, the same codes:
+    the slot scheduler gives equal greedy tokens, its pool keeps the
+    states in float32, and the card runs the kernels and no plain
+    version."""
+    import numpy as np
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.params import quantize_leaf
+    from repro_torch.serve.scheduler import Request, make_scheduler
+    bundles = {dev: model_zoo.build_arch("xlstm-125m", smoke=True,
+                                         device=dev, dtype=torch.float32)
+               for dev in ("cpu", "cuda")}
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p_gpu = bundles["cuda"].init_params(
+        gen, leaf_fn=lambda _, t: quantize_leaf(t))
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        return t.to("cpu")
+
+    params = {"cpu": to_cpu(p_gpu), "cuda": p_gpu}
+    rng = np.random.default_rng(4)
+    reqs = [(i, rng.integers(1, 512, size=int(rng.integers(3, 40)))
+             .astype(np.int32).tolist(), int(rng.integers(2, 8)))
+            for i in range(6)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sched = make_scheduler(bundles[dev], params[dev], num_slots=3,
+                               max_len=48, dtype=torch.bfloat16, device=dev)
+        assert type(sched).__name__ == "Scheduler"
+        assert all(c.dtype == torch.float32
+                   for c in sched.pool.caches["seg0_xlstm"])
+        LAUNCHES.clear()
+        comps = sched.run([Request(*r) for r in reqs])
+        out[dev] = ({c.rid: c.tokens for c in comps}, dict(LAUNCHES))
+    (t_c, n_c), (t_g, n_g) = out["cpu"], out["cuda"]
+    assert t_g == t_c
+    assert n_g.get("int8_matmul")
+    assert not any(k.endswith("_ref") or k.startswith("deq_")
+                   for k in n_g)
+    assert n_c.get("deq_matmul")

@@ -20,7 +20,7 @@ from repro.models.transformer import _head_logits as j_head
 from repro.train import stack as jstack
 from repro.train import step as jstep
 from repro_torch.config import MLAConfig, MoEConfig, ShapeCell, \
-    TrainConfig, replace
+    TrainConfig, XLSTMConfig, replace
 from repro_torch.core import qgalore, quant
 from repro_torch.core.optimizers import preset
 from repro_torch.data import synthetic
@@ -297,15 +297,22 @@ def test_refusals_name_the_sub_slice():
         num_experts=4, top_k=2, expert_ff=32))
     assert not model_zoo.build(moe_cfg, device="cpu").ragged_prefill_ok
     assert "qwen3-moe-30b-a3b" not in model_zoo.LATER
-    # MLA and MTP (4c) are ported: built, not refused
+    # MLA and MTP (4c) and xLSTM (4d) are ported: built, not refused
     for cfg, sub in ((replace(moe_cfg, attention="mla", mla=MLAConfig()),
                       "4c"),
                      (replace(base_cfg, attention="mla", mla=MLAConfig()),
                       "4c"),
                      (replace(base_cfg, mtp_depth=1), "4c"),
-                     (replace(base_cfg, family="xlstm"), "4d"),
+                     (replace(base_cfg, family="xlstm", xlstm=XLSTMConfig(
+                         slstm_every=2)), "4d"),
                      (replace(base_cfg, family="hybrid"), "4e"),
                      (replace(base_cfg, family="encdec"), "4f")):
+        if sub == "4d":
+            built = model_zoo.build(cfg, device="meta")
+            assert [s.name for s in built.segments] == ["xlstm"]
+            assert not engine.append_ok(built)
+            assert not built.ragged_prefill_ok
+            continue
         if sub == "4c":
             built = model_zoo.build(cfg, device="meta")
             assert engine.append_ok(built) == (cfg.attention != "mla")

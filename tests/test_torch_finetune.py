@@ -41,6 +41,7 @@ from repro_torch.train.trainer import Trainer
 from test_torch_train import (aligned_svd, jax_batches, jax_state_np,  # noqa
                               jax_uniforms)
 from test_torch_transform import to_jax
+from torch_one_thread import one_thread  # noqa: F401
 
 STEPS = 6
 # run()'s smoke settings for 6 steps

@@ -17,6 +17,7 @@ from repro.kernels.int8_matmul import int8_matmul as pallas_int8_matmul
 from repro_torch.core import quant as tq
 from repro_torch.kernels import LAUNCHES, build, ops, ref
 from repro_torch.kernels import int8_matmul as ti8
+from torch_one_thread import one_thread  # noqa: F401
 
 
 def _problem(M, K, N, seed=0):

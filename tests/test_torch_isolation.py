@@ -57,7 +57,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.configs.gemma_7b, "
             "repro_torch.configs.internvl2_2b, repro_torch.models.moe, "
             "repro_torch.configs.qwen3_moe_30b_a3b, "
-            "repro_torch.configs.deepseek_v3_671b; "
+            "repro_torch.configs.deepseek_v3_671b, "
+            "repro_torch.models.xlstm, repro_torch.models.xlstm_model, "
+            "repro_torch.configs.xlstm_125m; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")
@@ -99,11 +101,12 @@ def test_entry_points_refuse_without_device(no_card):
 def test_unported_architectures_raise():
     with pytest.raises(ValueError, match="not ported"):
         model_zoo.get_config("gpt-2")
-    # MoE (sub-slice 4b) and MLA/MTP (4c) are ported; xLSTM (4d) still
-    # raises by name
+    # MoE (sub-slice 4b), MLA/MTP (4c) and xLSTM (4d) are ported; the SSM
+    # hybrid (4e) still raises by name
     assert model_zoo.get_config("deepseek-v3-671b").attention == "mla"
-    with pytest.raises(NotImplementedError, match="sub-slice 4d"):
-        model_zoo.get_config("xlstm-125m")
+    assert model_zoo.get_config("xlstm-125m").family == "xlstm"
+    with pytest.raises(NotImplementedError, match="sub-slice 4e"):
+        model_zoo.get_config("zamba2-2.7b")
     base = model_zoo.get_config("llama-60m", smoke=True)
     from repro_torch.config import MLAConfig, MoEConfig, replace
     mla = model_zoo.build(replace(base, attention="mla", mla=MLAConfig()),

@@ -13,6 +13,7 @@ import torch
 
 from repro.launch import train as jtrain
 from repro_torch.launch import train
+from torch_one_thread import one_thread  # noqa: F401
 
 ARGS = ["--arch", "llama-60m", "--smoke", "--steps", "6", "--batch", "4",
         "--seq", "32", "--adaptive-rank"]

@@ -37,6 +37,7 @@ from repro_torch.train.trainer import Trainer
 
 from test_models_smoke import make_batch
 from test_torch_serve import _to_numpy
+from torch_one_thread import one_thread  # noqa: F401
 
 ARCH = "deepseek-v3-671b"
 CELL = JShapeCell("t", seq_len=12, global_batch=2, kind="train")
@@ -49,17 +50,6 @@ def _maxerr(a, b):
     a = np.asarray(a, np.float32)
     b = np.asarray(b, np.float32)
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-6)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The smoke shapes are tiny: one intra-op thread spends no time in
-    the thread pool's barriers, which dominate when the test workers
-    share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -42,6 +42,7 @@ from test_models_smoke import make_batch
 from test_torch_serve import _to_numpy
 from test_torch_train import align_signs_to_jax, jax_batches, \
     jax_state_np, jax_uniforms
+from torch_one_thread import one_thread  # noqa: F401
 
 ARCH = "qwen3-moe-30b-a3b"
 CELL = JShapeCell("t", seq_len=12, global_batch=2, kind="train")

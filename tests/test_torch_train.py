@@ -41,6 +41,7 @@ from repro_torch.models import base, model_zoo
 from repro_torch.serve.params import from_jax_state
 from repro_torch.train import stack, step
 from repro_torch.train.trainer import Trainer
+from torch_one_thread import one_thread  # noqa: F401
 
 # the configuration of tests/test_golden.py
 QCFG_KW = dict(rank=8, min_dim=32, update_interval=4, adaptive_k=1,
