@@ -236,7 +236,9 @@ Phases (any failure exits non-zero):
    each launch ``int8_matmul`` 59 times (5 an mLSTM block, 4 an sLSTM
    block, the head), with no plain version; the pool's seven state
    leaves must be float32 at a bf16 pool; the slot tokens must equal
-   per-request ``generate``'s; a decode step and a 421-token prefill
+   per-request ``generate``'s; one decode row alone and among 4 from the
+   same prefill state, at bf16 (reported) and f32 (within 1e-3 of
+   max|logits|); a decode step and a 421-token prefill
    profiled (the sLSTM's loop over time and the mLSTM's chunk loop timed
    apart); every distinct problem against its plain version. (b) The bf16
    decode against the forward (0.1 of max|logits|); at f32, one group (6
@@ -247,10 +249,37 @@ Phases (any failure exits non-zero):
    (c) 4 Q-GaLore steps at full width and depth (rank 256, 4 x 512
    tokens, a refresh at step 0), every step's launches held to what the
    code implies, finite losses, one more steady step profiled.
+15. The SSM hybrid. (a) zamba2-2.7b at full width and depth (54 layers:
+   9 superblocks of 5 Mamba2 blocks and a site of the shared attention
+   block), bf16, drawn one superblock at a time, phase 11a's traffic
+   through ``make_scheduler("auto")`` (the slot scheduler, 4 slots, one
+   unpadded request a prefill): a prefill and a decode dispatch each
+   launch ``int8_matmul`` 208 times (2 a Mamba2 block, 13 a site, the
+   head), with no plain version; the pool's SSM states must be float32
+   and its conv windows, K and V bf16; the slot tokens must equal
+   per-request ``generate``'s; 14a's decode-row probe; a decode step and
+   a prefill profiled (the
+   SSD chunk loops timed apart); every distinct problem against its
+   plain version. (b) The bf16 decode against the forward (0.1 of
+   max|logits|); at f32, one superblock (6 layers) and a 300-token prompt
+   (two chunks of 256, the second padded) the card against the CPU
+   (within the larger of 1e-4 and the measured amplification x 1e-4,
+   equal greedy tokens). (c) The same prompts through a bundle built
+   with ``flash_attention=True``: 9 ``flash_attention`` launches a
+   prefill, the logits within 0.1 of the einsum route's, every flash
+   problem against its plain version; the d = 80 kernel at B 1, S 512,
+   32 heads, bf16 and f32, against its plain version and timed beside
+   it, SDPA and the bound. (d) 4 Q-GaLore steps at full width and depth
+   (rank 512, randomized subspace, 4 x 512 tokens, a refresh at step
+   0), every step's launches held to what the code implies (a steady
+   step: 415 ``int8_matmul``, 208 ``int8_matmul_t``, 108
+   ``fused_qgalore_update``), finite losses, each step's peak, and the
+   shared block's gradient norm nonzero at every step; one more steady
+   step profiled.
 
 ``python3 chip_smoke.py --only 12`` (or ``1,12``, ``11``, ``13``,
-``14``) runs those phases alone for development and prints no kernels
-line and no result.
+``14``, ``15``) runs those phases alone for development and prints no
+kernels line and no result.
 
 The last three lines are the kernels JSON (all seven kernels;
 ``int8_matmul``'s and ``int8_matmul_t``'s training step, flash's prefill
@@ -259,8 +288,9 @@ three training kernels also carry their LLaMA-7B pre-training and
 fine-tuning rows, ``int8_matmul`` its paged serving runs and both INT8
 matmuls phase 11's, 12's and 13's (the expert grid axis counted apart),
 ``int8_matmul_t`` the tied head's rows; the three training kernels
-phase 14's launches, ``int8_matmul`` its serving run and the sLSTM
-gates' f32-x rows),
+phase 14's and 15's launches, ``int8_matmul`` their serving runs and the
+sLSTM gates' f32-x rows, ``flash_attention`` phase 15c's prefills and
+its d = 80 rows),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository's ``src/``
 beside it, the script exits non-zero and prints no result.
@@ -1477,14 +1507,16 @@ def check_i8_problems(probs, mult: dict) -> dict:
 
 def profile_train_step(tr) -> dict:
     """Device busy time against the host clock over one more steady step
-    (after the counted run). If the profiler fails, its numbers are null
-    and the error is kept."""
+    (after the counted run). Only device activity is recorded: a step
+    enqueues up to ~10^5 host ops (xLSTM's time loops), which the
+    profiler would time and then take a minute to aggregate, and no
+    host row is reported. If the profiler fails, its numbers are null and
+    the error is kept."""
     from torch.profiler import ProfilerActivity, profile
     step = tr.start_step
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             tr.run(step + 1)
             torch.cuda.synchronize()
@@ -2770,6 +2802,10 @@ DENSE_WINDOW = DENSE_PROMPT[1] + DENSE_NEW
 # position, RoPE angle or missing qk-norm moves them by O(1), ten times
 # this bar or more.
 BF16_PATH_TOL = 0.1
+# a decode row alone against the same row among DENSE_SLOTS at f32, from
+# the same prefill state (of max|logits|): rounding moves it by ~1e-6, a
+# row or slot mixed up by O(1)
+BATCH_ROW_TOL = 1e-3
 TIED_MS = (1, 8, 16, DENSE_SLOTS * DENSE_PROMPT[1])
 
 
@@ -2984,7 +3020,8 @@ def f32_parity_dense(arch: str, seed: int, cfg=None, prompt: int = 12,
         problems.append(f"CPU launches {n_c}, want {plain}")
     if rel > tol:
         problems.append(f"rel err {rel:.2e}")
-    if not same_greedy and (cfg.moe is not None or cfg.family == "xlstm"):
+    if not same_greedy and (cfg.moe is not None
+                            or cfg.family in ("xlstm", "hybrid")):
         problems.append("greedy tokens differ")
     del p_gpu, p_cpu, gpu, cpu
     gc.collect()
@@ -3812,13 +3849,13 @@ def xlstm_launches(cfg) -> dict:
             + 1}
 
 
-def profile_prefill(bundle, params, tokens) -> dict:
+def profile_prefill(bundle, params, tokens, module, loops) -> dict:
     """One prompt's prefill under the profiler (device busy against the
-    host clock), then the same prefill with the mLSTM chunk loops and the
-    sLSTM time loops timed apart (a synchronize at each one's entry and
-    exit, so the rest is the matmuls and norms between them)."""
+    host clock), then the same prefill with the functions ``loops`` of
+    ``module`` (xLSTM's mLSTM chunk loop and sLSTM time loop, the SSD's
+    chunk loop) timed apart (a synchronize at each one's entry and exit,
+    so the rest is the matmuls and norms between them)."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import xlstm
     from repro_torch.serve import engine
     prefill = engine.build_prefill(bundle, len(tokens) + 1)
     batch = {"tokens": torch.from_numpy(tokens)[None].cuda()}
@@ -3839,8 +3876,8 @@ def profile_prefill(bundle, params, tokens) -> dict:
         log(f"  PROFILER FAILED: {e}")
         out.update(profile_wall_ms=None, profile_device_ms=None,
                    device_idle_share=None, profile_error=str(e))
-    spent = {"mlstm_chunked": [], "slstm_scan": []}
-    saved = {n: getattr(xlstm, n) for n in spent}
+    spent = {n: [] for n in loops}
+    saved = {n: getattr(module, n) for n in spent}
 
     def timed(name):
         def run(*a, **k):
@@ -3853,7 +3890,7 @@ def profile_prefill(bundle, params, tokens) -> dict:
         return run
 
     for n in spent:
-        setattr(xlstm, n, timed(n))
+        setattr(module, n, timed(n))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3862,30 +3899,30 @@ def profile_prefill(bundle, params, tokens) -> dict:
         out["split_wall_ms"] = (time.perf_counter() - t0) * 1e3
     finally:
         for n, fn in saved.items():
-            setattr(xlstm, n, fn)
+            setattr(module, n, fn)
     for n, ts in spent.items():
         out[n + "_ms"] = sum(ts)
         out[n + "_calls"] = len(ts)
+    parts = ", ".join(f"{n} {out[n + '_ms']:.1f} ms ({out[n + '_calls']} "
+                      f"calls)" for n in loops)
     log(f"  prefill of {len(tokens)} tokens: wall "
         f"{out['profile_wall_ms']} ms, device busy "
         f"{out['profile_device_ms']} ms, idle share "
         f"{out['device_idle_share']}; timed apart: wall "
-        f"{out['split_wall_ms']:.1f} ms, sLSTM time loops "
-        f"{out['slstm_scan_ms']:.1f} ms ({out['slstm_scan_calls']} calls), "
-        f"mLSTM chunk loops {out['mlstm_chunked_ms']:.1f} ms "
-        f"({out['mlstm_chunked_calls']} calls)")
+        f"{out['split_wall_ms']:.1f} ms, {parts}")
     return out
 
 
-def xlstm_sensitivity(cfg, seed: int, prompt: int) -> dict:
-    """How far xLSTM's f32 logits move for a rounding-sized change of
-    their input: on the CPU (plain versions), one prompt's prefill with
-    the embeddings as drawn and scaled by ``1 + 2^-20 * sign(noise)``;
+def rounding_sensitivity(cfg, seed: int, prompt: int) -> dict:
+    """How far a model's f32 logits move for a rounding-sized change of
+    their input (phases 14b and 15b): on the CPU (plain versions), one
+    prompt's prefill with the embeddings (``carry["h"]``) as drawn and
+    scaled by ``1 + 2^-20 * sign(noise)``;
     ``amplification`` is the logits' relative change over 2^-20. The
     card's f32 matmuls each agree with their plain versions to
     ``F32_X_TOL`` of max|plain| (two bf16 passes), so the f32 parity bar
-    for this model is ``amplification * F32_X_TOL``, not the
-    well-conditioned models' ``PARITY_TOL``."""
+    for such a model is ``amplification * F32_X_TOL`` where that exceeds
+    the well-conditioned models' ``PARITY_TOL``."""
     from repro_torch.models import model_zoo
     from repro_torch.serve import engine
     from repro_torch.serve.params import quantize_leaf
@@ -3944,45 +3981,67 @@ def slot_tokens(bundle, params, reqs, slots: int, state_dtype=None) -> dict:
         sch.init_pool = init
 
 
-def batch_dependence(bundle, params, reqs) -> dict:
+def batch_dependence(bundle, params, reqs, ops: bool = False) -> dict:
     """Whether a decode row depends on how many rows share the dispatch:
     request 0's decode step alone (one slot) and as row 0 of four slots
-    (the other rows other requests), from the same prefill state; and two
-    of the step's plain PyTorch ops (the RMSNorm's mean, the mLSTM gates'
-    float32 matmul) on one row alone and in four."""
+    (the other rows other requests), from the same prefill state, at bf16
+    and at f32 (a bundle and pool of f32 activations on the same INT8
+    weights). Reordered sums move the f32 row by rounding only; a fault in
+    multi-slot decode (a state written to or read from another slot, a row
+    mixed into another) moves it by O(1), so the f32 row must agree within
+    ``BATCH_ROW_TOL`` of max|logits|. With ``ops``, two of xLSTM's plain
+    PyTorch ops (the RMSNorm's mean, the mLSTM gates' float32 matmul) on
+    one row alone and in four."""
+    from repro_torch.models import model_zoo
     from repro_torch.models.layers import rmsnorm
     from repro_torch.serve import engine
     from repro_torch.serve.scheduler import init_pool, insert_requests
-    prefill = engine.build_prefill(bundle, DENSE_WINDOW)
-    decode = engine.build_decode(bundle)
-    rows = [prefill(params, {"tokens": torch.from_numpy(r.tokens)[None]
-                             .cuda()}) for r in reqs[:DENSE_SLOTS]]
-    toks = torch.stack([lg[:, -1].argmax(-1) for lg, _ in rows]) \
-        .to(torch.int32)
-    out = {}
-    for n in (1, DENSE_SLOTS):
-        pool = init_pool(bundle, n, DENSE_WINDOW, torch.bfloat16, "cuda")
-        for i in range(n):
-            insert_requests(pool, [i], rows[i][1])
-        logits, _ = decode(params, pool, toks[:n])
-        out[n] = logits[0].float()
-    d = (out[1] - out[DENSE_SLOTS]).abs().max().item()
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    x = torch.randn((DENSE_SLOTS, 1, bundle.cfg.d_model), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    w = torch.zeros((bundle.cfg.d_model,), device="cuda")
-    u = torch.randn((DENSE_SLOTS, 1536), generator=gen, device="cuda")
-    wg = torch.randn((1536, 8), generator=gen, device="cuda")
-    res = {"decode_row_max_abs_diff": d,
-           "decode_row_equal": d == 0.0,
-           "rmsnorm_row_equal": torch.equal(rmsnorm(x[:1], w),
-                                            rmsnorm(x, w)[:1]),
-           "gates_matmul_row_equal": torch.equal(u[:1] @ wg, (u @ wg)[:1])}
-    log(f"  batch dependence at bf16: request 0's decode logits alone and "
-        f"as row 0 of {DENSE_SLOTS} differ by {d:.3e} (max abs); one row "
-        f"alone and in {DENSE_SLOTS}, bit-equal: RMSNorm "
-        f"{res['rmsnorm_row_equal']}, f32 gates matmul "
-        f"{res['gates_matmul_row_equal']}")
+    res = {}
+    for dt, b in ((torch.bfloat16, bundle),
+                  (torch.float32, model_zoo.build(bundle.cfg, device="cuda",
+                                                  dtype=torch.float32))):
+        prefill = engine.build_prefill(b, DENSE_WINDOW)
+        decode = engine.build_decode(b)
+        rows = [prefill(params, {"tokens": torch.from_numpy(r.tokens)[None]
+                                 .cuda()}) for r in reqs[:DENSE_SLOTS]]
+        toks = torch.stack([lg[:, -1].argmax(-1) for lg, _ in rows]) \
+            .to(torch.int32)
+        out = {}
+        for n in (1, DENSE_SLOTS):
+            pool = init_pool(b, n, DENSE_WINDOW, dt, "cuda")
+            for i in range(n):
+                insert_requests(pool, [i], rows[i][1])
+            logits, _ = decode(params, pool, toks[:n])
+            out[n] = logits[0].float()
+        d = (out[1] - out[DENSE_SLOTS]).abs().max().item()
+        pre = "" if dt == torch.bfloat16 else "f32_"
+        res.update({pre + "decode_row_max_abs_diff": d,
+                    pre + "decode_row_rel_diff": d / out[1].abs().max().item(),
+                    pre + "decode_row_equal": d == 0.0})
+        del rows, pool, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    msg = (f"  batch dependence: request 0's decode logits alone and as row "
+           f"0 of {DENSE_SLOTS} differ by {res['decode_row_max_abs_diff']:.3e}"
+           f" max abs ({res['decode_row_rel_diff']:.2e} of max|logits|) at "
+           f"bf16, {res['f32_decode_row_max_abs_diff']:.3e} "
+           f"({res['f32_decode_row_rel_diff']:.2e}) at f32 (tolerance "
+           f"{BATCH_ROW_TOL})")
+    if ops:
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn((DENSE_SLOTS, 1, bundle.cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        w = torch.zeros((bundle.cfg.d_model,), device="cuda")
+        u = torch.randn((DENSE_SLOTS, 1536), generator=gen, device="cuda")
+        wg = torch.randn((1536, 8), generator=gen, device="cuda")
+        res.update(rmsnorm_row_equal=torch.equal(rmsnorm(x[:1], w),
+                                                 rmsnorm(x, w)[:1]),
+                   gates_matmul_row_equal=torch.equal(u[:1] @ wg,
+                                                      (u @ wg)[:1]))
+        msg += (f"; one row alone and in {DENSE_SLOTS}, bit-equal: RMSNorm "
+                f"{res['rmsnorm_row_equal']}, f32 gates matmul "
+                f"{res['gates_matmul_row_equal']}")
+    log(msg)
     return res
 
 
@@ -4015,12 +4074,39 @@ def bf16_noise(bundle, params, seed: int, prompt: int = 32,
 
 def serve_xlstm(seed: int) -> dict:
     """Phase 14a and 14b's bf16 half: xlstm-125m at full width and depth
-    through ``make_scheduler(backend="auto")`` (the slot scheduler, one
-    unpadded request a prefill), the pool's state leaves float32 at a
-    bf16 pool, every prefill and decode dispatch held to
-    ``xlstm_launches``; the slot tokens against per-request ``generate``,
-    the decode against the full forward, a prefill's profile and every
-    distinct ``int8_matmul`` problem against its plain version."""
+    through ``serve_recurrent``, the pool's seven state leaves float32,
+    the mLSTM chunk loops and sLSTM time loops of a prefill timed apart,
+    and the batch dependence of a decode row."""
+    from repro_torch.models import model_zoo, xlstm
+    cfg = model_zoo.get_config(XLSTM_ARCH)
+    xc = cfg.xlstm
+    inner = int(xc.proj_factor * cfg.d_model)
+    groups = cfg.num_layers // xc.slstm_every
+    return serve_recurrent(
+        cfg, seed, tag="14a", want=xlstm_launches(cfg),
+        describe=(f"{cfg.num_layers} layers ({groups} groups of "
+                  f"{xc.slstm_every - 1} mLSTM and 1 sLSTM block), d "
+                  f"{cfg.d_model}, {cfg.num_heads} heads, mLSTM inner "
+                  f"{inner} (head {inner // cfg.num_heads}), chunk "
+                  f"{xc.chunk_size}, vocab {cfg.vocab_size}"),
+        pool_dtypes=[torch.float32] * 7,
+        loops=(xlstm, ("mlstm_chunked", "slstm_scan")), probe_ops=True)
+
+
+def serve_recurrent(cfg, seed: int, *, tag: str, want: dict, describe: str,
+                    pool_dtypes: list, loops: tuple, by_layer: bool = False,
+                    probe_ops: bool = False) -> dict:
+    """Phases 14a and 15a (and the bf16 halves of 14b and 15b): a
+    recurrent model (a bundle without ``ragged_prefill_ok``) at full width
+    and depth through ``make_scheduler(backend="auto")`` (the slot
+    scheduler, one unpadded request a prefill), the pool's leaf dtypes
+    held to ``pool_dtypes`` at a bf16 pool, every prefill and decode
+    dispatch held to ``want``; the slot tokens against per-request
+    ``generate``, the decode against the full forward, a decode step's and
+    a prefill's profile (``loops``: a module and the functions of it timed
+    apart) and every distinct ``int8_matmul`` problem against its plain
+    version. ``by_layer`` draws the weights one layer of a group at a
+    time; ``probe_ops`` adds xLSTM's plain ops to ``batch_dependence``."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels import int8_matmul as ti8
     from repro_torch.models import model_zoo
@@ -4028,31 +4114,24 @@ def serve_xlstm(seed: int) -> dict:
     from repro_torch.serve.params import quantize_leaf
     from repro_torch.serve.scheduler import Request, Scheduler, \
         make_scheduler
-    cfg = model_zoo.get_config(XLSTM_ARCH)
-    want = xlstm_launches(cfg)
     bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = bundle.init_params(gen, leaf_fn=lambda _, t: quantize_leaf(t))
+    params = bundle.init_params(gen, leaf_fn=lambda _, t: quantize_leaf(t),
+                                by_layer=by_layer)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     st = tree_stats(params)
     want_params = model_zoo.count_params(cfg)
-    xc = cfg.xlstm
-    inner = int(xc.proj_factor * cfg.d_model)
-    groups = cfg.num_layers // xc.slstm_every
-    log(f"  {cfg.name}: {cfg.num_layers} layers ({groups} groups of "
-        f"{xc.slstm_every - 1} mLSTM and 1 sLSTM block), d {cfg.d_model}, "
-        f"{cfg.num_heads} heads, mLSTM inner "
-        f"{inner} (head {inner // cfg.num_heads}), chunk {xc.chunk_size}, "
-        f"vocab {cfg.vocab_size}: {st['params'] / 1e9:.3f} B parameters "
+    log(f"  {cfg.name}: {describe}: {st['params'] / 1e9:.3f} B parameters "
         f"({want_params / 1e9:.3f} B counted on the meta device), INT8 "
         f"codes and scales {st['int8_bytes'] / 2**30:.3f} GiB, float "
         f"{st['float_bytes'] / 2**20:.3f} MiB; drawn and quantized in "
-        f"{init_s:.2f} s")
+        f"{init_s:.2f} s, peak {init_peak:.3f} GiB")
     problems = []
     if st["params"] != want_params:
         problems.append(f"{st['params']} parameters drawn, "
@@ -4063,15 +4142,15 @@ def serve_xlstm(seed: int) -> dict:
                            dtype=torch.bfloat16, device="cuda")
     if type(sched) is not Scheduler:
         raise AssertionError(f"backend auto gave {type(sched).__name__}")
-    leaves = sched.pool.caches["seg0_xlstm"]
+    leaves = sched.pool.caches[bundle.seg_key(0)]
     pool = {"shapes": [list(c.shape) for c in leaves],
             "dtypes": [str(c.dtype) for c in leaves],
             "bytes": sum(c.nbytes for c in leaves)}
     log(f"  slot pool ({DENSE_SLOTS} slots, a bf16 pool): leaves "
         f"{list(zip(pool['shapes'], pool['dtypes']))}, "
         f"{pool['bytes'] / 2**20:.2f} MiB")
-    if any(c.dtype != torch.float32 for c in leaves):
-        problems.append(f"pool state leaves {pool['dtypes']}")
+    if [c.dtype for c in leaves] != pool_dtypes:
+        problems.append(f"pool leaves {pool['dtypes']}, want {pool_dtypes}")
     if pool["bytes"] != pool_bytes_slot(bundle, DENSE_SLOTS, DENSE_WINDOW):
         problems.append("pool_bytes_slot disagrees with the pool")
     sched.run([Request(rid=-1, tokens=reqs[0].tokens[:64],
@@ -4140,6 +4219,7 @@ def serve_xlstm(seed: int) -> dict:
         for k in ("_step", "_prefill"))
     out = {"layers": cfg.num_layers, "params": st["params"],
            "int8_gib": st["int8_bytes"] / 2 ** 30, "init_s": init_s,
+           "init_peak_gib": init_peak,
            "tokens_per_s": n_tok / wall, "wall_s": wall, "tokens": n_tok,
            "mean_ttft_s": float(np.mean([c.ttft for c in comps])),
            "median_decode_step_ms": statistics.median(ms["_step"]),
@@ -4184,11 +4264,15 @@ def serve_xlstm(seed: int) -> dict:
         f"the states stored in bf16: {same_c:.3f} ({first_c})")
     if same1 != 1.0:
         problems.append(f"slot tokens differ from generate at {first1}")
-    out["batch_dependence"] = batch_dependence(bundle, params, reqs)
+    bd = out["batch_dependence"] = batch_dependence(bundle, params, reqs,
+                                                    ops=probe_ops)
+    if bd["f32_decode_row_rel_diff"] > BATCH_ROW_TOL:
+        problems.append(f"f32 decode row depends on the batch: {bd}")
     out.update(profile_decode(sched, reqs[:DENSE_SLOTS]))
     del sched
     longest = max(reqs, key=lambda r: len(r.tokens))
-    out["prefill_profile"] = profile_prefill(bundle, params, longest.tokens)
+    out["prefill_profile"] = profile_prefill(bundle, params, longest.tokens,
+                                             *loops)
     errs = decode_vs_forward(bundle, params, seed)
     noise = bf16_noise(bundle, params, seed)
     log(f"  {cfg.name} bf16 decode against the full forward (prefill, then "
@@ -4204,7 +4288,7 @@ def serve_xlstm(seed: int) -> dict:
     torch.cuda.empty_cache()
     out.update(check_shapes(shapes, seed))
     if problems:
-        raise AssertionError("phase 14a: " + "; ".join(problems))
+        raise AssertionError(f"phase {tag}: " + "; ".join(problems))
     return out
 
 
@@ -4375,7 +4459,7 @@ def phase_xlstm(seed: int) -> dict:
         f"dispatch {serve['launches_per_decode_dispatch']}, pool "
         f"{serve['pool']['dtypes']} [{card}]")
     pcfg = replace(full, num_layers=XLSTM_PARITY_LAYERS)
-    sens = xlstm_sensitivity(pcfg, seed, XLSTM_PARITY_PROMPT)
+    sens = rounding_sensitivity(pcfg, seed, XLSTM_PARITY_PROMPT)
     parity = f32_parity_dense(XLSTM_ARCH, seed, cfg=pcfg,
                               prompt=XLSTM_PARITY_PROMPT,
                               tol=max(PARITY_TOL, sens["parity_tol"]))
@@ -4392,6 +4476,337 @@ def phase_xlstm(seed: int) -> dict:
             "card": card,
             "cuts": {"parity": {"layers": XLSTM_PARITY_LAYERS,
                                 "prompt": XLSTM_PARITY_PROMPT}}}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the SSM hybrid
+# ---------------------------------------------------------------------------
+
+ZAMBA_ARCH = "zamba2-2.7b"
+# 15b: one superblock (5 Mamba2 blocks and a site) of the nine, for the
+# CPU's plain matmuls at full width; a prompt of two SSD chunks of 256, the
+# second padded
+ZAMBA_PARITY_LAYERS, ZAMBA_PARITY_PROMPT = 6, 300
+# 15c: a single-request prefill's site attention, d = dv = 80
+ZAMBA_FLASH = (1, 512, 32, 32, 80, 80, True)
+# 15d: rank 512, benchmarks/table2_memory.py's llama-1b row (it has no
+# 2.7B row), the randomized subspace method; 4 x 512 tokens (two chunks);
+# step 0 refreshes, steps 1-3 are steady
+ZAMBA_RANK, ZAMBA_TRAIN_STEPS, ZAMBA_TRAIN_BATCH = 512, 4, (4, 512)
+
+
+def zamba_launches(cfg) -> dict:
+    """A prefill's or decode dispatch's ``int8_matmul`` launches:
+    ``in_proj`` and ``out_proj`` of every Mamba2 block; at every site
+    ``fuse``, ``wq``, ``wk``, ``wv``, ``wo``, both LoRA pairs' ``A`` and
+    ``B`` (64 wide at full width), the FFN's three and ``site_out``; the
+    head."""
+    hc = cfg.hybrid
+    return {"int8_matmul": cfg.num_layers // hc.attn_every
+            * (2 * (hc.attn_every - 1) + 13) + 1}
+
+
+def serve_zamba(seed: int) -> dict:
+    """Phase 15a and 15b's bf16 half: zamba2-2.7b at full width and depth
+    through ``serve_recurrent``, drawn one superblock at a time; the pool's
+    conv windows, K and V bf16 and its SSM states float32; a prefill's SSD
+    chunk loops timed apart from the rest."""
+    from repro_torch.models import model_zoo, ssm
+    cfg = model_zoo.get_config(ZAMBA_ARCH)
+    sc, hc = cfg.ssm, cfg.hybrid
+    d_inner = sc.expand * cfg.d_model
+    return serve_recurrent(
+        cfg, seed, tag="15a", want=zamba_launches(cfg),
+        describe=(f"{cfg.num_layers} layers ({cfg.num_layers // hc.attn_every}"
+                  f" superblocks of {hc.attn_every - 1} Mamba2 blocks and a "
+                  f"site of the shared block), d {cfg.d_model}, Mamba2 inner "
+                  f"{d_inner} ({d_inner // sc.head_dim} heads of "
+                  f"{sc.head_dim}, state {sc.state_dim}, conv "
+                  f"{sc.conv_kernel}, chunk {sc.chunk_size}), attention "
+                  f"{cfg.num_heads}/{cfg.num_kv_heads} x "
+                  f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, LoRA rank "
+                  f"{hc.shared_lora_rank}, vocab {cfg.vocab_size}"),
+        pool_dtypes=[torch.bfloat16, torch.float32, torch.bfloat16,
+                     torch.bfloat16],
+        loops=(ssm, ("ssd_chunked",)), by_layer=True)
+
+
+def zamba_flash(seed: int) -> dict:
+    """Phase 15c: the 15a prompts prefilled, one request at a time, through
+    a bundle built with ``flash_attention=True`` and through the einsum
+    bundle on the same weights: each flash prefill launches
+    ``flash_attention`` once a site and ``int8_matmul`` as 15a, no plain
+    version; its last logits within ``BF16_PATH_TOL`` of the einsum
+    route's (equal greedy tokens reported); every distinct flash problem
+    against its plain version; then the d = 80 kernel at a single-request
+    prefill, bf16 and f32, against its plain version and timed beside it,
+    SDPA and the bound."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import engine
+    from repro_torch.serve.params import quantize_leaf
+    cfg = model_zoo.get_config(ZAMBA_ARCH)
+    sites = cfg.num_layers // cfg.hybrid.attn_every
+    bundles = {route: model_zoo.build(cfg, device="cuda",
+                                      dtype=torch.bfloat16,
+                                      flash_attention=route == "flash")
+               for route in ("einsum", "flash")}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = bundles["einsum"].init_params(
+        gen, leaf_fn=lambda _, t: quantize_leaf(t), by_layer=True)
+    want = {"einsum": zamba_launches(cfg),
+            "flash": {**zamba_launches(cfg), "flash_attention": sites}}
+    shapes: set = set()
+    kernel = tflash.flash_attention
+
+    def recording(q, k, v, *, causal=True):
+        shapes.add((q.shape[0], q.shape[1], q.shape[2], k.shape[2],
+                    q.shape[3], v.shape[3], causal, q.dtype))
+        return kernel(q, k, v, causal=causal)
+
+    problems, errs, same, ms = [], [], [], {r: [] for r in bundles}
+    flash_launches = 0
+    tflash.flash_attention = recording
+    try:
+        for r in dense_requests(seed, cfg.vocab_size):
+            batch = {"tokens": torch.from_numpy(r.tokens)[None].cuda()}
+            got = {}
+            for route, b in bundles.items():
+                LAUNCHES.clear()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, _ = engine.build_prefill(b, len(r.tokens) + 1)(
+                    params, batch)
+                torch.cuda.synchronize()
+                ms[route].append((time.perf_counter() - t) * 1e3)
+                n = {k: c for k, c in LAUNCHES.items() if c}
+                if n != want[route]:
+                    problems.append(f"{route} prefill of {len(r.tokens)} "
+                                    f"tokens launched {n}, want "
+                                    f"{want[route]}")
+                got[route] = logits[:, -1].float()
+            flash_launches += LAUNCHES["flash_attention"]
+            e, f = got["einsum"], got["flash"]
+            errs.append(((f - e).abs().max() / e.abs().max()).item())
+            same.append(bool(torch.equal(f.argmax(-1), e.argmax(-1))))
+    finally:
+        tflash.flash_attention = kernel
+    del params, bundles
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  flash route against the einsum route, {len(errs)} prefills "
+        f"(bf16): last logits rel err {['%.2e' % e for e in errs]} "
+        f"(tolerance {BF16_PATH_TOL}), greedy equal {sum(same)}/{len(same)};"
+        f" median prefill ms einsum {statistics.median(ms['einsum']):.2f}, "
+        f"flash {statistics.median(ms['flash']):.2f}; {flash_launches} "
+        f"flash launches ({sites} a prefill)")
+    if max(errs) > BF16_PATH_TOL:
+        problems.append(f"flash route logits {errs}")
+    out = {"prefills": len(errs), "logits_rel_err": errs,
+           "greedy_equal": sum(same) / len(same),
+           "median_prefill_ms": {r: statistics.median(v)
+                                 for r, v in ms.items()},
+           "launches": {"flash_attention": flash_launches},
+           "launches_per_prefill": want["flash"]}
+    out.update(check_flash_shapes(shapes, seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 25)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        row = flash_row(*ZAMBA_FLASH, dt, gen, flush)
+        row["note"] = "d and dv padded to the kernel's 128-wide template"
+        rows.append(row)
+        log(f"  flash d=80 B={row['B']} S={row['S']} H={row['H']} "
+            f"{row['dtype']}: ms={row['ms']:.4f} plain_ms="
+            f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+            f"(SDPA) bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"tflops={row['tflops']:.1f} rel_err={row['rel_err']:.2e}"
+            + (f" hi_only_rel={row['hi_only_rel']:.2e}"
+               if "hi_only_rel" in row else "")
+            + f" {'ok' if row['ok'] else 'FAIL'}")
+        if not row["ok"]:
+            problems.append(f"flash d=80 {row['dtype']}: {row}")
+    del flush
+    torch.cuda.empty_cache()
+    out["d80_rows"] = rows
+    if problems:
+        raise AssertionError("phase 15c: " + "; ".join(problems))
+    return out
+
+
+def train_zamba(seed: int) -> dict:
+    """Phase 15d: zamba2-2.7b at full width and depth, the ``qgalore``
+    preset at rank 512 with the randomized subspace method, 4 x 512
+    tokens, 4 steps (a refresh at step 0), each step's launches held to
+    what the code implies (a steady step: the forward, every superblock's
+    recompute and ``dL/dx`` of each, one update a GaLore unit), finite
+    losses, each step's peak, and each step's shared-block gradient norm
+    (summed over its nine sites, which must be nonzero); then one more
+    steady step profiled."""
+    from repro_torch.config import QGaLoreConfig, TrainConfig
+    from repro_torch.core import projector
+    from repro_torch.core.optimizers import preset
+    from repro_torch.core.qgalore import flatten
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import model_zoo
+    from repro_torch.train import stack
+    from repro_torch.train.trainer import Trainer
+    cfg = model_zoo.get_config(ZAMBA_ARCH)
+    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
+    qcfg = preset("qgalore", QGaLoreConfig(rank=ZAMBA_RANK,
+                                           subspace_method="randomized"))
+    B, S = ZAMBA_TRAIN_BATCH
+    tcfg = TrainConfig(seed=seed, global_batch=B, seq_len=S,
+                       steps=ZAMBA_TRAIN_STEPS, learning_rate=1e-3,
+                       warmup_steps=1, grad_clip=1.0, log_every=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tr = Trainer(bundle, tcfg, qcfg)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    units = sum(s.nbatch for s in tr.specs if s.galore)
+    fwd = zamba_launches(cfg)["int8_matmul"]
+    want = {"int8_matmul": 2 * fwd - 1, "int8_matmul_t": fwd,
+            "fused_qgalore_update": units}
+    names = tuple(want) + PLAIN_NAMES
+    sub_s, sub = [], projector.compute_subspace
+    grads_fn, shared_norms, peaks = stack.fused_value_and_grad, [], []
+
+    def timed_sub(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = sub(*a, **k)
+        torch.cuda.synchronize()
+        sub_s.append(time.perf_counter() - t)
+        return res
+
+    def with_shared_norm(*a, **k):
+        res = grads_fn(*a, **k)
+        shared_norms.append(math.sqrt(sum(
+            float((t.float() ** 2).sum())
+            for _, t in flatten(res[1]["shared_attn"]))))
+        return res
+
+    first = tr.start_step
+
+    def at_step(step):
+        # each step's peak, read before the next step starts
+        if step > first:
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+
+    projector.compute_subspace = timed_sub
+    stack.fused_value_and_grad = with_shared_norm
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    LAUNCHES.clear()
+    try:
+        rows = run_counted(tr, tcfg.steps, names, at_step=at_step)
+    finally:
+        projector.compute_subspace = sub
+        stack.fused_value_and_grad = grads_fn
+    peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    launches = dict(LAUNCHES)
+    problems = []
+    for r in rows:
+        w = dict(want, **({"fused_qgalore_update": 0} if r["step"] == 0
+                          else {}))
+        got = {n: r["launches"][n] for n in w}
+        if got != w:
+            problems.append(f"step {r['step']} launches {got} != {w}")
+        plain = {n: c for n, c in r["launches"].items() if n not in w and c}
+        if plain:
+            problems.append(f"step {r['step']} ran plain versions {plain}")
+        if not np.isfinite(r["loss"]):
+            problems.append(f"step {r['step']} loss {r['loss']}")
+    if not (len(shared_norms) == len(rows)
+            and all(n > 0 and np.isfinite(n) for n in shared_norms)):
+        problems.append(f"shared-block gradient norms {shared_norms}")
+    steady = [r["s"] for r in rows[1:]]
+    out = {"layers": cfg.num_layers, "rank": ZAMBA_RANK, "units": units,
+           "subspace_method": qcfg.subspace_method, "batch": [B, S],
+           "init_s": init_s, "init_peak_gib": init_peak,
+           "losses": [r["loss"] for r in rows],
+           "grad_norms": [r["grad_norm"] for r in rows],
+           "shared_grad_norms": shared_norms,
+           "refresh_step_s": rows[0]["s"], "refresh_subspace_s": sum(sub_s),
+           "median_steady_step_ms": statistics.median(steady) * 1e3,
+           "tokens_per_s": B * S / statistics.median(steady),
+           "peak_gib_by_step": peaks, "peak_gib": max(peaks),
+           "launches": launches,
+           "launches_per_steady_step": rows[-1]["launches"],
+           "launches_want": want}
+    log(f"  training {cfg.num_layers} layers at full width, rank "
+        f"{ZAMBA_RANK} (randomized), {B} x {S} tokens: {units} GaLore units;"
+        f" losses {[round(x, 4) for x in out['losses']]}; shared-block "
+        f"gradient norms {['%.4g' % n for n in shared_norms]}; refresh step "
+        f"{out['refresh_step_s']:.2f} s (subspace {sum(sub_s):.2f} s); "
+        f"median steady step {out['median_steady_step_ms']:.1f} ms; init "
+        f"{init_s:.1f} s, peak {init_peak:.3f} GiB; peak by step "
+        f"{['%.3f' % p for p in peaks]} GiB; a steady step launched "
+        f"{ {n: out['launches_per_steady_step'][n] for n in want} } (want "
+        f"{want})")
+    if problems:
+        raise AssertionError(f"{cfg.name} training: " + "; ".join(problems))
+    out.update(profile_train_step(tr))
+    del tr, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zamba(seed: int) -> dict:
+    """Phase 15: zamba2-2.7b served at full width and depth (15a), its
+    answers (15b: slot tokens against ``generate`` and the bf16 decode
+    against the forward inside 15a; f32 card against CPU at one
+    superblock), the flash route at head_dim 80 (15c) and training at
+    full width and depth (15d)."""
+    from repro_torch.config import replace
+    from repro_torch.models import model_zoo
+    full = model_zoo.get_config(ZAMBA_ARCH)
+    log(f"== phase 15: {ZAMBA_ARCH} (Mamba2 and a shared attention block) "
+        f"through the slot scheduler ({DENSE_SLOTS} slots, {DENSE_REQS} "
+        f"requests, prompts {DENSE_PROMPT[0]}-{DENSE_PROMPT[1]}, {DENSE_NEW} "
+        f"new), the flash route, and trained")
+    card = nvidia_smi_line()
+    log("card:", card)
+    log(f"  cuts: 15a, 15c and 15d none (all {full.num_layers} layers at "
+        f"full width); 15b {ZAMBA_PARITY_LAYERS} layers, one superblock "
+        f"(the CPU's plain matmuls), a {ZAMBA_PARITY_PROMPT}-token prompt "
+        f"(two chunks of {full.ssm.chunk_size}, the second padded)")
+    t0 = time.monotonic()
+    serve = serve_zamba(seed)
+    split = {"15a": time.monotonic() - t0}
+    log(f"  15a {ZAMBA_ARCH}: {serve['tokens_per_s']:.1f} tok/s, mean TTFT "
+        f"{serve['mean_ttft_s']:.3f} s, median decode dispatch "
+        f"{serve['median_decode_step_ms']:.2f} ms, INT8 weights "
+        f"{serve['int8_gib']:.3f} GiB, peak {serve['peak_gib']:.3f} GiB, "
+        f"decode idle share {serve['device_idle_share']}, device "
+        f"{serve['profile_step_device_ms']} ms a decode step, measured "
+        f"launches a prefill {serve['launches_per_prefill']}, a decode "
+        f"dispatch {serve['launches_per_decode_dispatch']}, pool "
+        f"{serve['pool']['dtypes']} [{card}]")
+    pcfg = replace(full, num_layers=ZAMBA_PARITY_LAYERS)
+    sens = rounding_sensitivity(pcfg, seed, ZAMBA_PARITY_PROMPT)
+    parity = f32_parity_dense(ZAMBA_ARCH, seed, cfg=pcfg,
+                              prompt=ZAMBA_PARITY_PROMPT,
+                              tol=max(PARITY_TOL, sens["parity_tol"]))
+    parity["sensitivity"] = sens
+    split["15b"] = time.monotonic() - t0 - sum(split.values())
+    flash = zamba_flash(seed)
+    split["15c"] = time.monotonic() - t0 - sum(split.values())
+    training = train_zamba(seed)
+    wall = time.monotonic() - t0
+    split["15d"] = wall - sum(split.values())
+    parts = ", ".join(f"{k} {v:.1f} s" for k, v in split.items())
+    log(f"  phase 15 in {wall:.1f} s ({parts})")
+    return {"serving": serve, "f32_parity": parity, "flash": flash,
+            "training": training, "wall_s": wall, "split_s": split,
+            "card": card,
+            "cuts": {"parity": {"layers": ZAMBA_PARITY_LAYERS,
+                                "prompt": ZAMBA_PARITY_PROMPT}}}
 
 
 def main() -> int:
@@ -4417,7 +4832,8 @@ def main() -> int:
     t0 = time.monotonic()
     if args.only:
         phases = {"1": phase_environment, "11": phase_dense_variants,
-                  "12": phase_moe, "13": phase_mla, "14": phase_xlstm}
+                  "12": phase_moe, "13": phase_mla, "14": phase_xlstm,
+                  "15": phase_zamba}
         for name in args.only.split(","):
             fn = phases[name]
             fn() if name == "1" else fn(args.seed)
@@ -4441,6 +4857,7 @@ def main() -> int:
     moe = phase_moe(args.seed)
     mla = phase_mla(args.seed)
     xl = phase_xlstm(args.seed)
+    zb = phase_zamba(args.seed)
     log(f"  serving, route off / flash route: tokens/s "
         f"{serving['tokens_per_s']:.1f} / {flash_serving['tokens_per_s']:.1f}"
         f", mean TTFT {serving['mean_ttft_s']:.3f} / "
@@ -4457,7 +4874,7 @@ def main() -> int:
                                   serving, parity, training, flash_rows,
                                   flash_serving, flash_parity, unfused,
                                   training_7b, finetune, paged, dense,
-                                  moe, mla, xl)))
+                                  moe, mla, xl, zb)))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4468,7 +4885,7 @@ def main() -> int:
 def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                  training, flash_rows, flash_serving, flash_parity,
                  unfused, training_7b, finetune, paged, dense, moe,
-                 mla, xl) -> dict:
+                 mla, xl, zb) -> dict:
     """The ``kernels`` line: every kernel with its launches on the main
     paths, errors against its plain version, and times beside its bound;
     the three training kernels also carry their LLaMA-7B rows
@@ -4480,7 +4897,10 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     ``*_batched``) and both INT8 matmuls the expert problems' rows
     (``moe``, ``mla``); the three their phase 14 launches (xLSTM serving
     and training), ``int8_matmul`` phase 14's serving, parity and the
-    sLSTM gates' f32-x rows (``xlstm``)."""
+    sLSTM gates' f32-x rows (``xlstm``); the three their phase 15 launches
+    (the hybrid's serving and training), ``int8_matmul`` phase 15's
+    serving and parity (``zamba``), ``flash_attention`` 15c's prefills and
+    its d = 80 rows (``head_dim_80``)."""
     layers = num_layers()
     flash_pick, flash_f32 = (
         next(r for r in flash_rows if (r["B"], r["S"], r["dv"], r["causal"],
@@ -4519,10 +4939,14 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     ms_, mt_ = moe["serving"]["launches"], moe["training"]["launches"]
     ls_, lt_ = mla["serving"]["launches"], mla["training"]["launches"]
     xs_, xt_ = xl["serving"]["launches"], xl["training"]["launches"]
+    zs_, zt_ = zb["serving"]["launches"], zb["training"]["launches"]
+    zf = zb["flash"]
 
     def xl_paths(name):
         return {"xlstm_serving": xs_.get(name, 0),
-                "xlstm_training": xt_.get(name, 0)}
+                "xlstm_training": xt_.get(name, 0),
+                "zamba_serving": zs_.get(name, 0),
+                "zamba_training": zt_.get(name, 0)}
 
     def grid_paths(name):
         # each MoE path's launches, 2-D and batched together, and the
@@ -4574,7 +4998,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                             moe["serving"]["batched"]["check_max_abs_err"],
                             mla["serving"]["check_max_abs_err"],
                             mla["serving"]["batched"]["check_max_abs_err"],
-                            xl["serving"]["check_max_abs_err"]]
+                            xl["serving"]["check_max_abs_err"],
+                            zb["serving"]["check_max_abs_err"]]
                            + [r["max_abs_err"] for r in xl["slstm_gates"]]
                            + [r["max_abs_err"]
                               for r in i8_7b["per_shape"]
@@ -4589,7 +5014,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                             moe["serving"]["batched"]["check_max_rel_err"],
                             mla["serving"]["check_max_rel_err"],
                             mla["serving"]["batched"]["check_max_rel_err"],
-                            xl["serving"]["check_max_rel_err"]]
+                            xl["serving"]["check_max_rel_err"],
+                            zb["serving"]["check_max_rel_err"]]
                            + [r["rel_err"] for r in xl["slstm_gates"]]
                            + [r["check_max_rel_err"]
                               for r in dense["serving"].values()]
@@ -4616,6 +5042,9 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                                "f32 x, per-call median of 20 after an L2 "
                                "flush; library: cuBLAS f32 (TF32 off) on "
                                "the weight dequantized beforehand")},
+        "zamba": {"card": zb["card"], "wall_s": zb["wall_s"],
+                  "split_s": zb["split_s"], "cuts": zb["cuts"],
+                  "serving": zb["serving"], "f32_parity": zb["f32_parity"]},
         "paged_serving": dict(paged["serving"], parity=paged["parity"]),
         "max_rel_err_7b": max(r["rel_err"] for r in i8_7b["per_shape"]
                               + i8f["per_shape"]),
@@ -4665,14 +5094,15 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         + sum(ft_paths("int8_matmul_t").values()) + dl["int8_matmul_t"]
         + moe_paths["int8_matmul_t"]["moe_training"]
         + moe_paths["int8_matmul_t"]["mla_training"]
-        + xt_.get("int8_matmul_t", 0),
+        + xt_.get("int8_matmul_t", 0) + zt_.get("int8_matmul_t", 0),
         "launches_by_path": {"training": tl.get("int8_matmul_t", 0),
                              "training_7b": l7.get("int8_matmul_t", 0),
                              **ft_paths("int8_matmul_t"),
                              "tied_head_serving": dl["int8_matmul_t"],
                              **moe_paths["int8_matmul_t"],
                              "xlstm_training": xt_.get("int8_matmul_t",
-                                                       0)},
+                                                       0),
+                             "zamba_training": zt_.get("int8_matmul_t", 0)},
         "max_abs_err": max(r["max_abs_err"] for r in tk["int8_matmul_t"]
                            + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]
                            + dense["tied_head"]
@@ -4722,7 +5152,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         + sum(ft_paths("fused_qgalore_update").values())
         + mt_.get("fused_qgalore_update", 0)
         + lt_.get("fused_qgalore_update", 0)
-        + xt_.get("fused_qgalore_update", 0),
+        + xt_.get("fused_qgalore_update", 0)
+        + zt_.get("fused_qgalore_update", 0),
         "launches_by_path": {"training": tl.get("fused_qgalore_update", 0),
                              "training_7b": l7.get("fused_qgalore_update",
                                                    0),
@@ -4732,6 +5163,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                              "mla_training": lt_.get("fused_qgalore_update",
                                                      0),
                              "xlstm_training": xt_.get(
+                                 "fused_qgalore_update", 0),
+                             "zamba_training": zt_.get(
                                  "fused_qgalore_update", 0)},
         "max_abs_err": max(r["max_abs_err"]
                            for r in tk["fused_qgalore_update"]
@@ -4764,13 +5197,26 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": flash_serving["launches"].get("flash_attention", 0),
+        "launches": flash_serving["launches"].get("flash_attention", 0)
+        + zf["launches"]["flash_attention"],
         "launches_by_path": {"serving_flash_route": flash_serving[
-            "launches"].get("flash_attention", 0)},
-        "max_abs_err": max([r["max_abs_err"] for r in flash_rows]
-                           + [flash_serving["flash_check_max_abs_err"]]),
-        "max_rel_err": max([r["rel_err"] for r in flash_rows]
-                           + [flash_serving["flash_check_max_rel_err"]]),
+            "launches"].get("flash_attention", 0),
+            "zamba_flash_prefill": zf["launches"]["flash_attention"]},
+        "max_abs_err": max([r["max_abs_err"]
+                            for r in flash_rows + zf["d80_rows"]]
+                           + [flash_serving["flash_check_max_abs_err"],
+                              zf["flash_check_max_abs_err"]]),
+        "max_rel_err": max([r["rel_err"] for r in flash_rows + zf["d80_rows"]]
+                           + [flash_serving["flash_check_max_rel_err"],
+                              zf["flash_check_max_rel_err"]]),
+        "head_dim_80": {"card": zb["card"], "rows": zf["d80_rows"],
+                        "route": {k: v for k, v in zf.items()
+                                  if k != "d80_rows"},
+                        "timed_as": "zamba2-2.7b's site attention at a "
+                                    "single-request prefill (B 1, S 512, "
+                                    "32/32 heads, d = dv = 80, causal), "
+                                    "per-call median of 20 after an L2 "
+                                    "flush; library: SDPA"},
         **{k: flash_pick[k] * layers for k in ("ms", "plain_ms",
                                                "bound_ms", "library_ms")},
         "factor": flash_pick["ms"] / flash_pick["library_ms"],
@@ -4868,7 +5314,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                          if k != "int8_matmul_t_batched"},
         "mla_training": {k: v for k, v in mla["training"].items()
                          if k != "int8_matmul_t_batched"},
-        "xlstm_training": xl["training"]}
+        "xlstm_training": xl["training"],
+        "zamba_training": zb["training"]}
     return kernels
 
 

@@ -2,10 +2,11 @@
 LLaMA configs, mistral-nemo-12b, yi-9b, qwen3-32b, gemma-7b), the VLM
 backbone internvl2-2b, the mixture of experts qwen3-moe-30b-a3b,
 deepseek-v3-671b (MLA, shared experts, leading dense layers, multi-token
-prediction) and the recurrent xlstm-125m (mLSTM and sLSTM blocks,
-``models/xlstm_model.py``). The other families of the JAX package (the
-SSM hybrid, encoder-decoder) are refused by name, with the ROADMAP
-sub-slice that brings each."""
+prediction), the recurrent xlstm-125m (mLSTM and sLSTM blocks,
+``models/xlstm_model.py``) and the SSM hybrid zamba2-2.7b (Mamba2 blocks
+and a shared attention block, ``models/zamba.py``). The JAX package's
+encoder-decoder is refused by name, with the ROADMAP sub-slice that
+brings it; a family ``ssm`` is unknown, as in the JAX package."""
 from __future__ import annotations
 
 import importlib
@@ -21,14 +22,12 @@ from repro_torch.models.base import ModelBundle
 ARCH_IDS = ("llama-60m", "llama-130m", "llama-350m", "llama-1b",
             "llama-7b", "mistral-nemo-12b", "yi-9b", "qwen3-32b",
             "gemma-7b", "internvl2-2b", "qwen3-moe-30b-a3b",
-            "deepseek-v3-671b", "xlstm-125m")
+            "deepseek-v3-671b", "xlstm-125m", "zamba2-2.7b")
 
 # the JAX package's other architectures, and the ROADMAP queue 1 sub-slice
 # that ports each
-LATER = {"zamba2-2.7b": "4e (the SSM hybrid)",
-         "seamless-m4t-medium": "4f (encoder-decoder)"}
-_FAMILY_SLICE = {"ssm": LATER["zamba2-2.7b"], "hybrid": LATER["zamba2-2.7b"],
-                 "encdec": LATER["seamless-m4t-medium"]}
+LATER = {"seamless-m4t-medium": "4f (encoder-decoder)"}
+_FAMILY_SLICE = {"encdec": LATER["seamless-m4t-medium"]}
 FLASH_MAX_HEAD_DIM = 128    # csrc/flash_attention.cu takes d <= 128
 
 
@@ -53,17 +52,21 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
         raise ValueError(f"{arch_id!r} is not ported; the port has "
                          f"{', '.join(ARCH_IDS)}")
     mod = importlib.import_module(
-        "repro_torch.configs." + arch_id.replace("-", "_"))
+        "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
     return mod.smoke_config() if smoke else mod.CONFIG
 
 
 def check_config(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP sub-slice for any
-    part of ``cfg`` the port does not have: families other than ``dense``,
-    ``vlm``, ``moe`` and ``xlstm``. qk-norm, GeGLU, tied embeddings, the
-    VLM prefix, a mixture of experts (``cfg.moe``, with shared experts and
-    leading dense layers), MLA (``attention == "mla"`` with ``cfg.mla``)
-    and multi-token prediction at ``mtp_depth`` 1 are ported.
+    part of ``cfg`` the port does not have: the family ``encdec``; other
+    families than ``dense``, ``vlm``, ``moe``, ``xlstm`` and ``hybrid``
+    raise the JAX package's ``ValueError`` (``unknown family ssm``), and
+    so do an ``xlstm`` config without ``cfg.xlstm`` and a ``hybrid`` one
+    without ``cfg.ssm`` and ``cfg.hybrid``. qk-norm, GeGLU, tied
+    embeddings, the VLM prefix, a mixture of experts (``cfg.moe``, with
+    shared experts and leading dense layers), MLA (``attention == "mla"``
+    with ``cfg.mla``) and multi-token prediction at ``mtp_depth`` 1 are
+    ported.
 
     ``mtp_depth`` above 1 is refused by name: the JAX package builds one
     MTP block whatever the depth, so the port would compute depth 1 under
@@ -72,8 +75,11 @@ def check_config(cfg: ModelConfig) -> None:
     mLSTM's inner width evenly over the heads, whatever the field says."""
     if cfg.family in _FAMILY_SLICE:
         _refuse(cfg, f"the {cfg.family} family", _FAMILY_SLICE[cfg.family])
-    if cfg.family not in ("dense", "vlm", "moe", "xlstm"):
-        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if cfg.family not in ("dense", "vlm", "moe", "xlstm", "hybrid"):
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family}")
+    if cfg.family == "hybrid" and (cfg.ssm is None or cfg.hybrid is None):
+        raise ValueError(f"{cfg.name}: family 'hybrid' needs cfg.ssm and "
+                         "cfg.hybrid")
     if cfg.family == "xlstm":
         if cfg.xlstm is None:
             raise ValueError(f"{cfg.name}: family 'xlstm' needs cfg.xlstm")
@@ -110,14 +116,16 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
     ``split_layers`` splits the block stack into two segments
     (``transformer.build``). The xLSTM family (``xlstm_model.build``) has
     neither: it has no attention for the flag to route, and the JAX
-    package refuses to split it."""
+    package refuses to split it. The hybrid (``zamba.build``) takes the
+    flag for its sites' attention and, as the JAX package, refuses a
+    split."""
     check_config(cfg)
+    if split_layers and cfg.family in ("xlstm", "hybrid"):
+        raise ValueError(f"split_layers unsupported for family {cfg.family}")
     if cfg.family == "xlstm":
         if flash_attention:
             raise ValueError(f"{cfg.name}: flash_attention routes attention, "
                              "and the xlstm family has none")
-        if split_layers:
-            raise ValueError("split_layers unsupported for family xlstm")
         from repro_torch.models import xlstm_model
         return xlstm_model.build(cfg, device=resolve_device(device),
                                  dtype=dtype)
@@ -128,6 +136,10 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
             f"{cfg.name}: the flash kernel takes head_dim <= "
             f"{FLASH_MAX_HEAD_DIM}; {what} is {qk_width(cfg)} "
             "(ROADMAP queue 2 #4: flash d > 128)")
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba
+        return zamba.build(cfg, device=resolve_device(device), dtype=dtype,
+                           flash_attention=flash_attention)
     from repro_torch.models import transformer
     return transformer.build(cfg, device=resolve_device(device), dtype=dtype,
                              flash_attention=flash_attention,

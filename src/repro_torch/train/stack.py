@@ -14,6 +14,12 @@ an explicit loop.
   shapes, so it takes the routing decisions the forward took.
 * The head and embedding run with grad around the stack; their GaLore
   cotangents (the head) are projected after their own backward.
+* ``ctx`` may hold differentiable leaves (a hybrid's shared block, which
+  ``embed`` threads to every site): each layer's recompute differentiates
+  them too, their full-rank gradients are summed over all layers in
+  place, one float32 accumulator a leaf, and the sum goes back through
+  ``embed`` with the carry's cotangent (the reference's ``g_ctx``), so it
+  joins the non-segment gradients before their projection.
 
 INT8 weights enter as ``QVirtual``s (``core.quant.virtualize``): the model
 consumes the codes through ``quantized_dense`` and ``dL/dW`` lands on the
@@ -96,6 +102,12 @@ def _grads(out, inputs: List[torch.Tensor], grad_out):
             for x, g in zip(inputs, got)]
 
 
+def _ctx_diff(ctx) -> List[torch.Tensor]:
+    """``ctx``'s differentiable tensors (a QVirtual's shadow, a tensor
+    that requires grad), in sorted-key order."""
+    return [t for t in _diff(ctx) if torch.is_tensor(t) and t.requires_grad]
+
+
 def _float_keys(carry) -> List[str]:
     """The carry's differentiable entries, in sorted order."""
     return sorted(k for k, v in carry.items() if v.is_floating_point())
@@ -124,6 +136,8 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
     # ---- forward: embed with grad, the stack without, head with grad ----
     with torch.enable_grad():
         carry0, ctx = bundle.embed(full, batch)
+    ctx_leaves = _ctx_diff(ctx)
+    g_ctx: List[torch.Tensor] = []
     saved: List[List[dict]] = []
     carry = {k: v.detach() for k, v in carry0.items()}
     with torch.no_grad():
@@ -157,12 +171,21 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
             with torch.enable_grad():
                 res = seg.apply(lp_v, c_in, ctx)
                 got = _grads([res[k] for k in keys],
-                             [c_in[k] for k in keys] + leaves, g_c)
+                             [c_in[k] for k in keys] + leaves + ctx_leaves,
+                             g_c)
             g_c = got[: len(keys)]
             del res
+            n_own = len(keys) + len(leaves)
+            if not g_ctx:
+                g_ctx = [g.to(torch.float32, copy=True)
+                         for g in got[n_own:]]
+            else:
+                for a, g in zip(g_ctx, got[n_own:]):
+                    a.add_(g)
             Ps = (_leaves(layer_params(P_tree, layer))
                   if P_tree is not None else [None] * len(leaves))
-            gl = [project_leaf(g, P) for g, P in zip(got[len(keys):], Ps)]
+            gl = [project_leaf(g, P) for g, P in zip(got[len(keys):n_own],
+                                                     Ps)]
             del got, lp_v, leaves, c_in
             if out is None:
                 out = [torch.empty((seg.n_layers,) + tuple(g.shape),
@@ -177,9 +200,10 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
         g_segs[seg_keys[i]] = _like(stack, out)
         saved[i] = None
 
-    # the embedding's cotangents (``aux`` starts as a constant zero)
+    # the embedding's cotangents (``aux`` starts as a constant zero) and
+    # ctx's, summed over the layers
     outs = [(carry0[k], g) for k, g in zip(keys, g_c)
-            if carry0[k].requires_grad]
+            if carry0[k].requires_grad] + list(zip(ctx_leaves, g_ctx))
     with torch.enable_grad():
         g_emb = _grads([o for o, _ in outs], ns_leaves, [g for _, g in outs])
     g_ns = [a + b for a, b in zip(g_ns, g_emb)]

@@ -438,6 +438,25 @@ def test_flash_attention_matches_plain(cuda, B, S, H, KH, d, dv, causal,
                                        else 1e-2)
 
 
+@pytest.mark.parametrize("B,S,H,KH", [(1, 512, 32, 32), (2, 130, 4, 4),
+                                      (1, 300, 8, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dim_80(cuda, B, S, H, KH, dtype):
+    """zamba2-2.7b's site attention, d = dv = 80 (the kernel pads both to
+    its 128-wide template), causal: within 1e-4 of max|plain| in f32 and
+    1e-2 in bf16, one launch."""
+    from repro_torch.kernels import flash_attention as tflash
+    q, k, v = _flash_inputs(cuda, B, S, H, KH, 80, 80, dtype, S + 80)
+    LAUNCHES.clear()
+    got = tflash.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    assert got.shape == (B, S, H, 80) and got.dtype == dtype
+    assert _rel(got.float(), want) <= (1e-4 if dtype == torch.float32
+                                       else 1e-2)
+
+
 @pytest.mark.parametrize("R,C", [(1, 256), (37, 512), (128, 768),
                                  (300, 2048)])
 def test_sr_requant_bit_exact(cuda, R, C):

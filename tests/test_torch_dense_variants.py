@@ -19,8 +19,8 @@ from repro.models import model_zoo as jzoo
 from repro.models.transformer import _head_logits as j_head
 from repro.train import stack as jstack
 from repro.train import step as jstep
-from repro_torch.config import MLAConfig, MoEConfig, ShapeCell, \
-    TrainConfig, XLSTMConfig, replace
+from repro_torch.config import HybridConfig, MLAConfig, MoEConfig, \
+    ShapeCell, SSMConfig, TrainConfig, XLSTMConfig, replace
 from repro_torch.core import qgalore, quant
 from repro_torch.core.optimizers import preset
 from repro_torch.data import synthetic
@@ -297,7 +297,11 @@ def test_refusals_name_the_sub_slice():
         num_experts=4, top_k=2, expert_ff=32))
     assert not model_zoo.build(moe_cfg, device="cpu").ragged_prefill_ok
     assert "qwen3-moe-30b-a3b" not in model_zoo.LATER
-    # MLA and MTP (4c) and xLSTM (4d) are ported: built, not refused
+    # MLA and MTP (4c), xLSTM (4d) and the SSM hybrid (4e) are ported:
+    # built, not refused
+    hybrid = dict(family="hybrid", ssm=SSMConfig(state_dim=16, head_dim=16,
+                                                 chunk_size=16),
+                  hybrid=HybridConfig(attn_every=3, shared_lora_rank=8))
     for cfg, sub in ((replace(moe_cfg, attention="mla", mla=MLAConfig()),
                       "4c"),
                      (replace(base_cfg, attention="mla", mla=MLAConfig()),
@@ -305,11 +309,12 @@ def test_refusals_name_the_sub_slice():
                      (replace(base_cfg, mtp_depth=1), "4c"),
                      (replace(base_cfg, family="xlstm", xlstm=XLSTMConfig(
                          slstm_every=2)), "4d"),
-                     (replace(base_cfg, family="hybrid"), "4e"),
+                     (replace(base_cfg, **hybrid), "4e"),
                      (replace(base_cfg, family="encdec"), "4f")):
-        if sub == "4d":
+        if sub in ("4d", "4e"):
             built = model_zoo.build(cfg, device="meta")
-            assert [s.name for s in built.segments] == ["xlstm"]
+            assert [s.name for s in built.segments] == [
+                {"4d": "xlstm", "4e": "zamba"}[sub]]
             assert not engine.append_ok(built)
             assert not built.ragged_prefill_ok
             continue
@@ -322,6 +327,11 @@ def test_refusals_name_the_sub_slice():
             continue
         with pytest.raises(NotImplementedError, match=f"sub-slice {sub}"):
             model_zoo.build(cfg, device="cpu")
+    # ... and refused by name without its SSM or hybrid settings
+    for cut in ("ssm", "hybrid"):
+        with pytest.raises(ValueError, match="needs cfg.ssm and cfg.hybrid"):
+            model_zoo.build(replace(base_cfg, **{**hybrid, cut: None}),
+                            device="meta")
     for arch, sub in model_zoo.LATER.items():
         with pytest.raises(NotImplementedError, match=sub.split()[0]):
             model_zoo.get_config(arch)
