@@ -157,7 +157,9 @@ Phases (any failure exits non-zero):
    tokens).
 11. The dense variants. (a) mistral-nemo-12b, yi-9b, qwen3-32b (qk-norm),
    gemma-7b (GeGLU, head_dim 256, the tied head) and internvl2-2b (the
-   VLM backbone) at full width and depth, bf16, one at a time: weights
+   VLM backbone) at full width and depth (qwen3-32b at 16 of its 64
+   layers, the one cut that keeps the script inside its time limit),
+   bf16, one at a time: weights
    drawn from ``--seed`` and quantized on the card one layer of a group
    at a time (``init_params(by_layer=True)``; the drawn tree's
    parameters must equal ``model_zoo.count_params``), then 8 requests
@@ -276,10 +278,39 @@ Phases (any failure exits non-zero):
    ``fused_qgalore_update``), finite losses, each step's peak, and the
    shared block's gradient norm nonzero at every step; one more steady
    step profiled.
+16. The encoder-decoder. (a) seamless-m4t-medium at full width and
+   depth (12 + 12 layers, vocab 256206), bf16, drawn one layer at a
+   time, through ``engine.generate`` (the slot and paged schedulers
+   refuse it by name, as the reference's): two batches of 4 requests of
+   512 frames (the stubbed audio frontend), 128-token decoder prompts,
+   32 new tokens: a prefill launches ``int8_matmul`` 217 times (84
+   encoder, 132 decoder, the head) and a decode step 133 (109 at M 4,
+   the 24 cross-attention K and V on the memory at M 2048), no plain
+   version; tokens/s from ``generate`` alone, with nothing synchronized
+   inside it; the encoder's share of a prefill timed apart, a decode step
+   profiled, its cross K/V calls timed apart beside cuBLAS bf16 and the
+   bound, the bf16 decode against the forward (0.1 of max|logits|), every
+   distinct problem against its plain version. (b) At f32, 2 + 2 layers
+   at full width, 2 rows of 256 frames and a 64-token prompt, the card
+   against the CPU (within the larger of 1e-4 and the measured
+   amplification x 1e-4, equal greedy tokens). (c) 16a's batches
+   through a bundle built with ``flash_attention=True``: 12
+   ``flash_attention`` launches a prefill (the decoder's self-attention
+   only), the logits within 5e-2 of the einsum route's; the d = 64
+   kernel at B 4, S 128, 16 heads, bf16 and f32, against its plain
+   version and timed beside it, SDPA and the bound. (d) 4 Q-GaLore steps
+   at full width and depth (rank 256, randomized, 4 x 512 frames), a
+   steady step's 433 ``int8_matmul``, 217 ``int8_matmul_t`` and 217
+   ``fused_qgalore_update`` launches held to the code's count, finite
+   losses, each step's peak, and the gradient norms of ``frame_norm``
+   and ``enc_final_norm`` nonzero at every step; one more steady step
+   profiled; then every distinct problem of the three training kernels
+   (the head's (1024, 256206) among them) against its plain version, at
+   phase 5's bars.
 
 ``python3 chip_smoke.py --only 12`` (or ``1,12``, ``11``, ``13``,
-``14``, ``15``) runs those phases alone for development and prints no
-kernels line and no result.
+``14``, ``15``, ``16``) runs those phases alone for development and
+prints no kernels line and no result.
 
 The last three lines are the kernels JSON (all seven kernels;
 ``int8_matmul``'s and ``int8_matmul_t``'s training step, flash's prefill
@@ -288,9 +319,9 @@ three training kernels also carry their LLaMA-7B pre-training and
 fine-tuning rows, ``int8_matmul`` its paged serving runs and both INT8
 matmuls phase 11's, 12's and 13's (the expert grid axis counted apart),
 ``int8_matmul_t`` the tied head's rows; the three training kernels
-phase 14's and 15's launches, ``int8_matmul`` their serving runs and the
-sLSTM gates' f32-x rows, ``flash_attention`` phase 15c's prefills and
-its d = 80 rows),
+phase 14's, 15's and 16's launches, ``int8_matmul`` their serving runs
+and the sLSTM gates' f32-x rows, ``flash_attention`` phase 15c's and
+16c's prefills and their d = 80 and d = 64 rows),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository's ``src/``
 beside it, the script exits non-zero and prints no result.
@@ -802,7 +833,7 @@ def phase_serving(seed: int, flash: bool = False):
         result.update(check_flash_shapes(flash_shapes, seed))
         return result
     result.update(check_shapes(shapes, seed))
-    result.update(profile_decode(sched, reqs[:slots]))
+    result.update(profile_decode(sched_stepper(sched, reqs[:slots])))
     del sched, params
     torch.cuda.empty_cache()
     return result
@@ -848,22 +879,30 @@ def device_rows(prof) -> list:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def profile_decode(sched, reqs, steps: int = 5) -> dict:
-    """Device busy time against the host clock over ``steps`` decode steps
-    with every slot in flight (after the timed run, outside its counts).
-    If the profiler fails, its numbers are null and the error is kept."""
-    from torch.profiler import ProfilerActivity, profile
+def sched_stepper(sched, reqs):
+    """``sched``'s ``step`` with every slot in flight: the scheduler reset,
+    ``reqs`` submitted and its first step (admission prefill and first
+    decode) taken, outside any count."""
     sched.reset()
     for r in reqs:
         sched.submit(r)
-    sched.step()                        # admission prefill + first decode
+    sched.step()
+    return sched.step
+
+
+def profile_decode(step, steps: int = 5) -> dict:
+    """Device busy time against the host clock over ``steps`` calls of
+    ``step``, one decode step each, set up by the caller (after the timed
+    run, outside its counts). If the profiler fails, its numbers are null
+    and the error is kept."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
-                sched.step()
+                step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     except RuntimeError as e:
@@ -872,12 +911,15 @@ def profile_decode(sched, reqs, steps: int = 5) -> dict:
                 "device_idle_share": None, "profile_error": str(e)}
     rows = device_rows(prof)
     busy_ms = sum(t for _, t, _ in rows) / 1e3
-    top = sorted(rows, key=lambda r: -r[1])[:8]
     log(f"  profiled {steps} decode steps: wall {wall_ms / steps:.2f} ms a "
         f"step, device busy {busy_ms / steps:.2f} ms a step, idle share "
         f"{1 - busy_ms / wall_ms:.3f}")
-    for key, t, _ in top:
-        log(f"    device {t / 1e3 / steps:8.3f} ms/step  {key[:90]}")
+    top = []
+    for key, t, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"    device {t / 1e3 / steps:8.3f} ms/step  {n // steps:5d} "
+            f"calls/step  {key[:80]}")
+        top.append({"kernel": key[:80], "ms_per_step": t / 1e3 / steps,
+                    "calls_per_step": n // steps})
     host = sorted(((e.key, e.self_cpu_time_total, e.count)
                    for e in prof.key_averages()), key=lambda r: -r[1])[:8]
     for key, t, n in host:
@@ -885,7 +927,8 @@ def profile_decode(sched, reqs, steps: int = 5) -> dict:
             f"{n // steps:5d} calls/step  {key[:80]}")
     return {"profile_step_wall_ms": wall_ms / steps,
             "profile_step_device_ms": busy_ms / steps,
-            "device_idle_share": 1 - busy_ms / wall_ms}
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "profile_top": top}
 
 
 def to_cpu(t):
@@ -1233,13 +1276,15 @@ class ProblemRecorder:
     inputs of each distinct problem, copied to the host so that neither
     the copies nor the weights they were views of count in the run's
     device memory; the calls of each problem; and the subspace seconds
-    and calls of each step (``step``, set by the caller before each)."""
+    and calls of each step (``step``, set by the caller before each).
+    With ``record`` false it times the subspace calls alone."""
 
-    def __init__(self):
+    def __init__(self, record: bool = True):
         self.i, self.t, self.f = {}, {}, {}
         self.calls = Counter()
         self.sub_s, self.sub_n = Counter(), Counter()
         self.step = -1
+        self.record = record
 
     def __enter__(self):
         from repro_torch.core import projector
@@ -1282,9 +1327,10 @@ class ProblemRecorder:
             self.sub_n[self.step] += 1
             return out
 
-        ti8.int8_matmul, ti8.int8_matmul_t = rec_i, rec_t
-        tfu.fused_qgalore_update, projector.compute_subspace = rec_f, \
-            timed_sub
+        projector.compute_subspace = timed_sub
+        if self.record:
+            ti8.int8_matmul, ti8.int8_matmul_t = rec_i, rec_t
+            tfu.fused_qgalore_update = rec_f
         return self
 
     def __exit__(self, *exc):
@@ -1491,7 +1537,7 @@ def check_i8_problems(probs, mult: dict) -> dict:
         del w_lib, x_lib
     if failed:
         raise AssertionError(f"int8_matmul disagrees with its plain version "
-                             f"at 7B problems: {failed}")
+                             f"at the training run's problems: {failed}")
     sums = {f: sum(r[f] * r["launches_per_step"] for r in rows)
             for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
     sums["launches_per_step"] = sum(r["launches_per_step"] for r in rows)
@@ -2551,9 +2597,9 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
     if leaked:
         problems.append(f"{leaked} blocks leaked")
     n_tok = sum(len(c.tokens) for c in comps)
-    prof = profile_decode(sched, [
+    prof = profile_decode(sched_stepper(sched, [
         Request(rid=r.rid, tokens=r.tokens[:PAGED_CHUNK],
-                max_new_tokens=SERVE_MAX_NEW) for r in reqs[:slots]]) \
+                max_new_tokens=SERVE_MAX_NEW) for r in reqs[:slots]])) \
         if profile else {}
     out = {"slots": slots, "window": window, **prof,
            "num_blocks": sched.num_blocks, "pool_bytes": sched.pool_bytes(),
@@ -2790,6 +2836,10 @@ def phase_paged_parity(seed: int) -> dict:
 
 DENSE_ARCHS = ("mistral-nemo-12b", "yi-9b", "qwen3-32b", "gemma-7b",
                "internvl2-2b")
+# the one cut of 11a, which keeps all sixteen phases inside the time limit:
+# qwen3-32b served at 16 of its 64 layers (its launch checks count per
+# layer; 11b and 11c are not cut)
+DENSE_DEPTH = {"qwen3-32b": 16}
 DENSE_SLOTS, DENSE_REQS, DENSE_NEW = 4, 8, 16
 DENSE_PROMPT = (64, 512)
 DENSE_WINDOW = DENSE_PROMPT[1] + DENSE_NEW
@@ -2879,9 +2929,12 @@ def serve_dense(arch: str, seed: int) -> dict:
     runtime), every dispatch's launches held to the architecture's count;
     then the decode-against-forward check and every distinct
     ``int8_matmul`` problem against its plain version."""
+    from repro_torch.config import replace
     from repro_torch.models import model_zoo
     from repro_torch.serve.params import quantize_leaf
     cfg = model_zoo.get_config(arch)
+    if arch in DENSE_DEPTH:
+        cfg = replace(cfg, num_layers=DENSE_DEPTH[arch])
     bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3098,8 +3151,12 @@ def phase_dense_variants(seed: int) -> dict:
     """Phase 11: the dense variants at full width (11a, 11b's bf16 half),
     their f32 card-against-CPU parity at 2 layers (11b) and the tied head
     as a kernel problem (11c)."""
-    log("== phase 11: the dense variants at full width and depth through "
-        "the paged scheduler (4 slots, 8 requests, prompts 64-512, 16 new)")
+    from repro_torch.models import model_zoo
+    cut = ", ".join(f"{a} at {n} of {model_zoo.get_config(a).num_layers} "
+                    f"layers" for a, n in DENSE_DEPTH.items())
+    log(f"== phase 11: the dense variants at full width and depth ({cut} "
+        f"in 11a) through the paged scheduler (4 slots, 8 requests, prompts "
+        f"64-512, 16 new)")
     card = nvidia_smi_line()
     log("card:", card)
     t0 = time.monotonic()
@@ -3114,10 +3171,10 @@ def phase_dense_variants(seed: int) -> dict:
     parity = {a: f32_parity_dense(a, seed) for a in DENSE_ARCHS}
     tied = tied_head_rows(seed)
     wall = time.monotonic() - t0
-    log(f"  phase 11 in {wall:.1f} s (nothing cut: every architecture at "
-        "its full depth)")
+    log(f"  phase 11 in {wall:.1f} s (cut: {cut} in 11a; every other "
+        f"architecture at its full depth)")
     return {"serving": serve, "f32_parity": parity, "tied_head": tied,
-            "wall_s": wall, "card": card}
+            "wall_s": wall, "card": card, "cuts": {"serving": DENSE_DEPTH}}
 
 
 # ---------------------------------------------------------------------------
@@ -3438,7 +3495,7 @@ def serve_moe(seed: int, cfg=None, want_by=None, tag: str = "12a") -> dict:
         f" peak {peak:.2f} GiB; launches {counts}; measured a prefill "
         f"{per_prefill} (want {want_by['_prefill']}), a decode dispatch "
         f"{per_decode} (want {want_by['_step']}); padded {share}")
-    out.update(profile_decode(sched, reqs[:DENSE_SLOTS]))
+    out.update(profile_decode(sched_stepper(sched, reqs[:DENSE_SLOTS])))
     del sched
     errs = decode_vs_forward(bundle, params, seed)
     log(f"  {cfg.name} bf16 decode against the full forward (prefill, then "
@@ -3913,11 +3970,13 @@ def profile_prefill(bundle, params, tokens, module, loops) -> dict:
     return out
 
 
-def rounding_sensitivity(cfg, seed: int, prompt: int) -> dict:
+def rounding_sensitivity(cfg, seed: int, prompt: int, frames: int = 0
+                         ) -> dict:
     """How far a model's f32 logits move for a rounding-sized change of
-    their input (phases 14b and 15b): on the CPU (plain versions), one
-    prompt's prefill with the embeddings (``carry["h"]``) as drawn and
-    scaled by ``1 + 2^-20 * sign(noise)``;
+    their input (phases 14b, 15b and 16b): on the CPU (plain versions),
+    one prompt's prefill with the embeddings (``carry["h"]``; an
+    encoder-decoder's ``frames`` normalised and its decoder's ``dec_h``
+    too) as drawn and scaled by ``1 + 2^-20 * sign(noise)``;
     ``amplification`` is the logits' relative change over 2^-20. The
     card's f32 matmuls each agree with their plain versions to
     ``F32_X_TOL`` of max|plain| (two bf16 passes), so the f32 parity bar
@@ -3933,24 +3992,36 @@ def rounding_sensitivity(cfg, seed: int, prompt: int) -> dict:
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, prompt))
                             .astype(np.int32))
     eps = 2.0 ** -20
-    sign = torch.from_numpy(np.sign(rng.standard_normal(
-        (1, prompt, cfg.d_model))).astype(np.float32))
+    shapes = {"h": (1, frames or prompt, cfg.d_model)}
+    if frames:
+        shapes["dec_h"] = (1, prompt, cfg.d_model)
+    signs = {k: torch.from_numpy(np.sign(rng.standard_normal(sh))
+                                 .astype(np.float32))
+             for k, sh in shapes.items()}
+    batch = {"tokens": toks}
+    if frames:
+        batch["frames"] = torch.from_numpy((rng.standard_normal(
+            (1, frames, cfg.d_model)) * 0.5).astype(np.float32))
 
-    def logits(scale):
-        def scaled(p, batch):
-            carry, ctx = bundle.embed(p, batch)
-            return {**carry, "h": carry["h"] * scale}, ctx
+    def logits(moved: bool):
+        def scaled(p, b):
+            carry, ctx = bundle.embed(p, b)
+            if moved:
+                carry = {**carry, **{k: carry[k] * (1 + eps * sg)
+                                     for k, sg in signs.items()}}
+            return carry, ctx
         out, _ = engine.build_prefill(
             dataclasses.replace(bundle, embed=scaled), prompt + 1)(
-            params, {"tokens": toks})
+            params, batch)
         return out[:, -1]
 
-    base_l = logits(torch.ones(()))
-    moved = logits(1 + eps * sign)
+    base_l = logits(False)
+    moved = logits(True)
     change = ((moved - base_l).abs().max() / base_l.abs().max()).item()
     amp = change / eps
     log(f"  f32 sensitivity ({cfg.num_layers} layers, {prompt}-token "
-        f"prompt, CPU): the embeddings moved by 2^-20 move the logits by "
+        f"prompt{f', {frames} frames' if frames else ''}, CPU): the "
+        f"embeddings moved by 2^-20 move the logits by "
         f"{change:.2e} of max|logits|, amplification {amp:.0f}; parity bar "
         f"{amp:.0f} x {F32_X_TOL} = {amp * F32_X_TOL:.2e}")
     return {"logit_change": change, "amplification": amp,
@@ -4268,7 +4339,7 @@ def serve_recurrent(cfg, seed: int, *, tag: str, want: dict, describe: str,
                                                     ops=probe_ops)
     if bd["f32_decode_row_rel_diff"] > BATCH_ROW_TOL:
         problems.append(f"f32 decode row depends on the batch: {bd}")
-    out.update(profile_decode(sched, reqs[:DENSE_SLOTS]))
+    out.update(profile_decode(sched_stepper(sched, reqs[:DENSE_SLOTS])))
     del sched
     longest = max(reqs, key=lambda r: len(r.tokens))
     out["prefill_profile"] = profile_prefill(bundle, params, longest.tokens,
@@ -4341,25 +4412,35 @@ def slstm_gate_rows(seed: int) -> list:
     return rows
 
 
-def train_xlstm(seed: int) -> dict:
-    """Phase 14c: xlstm-125m at full width and depth, the ``qgalore``
-    preset at rank 256, 4 x 512 tokens, 4 steps (a refresh at step 0),
-    each step's launches held to what the code implies (a steady step:
-    the forward, every group's recompute and ``dL/dx`` of each, one update
-    a GaLore unit), finite losses, then one more steady step profiled."""
+def train_full(cfg, seed: int, *, rank: int, batch: tuple, steps: int,
+               fwd: int, method=None, norm_keys: tuple = (),
+               check_problems: bool = False) -> dict:
+    """Phases 14c, 15d and 16d: ``cfg`` at full width and depth, the
+    ``qgalore`` preset at ``rank`` (``method``: the subspace method, None
+    for the default), ``batch`` (B, S), ``steps`` steps (a refresh at step
+    0). Each step's launches are held to what the code implies from
+    ``fwd``, the ``int8_matmul`` launches of one forward (a steady step:
+    the forward, every layer's recompute and ``dL/dx`` of each, one update
+    a GaLore unit); losses finite; each step's peak; the gradient norm of
+    each top-level leaf or subtree in ``norm_keys`` (one reached only
+    through a shared block or a bridge), nonzero at every step. With
+    ``check_problems``, every distinct problem of the three training
+    kernels against its plain version at phase 5's bars
+    (``ProblemRecorder.check``). Then one more steady step profiled."""
     from repro_torch.config import QGaLoreConfig, TrainConfig
-    from repro_torch.core import projector
     from repro_torch.core.optimizers import preset
+    from repro_torch.core.qgalore import flatten
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import model_zoo
+    from repro_torch.train import stack
     from repro_torch.train.trainer import Trainer
-    cfg = model_zoo.get_config(XLSTM_ARCH)
     bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
-    qcfg = preset("qgalore", QGaLoreConfig(rank=XLSTM_RANK))
-    B, S = XLSTM_TRAIN_BATCH
-    tcfg = TrainConfig(seed=seed, global_batch=B, seq_len=S,
-                       steps=XLSTM_TRAIN_STEPS, learning_rate=1e-3,
-                       warmup_steps=1, grad_clip=1.0, log_every=0)
+    qcfg = preset("qgalore", QGaLoreConfig(
+        rank=rank, **({} if method is None else {"subspace_method": method})))
+    B, S = batch
+    tcfg = TrainConfig(seed=seed, global_batch=B, seq_len=S, steps=steps,
+                       learning_rate=1e-3, warmup_steps=1, grad_clip=1.0,
+                       log_every=0)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4368,27 +4449,38 @@ def train_xlstm(seed: int) -> dict:
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     units = sum(s.nbatch for s in tr.specs if s.galore)
-    fwd = xlstm_launches(cfg)["int8_matmul"]
     want = {"int8_matmul": 2 * fwd - 1, "int8_matmul_t": fwd,
             "fused_qgalore_update": units}
     names = tuple(want) + PLAIN_NAMES
-    sub_s, sub = [], projector.compute_subspace
+    rec = ProblemRecorder(record=check_problems)
+    grads_fn, norms, peaks = stack.fused_value_and_grad, [], []
 
-    def timed_sub(*a, **k):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = sub(*a, **k)
-        torch.cuda.synchronize()
-        sub_s.append(time.perf_counter() - t)
+    def with_norms(*a, **k):
+        res = grads_fn(*a, **k)
+        norms.append({n: math.sqrt(sum(float((t.float() ** 2).sum())
+                                       for _, t in flatten(res[1][n])))
+                      for n in norm_keys})
         return res
 
-    projector.compute_subspace = timed_sub
+    first = tr.start_step
+
+    def at_step(step):
+        # each step's peak, read before the next step starts
+        if step > first:
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        rec.step = step
+
+    stack.fused_value_and_grad = with_norms
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     LAUNCHES.clear()
     try:
-        rows = run_counted(tr, tcfg.steps, names)
+        with rec:
+            rows = run_counted(tr, tcfg.steps, names, at_step=at_step)
     finally:
-        projector.compute_subspace = sub
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        stack.fused_value_and_grad = grads_fn
+    peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    launches = dict(LAUNCHES)
     problems = []
     for r in rows:
         w = dict(want, **({"fused_qgalore_update": 0} if r["step"] == 0
@@ -4401,22 +4493,37 @@ def train_xlstm(seed: int) -> dict:
             problems.append(f"step {r['step']} ran plain versions {plain}")
         if not np.isfinite(r["loss"]):
             problems.append(f"step {r['step']} loss {r['loss']}")
-    steady = [r["s"] for r in rows[1:]]
-    out = {"layers": cfg.num_layers, "rank": XLSTM_RANK, "units": units,
-           "batch": [B, S], "init_s": init_s,
+    if not (len(norms) == len(rows) and all(
+            v > 0 and np.isfinite(v) for n in norms for v in n.values())):
+        problems.append(f"gradient norms of {norm_keys}: {norms}")
+    # the recorder copies each fused problem's first inputs to the host
+    # inside step 1, so its steady steps start at step 2
+    steady = [r["s"] for r in rows[2 if check_problems else 1:]]
+    sub_s = sum(rec.sub_s.values())
+    out = {"layers": cfg.num_layers, "rank": rank, "units": units,
+           "subspace_method": qcfg.subspace_method, "batch": [B, S],
+           "init_s": init_s, "init_peak_gib": init_peak,
            "losses": [r["loss"] for r in rows],
-           "refresh_step_s": rows[0]["s"], "refresh_subspace_s": sum(sub_s),
+           "grad_norms": [r["grad_norm"] for r in rows],
+           "grad_norms_of": norms,
+           "refresh_step_s": rows[0]["s"], "refresh_subspace_s": sub_s,
            "median_steady_step_ms": statistics.median(steady) * 1e3,
            "tokens_per_s": B * S / statistics.median(steady),
-           "peak_gib": peak, "launches": dict(LAUNCHES),
+           "peak_gib_by_step": peaks, "peak_gib": max(peaks),
+           "launches": launches,
            "launches_per_steady_step": rows[-1]["launches"],
            "launches_want": want}
-    log(f"  training {cfg.num_layers} layers at full width, rank "
-        f"{XLSTM_RANK}, {B} x {S} tokens: {units} GaLore units; losses "
-        f"{[round(x, 4) for x in out['losses']]}; refresh step "
-        f"{out['refresh_step_s']:.2f} s (subspace {sum(sub_s):.2f} s); "
-        f"median steady step {out['median_steady_step_ms']:.1f} ms; peak "
-        f"{peak:.3f} GiB; a steady step launched "
+    shown = [{n: "%.4g" % v for n, v in d.items()} for d in norms]
+    log(f"  training {cfg.name} at full width and depth, rank {rank} "
+        f"({qcfg.subspace_method}), {B} x {S}: {units} GaLore units; "
+        f"losses {[round(x, 4) for x in out['losses']]} (ln V = "
+        f"{math.log(cfg.vocab_size):.2f})"
+        + (f"; gradient norms {shown}" if norm_keys else "")
+        + f"; refresh step {out['refresh_step_s']:.2f} s (subspace "
+        f"{sub_s:.2f} s); median steady step "
+        f"{out['median_steady_step_ms']:.1f} ms; init {init_s:.1f} s, peak "
+        f"{init_peak:.3f} GiB; peak by step {['%.3f' % p for p in peaks]} "
+        f"GiB; a steady step launched "
         f"{ {n: out['launches_per_steady_step'][n] for n in want} } (want "
         f"{want})")
     if problems:
@@ -4425,6 +4532,8 @@ def train_xlstm(seed: int) -> dict:
     del tr, bundle
     gc.collect()
     torch.cuda.empty_cache()
+    if check_problems:
+        out.update(rec.check(tcfg.steps, tcfg.steps - 1, seed))
     return out
 
 
@@ -4466,7 +4575,9 @@ def phase_xlstm(seed: int) -> dict:
     parity["sensitivity"] = sens
     gates = slstm_gate_rows(seed)
     split["14b"] = time.monotonic() - t0 - split["14a"]
-    training = train_xlstm(seed)
+    training = train_full(
+        full, seed, rank=XLSTM_RANK, batch=XLSTM_TRAIN_BATCH,
+        steps=XLSTM_TRAIN_STEPS, fwd=xlstm_launches(full)["int8_matmul"])
     wall = time.monotonic() - t0
     split["14c"] = wall - split["14a"] - split["14b"]
     parts = ", ".join(f"{k} {v:.1f} s" for k, v in split.items())
@@ -4635,128 +4746,6 @@ def zamba_flash(seed: int) -> dict:
     return out
 
 
-def train_zamba(seed: int) -> dict:
-    """Phase 15d: zamba2-2.7b at full width and depth, the ``qgalore``
-    preset at rank 512 with the randomized subspace method, 4 x 512
-    tokens, 4 steps (a refresh at step 0), each step's launches held to
-    what the code implies (a steady step: the forward, every superblock's
-    recompute and ``dL/dx`` of each, one update a GaLore unit), finite
-    losses, each step's peak, and each step's shared-block gradient norm
-    (summed over its nine sites, which must be nonzero); then one more
-    steady step profiled."""
-    from repro_torch.config import QGaLoreConfig, TrainConfig
-    from repro_torch.core import projector
-    from repro_torch.core.optimizers import preset
-    from repro_torch.core.qgalore import flatten
-    from repro_torch.kernels import LAUNCHES
-    from repro_torch.models import model_zoo
-    from repro_torch.train import stack
-    from repro_torch.train.trainer import Trainer
-    cfg = model_zoo.get_config(ZAMBA_ARCH)
-    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
-    qcfg = preset("qgalore", QGaLoreConfig(rank=ZAMBA_RANK,
-                                           subspace_method="randomized"))
-    B, S = ZAMBA_TRAIN_BATCH
-    tcfg = TrainConfig(seed=seed, global_batch=B, seq_len=S,
-                       steps=ZAMBA_TRAIN_STEPS, learning_rate=1e-3,
-                       warmup_steps=1, grad_clip=1.0, log_every=0)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    tr = Trainer(bundle, tcfg, qcfg)
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
-    units = sum(s.nbatch for s in tr.specs if s.galore)
-    fwd = zamba_launches(cfg)["int8_matmul"]
-    want = {"int8_matmul": 2 * fwd - 1, "int8_matmul_t": fwd,
-            "fused_qgalore_update": units}
-    names = tuple(want) + PLAIN_NAMES
-    sub_s, sub = [], projector.compute_subspace
-    grads_fn, shared_norms, peaks = stack.fused_value_and_grad, [], []
-
-    def timed_sub(*a, **k):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = sub(*a, **k)
-        torch.cuda.synchronize()
-        sub_s.append(time.perf_counter() - t)
-        return res
-
-    def with_shared_norm(*a, **k):
-        res = grads_fn(*a, **k)
-        shared_norms.append(math.sqrt(sum(
-            float((t.float() ** 2).sum())
-            for _, t in flatten(res[1]["shared_attn"]))))
-        return res
-
-    first = tr.start_step
-
-    def at_step(step):
-        # each step's peak, read before the next step starts
-        if step > first:
-            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
-        torch.cuda.reset_peak_memory_stats()
-
-    projector.compute_subspace = timed_sub
-    stack.fused_value_and_grad = with_shared_norm
-    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    LAUNCHES.clear()
-    try:
-        rows = run_counted(tr, tcfg.steps, names, at_step=at_step)
-    finally:
-        projector.compute_subspace = sub
-        stack.fused_value_and_grad = grads_fn
-    peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
-    launches = dict(LAUNCHES)
-    problems = []
-    for r in rows:
-        w = dict(want, **({"fused_qgalore_update": 0} if r["step"] == 0
-                          else {}))
-        got = {n: r["launches"][n] for n in w}
-        if got != w:
-            problems.append(f"step {r['step']} launches {got} != {w}")
-        plain = {n: c for n, c in r["launches"].items() if n not in w and c}
-        if plain:
-            problems.append(f"step {r['step']} ran plain versions {plain}")
-        if not np.isfinite(r["loss"]):
-            problems.append(f"step {r['step']} loss {r['loss']}")
-    if not (len(shared_norms) == len(rows)
-            and all(n > 0 and np.isfinite(n) for n in shared_norms)):
-        problems.append(f"shared-block gradient norms {shared_norms}")
-    steady = [r["s"] for r in rows[1:]]
-    out = {"layers": cfg.num_layers, "rank": ZAMBA_RANK, "units": units,
-           "subspace_method": qcfg.subspace_method, "batch": [B, S],
-           "init_s": init_s, "init_peak_gib": init_peak,
-           "losses": [r["loss"] for r in rows],
-           "grad_norms": [r["grad_norm"] for r in rows],
-           "shared_grad_norms": shared_norms,
-           "refresh_step_s": rows[0]["s"], "refresh_subspace_s": sum(sub_s),
-           "median_steady_step_ms": statistics.median(steady) * 1e3,
-           "tokens_per_s": B * S / statistics.median(steady),
-           "peak_gib_by_step": peaks, "peak_gib": max(peaks),
-           "launches": launches,
-           "launches_per_steady_step": rows[-1]["launches"],
-           "launches_want": want}
-    log(f"  training {cfg.num_layers} layers at full width, rank "
-        f"{ZAMBA_RANK} (randomized), {B} x {S} tokens: {units} GaLore units;"
-        f" losses {[round(x, 4) for x in out['losses']]}; shared-block "
-        f"gradient norms {['%.4g' % n for n in shared_norms]}; refresh step "
-        f"{out['refresh_step_s']:.2f} s (subspace {sum(sub_s):.2f} s); "
-        f"median steady step {out['median_steady_step_ms']:.1f} ms; init "
-        f"{init_s:.1f} s, peak {init_peak:.3f} GiB; peak by step "
-        f"{['%.3f' % p for p in peaks]} GiB; a steady step launched "
-        f"{ {n: out['launches_per_steady_step'][n] for n in want} } (want "
-        f"{want})")
-    if problems:
-        raise AssertionError(f"{cfg.name} training: " + "; ".join(problems))
-    out.update(profile_train_step(tr))
-    del tr, bundle
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
-
-
 def phase_zamba(seed: int) -> dict:
     """Phase 15: zamba2-2.7b served at full width and depth (15a), its
     answers (15b: slot tokens against ``generate`` and the bf16 decode
@@ -4797,7 +4786,10 @@ def phase_zamba(seed: int) -> dict:
     split["15b"] = time.monotonic() - t0 - sum(split.values())
     flash = zamba_flash(seed)
     split["15c"] = time.monotonic() - t0 - sum(split.values())
-    training = train_zamba(seed)
+    training = train_full(
+        full, seed, rank=ZAMBA_RANK, batch=ZAMBA_TRAIN_BATCH,
+        steps=ZAMBA_TRAIN_STEPS, method="randomized",
+        fwd=zamba_launches(full)["int8_matmul"], norm_keys=("shared_attn",))
     wall = time.monotonic() - t0
     split["15d"] = wall - sum(split.values())
     parts = ", ".join(f"{k} {v:.1f} s" for k, v in split.items())
@@ -4807,6 +4799,574 @@ def phase_zamba(seed: int) -> dict:
             "card": card,
             "cuts": {"parity": {"layers": ZAMBA_PARITY_LAYERS,
                                 "prompt": ZAMBA_PARITY_PROMPT}}}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the encoder-decoder
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-medium"
+# 16a: two batches of 4 requests through ``generate``: 512 frames each, a
+# decoder prompt of 128 tokens (``encdec_prompt``), 32 new tokens, a 256
+# window
+ENCDEC_BATCHES, ENCDEC_ROWS, ENCDEC_FRAMES = 2, 4, 512
+ENCDEC_NEW, ENCDEC_WINDOW = 32, 256
+# 16b: 2 + 2 layers at full width (the head at V 256206 included), the
+# CPU's plain matmuls; 2 rows of 256 frames, a 64-token prompt, 3 steps
+ENCDEC_PARITY_LAYERS, ENCDEC_PARITY_ROWS = 2, 2
+ENCDEC_PARITY_FRAMES, ENCDEC_PARITY_PROMPT = 256, 64
+# 16c: the decoder's self-attention at a 16a prefill, d = dv = 64; the
+# flash route's prefill logits against the einsum route's (of
+# max|logits|, bf16)
+ENCDEC_FLASH = (4, 128, 16, 16, 64, 64, True)
+FLASH_ROUTE_TOL = 5e-2
+# 16d: rank 256, benchmarks/table2_memory.py's d = 1024 row (llama-350m,
+# the nearest); the randomized subspace method; 4 x 512 frames (128
+# decoder tokens); step 0 refreshes, steps 1-3 are steady
+ENCDEC_RANK, ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_BATCH = 256, 4, (4, 512)
+
+
+def encdec_launches(cfg, rows: int, frames: int, prompt: int,
+                    decode: bool) -> Counter:
+    """``int8_matmul`` launches of a prefill or a decode step by M: 7 an
+    encoder layer at M = rows x frames; a decoder layer's self q, k, v, o,
+    cross q, o and the FFN's three at M = rows x prompt (rows at decode),
+    its cross k and v on the memory at rows x frames (every decode step
+    too, as the reference); the head at M = rows (the last position)."""
+    n_enc = cfg.num_encoder_layers or cfg.num_layers
+    n_dec = cfg.num_layers
+    mem, tok = rows * frames, rows if decode else rows * prompt
+    want = Counter({mem: 2 * n_dec})
+    want[tok] += 9 * n_dec
+    want[rows] += 1
+    if not decode:
+        want[mem] += 7 * n_enc
+    return want
+
+
+def encdec_prompt(bundle, frames: int) -> int:
+    """The decoder's tokens for ``frames`` frames, as the bundle's
+    ``input_specs`` sets them (``max(frames // DEC_RATIO, 16)``)."""
+    from repro_torch.config import ShapeCell
+    cell = ShapeCell("prompt", frames, 1, "prefill")
+    return bundle.input_specs(cell)["tokens"][0][1]
+
+
+def encdec_inputs(seed: int, cfg, rows: int, frames: int, tokens: int,
+                  n: int = 1, salt: int = 16) -> list:
+    """``n`` batches of ``rows`` requests drawn from ``seed`` on the host:
+    ``frames`` (rows, frames, d) float32, the stub frontend's ``normal *
+    0.5``, and decoder tokens (rows, tokens)."""
+    rng = np.random.default_rng(seed + salt)
+    return [{"frames": torch.from_numpy((rng.standard_normal(
+                (rows, frames, cfg.d_model)) * 0.5).astype(np.float32)),
+             "tokens": torch.from_numpy(rng.integers(
+                 1, cfg.vocab_size, size=(rows, tokens)).astype(np.int32))}
+            for _ in range(n)]
+
+
+def encdec_decode_vs_forward(bundle, params, seed: int, steps: int = 4
+                             ) -> list:
+    """16a's bf16 check: one request's prefill (512 frames, 128 tokens),
+    then ``steps`` teacher-forced decode steps, each step's logits
+    against the full forward's last logits at that length (relative to
+    max|forward|)."""
+    from repro_torch.models import base
+    from repro_torch.serve import engine
+    prompt = encdec_prompt(bundle, ENCDEC_FRAMES)
+    b = {k: v.cuda() for k, v in encdec_inputs(
+        seed, bundle.cfg, 1, ENCDEC_FRAMES, prompt + steps, salt=17)[0]
+        .items()}
+
+    @torch.no_grad()
+    def full(upto):
+        carry, ctx = bundle.embed(params, {"frames": b["frames"],
+                                           "tokens": b["tokens"][:, :upto]})
+        carry = base.run_segments(bundle, params, carry, ctx)
+        return bundle.head_logits(params, carry)[:, -1].float()
+
+    def rel(a, w):
+        return ((a.float() - w).abs().max() / w.abs().max()).item()
+
+    logits, state = engine.build_prefill(bundle, prompt + steps + 1)(
+        params, {"frames": b["frames"], "tokens": b["tokens"][:, :prompt]})
+    errs = [rel(logits[:, -1], full(prompt))]
+    decode = engine.build_decode(bundle)
+    for t in range(prompt, prompt + steps):
+        logits, state = decode(params, state, b["tokens"][:, t: t + 1])
+        errs.append(rel(logits[:, -1], full(t + 1)))
+    return errs
+
+
+def encdec_cross_kv(bundle, params, memory) -> dict:
+    """A decode step's cross-attention K and V (2 a decoder layer, on the
+    whole memory, as the reference recomputes them) back to back on the
+    run's weights between one pair of events, beside cuBLAS bf16 on the
+    same weights dequantized and the bound."""
+    from repro_torch.core import quant
+    from repro_torch.models.base import layer_params
+    from repro_torch.models.layers import dense
+    cross = params["seg1_decoder"]["cross_attn"]
+    ws = [layer_params(cross, i)[k] for i in range(bundle.cfg.num_layers)
+          for k in ("wk", "wv")]
+    x = memory.reshape(-1, memory.shape[-1])
+    ms, host = sequence_ms(lambda: [dense(x, w, torch.bfloat16)
+                                    for w in ws])
+    deq = [quant.dequantize(w, torch.bfloat16) for w in ws]
+    lib_ms, _ = sequence_ms(lambda: [x @ w for w in deq])
+    M, K = x.shape
+    N = ws[0].q.shape[1]
+    b_ms, by = bound(M, K, N, x.element_size())
+    del deq
+    out = {"calls": len(ws), "M": M, "K": K, "N": N, "ms": ms,
+           "host_ms": host, "library_ms": lib_ms,
+           "bound_ms": b_ms * len(ws), "bound_by": by}
+    log(f"  a decode step's {len(ws)} cross K/V calls (M {M}, K {K}, N "
+        f"{N}, bf16) back to back: {ms:.3f} ms device ({host:.3f} ms to "
+        f"enqueue), cuBLAS bf16 {lib_ms:.3f} ms, bound "
+        f"{out['bound_ms']:.3f} ms ({by})")
+    return out
+
+
+def encdec_stepper(bundle, params, batch):
+    """A decode step of ``batch`` (rows in flight from its prefill and a
+    first decode step, outside any count), each call one more step."""
+    from repro_torch.serve import engine
+    logits, st = engine.build_prefill(bundle, ENCDEC_WINDOW)(params, batch)
+    decode = engine.build_decode(bundle)
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    state = [decode(params, st, tok)[1]]
+
+    def step():
+        state[0] = decode(params, state[0], tok)[1]
+    return step
+
+
+def serve_encdec(seed: int, bundle, params) -> dict:
+    """Phase 16a: seamless-m4t-medium at full width and depth through
+    ``engine.generate``, two batches of 4 requests. A counted run, each
+    prefill and decode step synchronized at its ends: every prefill's and
+    decode step's ``int8_matmul`` launches held to the code's count by M,
+    no plain version, the decode step's ms and the TTFT. Tokens/s from a
+    second run with no wrapper and no synchronize inside ``generate``. The
+    encoder's share of a prefill from prefills of their own (a synchronize
+    at the bridge). Then the slot and paged schedulers refused by name;
+    the bf16 decode against the forward, a profiled decode step, the
+    cross K/V calls timed apart and every distinct problem against its
+    plain version."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.serve import engine
+    from repro_torch.serve.scheduler import make_scheduler
+    cfg = bundle.cfg
+    problems = []
+    refused = {}
+    for backend, error, name in (
+            ("auto", NotImplementedError, "decode_extras"),
+            ("slot", NotImplementedError, "decode_extras"),
+            ("paged", ValueError, "chunk-append")):
+        try:
+            make_scheduler(bundle, params, backend=backend, num_slots=4,
+                           max_len=ENCDEC_WINDOW, device="cuda")
+            problems.append(f"make_scheduler({backend!r}) took the bundle")
+        except error as e:
+            refused[backend] = str(e)
+            if name not in str(e):
+                problems.append(f"{backend}: {e}")
+    log(f"  schedulers refuse the bundle by name: {refused}")
+    prompt = encdec_prompt(bundle, ENCDEC_FRAMES)
+    batches = encdec_inputs(seed, cfg, ENCDEC_ROWS, ENCDEC_FRAMES, prompt,
+                            n=ENCDEC_BATCHES)
+    want = {k: encdec_launches(cfg, ENCDEC_ROWS, ENCDEC_FRAMES, prompt,
+                               k == "decode") for k in ("prefill", "decode")}
+    engine.generate(bundle, params, batches[0], steps=2,
+                    max_len=ENCDEC_WINDOW, device="cuda")     # warm-up
+    ms_log, shapes = [], set()
+    calls = {"prefill": [], "decode": []}
+    kernel, bp, bd = ti8.int8_matmul, engine.build_prefill, \
+        engine.build_decode
+
+    def recording(x, q, scale, block=256, p=None):
+        shapes.add((x.shape[0], q.shape[0], q.shape[1], x.dtype))
+        ms_log.append(x.shape[0])
+        return kernel(x, q, scale, block, p)
+
+    def wrap(kind, fn):
+        def run(*a):
+            i0 = len(ms_log)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            calls[kind].append({"ms": (t1 - t) * 1e3,
+                                "M": Counter(ms_log[i0:]), "end": t1})
+            return res
+        return run
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ti8.int8_matmul = recording
+    engine.build_prefill = lambda *a, **k: wrap("prefill", bp(*a, **k))
+    engine.build_decode = lambda *a, **k: wrap("decode", bd(*a, **k))
+    LAUNCHES.clear()
+    ttft, counted_s = [], []
+    try:
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, st = engine.generate(bundle, params, b, steps=ENCDEC_NEW - 1,
+                                    max_len=ENCDEC_WINDOW, device="cuda")
+            torch.cuda.synchronize()
+            counted_s.append(time.perf_counter() - t)
+            ttft.append(calls["prefill"][-1]["end"] - t)
+    finally:
+        ti8.int8_matmul = kernel
+        engine.build_prefill, engine.build_decode = bp, bd
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    memory = st.extras["memory"]
+    for kind, rows in calls.items():
+        bad = [dict(r["M"]) for r in rows if r["M"] != want[kind]]
+        if bad:
+            problems.append(f"{kind}: {len(bad)} of {len(rows)} launched "
+                            f"{bad[0]} by M, want {dict(want[kind])}")
+    if any(c and (n.endswith("_ref") or n.startswith("deq_"))
+           for n, c in counts.items()):
+        problems.append(f"plain versions ran: {counts}")
+    # tokens/s: ``generate`` as it ships, timed from outside alone
+    walls, n_tok = [], 0
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks, _ = engine.generate(bundle, params, b, steps=ENCDEC_NEW - 1,
+                                  max_len=ENCDEC_WINDOW, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        n_tok += toks.numel()
+    # the encoder's share: prefills of their own, a synchronize at the
+    # bridge
+    enc, dec = bundle.segments
+    marks = {}
+
+    def timed_bridge(p, carry, ctx):
+        torch.cuda.synchronize()
+        marks["bridge"] = time.perf_counter()
+        return dec.pre(p, carry, ctx)
+
+    timed = dataclasses.replace(bundle, segments=(
+        enc, dataclasses.replace(dec, pre=timed_bridge)))
+    prefill = engine.build_prefill(timed, ENCDEC_WINDOW)
+    pre_ms, enc_ms = [], []
+    for b in batches:
+        b = {k: v.cuda() for k, v in b.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill(params, b)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t) * 1e3)
+        enc_ms.append((marks["bridge"] - t) * 1e3)
+    small = min(want["decode"])
+    out = {"tokens_per_s": n_tok / sum(walls), "tokens": n_tok,
+           "wall_s": sum(walls),
+           "counted_tokens_per_s": n_tok / sum(counted_s),
+           "mean_ttft_s": float(np.mean(ttft)),
+           "median_decode_step_ms": statistics.median(
+               r["ms"] for r in calls["decode"]),
+           "counted_prefill_ms": [r["ms"] for r in calls["prefill"]],
+           "prefill_ms": pre_ms, "encoder_ms": enc_ms,
+           "encoder_share": [e / p for e, p in zip(enc_ms, pre_ms)],
+           "dispatches": {k: len(v) for k, v in calls.items()},
+           "launches": counts,
+           "launches_per_prefill": sum(calls["prefill"][0]["M"].values()),
+           "launches_per_decode_step": sum(calls["decode"][0]["M"].values()),
+           "launches_by_m": {k: {str(m): n for m, n in sorted(
+               calls[k][0]["M"].items())} for k in calls},
+           "launches_want_by_m": {k: {str(m): n for m, n in sorted(
+               w.items())} for k, w in want.items()},
+           "decode_small_m": want["decode"][small],
+           "peak_gib": peak, "refused": refused,
+           "batches": [ENCDEC_ROWS, ENCDEC_FRAMES, prompt, ENCDEC_NEW]}
+    log(f"  {n_tok} tokens in {out['wall_s']:.2f} s -> "
+        f"{out['tokens_per_s']:.1f} tok/s (generate alone); counted run: "
+        f"{out['counted_tokens_per_s']:.1f} tok/s, mean TTFT "
+        f"{out['mean_ttft_s']:.3f} s, median decode step "
+        f"{out['median_decode_step_ms']:.2f} ms, prefills "
+        f"{['%.1f' % x for x in out['counted_prefill_ms']]} ms; prefills "
+        f"timed apart {['%.1f' % x for x in pre_ms]} ms, the encoder (and "
+        f"embed) {['%.1f' % x for x in enc_ms]} ms of them; peak "
+        f"{peak:.3f} GiB; launches {counts}; a prefill by M "
+        f"{out['launches_by_m']['prefill']}, a decode step "
+        f"{out['launches_by_m']['decode']} (want "
+        f"{out['launches_want_by_m']})")
+    out["cross_kv"] = encdec_cross_kv(bundle, params, memory)
+    out.update(profile_decode(encdec_stepper(
+        bundle, params, {k: v.cuda() for k, v in batches[0].items()})))
+    errs = encdec_decode_vs_forward(bundle, params, seed)
+    log(f"  bf16 decode against the full forward (prefill, then 4 "
+        f"teacher-forced steps), rel err {['%.2e' % e for e in errs]} "
+        f"(tolerance {BF16_PATH_TOL})")
+    if max(errs) > BF16_PATH_TOL:
+        problems.append(f"decode against forward {errs}")
+    out["decode_vs_forward_rel"] = errs
+    out.update(check_shapes(shapes, seed))
+    if problems:
+        raise AssertionError("phase 16a: " + "; ".join(problems))
+    return out
+
+
+def f32_parity_encdec(seed: int, cfg, tol: float) -> dict:
+    """Phase 16b: ``cfg`` (2 + 2 layers at full width) at f32, the same
+    INT8 codes on the card and the CPU; 2 rows of 256 frames, a prefill of
+    64 decoder tokens and 3 teacher-forced decode steps: the card's logits
+    within ``tol`` of the CPU's and the same greedy tokens; the card
+    launches ``int8_matmul``, the CPU the plain version."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import engine
+    from repro_torch.serve.params import quantize_leaf
+    gpu = model_zoo.build(cfg, device="cuda", dtype=torch.float32)
+    cpu = model_zoo.build(cfg, device="cpu", dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    p_gpu = gpu.init_params(gen, leaf_fn=lambda _, t: quantize_leaf(t),
+                            by_layer=True)
+    p_cpu = to_cpu(p_gpu)
+    P = ENCDEC_PARITY_PROMPT
+    b = encdec_inputs(seed, cfg, ENCDEC_PARITY_ROWS, ENCDEC_PARITY_FRAMES,
+                      P + 3, salt=13)[0]
+    out = {}
+    for name, bundle, params in (("cpu", cpu, p_cpu), ("gpu", gpu, p_gpu)):
+        dev = bundle.device
+        frames, t = b["frames"].to(dev), b["tokens"].to(dev)
+        LAUNCHES.clear()
+        logits, state = engine.build_prefill(bundle, P + 4)(
+            params, {"frames": frames, "tokens": t[:, :P]})
+        got = [logits[:, -1]]
+        decode = engine.build_decode(bundle)
+        for i in range(P, P + 3):
+            logits, state = decode(params, state, t[:, i: i + 1])
+            got.append(logits[:, -1])
+        out[name] = ([g.float().cpu() for g in got], dict(LAUNCHES))
+    (l_c, n_c), (l_g, n_g) = out["cpu"], out["gpu"]
+    rel = max(((g - c).abs().max() / c.abs().max()).item()
+              for g, c in zip(l_g, l_c))
+    same = all(torch.equal(g.argmax(-1), c.argmax(-1))
+               for g, c in zip(l_g, l_c))
+    log(f"  {cfg.name} f32, {cfg.num_encoder_layers} + {cfg.num_layers} "
+        f"layers, card against CPU: rel err {rel:.2e} (tolerance "
+        f"{tol:.2e}) over the prefill of {P} tokens on "
+        f"{ENCDEC_PARITY_FRAMES} frames and 3 decode steps, "
+        f"{ENCDEC_PARITY_ROWS} rows, greedy tokens "
+        f"{'equal' if same else 'DIFFER'}; launches card {n_g} CPU {n_c}")
+    problems = []
+    if set(n_g) != {"int8_matmul"}:
+        problems.append(f"card launches {n_g}")
+    if set(n_c) != {"deq_matmul"}:
+        problems.append(f"CPU launches {n_c}")
+    if rel > tol:
+        problems.append(f"rel err {rel:.2e}")
+    if not same:
+        problems.append("greedy tokens differ")
+    del p_gpu, p_cpu, gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("phase 16b: " + "; ".join(problems))
+    return {"rel_err": rel, "same_greedy": same, "launches_card": n_g,
+            "launches_cpu": n_c}
+
+
+def encdec_flash(seed: int, bundle, params) -> dict:
+    """Phase 16c: 16a's batches prefilled through a bundle built with
+    ``flash_attention=True`` and through the einsum bundle on the same
+    weights: each flash prefill launches ``flash_attention`` once a
+    decoder layer (the encoder's attention is not causal and
+    cross-attention's queries are not aligned, so neither takes it) and
+    ``int8_matmul`` as 16a, no plain version; its last logits within
+    ``FLASH_ROUTE_TOL`` of the einsum route's (greedy tokens reported);
+    every distinct flash problem against its plain version; then the d =
+    64 kernel at 16a's prefill shape, bf16 and f32, against its plain
+    version and timed beside it, SDPA and the bound."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.models import model_zoo
+    from repro_torch.serve import engine
+    cfg = bundle.cfg
+    bundles = {"einsum": bundle,
+               "flash": model_zoo.build(cfg, device="cuda",
+                                        dtype=torch.bfloat16,
+                                        flash_attention=True)}
+    prompt = encdec_prompt(bundle, ENCDEC_FRAMES)
+    i8 = sum(encdec_launches(cfg, ENCDEC_ROWS, ENCDEC_FRAMES, prompt,
+                             False).values())
+    want = {"einsum": {"int8_matmul": i8},
+            "flash": {"int8_matmul": i8, "flash_attention": cfg.num_layers}}
+    shapes: set = set()
+    kernel = tflash.flash_attention
+
+    def recording(q, k, v, *, causal=True):
+        shapes.add((q.shape[0], q.shape[1], q.shape[2], k.shape[2],
+                    q.shape[3], v.shape[3], causal, q.dtype))
+        return kernel(q, k, v, causal=causal)
+
+    problems, errs, same, ms = [], [], [], {r: [] for r in bundles}
+    flash_launches = 0
+    tflash.flash_attention = recording
+    try:
+        for b in encdec_inputs(seed, cfg, ENCDEC_ROWS, ENCDEC_FRAMES, prompt,
+                               n=ENCDEC_BATCHES):
+            b = {k: v.cuda() for k, v in b.items()}
+            got = {}
+            for route, bb in bundles.items():
+                LAUNCHES.clear()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, _ = engine.build_prefill(bb, ENCDEC_WINDOW)(params, b)
+                torch.cuda.synchronize()
+                ms[route].append((time.perf_counter() - t) * 1e3)
+                n = {k: c for k, c in LAUNCHES.items() if c}
+                if n != want[route]:
+                    problems.append(f"{route} prefill launched {n}, want "
+                                    f"{want[route]}")
+                got[route] = logits[:, -1].float()
+            flash_launches += LAUNCHES["flash_attention"]
+            e, f = got["einsum"], got["flash"]
+            errs.append(((f - e).abs().max() / e.abs().max()).item())
+            same.append(torch.equal(f.argmax(-1), e.argmax(-1)))
+    finally:
+        tflash.flash_attention = kernel
+    log(f"  flash route against the einsum route, {len(errs)} prefills of "
+        f"{ENCDEC_ROWS} rows (bf16): last logits rel err "
+        f"{['%.2e' % e for e in errs]} (tolerance {FLASH_ROUTE_TOL}), greedy "
+        f"rows equal {sum(same)}/{len(same)} batches; median prefill ms "
+        f"einsum {statistics.median(ms['einsum']):.2f}, flash "
+        f"{statistics.median(ms['flash']):.2f}; {flash_launches} flash "
+        f"launches ({cfg.num_layers} a prefill)")
+    if max(errs) > FLASH_ROUTE_TOL:
+        problems.append(f"flash route logits {errs}")
+    out = {"prefills": len(errs), "logits_rel_err": errs,
+           "greedy_equal": sum(same) / len(same),
+           "median_prefill_ms": {r: statistics.median(v)
+                                 for r, v in ms.items()},
+           "launches": {"flash_attention": flash_launches},
+           "launches_per_prefill": want["flash"]}
+    out.update(check_flash_shapes(shapes, seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 26)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        row = flash_row(*ENCDEC_FLASH, dt, gen, flush)
+        row["note"] = "d and dv at the kernel's 64-wide template, no padding"
+        rows.append(row)
+        log(f"  flash d=64 B={row['B']} S={row['S']} H={row['H']} "
+            f"{row['dtype']}: ms={row['ms']:.4f} plain_ms="
+            f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+            f"(SDPA) bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"tflops={row['tflops']:.1f} rel_err={row['rel_err']:.2e}"
+            + (f" hi_only_rel={row['hi_only_rel']:.2e}"
+               if "hi_only_rel" in row else "")
+            + f" {'ok' if row['ok'] else 'FAIL'}")
+        if not row["ok"]:
+            problems.append(f"flash d=64 {row['dtype']}: {row}")
+    del flush, bundles
+    torch.cuda.empty_cache()
+    out["d64_rows"] = rows
+    if problems:
+        raise AssertionError("phase 16c: " + "; ".join(problems))
+    return out
+
+
+def phase_encdec(seed: int) -> dict:
+    """Phase 16: seamless-m4t-medium served through ``generate`` at full
+    width and depth (16a), its f32 answers against the CPU at 2 + 2
+    layers (16b), the flash route (16c) and training at full width and
+    depth (16d)."""
+    from repro_torch.config import replace
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.params import quantize_leaf
+    cfg = model_zoo.get_config(ENCDEC_ARCH)
+    log(f"== phase 16: {ENCDEC_ARCH} (encoder-decoder, the audio frontend "
+        f"stubbed) through generate ({ENCDEC_BATCHES} batches of "
+        f"{ENCDEC_ROWS} requests, {ENCDEC_FRAMES} frames, "
+        f"{ENCDEC_NEW} new), the flash route, and trained")
+    card = nvidia_smi_line()
+    log("card:", card)
+    log(f"  cuts: 16a, 16c and 16d none ({cfg.num_encoder_layers} + "
+        f"{cfg.num_layers} layers at full width); 16b "
+        f"{ENCDEC_PARITY_LAYERS} + {ENCDEC_PARITY_LAYERS} layers (the CPU's "
+        f"plain matmuls), {ENCDEC_PARITY_ROWS} rows of "
+        f"{ENCDEC_PARITY_FRAMES} frames, a {ENCDEC_PARITY_PROMPT}-token "
+        f"prompt")
+    t0 = time.monotonic()
+    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = bundle.init_params(gen, leaf_fn=lambda _, t: quantize_leaf(t),
+                                by_layer=True)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = tree_stats(params)
+    want_params = model_zoo.count_params(cfg)
+    log(f"  {cfg.name}: {cfg.num_encoder_layers} + {cfg.num_layers} layers, "
+        f"d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+        f"{st['params']:,} parameters ({want_params:,} counted on the meta "
+        f"device), INT8 codes and scales {st['int8_bytes'] / 2**30:.3f} GiB,"
+        f" float {st['float_bytes'] / 2**20:.3f} MiB; drawn and quantized "
+        f"in {init_s:.2f} s, peak {init_peak:.3f} GiB")
+    if st["params"] != want_params:
+        raise AssertionError(f"phase 16a: {st['params']} parameters drawn, "
+                             f"{want_params} counted")
+    serve = serve_encdec(seed, bundle, params)
+    serve.update(params=st["params"], int8_gib=st["int8_bytes"] / 2 ** 30,
+                 init_s=init_s, init_peak_gib=init_peak)
+    log(f"  16a {ENCDEC_ARCH}: {serve['tokens_per_s']:.1f} tok/s, mean TTFT "
+        f"{serve['mean_ttft_s']:.3f} s, median decode step "
+        f"{serve['median_decode_step_ms']:.2f} ms, encoder share of a "
+        f"prefill {['%.3f' % x for x in serve['encoder_share']]}, INT8 "
+        f"weights {serve['int8_gib']:.3f} GiB, peak {serve['peak_gib']:.3f} "
+        f"GiB, decode idle share {serve['device_idle_share']}, device "
+        f"{serve['profile_step_device_ms']} ms a decode step, launches a "
+        f"prefill {serve['launches_per_prefill']}, a decode step "
+        f"{serve['launches_per_decode_step']} [{card}]")
+    split = {"16a": time.monotonic() - t0}
+    flash = encdec_flash(seed, bundle, params)
+    B, S = ENCDEC_TRAIN_BATCH
+    train_prompt = encdec_prompt(bundle, S)
+    fwd = sum(encdec_launches(cfg, B, S, train_prompt, False).values())
+    split["16c"] = time.monotonic() - t0 - sum(split.values())
+    del params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    pcfg = replace(cfg, num_layers=ENCDEC_PARITY_LAYERS,
+                   num_encoder_layers=ENCDEC_PARITY_LAYERS)
+    sens = rounding_sensitivity(pcfg, seed, ENCDEC_PARITY_PROMPT,
+                                frames=ENCDEC_PARITY_FRAMES)
+    parity = f32_parity_encdec(seed, pcfg,
+                               tol=max(PARITY_TOL, sens["parity_tol"]))
+    parity["sensitivity"] = sens
+    split["16b"] = time.monotonic() - t0 - sum(split.values())
+    training = train_full(
+        cfg, seed, rank=ENCDEC_RANK, batch=ENCDEC_TRAIN_BATCH,
+        steps=ENCDEC_TRAIN_STEPS, method="randomized", fwd=fwd,
+        norm_keys=("frame_norm", "enc_final_norm"), check_problems=True)
+    training.update(layers=[cfg.num_encoder_layers, cfg.num_layers],
+                    decoder_tokens=train_prompt)
+    wall = time.monotonic() - t0
+    split["16d"] = wall - sum(split.values())
+    parts = ", ".join(f"{k} {v:.1f} s" for k, v in split.items())
+    log(f"  phase 16 in {wall:.1f} s ({parts})")
+    return {"serving": serve, "f32_parity": parity, "flash": flash,
+            "training": training, "wall_s": wall, "split_s": split,
+            "card": card,
+            "cuts": {"parity": {"layers": [ENCDEC_PARITY_LAYERS] * 2,
+                                "rows": ENCDEC_PARITY_ROWS,
+                                "frames": ENCDEC_PARITY_FRAMES,
+                                "prompt": ENCDEC_PARITY_PROMPT}}}
 
 
 def main() -> int:
@@ -4833,7 +5393,7 @@ def main() -> int:
     if args.only:
         phases = {"1": phase_environment, "11": phase_dense_variants,
                   "12": phase_moe, "13": phase_mla, "14": phase_xlstm,
-                  "15": phase_zamba}
+                  "15": phase_zamba, "16": phase_encdec}
         for name in args.only.split(","):
             fn = phases[name]
             fn() if name == "1" else fn(args.seed)
@@ -4858,6 +5418,7 @@ def main() -> int:
     mla = phase_mla(args.seed)
     xl = phase_xlstm(args.seed)
     zb = phase_zamba(args.seed)
+    ed = phase_encdec(args.seed)
     log(f"  serving, route off / flash route: tokens/s "
         f"{serving['tokens_per_s']:.1f} / {flash_serving['tokens_per_s']:.1f}"
         f", mean TTFT {serving['mean_ttft_s']:.3f} / "
@@ -4874,7 +5435,7 @@ def main() -> int:
                                   serving, parity, training, flash_rows,
                                   flash_serving, flash_parity, unfused,
                                   training_7b, finetune, paged, dense,
-                                  moe, mla, xl, zb)))
+                                  moe, mla, xl, zb, ed)))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4885,7 +5446,7 @@ def main() -> int:
 def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                  training, flash_rows, flash_serving, flash_parity,
                  unfused, training_7b, finetune, paged, dense, moe,
-                 mla, xl, zb) -> dict:
+                 mla, xl, zb, ed) -> dict:
     """The ``kernels`` line: every kernel with its launches on the main
     paths, errors against its plain version, and times beside its bound;
     the three training kernels also carry their LLaMA-7B rows
@@ -4900,7 +5461,11 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     sLSTM gates' f32-x rows (``xlstm``); the three their phase 15 launches
     (the hybrid's serving and training), ``int8_matmul`` phase 15's
     serving and parity (``zamba``), ``flash_attention`` 15c's prefills and
-    its d = 80 rows (``head_dim_80``)."""
+    its d = 80 rows (``head_dim_80``); the three their phase 16 launches
+    (the encoder-decoder's serving and training), ``int8_matmul`` phase
+    16's serving, parity and cross K/V timing (``encdec``),
+    ``flash_attention`` 16c's prefills and its d = 64 rows
+    (``head_dim_64_encdec``)."""
     layers = num_layers()
     flash_pick, flash_f32 = (
         next(r for r in flash_rows if (r["B"], r["S"], r["dv"], r["causal"],
@@ -4941,12 +5506,16 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     xs_, xt_ = xl["serving"]["launches"], xl["training"]["launches"]
     zs_, zt_ = zb["serving"]["launches"], zb["training"]["launches"]
     zf = zb["flash"]
+    es_, et_ = ed["serving"]["launches"], ed["training"]["launches"]
+    ef = ed["flash"]
 
     def xl_paths(name):
         return {"xlstm_serving": xs_.get(name, 0),
                 "xlstm_training": xt_.get(name, 0),
                 "zamba_serving": zs_.get(name, 0),
-                "zamba_training": zt_.get(name, 0)}
+                "zamba_training": zt_.get(name, 0),
+                "encdec_serving": es_.get(name, 0),
+                "encdec_training": et_.get(name, 0)}
 
     def grid_paths(name):
         # each MoE path's launches, 2-D and batched together, and the
@@ -4999,7 +5568,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                             mla["serving"]["check_max_abs_err"],
                             mla["serving"]["batched"]["check_max_abs_err"],
                             xl["serving"]["check_max_abs_err"],
-                            zb["serving"]["check_max_abs_err"]]
+                            zb["serving"]["check_max_abs_err"],
+                            ed["serving"]["check_max_abs_err"]]
                            + [r["max_abs_err"] for r in xl["slstm_gates"]]
                            + [r["max_abs_err"]
                               for r in i8_7b["per_shape"]
@@ -5015,7 +5585,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                             mla["serving"]["check_max_rel_err"],
                             mla["serving"]["batched"]["check_max_rel_err"],
                             xl["serving"]["check_max_rel_err"],
-                            zb["serving"]["check_max_rel_err"]]
+                            zb["serving"]["check_max_rel_err"],
+                            ed["serving"]["check_max_rel_err"]]
                            + [r["rel_err"] for r in xl["slstm_gates"]]
                            + [r["check_max_rel_err"]
                               for r in dense["serving"].values()]
@@ -5045,6 +5616,15 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "zamba": {"card": zb["card"], "wall_s": zb["wall_s"],
                   "split_s": zb["split_s"], "cuts": zb["cuts"],
                   "serving": zb["serving"], "f32_parity": zb["f32_parity"]},
+        "encdec": {"card": ed["card"], "wall_s": ed["wall_s"],
+                   "split_s": ed["split_s"], "cuts": ed["cuts"],
+                   "serving": ed["serving"], "f32_parity": ed["f32_parity"],
+                   "timed_as": {"cross_kv": (
+                       "a decode step's 24 cross-attention K/V calls "
+                       "(memory (2048, 1024) bf16 @ deq(W (1024, 1024))) "
+                       "back to back on the run's weights between one "
+                       "pair of events; library: cuBLAS bf16 on the same "
+                       "weights dequantized")}},
         "paged_serving": dict(paged["serving"], parity=paged["parity"]),
         "max_rel_err_7b": max(r["rel_err"] for r in i8_7b["per_shape"]
                               + i8f["per_shape"]),
@@ -5094,7 +5674,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         + sum(ft_paths("int8_matmul_t").values()) + dl["int8_matmul_t"]
         + moe_paths["int8_matmul_t"]["moe_training"]
         + moe_paths["int8_matmul_t"]["mla_training"]
-        + xt_.get("int8_matmul_t", 0) + zt_.get("int8_matmul_t", 0),
+        + xt_.get("int8_matmul_t", 0) + zt_.get("int8_matmul_t", 0)
+        + et_.get("int8_matmul_t", 0),
         "launches_by_path": {"training": tl.get("int8_matmul_t", 0),
                              "training_7b": l7.get("int8_matmul_t", 0),
                              **ft_paths("int8_matmul_t"),
@@ -5102,7 +5683,9 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                              **moe_paths["int8_matmul_t"],
                              "xlstm_training": xt_.get("int8_matmul_t",
                                                        0),
-                             "zamba_training": zt_.get("int8_matmul_t", 0)},
+                             "zamba_training": zt_.get("int8_matmul_t", 0),
+                             "encdec_training": et_.get("int8_matmul_t",
+                                                        0)},
         "max_abs_err": max(r["max_abs_err"] for r in tk["int8_matmul_t"]
                            + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]
                            + dense["tied_head"]
@@ -5153,7 +5736,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         + mt_.get("fused_qgalore_update", 0)
         + lt_.get("fused_qgalore_update", 0)
         + xt_.get("fused_qgalore_update", 0)
-        + zt_.get("fused_qgalore_update", 0),
+        + zt_.get("fused_qgalore_update", 0)
+        + et_.get("fused_qgalore_update", 0),
         "launches_by_path": {"training": tl.get("fused_qgalore_update", 0),
                              "training_7b": l7.get("fused_qgalore_update",
                                                    0),
@@ -5165,6 +5749,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                              "xlstm_training": xt_.get(
                                  "fused_qgalore_update", 0),
                              "zamba_training": zt_.get(
+                                 "fused_qgalore_update", 0),
+                             "encdec_training": et_.get(
                                  "fused_qgalore_update", 0)},
         "max_abs_err": max(r["max_abs_err"]
                            for r in tk["fused_qgalore_update"]
@@ -5198,17 +5784,22 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": flash_serving["launches"].get("flash_attention", 0)
-        + zf["launches"]["flash_attention"],
+        + zf["launches"]["flash_attention"]
+        + ef["launches"]["flash_attention"],
         "launches_by_path": {"serving_flash_route": flash_serving[
             "launches"].get("flash_attention", 0),
-            "zamba_flash_prefill": zf["launches"]["flash_attention"]},
-        "max_abs_err": max([r["max_abs_err"]
-                            for r in flash_rows + zf["d80_rows"]]
+            "zamba_flash_prefill": zf["launches"]["flash_attention"],
+            "encdec_flash_prefill": ef["launches"]["flash_attention"]},
+        "max_abs_err": max([r["max_abs_err"] for r in flash_rows
+                            + zf["d80_rows"] + ef["d64_rows"]]
                            + [flash_serving["flash_check_max_abs_err"],
-                              zf["flash_check_max_abs_err"]]),
-        "max_rel_err": max([r["rel_err"] for r in flash_rows + zf["d80_rows"]]
+                              zf["flash_check_max_abs_err"],
+                              ef["flash_check_max_abs_err"]]),
+        "max_rel_err": max([r["rel_err"] for r in flash_rows
+                            + zf["d80_rows"] + ef["d64_rows"]]
                            + [flash_serving["flash_check_max_rel_err"],
-                              zf["flash_check_max_rel_err"]]),
+                              zf["flash_check_max_rel_err"],
+                              ef["flash_check_max_rel_err"]]),
         "head_dim_80": {"card": zb["card"], "rows": zf["d80_rows"],
                         "route": {k: v for k, v in zf.items()
                                   if k != "d80_rows"},
@@ -5217,6 +5808,13 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                                     "32/32 heads, d = dv = 80, causal), "
                                     "per-call median of 20 after an L2 "
                                     "flush; library: SDPA"},
+        "head_dim_64_encdec": {
+            "card": ed["card"], "rows": ef["d64_rows"],
+            "route": {k: v for k, v in ef.items() if k != "d64_rows"},
+            "timed_as": "seamless-m4t-medium's decoder self-attention at a "
+                        "16a prefill (B 4, S 128, 16/16 heads, d = dv = 64,"
+                        " causal), per-call median of 20 after an L2 "
+                        "flush; library: SDPA"},
         **{k: flash_pick[k] * layers for k in ("ms", "plain_ms",
                                                "bound_ms", "library_ms")},
         "factor": flash_pick["ms"] / flash_pick["library_ms"],
@@ -5315,7 +5913,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "mla_training": {k: v for k, v in mla["training"].items()
                          if k != "int8_matmul_t_batched"},
         "xlstm_training": xl["training"],
-        "zamba_training": zb["training"]}
+        "zamba_training": zb["training"],
+        "encdec_training": ed["training"]}
     return kernels
 
 

@@ -5,14 +5,16 @@ The batch at step ``s`` is a pure function of ``(seed, s)``: a Markov
 stream through a fixed successor table (numpy, the JAX package's own
 table for the same seed) with 10% uniform noise tokens, and for a VLM
 bundle the prefix's ``patch_embeds`` (``normal * 0.5``, the stub of the
-vision frontend). The draws come from a ``torch.Generator``, so they
+vision frontend) or for an encoder-decoder its ``frames`` (the audio
+frontend's stub, drawn alike), as the bundle's ``input_specs`` names
+them. The draws come from a ``torch.Generator``, so they
 differ from the JAX package's; tests that compare the two hand the
 reference's batches to both.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -37,11 +39,11 @@ class SyntheticLM:
         succ = rng.integers(0, v, size=(min(v, 4096), 4), dtype=np.int32)
         self._succ = torch.from_numpy(succ).long().to(self.device)
 
-    def batch_at(self, step: int, prefix: Optional[Tuple] = None
+    def batch_at(self, step: int, embeds: Optional[Dict] = None
                  ) -> Dict[str, torch.Tensor]:
-        """The batch at ``step``. ``prefix = (P, D, dtype)`` adds
-        ``patch_embeds`` (B, P, D) in ``dtype``, drawn after the tokens
-        from the same generator."""
+        """The batch at ``step``. ``embeds``, ``{name: (shape, dtype)}``,
+        adds each ``name`` in ``dtype``, ``normal * 0.5`` drawn after the
+        tokens from the same generator, in the order given."""
         cfg = self.cfg
         B, S, V = cfg.global_batch, cfg.seq_len, cfg.vocab_size
         gen = torch.Generator(device=self.device).manual_seed(
@@ -60,22 +62,22 @@ class SyntheticLM:
         rand_tok = torch.randint(0, V, (B, S), generator=gen, device=dev)
         tokens = torch.where(flip, rand_tok, toks).to(torch.int32)
         out = {"tokens": tokens, "labels": tokens}
-        if prefix is not None:
-            P, D, dtype = prefix
-            out["patch_embeds"] = (torch.randn(
-                (B, P, D), generator=gen, device=dev) * 0.5).to(dtype)
+        for name, (shape, dtype) in (embeds or {}).items():
+            out[name] = (torch.randn(
+                shape, generator=gen, device=dev) * 0.5).to(dtype)
         return out
 
 
 def batch_for_bundle(bundle, cell, step: int, seed: int = 0):
     """The batch of ``cell``'s shape at ``step``, on the bundle's device:
-    tokens and labels, and for a VLM bundle with prefix embeddings its
-    ``patch_embeds`` in the bundle's activation dtype."""
-    cfg = bundle.cfg
-    lm = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                seq_len=cell.seq_len,
-                                global_batch=cell.global_batch, seed=seed),
+    the leaves that ``bundle.input_specs(cell)`` names (the JAX package's
+    ``input_specs``). Tokens and labels come from the Markov stream at the
+    tokens' shape; every other leaf (a modality stub's embeddings) is
+    drawn after them."""
+    specs = dict(bundle.input_specs(cell))
+    (B, S), _ = specs.pop("tokens")
+    specs.pop("labels")
+    lm = SyntheticLM(DataConfig(vocab_size=bundle.cfg.vocab_size,
+                                seq_len=S, global_batch=B, seed=seed),
                      device=bundle.device)
-    prefix = ((cfg.num_prefix_embeddings, cfg.d_model, bundle.dtype)
-              if cfg.family == "vlm" and cfg.num_prefix_embeddings else None)
-    return lm.batch_at(step, prefix)
+    return lm.batch_at(step, specs)

@@ -6,7 +6,9 @@ counterpart of ``repro/launch/train.py``).
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \
         --batch 8 --seq 256 --accum 2 --rank 512 --steps 20
 
-Without ``--device`` it runs on the card. The flags of distributed
+Without ``--device`` it runs on the card. For the encoder-decoder
+(``--arch seamless-m4t-medium``) ``--seq`` is the frames a row; its
+decoder takes ``max(seq // 4, 16)`` tokens, as in the JAX package. The flags of distributed
 training (``--mesh``, ``--tp``, ``--devices``, ``--compress``, ``--zero``,
 ``--zero2``, ``--multihost``) are accepted by name and refused: the port
 trains on one device (ROADMAP queue 1 item 5). It closes with the

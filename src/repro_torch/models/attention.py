@@ -1,6 +1,6 @@
-"""GQA and Multi-head Latent Attention with prefill and decode variants
-(the counterpart of ``repro/models/attention.py`` but cross-attention;
-qk-norm included: with ``cfg.qk_norm`` q and k are RMS-normalised over the
+"""GQA and Multi-head Latent Attention with prefill and decode variants,
+and the encoder-decoder's cross-attention (the counterpart of
+``repro/models/attention.py``; qk-norm included: with ``cfg.qk_norm`` q and k are RMS-normalised over the
 head width before RoPE). Layouts follow the JAX package: ``(B, S, H, hd)``
 activations, ``(B, Smax, KH, hd)`` GQA caches, and MLA's compressed
 caches ``(B, Smax, kv_lora_rank)`` and ``(B, Smax, qk_rope_head_dim)``.
@@ -253,6 +253,26 @@ def gqa_append(p, x, cfg: ModelConfig, *, cache: Tuple, positions, mask,
                                      v_cache[rows, pos])
     o = append_attention(q, k_cache, v_cache, positions)
     return dense(o.reshape(B, C, -1), p["wo"], dtype), (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def cross_apply(p: dict, x, memory, cfg: ModelConfig,
+                dtype=torch.bfloat16) -> torch.Tensor:
+    """Decoder cross-attention over the encoder's ``memory`` (B, Sm, D):
+    q from ``x`` (B, S, D), k and v from ``memory``, no mask and no RoPE.
+    K and V are computed anew at every call (a decode step too), as the
+    JAX package does; a non-causal call never takes the flash kernel."""
+    B, S, _ = x.shape
+    Sm = memory.shape[1]
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = dense(x, p["wq"], dtype).reshape(B, S, H, hd)
+    k = dense(memory, p["wk"], dtype).reshape(B, Sm, KH, hd)
+    v = dense(memory, p["wv"], dtype).reshape(B, Sm, KH, hd)
+    o = chunked_attention(q, k, v, causal=False)
+    return dense(o.reshape(B, S, -1), p["wo"], dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,11 @@ leading layer axis ``(L, ...)``; the engine walks the layers with a Python
 loop and hands each block its slice (:func:`layer_params`). ``carry`` is a
 dict holding ``h`` (hidden states) and, for an MoE model, ``aux`` (the
 routers' load-balance loss, a 0-d float32 that the blocks accumulate and
-``head_loss`` adds); ``ctx`` is shared read-only state (positions,
-lengths) built by ``embed``. A layer's cache is a tuple of leaves of any
-length: GQA's and MLA's pairs, an xLSTM group's seven states.
+``head_loss`` adds) and an architecture's own entries (zamba's ``x0``,
+the encoder-decoder's ``dec_h`` and ``memory``); ``ctx`` is shared
+read-only state (positions, lengths) built by ``embed``. A layer's cache
+is a tuple of leaves of any length: GQA's and MLA's pairs, an xLSTM
+group's seven states.
 """
 from __future__ import annotations
 
@@ -29,16 +31,19 @@ class SegmentDef:
     n_layers: int
     # (layer_params, carry, ctx) -> carry
     apply: Callable
-    # (layer_params, carry, ctx) -> (carry, cache_slice)
-    prefill: Callable
-    # (layer_params, carry, cache_slice, ctx) -> (carry, cache_slice)
-    decode: Callable
+    # (layer_params, carry, ctx) -> (carry, cache_slice); None for a
+    # segment that serving runs through ``apply`` alone and that keeps no
+    # cache (the encoder of an encoder-decoder)
+    prefill: Optional[Callable] = None
+    # (layer_params, carry, cache_slice, ctx) -> (carry, cache_slice);
+    # None where ``prefill`` is None: decode skips the segment
+    decode: Optional[Callable] = None
     # (batch, max_len) -> per-layer cache leaves as ``(shape, dtype)``
     # pairs: every shape leads with the batch axis (a recurrent state
     # too; an inner block stack sits after it), and a dtype of None means
     # the pool's dtype (attention K/V), while a recurrent state names its
     # own (float32), which the pool keeps whatever its dtype
-    cache_shapes: Callable
+    cache_shapes: Optional[Callable] = None
     # chunk-append (the paged runtime's prefill): (layer_params, carry,
     # cache_slice, ctx) -> (carry, cache_slice), where carry["h"] holds a
     # chunk of C tokens at absolute ctx["positions"] (B, C), the cache
@@ -46,6 +51,17 @@ class SegmentDef:
     # marks the valid tokens (padded tail positions write nothing).
     # Appending a prompt chunk by chunk computes what one-shot prefill does.
     append: Optional[Callable] = None
+    # (params, carry, ctx) -> carry, run before the segment's first layer
+    # in the forward, at prefill and in the per-layer backward (the
+    # encoder-decoder's bridge from the encoder to the decoder)
+    pre: Optional[Callable] = None
+
+
+def lm_input_specs(cell) -> dict:
+    """A language model's batch for ``cell``: tokens and labels ``(B, S)``
+    int32, as ``{name: (shape, dtype)}``."""
+    shape = (cell.global_batch, cell.seq_len)
+    return {"tokens": (shape, torch.int32), "labels": (shape, torch.int32)}
 
 
 @dataclass(frozen=True)
@@ -64,6 +80,17 @@ class ModelBundle:
     # capacity-limited MoE routing couples them through the shared expert
     # buffers, so such bundles prefill one unpadded prompt at a time
     ragged_prefill_ok: bool = False
+    # decode-time embedding: (params, tokens (B, 1), extras) -> (carry,
+    # ctx); None embeds the tokens through ``embed``
+    embed_decode: Optional[Callable] = None
+    # carry entries that prefill keeps for decode (``DecodeState.extras``:
+    # the encoder-decoder's ``memory``)
+    decode_extras: tuple = ()
+    # (cell) -> {name: (shape, dtype)}: the leaves of a batch of ``cell``'s
+    # shape (``data.synthetic.batch_for_bundle`` draws them); a modality
+    # stub adds its embeddings (a VLM's ``patch_embeds``, an
+    # encoder-decoder's ``frames``) and sets the tokens' length
+    input_specs: Callable = lm_input_specs
 
     def seg_key(self, i: int) -> str:
         return f"seg{i}_{self.segments[i].name}"
@@ -87,6 +114,8 @@ def layer_params(tree, layer: int):
 def run_segments(bundle: ModelBundle, params, carry, ctx):
     """The full-sequence forward over all segments."""
     for i, seg in enumerate(bundle.segments):
+        if seg.pre is not None:
+            carry = seg.pre(params, carry, ctx)
         stack = params[bundle.seg_key(i)]
         for layer in range(seg.n_layers):
             carry = seg.apply(layer_params(stack, layer), carry, ctx)

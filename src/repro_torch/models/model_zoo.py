@@ -3,10 +3,11 @@ LLaMA configs, mistral-nemo-12b, yi-9b, qwen3-32b, gemma-7b), the VLM
 backbone internvl2-2b, the mixture of experts qwen3-moe-30b-a3b,
 deepseek-v3-671b (MLA, shared experts, leading dense layers, multi-token
 prediction), the recurrent xlstm-125m (mLSTM and sLSTM blocks,
-``models/xlstm_model.py``) and the SSM hybrid zamba2-2.7b (Mamba2 blocks
-and a shared attention block, ``models/zamba.py``). The JAX package's
-encoder-decoder is refused by name, with the ROADMAP sub-slice that
-brings it; a family ``ssm`` is unknown, as in the JAX package."""
+``models/xlstm_model.py``), the SSM hybrid zamba2-2.7b (Mamba2 blocks
+and a shared attention block, ``models/zamba.py``) and the
+encoder-decoder seamless-m4t-medium (``models/encdec.py``): every
+architecture of the JAX package. A family ``ssm`` is unknown, as in the
+JAX package."""
 from __future__ import annotations
 
 import importlib
@@ -22,12 +23,9 @@ from repro_torch.models.base import ModelBundle
 ARCH_IDS = ("llama-60m", "llama-130m", "llama-350m", "llama-1b",
             "llama-7b", "mistral-nemo-12b", "yi-9b", "qwen3-32b",
             "gemma-7b", "internvl2-2b", "qwen3-moe-30b-a3b",
-            "deepseek-v3-671b", "xlstm-125m", "zamba2-2.7b")
+            "deepseek-v3-671b", "xlstm-125m", "zamba2-2.7b",
+            "seamless-m4t-medium")
 
-# the JAX package's other architectures, and the ROADMAP queue 1 sub-slice
-# that ports each
-LATER = {"seamless-m4t-medium": "4f (encoder-decoder)"}
-_FAMILY_SLICE = {"encdec": LATER["seamless-m4t-medium"]}
 FLASH_MAX_HEAD_DIM = 128    # csrc/flash_attention.cu takes d <= 128
 
 
@@ -39,15 +37,7 @@ def qk_width(cfg: ModelConfig) -> int:
     return cfg.resolved_head_dim
 
 
-def _refuse(cfg: ModelConfig, what: str, sub_slice: str):
-    raise NotImplementedError(f"{cfg.name}: {what} is not ported yet "
-                              f"(ROADMAP queue 1, sub-slice {sub_slice})")
-
-
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
-    if arch_id in LATER:
-        raise NotImplementedError(f"{arch_id} is not ported yet (ROADMAP "
-                                  f"queue 1, sub-slice {LATER[arch_id]})")
     if arch_id not in ARCH_IDS:
         raise ValueError(f"{arch_id!r} is not ported; the port has "
                          f"{', '.join(ARCH_IDS)}")
@@ -57,25 +47,23 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
 
 
 def check_config(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP sub-slice for any
-    part of ``cfg`` the port does not have: the family ``encdec``; other
-    families than ``dense``, ``vlm``, ``moe``, ``xlstm`` and ``hybrid``
-    raise the JAX package's ``ValueError`` (``unknown family ssm``), and
-    so do an ``xlstm`` config without ``cfg.xlstm`` and a ``hybrid`` one
-    without ``cfg.ssm`` and ``cfg.hybrid``. qk-norm, GeGLU, tied
-    embeddings, the VLM prefix, a mixture of experts (``cfg.moe``, with
-    shared experts and leading dense layers), MLA (``attention == "mla"``
-    with ``cfg.mla``) and multi-token prediction at ``mtp_depth`` 1 are
-    ported.
+    """Raise for any part of ``cfg`` the port does not have. Other
+    families than ``dense``, ``vlm``, ``moe``, ``xlstm``, ``hybrid`` and
+    ``encdec`` raise the JAX package's ``ValueError`` (``unknown family
+    ssm``), and so do an ``xlstm`` config without ``cfg.xlstm`` and a
+    ``hybrid`` one without ``cfg.ssm`` and ``cfg.hybrid``. qk-norm, GeGLU,
+    tied embeddings, the VLM prefix, a mixture of experts (``cfg.moe``,
+    with shared experts and leading dense layers), MLA (``attention ==
+    "mla"`` with ``cfg.mla``), multi-token prediction at ``mtp_depth`` 1
+    and the encoder-decoder are ported.
 
     ``mtp_depth`` above 1 is refused by name: the JAX package builds one
     MTP block whatever the depth, so the port would compute depth 1 under
     another number (ROADMAP queue 3, a deviation by design). So is a
     nonzero ``xlstm.mlstm_head_dim``: the JAX package always splits the
     mLSTM's inner width evenly over the heads, whatever the field says."""
-    if cfg.family in _FAMILY_SLICE:
-        _refuse(cfg, f"the {cfg.family} family", _FAMILY_SLICE[cfg.family])
-    if cfg.family not in ("dense", "vlm", "moe", "xlstm", "hybrid"):
+    if cfg.family not in ("dense", "vlm", "moe", "xlstm", "hybrid",
+                          "encdec"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family}")
     if cfg.family == "hybrid" and (cfg.ssm is None or cfg.hybrid is None):
         raise ValueError(f"{cfg.name}: family 'hybrid' needs cfg.ssm and "
@@ -117,10 +105,11 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
     (``transformer.build``). The xLSTM family (``xlstm_model.build``) has
     neither: it has no attention for the flag to route, and the JAX
     package refuses to split it. The hybrid (``zamba.build``) takes the
-    flag for its sites' attention and, as the JAX package, refuses a
-    split."""
+    flag for its sites' attention and the encoder-decoder
+    (``encdec.build``) for its decoder's self-attention; as the JAX
+    package, both refuse a split."""
     check_config(cfg)
-    if split_layers and cfg.family in ("xlstm", "hybrid"):
+    if split_layers and cfg.family in ("xlstm", "hybrid", "encdec"):
         raise ValueError(f"split_layers unsupported for family {cfg.family}")
     if cfg.family == "xlstm":
         if flash_attention:
@@ -140,6 +129,10 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
         from repro_torch.models import zamba
         return zamba.build(cfg, device=resolve_device(device), dtype=dtype,
                            flash_attention=flash_attention)
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+        return encdec.build(cfg, device=resolve_device(device), dtype=dtype,
+                            flash_attention=flash_attention)
     from repro_torch.models import transformer
     return transformer.build(cfg, device=resolve_device(device), dtype=dtype,
                              flash_attention=flash_attention,

@@ -15,7 +15,8 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant import QTensor
 from repro_torch.models import attention, layers, moe as moe_lib
-from repro_torch.models.base import ModelBundle, SegmentDef
+from repro_torch.models.base import ModelBundle, SegmentDef, \
+    lm_input_specs
 from repro_torch.models.layers import dense, dense_init, dense_t, \
     embed_init, ffn_apply, ffn_init, rmsnorm, rmsnorm_init, softcap
 
@@ -435,9 +436,19 @@ def build(cfg: ModelConfig, *, device: torch.device,
         append=(None if is_moe or cfg.attention == "mla" else
                 functools.partial(block_append, cfg=cfg, dtype=dtype)))
         for name, n, is_moe, _ in segs)
+
+    def input_specs(cell):
+        spec = lm_input_specs(cell)
+        if is_vlm and cfg.num_prefix_embeddings:
+            spec["patch_embeds"] = ((cell.global_batch,
+                                     cfg.num_prefix_embeddings,
+                                     cfg.d_model), dtype)
+        return spec
+
     return ModelBundle(cfg=cfg, device=torch.device(device), dtype=dtype,
                        init_params=init_params, embed=embed,
                        segments=segments, head_logits=head_logits,
                        head_loss=head_loss,
                        flash_attention=flash_attention,
-                       ragged_prefill_ok=mc is None)
+                       ragged_prefill_ok=mc is None,
+                       input_specs=input_specs)

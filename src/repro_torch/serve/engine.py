@@ -17,11 +17,13 @@ the captured slices instead.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from types import MappingProxyType
+from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quant import true_div
 from repro_torch.device import resolve_device
 from repro_torch.models.base import ModelBundle, layer_params
 
@@ -29,6 +31,10 @@ from repro_torch.models.base import ModelBundle, layer_params
 class DecodeState(NamedTuple):
     caches: Dict[str, Any]          # {seg_key: (k, v) stacked per layer}
     lengths: torch.Tensor           # (B,) int32 valid positions
+    # carry entries kept from prefill for decode (``decode_extras``: the
+    # encoder-decoder's memory); empty, and read-only, for every other
+    # bundle
+    extras: Mapping[str, Any] = MappingProxyType({})
 
 
 def prompt_lengths(tokens: torch.Tensor, pad_id: Optional[int]
@@ -70,6 +76,11 @@ def build_prefill(bundle: ModelBundle, max_len: int,
     xLSTM: a recurrent state would run on through the pads) refuses
     ``pad_id``; send it unpadded prompts (full-length ``batch["lengths"]``
     stay legal).
+
+    A segment's ``pre`` runs before its first layer; a segment without
+    ``prefill`` (an encoder) runs its layers through ``apply`` and keeps
+    no cache. The state's ``extras`` hold the final carry's
+    ``bundle.decode_extras`` entries.
     """
     if pad_id is not None and not bundle.ragged_prefill_ok:
         raise ValueError(
@@ -85,6 +96,12 @@ def build_prefill(bundle: ModelBundle, max_len: int,
         for i, seg in enumerate(bundle.segments):
             key = bundle.seg_key(i)
             stack = params[key]
+            if seg.pre is not None:
+                carry = seg.pre(params, carry, ctx)
+            if seg.prefill is None:
+                for layer in range(seg.n_layers):
+                    carry = seg.apply(layer_params(stack, layer), carry, ctx)
+                continue
             per_layer = []
             for layer in range(seg.n_layers):
                 carry, cache = seg.prefill(layer_params(stack, layer),
@@ -105,7 +122,8 @@ def build_prefill(bundle: ModelBundle, max_len: int,
         rows = torch.arange(h.shape[0], device=h.device)
         h_last = h[rows, idx][:, None]
         logits = bundle.head_logits(params, {**carry, "h": h_last})
-        return logits, DecodeState(caches, lengths)
+        extras = {k: carry[k] for k in bundle.decode_extras}
+        return logits, DecodeState(caches, lengths, extras)
 
     return prefill
 
@@ -130,13 +148,13 @@ def _run_cached(seg, method, stack, caches, carry, ctx, capture):
 def append_ok(bundle: ModelBundle) -> bool:
     """True when the bundle supports chunk-append prefill, the substrate of
     the paged serving runtime (``serve/paged.py``): ragged prompts are
-    exact (``ragged_prefill_ok``: a chunk's tail is right-padded) and every
-    segment offers ``SegmentDef.append``. An MoE bundle has neither, and
-    an MLA segment has no append (deepseek-v3 lacks both). (The JAX
-    package also asks for no ``decode_extras``, which the port does not
-    have.)"""
-    return bundle.ragged_prefill_ok and \
-        all(seg.append is not None for seg in bundle.segments)
+    exact (``ragged_prefill_ok``: a chunk's tail is right-padded), every
+    segment offers ``SegmentDef.append``, and no state persists beside the
+    caches (``decode_extras``). An MoE bundle has neither of the first
+    two, and an MLA segment has no append (deepseek-v3 lacks both); the
+    encoder-decoder has none of the three."""
+    return (bundle.ragged_prefill_ok and not bundle.decode_extras
+            and all(seg.append is not None for seg in bundle.segments))
 
 
 def build_append(bundle: ModelBundle, max_len: int, capture=None):
@@ -190,7 +208,8 @@ def build_append(bundle: ModelBundle, max_len: int, capture=None):
         rows = torch.arange(B, device=h.device)
         h_last = h[rows, (chunk_len.clamp(min=1) - 1).long()][:, None]
         logits = bundle.head_logits(params, {**carry, "h": h_last})
-        return logits, DecodeState(new_caches, base + chunk_len)
+        return logits, DecodeState(new_caches, base + chunk_len,
+                                   state.extras)
 
     return append
 
@@ -199,32 +218,53 @@ def build_decode(bundle: ModelBundle, capture=None):
     """Returns ``decode(params, state, tokens (B, 1)) -> (logits,
     new_state)``; ``state.caches`` are written in place.
 
+    The tokens are embedded through ``bundle.embed_decode`` beside
+    ``state.extras`` where the bundle has one (the encoder-decoder: its
+    ``embed`` needs the frames), else through ``embed``. Segments without
+    ``decode`` or without a cache in the state (an encoder) are skipped,
+    and their ``pre`` with them: the extras carry what it made.
+
     ``capture``: optional ``(new_cache_slice, ctx) -> pytree`` hook, as in
     :func:`build_append`: the returned state's caches are then the
     captured pytrees (e.g. just this step's K/V), stacked by layer."""
     @torch.no_grad()
     def decode(params, state: DecodeState, tokens):
-        carry, ctx = bundle.embed(params, {"tokens": tokens})
+        if bundle.embed_decode is not None:
+            carry, ctx = bundle.embed_decode(params, tokens, state.extras)
+        else:
+            carry, ctx = bundle.embed(params, {"tokens": tokens})
         ctx = {**ctx, "length": state.lengths}
         new_caches: Dict[str, Any] = {}
         for i, seg in enumerate(bundle.segments):
             key = bundle.seg_key(i)
+            if seg.decode is None or key not in state.caches:
+                continue
             carry, got = _run_cached(seg, seg.decode, params[key],
                                      state.caches[key], carry, ctx, capture)
             new_caches[key] = state.caches[key] if got is None else got
         logits = bundle.head_logits(params, carry)
-        return logits, DecodeState(new_caches, state.lengths + 1)
+        return logits, DecodeState(new_caches, state.lengths + 1,
+                                   state.extras)
 
     return decode
 
 
 def sample(logits: torch.Tensor, temperature: float = 0.0,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None,
+           noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy (T=0) or temperature sampling on (B, 1, V) logits → (B,)
-    int32. Sampling draws from ``generator``."""
+    int32. Sampling draws from ``generator``; with ``noise``, standard
+    Gumbel draws (B, V) handed over, it takes ``argmax(logits / T +
+    noise)`` instead: the Gumbel-max form of the JAX package's
+    ``jax.random.categorical``, so the reference's draws give its
+    tokens."""
     lf = logits[:, -1, :].to(torch.float32)
     if temperature <= 0.0:
         return torch.argmax(lf, dim=-1).to(torch.int32)
+    if noise is not None:
+        return torch.argmax(true_div(lf, temperature)
+                            + noise.to(lf.device, torch.float32),
+                            dim=-1).to(torch.int32)
     probs = torch.softmax(lf / temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0] \
         .to(torch.int32)

@@ -156,6 +156,12 @@ class Scheduler:
                  max_len: int, pad_id: int = 0, temperature: float = 0.0,
                  prompt_bucket: int = 16, dtype=None,
                  generator: Optional[torch.Generator] = None, device=None):
+        if bundle.decode_extras:
+            # a pool holds per-slot caches only; ``generate`` serves a
+            # bundle whose decode needs state beside them
+            raise NotImplementedError(
+                "continuous batching requires slot-shaped decode state; "
+                f"bundle carries decode_extras={bundle.decode_extras!r}")
         self.device = resolve_device(device)
         self.bundle = bundle
         self.params = params

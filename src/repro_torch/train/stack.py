@@ -20,6 +20,13 @@ an explicit loop.
   place, one float32 accumulator a leaf, and the sum goes back through
   ``embed`` with the carry's cotangent (the reference's ``g_ctx``), so it
   joins the non-segment gradients before their projection.
+* A segment's ``pre`` (the encoder-decoder's bridge) runs with grad in
+  the forward, and its gradient is taken after the segment's layers in
+  the backward: w.r.t. its input carry, which goes on into the previous
+  segment's layers, and w.r.t. the non-segment leaves it reads, which
+  join the embedding's and the head's gradients. The carry's entries may
+  change from one segment to the next; each segment's backward follows
+  the entries of its own input carry.
 
 INT8 weights enter as ``QVirtual``s (``core.quant.virtualize``): the model
 consumes the codes through ``quantized_dense`` and ``dL/dW`` lands on the
@@ -133,27 +140,45 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
     ns_leaves = _diff(nonseg_v)
     full = {**params, **nonseg_v}
 
-    # ---- forward: embed with grad, the stack without, head with grad ----
+    # ---- forward: embed with grad, the stack without (a segment's
+    # ``pre`` with grad, its graph kept for the backward), head with grad
     with torch.enable_grad():
         carry0, ctx = bundle.embed(full, batch)
     ctx_leaves = _ctx_diff(ctx)
     g_ctx: List[torch.Tensor] = []
     saved: List[List[dict]] = []
+    pres: List[Optional[tuple]] = []
     carry = {k: v.detach() for k, v in carry0.items()}
-    with torch.no_grad():
-        for i, seg in enumerate(bundle.segments):
-            stack = params[seg_keys[i]]
-            ins = []
+    for i, seg in enumerate(bundle.segments):
+        pres.append(None)
+        if seg.pre is not None:
+            c_pre = {k: v.detach().requires_grad_(True)
+                     for k, v in carry.items()}
+            with torch.enable_grad():
+                out = seg.pre(full, c_pre, ctx)
+            pres[i] = (c_pre, out)
+            carry = {k: v.detach() for k, v in out.items()}
+        stack = params[seg_keys[i]]
+        ins = []
+        with torch.no_grad():
             for layer in range(seg.n_layers):
                 ins.append(carry)
                 carry = seg.apply(layer_params(stack, layer), carry, ctx)
-            saved.append(ins)
+        saved.append(ins)
     keys = _float_keys(carry)
     c_top = {k: v.detach().requires_grad_(True) for k, v in carry.items()}
     with torch.enable_grad():
         loss, metrics = bundle.head_loss(full, c_top, batch)
         g_all = _grads(loss, [c_top[k] for k in keys] + ns_leaves, None)
-    g_c, g_ns = g_all[: len(keys)], g_all[len(keys):]
+    g_c = dict(zip(keys, g_all[: len(keys)]))
+    g_ns = g_all[len(keys):]
+
+    def add_ctx(got):
+        if not g_ctx:
+            g_ctx.extend(g.to(torch.float32, copy=True) for g in got)
+        else:
+            for a, g in zip(g_ctx, got):
+                a.add_(g)
 
     # ---- backward: per layer, recompute + grad + project ----
     g_segs = {}
@@ -163,6 +188,7 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
         P_tree = proj_trees.get(seg_keys[i])
         out = None if acc is None else _leaves(acc[seg_keys[i]])
         fresh = acc is None
+        keys = _float_keys(saved[i][0])
         for layer in reversed(range(seg.n_layers)):
             lp_v = _virt(layer_params(stack, layer))
             leaves = _diff(lp_v)
@@ -172,16 +198,11 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
                 res = seg.apply(lp_v, c_in, ctx)
                 got = _grads([res[k] for k in keys],
                              [c_in[k] for k in keys] + leaves + ctx_leaves,
-                             g_c)
-            g_c = got[: len(keys)]
+                             [g_c[k] for k in keys])
+            g_c = dict(zip(keys, got[: len(keys)]))
             del res
             n_own = len(keys) + len(leaves)
-            if not g_ctx:
-                g_ctx = [g.to(torch.float32, copy=True)
-                         for g in got[n_own:]]
-            else:
-                for a, g in zip(g_ctx, got[n_own:]):
-                    a.add_(g)
+            add_ctx(got[n_own:])
             Ps = (_leaves(layer_params(P_tree, layer))
                   if P_tree is not None else [None] * len(leaves))
             gl = [project_leaf(g, P) for g, P in zip(got[len(keys):n_own],
@@ -199,10 +220,32 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
             del gl
         g_segs[seg_keys[i]] = _like(stack, out)
         saved[i] = None
+        if pres[i] is not None:
+            # ``pre``'s gradient: w.r.t. its input carry (on into the
+            # previous segment), the non-segment leaves it reads (the
+            # bridge's ``enc_final_norm``) and ctx's; entries it passes
+            # on unchanged, or twice (``h`` and ``dec_h``), sum
+            c_pre, pout = pres[i]
+            in_keys = _float_keys(c_pre)
+            outs = [(pout[k], g_c[k]) for k in keys if pout[k].requires_grad]
+            got = torch.autograd.grad(
+                [o for o, _ in outs],
+                [c_pre[k] for k in in_keys] + ns_leaves + ctx_leaves,
+                grad_outputs=[g for _, g in outs], allow_unused=True)
+            n_in, n_ns = len(in_keys), len(ns_leaves)
+            g_c = {k: torch.zeros_like(c_pre[k]) if g is None else g
+                   for k, g in zip(in_keys, got[:n_in])}
+            for a, g in zip(g_ns, got[n_in: n_in + n_ns]):
+                if g is not None:
+                    a.add_(g)
+            add_ctx([torch.zeros_like(x) if g is None else g
+                     for x, g in zip(ctx_leaves, got[n_in + n_ns:])])
+            pres[i] = None
+            del got, outs, c_pre, pout
 
     # the embedding's cotangents (``aux`` starts as a constant zero) and
     # ctx's, summed over the layers
-    outs = [(carry0[k], g) for k, g in zip(keys, g_c)
+    outs = [(carry0[k], g) for k, g in g_c.items()
             if carry0[k].requires_grad] + list(zip(ctx_leaves, g_ctx))
     with torch.enable_grad():
         g_emb = _grads([o for o, _ in outs], ns_leaves, [g for _, g in outs])

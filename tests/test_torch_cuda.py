@@ -981,3 +981,41 @@ def test_xlstm_smoke_serves_on_the_card_matches_cpu(cuda):
     assert not any(k.endswith("_ref") or k.startswith("deq_")
                    for k in n_g)
     assert n_c.get("deq_matmul")
+
+
+@pytest.mark.parametrize("M", [4, 512])
+def test_head_at_vocab_256206(cuda, M):
+    """seamless-m4t-medium's head, W (1024, 256206), codes padded to
+    256256: h (M, 1024) bf16 through ``ops.quantized_dense`` on a
+    QVirtual (``int8_matmul``, the logits cropped to 256206 columns, a
+    bf16 row stride that is no 16-byte multiple), then a cotangent of
+    that width back through ``int8_matmul_t`` (the op pads g to 256256),
+    each held against its plain version: one launch each, no plain
+    version; the small-M path (M 4) within 5e-3 and the tiled path's one
+    bf16 pass (M 512) within 2e-2 of max|plain| (both after the bf16
+    cast of the output), ``dL/dx`` within 5e-3."""
+    import torch.nn.functional as F
+    V, D = 256206, 1024
+    g = torch.Generator(device=cuda).manual_seed(26)
+    qt = quant.quantize_blockwise(
+        torch.randn((D, V), generator=g, device=cuda) * 0.03, 8,
+        symmetric=True)
+    assert tuple(qt.q.shape) == (D, 256256) and qt.orig_last == V
+    x = torch.randn((M, D), generator=g, device=cuda).to(torch.bfloat16)
+    x.requires_grad_(True)
+    gy = torch.randn((M, V), generator=g, device=cuda).to(torch.bfloat16)
+    LAUNCHES.clear()
+    y = ops.quantized_dense(x, quant.virtualize(qt), dtype=torch.bfloat16)
+    dx, = torch.autograd.grad(y, [x], gy)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in LAUNCHES.items() if n} == {
+        "int8_matmul": 1, "int8_matmul_t": 1}
+    assert tuple(y.shape) == (M, V) and y.stride(0) * 2 % 16
+    want_y = ref.int8_matmul_ref(x.detach(), qt.q, qt.scale, 256)
+    assert (want_y[:, V:] == 0).all()
+    tol = 5e-3 if ti8.plan(M, D, 256256).path == 0 else 2e-2
+    assert _rel(y.float(), want_y[:, :V]) <= tol
+    want_dx = ref.int8_matmul_t_ref(F.pad(gy, (0, 256256 - V)), qt.q,
+                                    qt.scale, 256)
+    assert torch.isfinite(dx).all()
+    assert _rel(dx.float(), want_dx) <= 5e-3

@@ -101,13 +101,16 @@ def test_entry_points_refuse_without_device(no_card):
 def test_unported_architectures_raise():
     with pytest.raises(ValueError, match="not ported"):
         model_zoo.get_config("gpt-2")
-    # MoE (sub-slice 4b), MLA/MTP (4c), xLSTM (4d) and the SSM hybrid (4e)
-    # are ported; the encoder-decoder (4f) still raises by name
+    # MoE (sub-slice 4b), MLA/MTP (4c), xLSTM (4d), the SSM hybrid (4e)
+    # and the encoder-decoder (4f) are ported
     assert model_zoo.get_config("deepseek-v3-671b").attention == "mla"
     assert model_zoo.get_config("xlstm-125m").family == "xlstm"
     assert model_zoo.get_config("zamba2-2.7b").family == "hybrid"
-    with pytest.raises(NotImplementedError, match="sub-slice 4f"):
-        model_zoo.get_config("seamless-m4t-medium")
+    encdec = model_zoo.build(model_zoo.get_config("seamless-m4t-medium"),
+                             device="meta")
+    assert [s.name for s in encdec.segments] == ["encoder", "decoder"]
+    assert not engine.append_ok(encdec)
+    assert encdec.decode_extras == ("memory",)
     base = model_zoo.get_config("llama-60m", smoke=True)
     from repro_torch.config import MLAConfig, MoEConfig, replace
     mla = model_zoo.build(replace(base, attention="mla", mla=MLAConfig()),
