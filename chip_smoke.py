@@ -308,9 +308,26 @@ Phases (any failure exits non-zero):
    (the head's (1024, 256206) among them) against its plain version, at
    phase 5's bars.
 
-``python3 chip_smoke.py --only 12`` (or ``1,12``, ``11``, ``13``,
-``14``, ``15``, ``16``) runs those phases alone for development and
-prints no kernels line and no result.
+Every bound printed is ``analysis.roofline.kernel_bound`` on the counts
+of ``kernels/profile.py`` at the H100's rates (phase 1 fails on a card
+without a table), named with what bounds it. Every timed training step
+and serving run prints a ``roofline`` line: the ``Roofline`` of its cell
+from ``analysis.analytic`` (MFU, share of the measured time and of the
+profiled device time, dominant term, useful FLOPs ratio; a serving run's
+MFU is tokens/s x one token's model FLOPs over the bf16 peak) with the
+card's name and power limit. One more decode step of phase 3 and one
+more steady step of phase 5 run under ``profile.recording()`` and the
+profiler, and their kernel tables (calls, device ms, bytes, FLOPs,
+bound, share) are printed; so are those of 14c's, 15d's and 16d's
+profiled steps, and, without device times, of 12c's and 13c's last
+steady steps. Before the kernels line all rooflines are printed as one
+table, with the seconds the rooflines and the extra recorded steps took,
+and written with the kernel tables to ``build/analysis.json``
+(``python -m repro_torch.analysis.report build/analysis.json``).
+
+``python3 chip_smoke.py --only 12`` (or ``1,12``, ``2`` to ``9``, ``11``
+to ``16``) runs those phases alone for development and prints no
+kernels line and no result.
 
 The last three lines are the kernels JSON (all seven kernels;
 ``int8_matmul``'s and ``int8_matmul_t``'s training step, flash's prefill
@@ -329,7 +346,9 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -346,8 +365,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
-PEAK_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core rate
 TOL = 2e-2
 RESUME_TOL = 1e-6    # a resumed step's loss against the first run's
 F32_X_TOL = 1e-4     # f32 x: two bf16 passes on the tiled path
@@ -366,6 +383,26 @@ def log(*a):
     print(*a, flush=True)
 
 
+# every step's roofline and every recorded kernel table of the run, written
+# to build/analysis.json (``python -m repro_torch.analysis.report`` renders
+# it), and the seconds the run spent on them
+ANALYSIS = {"roofline": [], "kernels": {}, "seconds": 0.0}
+
+
+def analysis_work(fn):
+    """Counts ``fn``'s wall seconds (a roofline, or an extra recorded step
+    and its table) into ``ANALYSIS["seconds"]``: what the analysis adds to
+    the run."""
+    @functools.wraps(fn)
+    def timed(*a, **k):
+        t0 = time.monotonic()
+        try:
+            return fn(*a, **k)
+        finally:
+            ANALYSIS["seconds"] += time.monotonic() - t0
+    return timed
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -375,6 +412,12 @@ def nvidia_smi_line() -> str:
         raise RuntimeError(f"nvidia-smi failed (exit {out.returncode}): "
                            f"{out.stderr.strip()}")
     return lines[0]
+
+
+@functools.lru_cache(maxsize=None)
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return nvidia_smi_line()
 
 
 def num_layers() -> int:
@@ -456,21 +499,17 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(M, K, N, x_itemsize):
-    """Least time (ms) for the work, and what bounds it: each input read
-    once, the f32 output written once (the count of repro/kernels/ops.py
-    _i8_bytes), against the multiply-adds at the bf16 peak."""
-    nbytes = M * K * x_itemsize + K * N + K * (N // 256) * 4 + M * N * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * M * K * N / PEAK_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def phase_environment():
+    from repro_torch.analysis import roofline
     from repro_torch.kernels import build
     log("== phase 1: environment")
-    log("card:", nvidia_smi_line())
+    log("card:", card())
+    # every bound and roofline below takes these rates; a card without a
+    # table stops the run here
+    rates = roofline.peaks(torch.cuda.get_device_name(0))
+    log("peaks (NVIDIA H100 SXM data sheet, dense): " + ", ".join(
+        f"{k} {v:.3g} {'B/s' if k == 'hbm' else 'FLOP/s'}"
+        for k, v in rates.items()))
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -496,6 +535,8 @@ def phase_environment():
 
 
 def phase_kernels(seed: int):
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.kernels import profile as kprof
     from repro_torch.core import quant
     from repro_torch.kernels import int8_matmul as ti8
     from repro_torch.kernels import ref
@@ -522,7 +563,8 @@ def phase_kernels(seed: int):
                     flush)
                 x_lib = x.to(torch.bfloat16)
                 lib_ms = time_ms(lambda: torch.matmul(x_lib, w_lib), flush)
-                b_ms, b_by = bound(M, K, N, x.element_size())
+                b_ms, b_by = kernel_bound(*kprof.int8_matmul_cost(
+                    M, K, N, x.element_size()))
                 # a small-M row must also show that one pass would fail
                 hi_only = i8_hi_only(x, qt) if small_m(M, K, N) else None
                 row = {"M": M, "K": K, "N": N, "n_real": N0,
@@ -606,6 +648,8 @@ def decode_sequence(seed: int) -> dict:
     cold by itself. Beside it cuBLAS bf16 on the same weights dequantized,
     and the bound of the step's bytes. The codes and scales are drawn
     directly (the arithmetic does not care how they were made)."""
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.kernels import profile as kprof
     from repro_torch.kernels import int8_matmul as ti8
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
@@ -631,7 +675,8 @@ def decode_sequence(seed: int) -> dict:
            for q, sc, n0 in weights]
     lib_ms, lib_host_ms = sequence_ms(
         lambda: [torch.matmul(xs[w.shape[0]], w) for w in lib])
-    b_ms = sum(bound(8, K, -(-N0 // 256) * 256, 2)[0] for K, N0 in probs)
+    b_ms = sum(kernel_bound(*kprof.int8_matmul_cost(
+        8, K, -(-N0 // 256) * 256, 2))[0] for K, N0 in probs)
     out = {"calls": len(probs), "ms": ms, "library_ms": lib_ms,
            "bound_ms": b_ms, "host_enqueue_ms": host_ms,
            "library_host_enqueue_ms": lib_host_ms,
@@ -690,6 +735,7 @@ def phase_serving(seed: int, flash: bool = False):
     through a bundle built with ``flash_attention=True``, where every
     group prefill must launch ``flash_attention`` once a layer and never
     the chunked attention or a plain version."""
+    from repro_torch.config import ShapeCell
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.kernels import int8_matmul as ti8
@@ -827,13 +873,25 @@ def phase_serving(seed: int, flash: bool = False):
         log(f"  launches of each prefill: {result['launches_per_prefill']}")
     if problems:
         raise AssertionError("serving: " + "; ".join(problems))
+    # the decode step's cell: every slot at the longest prompt's context
+    cell = ShapeCell("serve", SERVE_MAX_PROMPT, slots, "decode")
     if flash:
+        result["roofline"] = step_roofline(
+            "6b", cfg, cell, result["median_decode_step_ms"],
+            tokens_per_s=result["tokens_per_s"])
         del sched, params
         torch.cuda.empty_cache()
         result.update(check_flash_shapes(flash_shapes, seed))
         return result
     result.update(check_shapes(shapes, seed))
-    result.update(profile_decode(sched_stepper(sched, reqs[:slots])))
+    step = sched_stepper(sched, reqs[:slots])
+    result.update(profile_decode(step))
+    result["roofline"] = step_roofline(
+        "3", cfg, cell, result["median_decode_step_ms"],
+        tokens_per_s=result["tokens_per_s"],
+        device_ms=result["profile_step_device_ms"])
+    result.update(recorded_kernels("phase 3's decode step (llama-1b, "
+                                   f"{slots} slots)", step))
     del sched, params
     torch.cuda.empty_cache()
     return result
@@ -877,6 +935,89 @@ def device_rows(prof) -> list:
     from torch.autograd import DeviceType
     return [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+@analysis_work
+def step_roofline(tag: str, cfg, cell, measured_ms: float, *,
+                  rank: int = 128, tokens_per_s=None, device_ms=None
+                  ) -> dict:
+    """The analytic roofline of a timed step (``analysis.roofline``,
+    ``Roofline.for_step``): MFU, share, dominant term and useful FLOPs
+    ratio, beside the card's name and power limit. A serving run's MFU is
+    its tokens/s x one token's model FLOPs over the bf16 peak; its share
+    is the decode step's bound over the median decode step, and over the
+    step's device time where it was profiled (``device_ms``)."""
+    from repro_torch.analysis import roofline
+    r = roofline.Roofline.for_step(cfg, cell, measured_ms / 1e3, rank=rank)
+    row = {"name": f"{tag} {cfg.name} {cell.kind} {cell.global_batch} x "
+                   f"{cell.seq_len}", **r.row(), "card": card()}
+    what = "step"
+    if tokens_per_s is not None:
+        row.update(mfu=roofline.serving_mfu(cfg, tokens_per_s),
+                   tokens_per_s=tokens_per_s)
+        what = f"{tokens_per_s:.1f} tokens/s"
+    if device_ms:
+        row["device_ms"] = device_ms
+        row["device_share"] = r.bound_s * 1e3 / device_ms
+    ANALYSIS["roofline"].append(row)
+    log(f"  roofline {row['name']}"
+        + (f" (rank {rank})" if cell.kind == "train" else "")
+        + f": mfu {row['mfu']:.3g} ({what}), share {r.share:.3g} of "
+        f"{measured_ms:.2f} ms"
+        + (f" ({row['device_share']:.3g} of {device_ms:.2f} device ms)"
+           if device_ms else "")
+        + f", bound {r.bound_s * 1e3:.3f} ms, dominant {r.dominant}, "
+        f"useful_flops_ratio {r.useful_flops_ratio:.3f}, mfu_bound "
+        f"{r.mfu_bound:.3f}; {card()}")
+    return row
+
+
+def kernel_report(title: str, snap: dict, dev: dict, launched: dict
+                  ) -> dict:
+    """A recording's kernel table (``report.kernel_table``): each kernel's
+    recorded calls, bytes and FLOPs beside the device ms of the functions
+    it launched (``dev``; "not measured" where empty), its bound and
+    share. The rows must count the ``launched`` kernels."""
+    from repro_torch.analysis import report
+    from repro_torch.kernels import profile as kprof
+    launched = {n: c for n, c in launched.items() if c}
+    if kprof.launches_by_kernel(snap) != launched:
+        raise AssertionError(f"{title}: recorded rows "
+                             f"{kprof.launches_by_kernel(snap)} != launches "
+                             f"{launched}")
+    ANALYSIS["kernels"][title] = {"snapshot": snap, "device_ms": dev}
+    log(f"  kernels of {title}, recorded ({card()}):")
+    for line in report.kernel_table(snap, dev).splitlines():
+        log("    " + line)
+    return {"kernel_table": report.kernel_rows(snap, dev)}
+
+
+@analysis_work
+def recorded_kernels(title: str, run) -> dict:
+    """One more call of ``run`` (a steady training step or a decode step,
+    after the counted runs) under ``profile.recording()`` and the profiler
+    (device activity only), and its :func:`kernel_report`. If the profiler
+    fails, the device times read "not measured" and the error is kept."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import profile as kprof
+    torch.cuda.synchronize()
+    kprof.reset()
+    before, err, dev = Counter(LAUNCHES), None, {}
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with kprof.recording():
+                run()
+            torch.cuda.synchronize()
+        dev = kprof.device_ms(device_rows(prof))
+    except RuntimeError as e:
+        err = str(e)
+        log(f"  PROFILER FAILED: {e}")
+    snap = kprof.snapshot()
+    kprof.reset()
+    return dict(kernel_report(title, snap, dev, {
+        n: LAUNCHES[n] - before[n] for n in LAUNCHES}),
+        kernel_table_error=err)
 
 
 def sched_stepper(sched, reqs):
@@ -996,34 +1137,6 @@ def phase_parity(seed: int, flash: bool = False):
     return rel
 
 
-def bound_t(M, K, N, g_itemsize):
-    """Least time (ms) of ``g (M, N) @ deq(q (K, N))^T``: g, codes and
-    scales read once, the f32 (M, K) output written once, against the
-    multiply-adds at the bf16 peak."""
-    nbytes = M * N * g_itemsize + K * N + K * (N // 256) * 4 + M * K * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * M * K * N / PEAK_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def bound_fused(args):
-    """Least time (ms) of one fused update: every input read once (the
-    low-rank triple, packed P with its scales and zeros, the codes and
-    scales, the f32 uniforms), every output written once (codes, scales,
-    m', v'), against the rank-r back-projection's multiply-adds at the
-    bf16 peak (the fastest rate the card has for this work)."""
-    g, m, v, pq, ps, pz, q, ws, u01 = args
-    ins = sum(t.numel() * t.element_size() for t in args)
-    outs = (q.numel() * q.element_size() + ws.numel() * 4
-            + 2 * g.numel() * 4)
-    R = pq.shape[-1] * 2
-    t_bytes = (ins + outs) / HBM_BYTES_PER_S
-    t_ops = 2 * q.shape[0] * q.shape[1] * R / PEAK_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def run_counted(tr, steps: int, names, at_step=None) -> list:
     """``tr.run(steps)`` with, for each step, its loss, grad norm, host
     seconds (the trainer's clock around the step, which ends on the
@@ -1135,6 +1248,8 @@ def phase_training(seed: int):
     from repro_torch.kernels import int8_matmul as ti8
     from repro_torch.models import model_zoo
     from repro_torch.train.trainer import Trainer
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.config import ShapeCell
     log("== phase 5: llama-1b Q-GaLore training (rank 512, 8 x 256 tokens)")
     cfg = model_zoo.get_config("llama-1b")
     bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
@@ -1244,6 +1359,25 @@ def phase_training(seed: int):
         raise AssertionError("training: " + "; ".join(problems))
     tr.mgr = None                     # the profiled step writes no checkpoint
     result.update(profile_train_step(tr))
+    result["roofline"] = step_roofline(
+        "5", cfg, ShapeCell("train", tcfg.seq_len, tcfg.global_batch,
+                            "train"), result["median_steady_step_ms"],
+        rank=qcfg.rank, device_ms=result["profile_step_device_ms"])
+    result.update(recorded_kernels(
+        "phase 5's steady training step (llama-1b, rank 512, 8 x 256)",
+        lambda: tr.run(tr.start_step + 1)))
+    # dW = x^T g on cuBLAS f32: one call a weight, as many FLOPs as its
+    # dL/dx call (N padded to the 256 block, as the rows count it); its
+    # operands hold bf16 values (ROADMAP B1), so its bound takes the bf16
+    # rate, and the f32 rate's figure is printed beside it
+    dw = next(r["flops"] for r in result["kernel_table"]
+              if r["kernel"] == "int8_matmul_t")
+    result["dw_bound_ms"] = {p: kernel_bound(dw, 0, p)[0]
+                             for p in ("bf16", "f32")}
+    log(f"  cuBLAS f32 dW (x^T g, {per_step} a step, {dw / 1e12:.3f} "
+        f"TFLOP): bound {result['dw_bound_ms']['bf16']:.3f} ms at the bf16 "
+        f"rate (its operands hold bf16 values), "
+        f"{result['dw_bound_ms']['f32']:.3f} ms at the f32 rate")
     del tr
     torch.cuda.empty_cache()
     result.update(check_resume(bundle, tcfg, qcfg, ckpt_root, rows,
@@ -1372,7 +1506,7 @@ def phase_training_7b(seed: int) -> dict:
     steady steps, launches per step, both memory peaks beside the
     analytic ``memory_report``; then every distinct problem of the three
     training kernels against its plain version."""
-    from repro_torch.config import QGaLoreConfig, TrainConfig
+    from repro_torch.config import QGaLoreConfig, ShapeCell, TrainConfig
     from repro_torch.core import qgalore
     from repro_torch.core.optimizers import preset
     from repro_torch.kernels import LAUNCHES
@@ -1472,6 +1606,10 @@ def phase_training_7b(seed: int) -> dict:
         f"{result['tokens_per_s']:.1f} tokens/s")
     log(f"  measured launches per steady step: "
         f"{result['launches_per_steady_step']} (want {want_steady})")
+    result["roofline"] = step_roofline(
+        "8", cfg, ShapeCell("train", tcfg.seq_len, tcfg.global_batch,
+                            "train"), result["median_steady_step_ms"],
+        rank=qcfg.rank)
     log(f"  max_memory_allocated by step (GiB; -1: the init): "
         + ", ".join(f"{s}: {v:.2f}" for s, v in sorted(peaks.items()))
         + "; allocated as each step starts: "
@@ -1497,6 +1635,8 @@ def check_i8_problems(probs, mult: dict) -> dict:
     of a training run, on the run's own inputs (``i8_tol``), timed beside
     the plain version, cuBLAS bf16 on the weight dequantized beforehand,
     and the bound; with the sums over one step's calls (``mult``)."""
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.kernels import profile as kprof
     from repro_torch.core import quant
     from repro_torch.kernels import int8_matmul as ti8
     from repro_torch.kernels import ref
@@ -1520,7 +1660,8 @@ def check_i8_problems(probs, mult: dict) -> dict:
                "max_abs_err": abs_err, "rel_err": rel,
                "tol": i8_tol(M, K, N, dt),
                "launches_per_step": mult[(M, K, N)]}
-        row["bound_ms"], row["bound_by"] = bound(M, K, N, x.element_size())
+        row["bound_ms"], row["bound_by"] = kernel_bound(
+            *kprof.int8_matmul_cost(M, K, N, x.element_size()))
         row["tflops"] = 2 * M * K * N / row["ms"] / 1e9
         row["factor"] = row["ms"] / row["library_ms"]
         rows.append(row)
@@ -1551,20 +1692,28 @@ def check_i8_problems(probs, mult: dict) -> dict:
     return {"per_shape": rows, "step_sums": sums}
 
 
-def profile_train_step(tr) -> dict:
+def profile_train_step(tr, title: str = "") -> dict:
     """Device busy time against the host clock over one more steady step
     (after the counted run). Only device activity is recorded: a step
     enqueues up to ~10^5 host ops (xLSTM's time loops), which the
     profiler would time and then take a minute to aggregate, and no
-    host row is reported. If the profiler fails, its numbers are null and
-    the error is kept."""
+    host row is reported. With a ``title`` the step runs under
+    ``profile.recording()`` too (a flag test and a row update a kernel
+    call), and its :func:`kernel_report` joins the same step's device
+    times. If the profiler fails, its numbers are null and the error is
+    kept."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import profile as kprof
     step = tr.start_step
     torch.cuda.synchronize()
+    kprof.reset()
+    before = Counter(LAUNCHES)
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            tr.run(step + 1)
+            with (kprof.recording() if title else contextlib.nullcontext()):
+                tr.run(step + 1)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     except RuntimeError as e:
@@ -1579,9 +1728,15 @@ def profile_train_step(tr) -> dict:
     for key, t, n in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"    device {t / 1e3:9.2f} ms {n:6d} calls  {key[:80]}")
         top.append({"kernel": key[:80], "ms": t / 1e3, "calls": n})
-    return {"profile_step_wall_ms": wall_ms, "profile_step_device_ms": busy_ms,
-            "device_idle_share": 1 - busy_ms / wall_ms,
-            "profile_top": top}
+    out = {"profile_step_wall_ms": wall_ms, "profile_step_device_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms, "profile_top": top}
+    if title:
+        out.update(kernel_report(title, kprof.snapshot(),
+                                 kprof.device_ms(rows), {
+                                     n: LAUNCHES[n] - before[n]
+                                     for n in LAUNCHES}))
+        kprof.reset()
+    return out
 
 
 def f32_beside(g: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
@@ -1668,6 +1823,8 @@ def check_train_kernels(probs_t, probs_f, mult: dict, seed: int) -> dict:
     (``f32_beside``; two passes). For the f32 input the error that its bf16
     rounding alone would leave (``hi_only_rel``) is printed beside it and
     must exceed the bar, so the check can tell a dropped second pass."""
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.kernels import profile as kprof
     from repro_torch.core import quant
     from repro_torch.kernels import ref
     from repro_torch.kernels import fused_update as tfu
@@ -1707,8 +1864,8 @@ def check_train_kernels(probs_t, probs_f, mult: dict, seed: int) -> dict:
                        flush),
                    "library_ms": lib_ms, "max_abs_err": abs_err,
                    "rel_err": rel, "hi_only_rel": hi_only}
-            row["bound_ms"], row["bound_by"] = bound_t(M, K, N,
-                                                       g.element_size())
+            row["bound_ms"], row["bound_by"] = kernel_bound(
+                *kprof.int8_matmul_t_cost(M, K, N, g.element_size()))
             row["tflops"] = 2 * M * K * N / row["ms"] / 1e9
             row["factor"] = row["ms"] / lib_ms
             out["int8_matmul_t"].append(row)
@@ -1735,7 +1892,13 @@ def check_train_kernels(probs_t, probs_f, mult: dict, seed: int) -> dict:
                "plain_ms": time_ms(lambda: ref.fused_qgalore_update_ref(
                    *args, count, lr, **kw), flush),
                "library_ms": None, **gate}
-        row["bound_ms"], row["bound_by"] = bound_fused(args)
+        # every operand read once, every output written once (the
+        # kernel's, padded), against the back-projection's 2 m n r
+        low, _, _, pq, ps, _, qw, ws, u01 = args
+        row["bound_ms"], row["bound_by"] = kernel_bound(
+            2 * qw.shape[0] * qw.shape[1] * pq.shape[-1] * 2,
+            kprof.fused_update_bytes(low.numel(), pq.numel(), ps.numel(),
+                                     qw.numel(), ws.numel(), u01.numel()))
         row["tflops"] = 2 * M * N * R / row["ms"] / 1e9
         row["x_bound"] = row["ms"] / row["bound_ms"]
         out["fused_qgalore_update"].append(row)
@@ -1842,26 +2005,6 @@ def flash_hi_only(q, k, v, causal) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def bound_flash(B, S, H, KH, d, dv, causal, itemsize):
-    """Least time (ms) of one attention call: q, k, v read once and o
-    written once, against the multiply-adds of the score and value
-    products over the (query, key) pairs the mask keeps, S(S+1)/2 a head
-    when causal, at the bf16 peak."""
-    nbytes = B * S * (H * d + KH * (d + dv) + H * dv) * itemsize
-    pairs = S * (S + 1) // 2 if causal else S * S
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * B * H * pairs * (d + dv) / PEAK_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def flash_flops(B, S, H, d, dv, causal) -> int:
-    """Useful multiply-adds x 2 of one call: the score and value products
-    over the (query, key) pairs the mask keeps."""
-    pairs = S * (S + 1) // 2 if causal else S * S
-    return 2 * B * H * pairs * (d + dv)
-
-
 def flash_inputs(B, S, H, KH, d, dv, dtype, gen):
     dev = torch.device("cuda")
     return tuple(torch.randn(sh, generator=gen, device=dev).to(dtype)
@@ -1872,6 +2015,8 @@ def flash_row(B, S, H, KH, d, dv, causal, dtype, gen, flush, timed=True):
     """The kernel against its plain version on fresh inputs of one
     problem; with ``timed``, its time beside the plain version's, the
     library call's and the bound."""
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.kernels import profile as kprof
     from repro_torch.kernels import flash_attention as tflash
     from repro_torch.kernels import ref
     q, k, v = flash_inputs(B, S, H, KH, d, dv, dtype, gen)
@@ -1900,9 +2045,10 @@ def flash_row(B, S, H, KH, d, dv, causal, dtype, gen, flush, timed=True):
         row["library_ms"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal), flush)
-        row["bound_ms"], row["bound_by"] = bound_flash(
-            B, S, H, KH, d, dv, causal, q.element_size())
-        row["tflops"] = flash_flops(B, S, H, d, dv, causal) / row["ms"] / 1e9
+        cost = kprof.flash_cost(B, S, H, KH, d, dv, causal,
+                                q.element_size())
+        row["bound_ms"], row["bound_by"] = kernel_bound(*cost)
+        row["tflops"] = cost[0] / row["ms"] / 1e9
     del q, k, v
     return row
 
@@ -1965,21 +2111,6 @@ def check_flash_shapes(shapes, seed: int) -> dict:
             "flash_check_max_rel_err": worst}
 
 
-def bound_bytes(nbytes: int) -> tuple:
-    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
-
-
-def bound_int4(M, K, R, block, g_itemsize):
-    """g read once, packed P and its f32 scales and zeros read once, the
-    f32 output written once, against the multiply-adds at the bf16 peak."""
-    nbytes = (M * K * g_itemsize + K * R // 2 + 2 * K * (R // block) * 4
-              + M * R * 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * M * K * R / PEAK_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def phase_unfused(seed: int):
     """Phase 7: the unfused Q-GaLore update (``ops.unfused_qgalore_update``:
     ``int4_project`` → Adam → back-projection → ``sr_requant_update``) for
@@ -1987,6 +2118,8 @@ def phase_unfused(seed: int):
     plain version on the chain's own inputs and timed; ``sr_requant`` and
     ``blockwise_quant`` at all four weight shapes; and ``quantize_int8`` of
     all 169 llama-1b weights against ``core.quant.quantize_blockwise``."""
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.kernels import profile as kprof
     from repro_torch.core import projector, quant
     from repro_torch.kernels import LAUNCHES, ops, ref
     from repro_torch.kernels import blockwise_quant as tbq
@@ -2064,8 +2197,8 @@ def phase_unfused(seed: int):
                    "library_ms": time_ms(lambda: torch.matmul(g, p_lib),
                                          flush),
                    "max_abs_err": abs_err, "rel_err": rel}
-            row["bound_ms"], row["bound_by"] = bound_int4(
-                m, n, R, qp.block, g.element_size())
+            row["bound_ms"], row["bound_by"] = kernel_bound(
+                *kprof.int4_matmul_cost(m, n, R, qp.block, g.element_size()))
             row["tflops"] = 2 * m * n * R / row["ms"] / 1e9
             row["factor"] = row["ms"] / row["library_ms"]
             i4_rows.append(row)
@@ -2130,8 +2263,8 @@ def phase_unfused(seed: int):
                    q, scale, update, u01, 256), flush),
                "library_ms": None, "codes_equal": same,
                "scale_rel_err": s_rel, "max_abs_err": w_err}
-        row["bound_ms"], row["bound_by"] = bound_bytes(
-            2 * q.numel() + 2 * scale.numel() * 4 + 2 * q.numel() * 4)
+        row["bound_ms"], row["bound_by"] = kernel_bound(
+            0, kprof.sr_requant_bytes(*q.shape))
         sr_rows.append(row)
         ok = same and s_rel <= 1e-6
         if not ok:
@@ -2179,8 +2312,8 @@ def phase_unfused(seed: int):
                                    flush),
                "library_ms": None, "bit_exact": same, "max_abs_err": 0.0
                if same else float("nan")}
-        row["bound_ms"], row["bound_by"] = bound_bytes(
-            x.numel() * 5 + sk.numel() * 4)
+        row["bound_ms"], row["bound_by"] = kernel_bound(
+            0, kprof.blockwise_quant_bytes(*x.shape))
         bq_rows.append(row)
         if not same:
             failed.append(("blockwise_quant", row))
@@ -2329,7 +2462,7 @@ def phase_finetune_7b(seed: int) -> dict:
     contracts through ``launch.finetune``'s functions, the steps, memory
     and launches, then every distinct kernel problem against its plain
     version (phase 8's checks)."""
-    from repro_torch.config import QGaLoreConfig, TrainConfig
+    from repro_torch.config import QGaLoreConfig, ShapeCell, TrainConfig
     from repro_torch.kernels import LAUNCHES
     from repro_torch.launch import finetune
     from repro_torch.models import model_zoo
@@ -2433,6 +2566,10 @@ def phase_finetune_7b(seed: int) -> dict:
     log(f"  measured launches per steady step: "
         f"{result['launches_per_steady_step']} (want {want_steady}) "
         f"[{card}]")
+    result["roofline"] = step_roofline(
+        "9b", cfg, ShapeCell("train", tcfg.seq_len, tcfg.global_batch,
+                             "train"), result["median_steady_step_ms"],
+        rank=FT_7B_RANK)
     log("  max_memory_allocated by step (GiB; -1: the init): "
         + ", ".join(f"{s}: {v:.2f}" for s, v in sorted(peaks.items()))
         + f"; steady peak {steady_peak:.2f}, phase peak "
@@ -2493,6 +2630,7 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
     invariant after the run. With ``profile``, five decode-only steps
     with every slot in flight are then profiled as phase 3's are (prompts
     cut to one chunk, so the first step prefills them all)."""
+    from repro_torch.config import ShapeCell
     from repro_torch.kernels import LAUNCHES
     from repro_torch.serve.paged import PagedScheduler
     from repro_torch.serve.scheduler import Request, make_scheduler
@@ -2628,6 +2766,13 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
     torch.cuda.empty_cache()
     if problems:
         raise AssertionError("paged serving: " + "; ".join(problems))
+    if out["median_decode_step_ms"]:
+        out["roofline"] = step_roofline(
+            f"paged {slots} slots", bundle.cfg,
+            ShapeCell("serve", max(len(r.tokens) for r in reqs), slots,
+                      "decode"), out["median_decode_step_ms"],
+            tokens_per_s=out["tokens_per_s"],
+            device_ms=prof.get("profile_step_device_ms"))
     return out
 
 
@@ -3091,6 +3236,8 @@ def tied_head_rows(seed: int) -> list:
     16 (decode) and slots x prompt, against its plain version (2e-2 of
     max|plain|, the one-pass bf16 bar) and timed beside it, cuBLAS bf16 on
     E dequantized, and the bound."""
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.kernels import profile as kprof
     from repro_torch.core import quant
     from repro_torch.kernels import int8_matmul as ti8
     from repro_torch.kernels import ref
@@ -3123,7 +3270,7 @@ def tied_head_rows(seed: int) -> list:
                      reps=10)
         plain_ms = time_ms(lambda: plain(x), flush, reps=3)
         lib_ms = time_ms(lambda: torch.matmul(x, w_lib.T), flush, reps=10)
-        b_ms, b_by = bound_t(M, V, D, 2)
+        b_ms, b_by = kernel_bound(*kprof.int8_matmul_t_cost(M, V, D, 2))
         row = {"M": M, "K": V, "N": D, "g": "bfloat16", "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
                "bound_by": b_by, "max_abs_err": abs_err, "rel_err": rel,
@@ -3201,19 +3348,6 @@ def batched_tol(E, M, K, N, dtype) -> float:
     from repro_torch.kernels import int8_matmul as ti8
     two = ti8.plan(M, K, N, E=E).path == 0 or dtype == torch.float32
     return F32_X_TOL if two else TOL
-
-
-def bound_batched(E, M, K, N, itemsize, transposed=False):
-    """Least time (ms) of E problems: every expert's activations, codes and
-    scales read once, the f32 outputs written once, against the
-    multiply-adds at the bf16 peak."""
-    outs = M * (K if transposed else N) * 4
-    ins = M * (N if transposed else K) * itemsize
-    nbytes = E * (ins + K * N + K * (N // 256) * 4 + outs)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * E * M * K * N / PEAK_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 EXPERT_CHUNK = 32    # experts a plain call or a random stack takes at once
@@ -3344,6 +3478,7 @@ def serve_moe(seed: int, cfg=None, want_by=None, tag: str = "12a") -> dict:
     every distinct 2-D and batched problem against its plain version.
     Phase 13a passes deepseek-v3's ``cfg`` and ``want_by``, the launches
     of a prefill (``_prefill``) and of a decode dispatch (``_step``)."""
+    from repro_torch.config import ShapeCell
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels import int8_matmul as ti8
     from repro_torch.models import model_zoo, moe
@@ -3496,6 +3631,10 @@ def serve_moe(seed: int, cfg=None, want_by=None, tag: str = "12a") -> dict:
         f"{per_prefill} (want {want_by['_prefill']}), a decode dispatch "
         f"{per_decode} (want {want_by['_step']}); padded {share}")
     out.update(profile_decode(sched_stepper(sched, reqs[:DENSE_SLOTS])))
+    out["roofline"] = step_roofline(
+        tag, cfg, ShapeCell("serve", max(lens), DENSE_SLOTS, "decode"),
+        out["median_decode_step_ms"], tokens_per_s=out["tokens_per_s"],
+        device_ms=out["profile_step_device_ms"])
     del sched
     errs = decode_vs_forward(bundle, params, seed)
     log(f"  {cfg.name} bf16 decode against the full forward (prefill, then "
@@ -3522,6 +3661,8 @@ def moe_expert_rows(seed: int, arch: str = MOE_ARCH, cs=MOE_CS,
     (cold L2, median of 20) beside E launches of the 2-D kernel (one an
     expert, each at its own plan; never on the path), one ``torch.bmm`` on
     the bf16 stack dequantized beforehand, and the bound."""
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.kernels import profile as kprof
     from repro_torch.core import quant
     from repro_torch.kernels import int8_matmul as ti8
     from repro_torch.models import model_zoo
@@ -3573,8 +3714,8 @@ def moe_expert_rows(seed: int, arch: str = MOE_ARCH, cs=MOE_CS,
                            "library_ms": time_ms(lib, flush),
                            "max_abs_err": abs_err, "rel_err": rel,
                            "tol": tol}
-                    row["bound_ms"], row["bound_by"] = bound_batched(
-                        E, C, K, N, dt.itemsize, t)
+                    row["bound_ms"], row["bound_by"] = kernel_bound(
+                        *kprof.batched_cost(E, C, K, N, dt.itemsize, t))
                     row["tflops"] = 2 * E * C * K * N / row["ms"] / 1e9
                     row["x_bound"] = row["ms"] / row["bound_ms"]
                     row["x_per_expert"] = row["ms"] / row["per_expert_ms"]
@@ -3648,7 +3789,7 @@ def check_batched_t(probs: dict, seed: int) -> list:
     return rows
 
 
-def train_moe(seed: int, cfg=None, want=None) -> dict:
+def train_moe(seed: int, cfg=None, want=None, tag: str = "12c") -> dict:
     """Phase 12c's training run: qwen3-moe-30b-a3b at full width and 2
     layers, the ``qgalore`` preset at rank 128 with the randomized
     subspace method, 8 x 256 tokens, 3 steps. Each steady step's launches
@@ -3656,9 +3797,11 @@ def train_moe(seed: int, cfg=None, want=None) -> dict:
     refresh step launches no update), and the batched transpose's
     problems against its plain version. Phase 13c passes deepseek-v3's
     ``cfg`` and ``want``."""
-    from repro_torch.config import QGaLoreConfig, TrainConfig, replace
+    from repro_torch.config import (QGaLoreConfig, ShapeCell, TrainConfig,
+                                    replace)
     from repro_torch.core.optimizers import preset
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import profile as kprof
     from repro_torch.models import model_zoo
     from repro_torch.train.trainer import Trainer
     cfg = cfg or replace(model_zoo.get_config(MOE_ARCH),
@@ -3707,7 +3850,14 @@ def train_moe(seed: int, cfg=None, want=None) -> dict:
     LAUNCHES.clear()
     try:
         with BatchedRecorder() as brec:
-            rows = run_counted(tr, tcfg.steps, names)
+            rows = run_counted(tr, tcfg.steps - 1, names)
+            # the last steady step counted by kernels/profile.py too (the
+            # bound of each kernel's calls; no device time is taken here)
+            kprof.reset()
+            with kprof.recording():
+                rows += run_counted(tr, tcfg.steps, names)
+            recorded = kprof.snapshot()
+            kprof.reset()
     finally:
         projector.compute_subspace = sub
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3743,6 +3893,14 @@ def train_moe(seed: int, cfg=None, want=None) -> dict:
         f"{peak:.2f} GiB; a steady step launched "
         f"{ {n: out['launches_per_steady_step'][n] for n in want} } (want "
         f"{want})")
+    out["roofline"] = step_roofline(
+        tag, cfg, ShapeCell("train", tcfg.seq_len, tcfg.global_batch,
+                            "train"), out["median_steady_step_ms"],
+        rank=qcfg.rank)
+    out.update(kernel_report(
+        f"phase {tag}'s last steady step ({cfg.name}, {L} layers, rank "
+        f"{qcfg.rank}, {tcfg.global_batch} x {tcfg.seq_len})", recorded, {},
+        rows[-1]["launches"]))
     del tr, bundle
     gc.collect()
     torch.cuda.empty_cache()
@@ -3869,7 +4027,8 @@ def phase_mla(seed: int) -> dict:
     kernels = moe_expert_rows(seed, arch=MLA_ARCH, cs=MLA_CS,
                               dtypes=(torch.bfloat16,))
     tcfg = cut(2, MLA_TRAIN_EXPERTS)
-    training = train_moe(seed, cfg=tcfg, want=mla_train_launches(tcfg))
+    training = train_moe(seed, cfg=tcfg, want=mla_train_launches(tcfg),
+                         tag="13c")
     if not all(np.isfinite(m["mtp_loss"]) for m in training["metrics"]):
         raise AssertionError(f"13c mtp_loss {training['metrics']}")
     wall = time.monotonic() - t0
@@ -4178,6 +4337,7 @@ def serve_recurrent(cfg, seed: int, *, tag: str, want: dict, describe: str,
     apart) and every distinct ``int8_matmul`` problem against its plain
     version. ``by_layer`` draws the weights one layer of a group at a
     time; ``probe_ops`` adds xLSTM's plain ops to ``batch_dependence``."""
+    from repro_torch.config import ShapeCell
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels import int8_matmul as ti8
     from repro_torch.models import model_zoo
@@ -4340,6 +4500,10 @@ def serve_recurrent(cfg, seed: int, *, tag: str, want: dict, describe: str,
     if bd["f32_decode_row_rel_diff"] > BATCH_ROW_TOL:
         problems.append(f"f32 decode row depends on the batch: {bd}")
     out.update(profile_decode(sched_stepper(sched, reqs[:DENSE_SLOTS])))
+    out["roofline"] = step_roofline(
+        tag, cfg, ShapeCell("serve", max(lens), DENSE_SLOTS, "decode"),
+        out["median_decode_step_ms"], tokens_per_s=out["tokens_per_s"],
+        device_ms=out["profile_step_device_ms"])
     del sched
     longest = max(reqs, key=lambda r: len(r.tokens))
     out["prefill_profile"] = profile_prefill(bundle, params, longest.tokens,
@@ -4370,6 +4534,8 @@ def slstm_gate_rows(seed: int) -> list:
     small-M path at decode M 1 and 4: against its plain version (1e-4 of
     max|plain|, and ``hi_only_rel`` above it), timed beside the plain
     version, cuBLAS f32 on the weight dequantized and the bound."""
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.kernels import profile as kprof
     from repro_torch.core import quant
     from repro_torch.kernels import int8_matmul as ti8
     from repro_torch.kernels import ref
@@ -4392,7 +4558,7 @@ def slstm_gate_rows(seed: int) -> list:
         plain_ms = time_ms(lambda: ref.int8_matmul_ref(x, qt.q, qt.scale,
                                                        256), flush)
         lib_ms = time_ms(lambda: torch.matmul(x, w_lib), flush)
-        b_ms, b_by = bound(M, K, N, 4)
+        b_ms, b_by = kernel_bound(*kprof.int8_matmul_cost(M, K, N, 4))
         row = {"M": M, "K": K, "N": N, "x": "float32", "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
                "bound_by": b_by, "max_abs_err": abs_err, "rel_err": rel,
@@ -4412,8 +4578,8 @@ def slstm_gate_rows(seed: int) -> list:
     return rows
 
 
-def train_full(cfg, seed: int, *, rank: int, batch: tuple, steps: int,
-               fwd: int, method=None, norm_keys: tuple = (),
+def train_full(cfg, seed: int, *, tag: str, rank: int, batch: tuple,
+               steps: int, fwd: int, method=None, norm_keys: tuple = (),
                check_problems: bool = False) -> dict:
     """Phases 14c, 15d and 16d: ``cfg`` at full width and depth, the
     ``qgalore`` preset at ``rank`` (``method``: the subspace method, None
@@ -4426,8 +4592,9 @@ def train_full(cfg, seed: int, *, rank: int, batch: tuple, steps: int,
     through a shared block or a bridge), nonzero at every step. With
     ``check_problems``, every distinct problem of the three training
     kernels against its plain version at phase 5's bars
-    (``ProblemRecorder.check``). Then one more steady step profiled."""
-    from repro_torch.config import QGaLoreConfig, TrainConfig
+    (``ProblemRecorder.check``). Then one more steady step profiled; the
+    step's roofline is printed under ``tag``."""
+    from repro_torch.config import QGaLoreConfig, ShapeCell, TrainConfig
     from repro_torch.core.optimizers import preset
     from repro_torch.core.qgalore import flatten
     from repro_torch.kernels import LAUNCHES
@@ -4528,7 +4695,13 @@ def train_full(cfg, seed: int, *, rank: int, batch: tuple, steps: int,
         f"{want})")
     if problems:
         raise AssertionError(f"{cfg.name} training: " + "; ".join(problems))
-    out.update(profile_train_step(tr))
+    out.update(profile_train_step(
+        tr, f"phase {tag}'s profiled steady step ({cfg.name}, rank {rank}, "
+        f"{B} x {S})"))
+    out["roofline"] = step_roofline(
+        tag, cfg, ShapeCell("train", S, B, "train"),
+        out["median_steady_step_ms"], rank=rank,
+        device_ms=out["profile_step_device_ms"])
     del tr, bundle
     gc.collect()
     torch.cuda.empty_cache()
@@ -4576,7 +4749,7 @@ def phase_xlstm(seed: int) -> dict:
     gates = slstm_gate_rows(seed)
     split["14b"] = time.monotonic() - t0 - split["14a"]
     training = train_full(
-        full, seed, rank=XLSTM_RANK, batch=XLSTM_TRAIN_BATCH,
+        full, seed, tag="14c", rank=XLSTM_RANK, batch=XLSTM_TRAIN_BATCH,
         steps=XLSTM_TRAIN_STEPS, fwd=xlstm_launches(full)["int8_matmul"])
     wall = time.monotonic() - t0
     split["14c"] = wall - split["14a"] - split["14b"]
@@ -4787,7 +4960,7 @@ def phase_zamba(seed: int) -> dict:
     flash = zamba_flash(seed)
     split["15c"] = time.monotonic() - t0 - sum(split.values())
     training = train_full(
-        full, seed, rank=ZAMBA_RANK, batch=ZAMBA_TRAIN_BATCH,
+        full, seed, tag="15d", rank=ZAMBA_RANK, batch=ZAMBA_TRAIN_BATCH,
         steps=ZAMBA_TRAIN_STEPS, method="randomized",
         fwd=zamba_launches(full)["int8_matmul"], norm_keys=("shared_attn",))
     wall = time.monotonic() - t0
@@ -4903,6 +5076,8 @@ def encdec_cross_kv(bundle, params, memory) -> dict:
     whole memory, as the reference recomputes them) back to back on the
     run's weights between one pair of events, beside cuBLAS bf16 on the
     same weights dequantized and the bound."""
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.kernels import profile as kprof
     from repro_torch.core import quant
     from repro_torch.models.base import layer_params
     from repro_torch.models.layers import dense
@@ -4916,7 +5091,8 @@ def encdec_cross_kv(bundle, params, memory) -> dict:
     lib_ms, _ = sequence_ms(lambda: [x @ w for w in deq])
     M, K = x.shape
     N = ws[0].q.shape[1]
-    b_ms, by = bound(M, K, N, x.element_size())
+    b_ms, by = kernel_bound(*kprof.int8_matmul_cost(M, K, N,
+                                                    x.element_size()))
     del deq
     out = {"calls": len(ws), "M": M, "K": K, "N": N, "ms": ms,
            "host_ms": host, "library_ms": lib_ms,
@@ -4954,6 +5130,7 @@ def serve_encdec(seed: int, bundle, params) -> dict:
     the bf16 decode against the forward, a profiled decode step, the
     cross K/V calls timed apart and every distinct problem against its
     plain version."""
+    from repro_torch.config import ShapeCell
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels import int8_matmul as ti8
     from repro_torch.serve import engine
@@ -5103,6 +5280,11 @@ def serve_encdec(seed: int, bundle, params) -> dict:
     out["cross_kv"] = encdec_cross_kv(bundle, params, memory)
     out.update(profile_decode(encdec_stepper(
         bundle, params, {k: v.cuda() for k, v in batches[0].items()})))
+    out["roofline"] = step_roofline(
+        "16a", cfg, ShapeCell("serve", prompt + ENCDEC_NEW, ENCDEC_ROWS,
+                              "decode"), out["median_decode_step_ms"],
+        tokens_per_s=out["tokens_per_s"],
+        device_ms=out["profile_step_device_ms"])
     errs = encdec_decode_vs_forward(bundle, params, seed)
     log(f"  bf16 decode against the full forward (prefill, then 4 "
         f"teacher-forced steps), rel err {['%.2e' % e for e in errs]} "
@@ -5351,7 +5533,7 @@ def phase_encdec(seed: int) -> dict:
     parity["sensitivity"] = sens
     split["16b"] = time.monotonic() - t0 - sum(split.values())
     training = train_full(
-        cfg, seed, rank=ENCDEC_RANK, batch=ENCDEC_TRAIN_BATCH,
+        cfg, seed, tag="16d", rank=ENCDEC_RANK, batch=ENCDEC_TRAIN_BATCH,
         steps=ENCDEC_TRAIN_STEPS, method="randomized", fwd=fwd,
         norm_keys=("frame_norm", "enc_final_norm"), check_problems=True)
     training.update(layers=[cfg.num_encoder_layers, cfg.num_layers],
@@ -5367,6 +5549,33 @@ def phase_encdec(seed: int) -> dict:
                                 "rows": ENCDEC_PARITY_ROWS,
                                 "frames": ENCDEC_PARITY_FRAMES,
                                 "prompt": ENCDEC_PARITY_PROMPT}}}
+
+
+def phase_flash(seed: int) -> tuple:
+    """Phase 6 alone (``--only 6``): 6a, 6b and 6c."""
+    return (phase_flash_kernels(seed), phase_serving(seed, flash=True),
+            phase_parity(seed, flash=True))
+
+
+def phase_finetune(seed: int) -> dict:
+    """Phase 9 alone (``--only 9``): 9a and 9b."""
+    return {"cli": phase_finetune_cli(seed),
+            "llama_7b": phase_finetune_7b(seed)}
+
+
+def write_analysis() -> None:
+    """Every timed step's roofline as one table, and the run's rooflines
+    and recorded kernel tables written to ``build/analysis.json``
+    (``python -m repro_torch.analysis.report build/analysis.json``)."""
+    from repro_torch.analysis import report
+    log(f"  rooflines of the timed steps ({card()}):")
+    for line in report.roofline_table(ANALYSIS["roofline"]).splitlines():
+        log("    " + line)
+    out = Path(__file__).resolve().parent / "build" / "analysis.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(ANALYSIS, indent=1))
+    log(f"  written to {out}; the rooflines and the extra recorded steps "
+        f"took {ANALYSIS['seconds']:.1f} s of the run")
 
 
 def main() -> int:
@@ -5391,12 +5600,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.monotonic()
     if args.only:
-        phases = {"1": phase_environment, "11": phase_dense_variants,
+        phases = {"1": phase_environment, "2": phase_kernels,
+                  "3": phase_serving, "4": phase_parity,
+                  "5": phase_training, "6": phase_flash,
+                  "7": phase_unfused, "8": phase_training_7b,
+                  "9": phase_finetune, "11": phase_dense_variants,
                   "12": phase_moe, "13": phase_mla, "14": phase_xlstm,
                   "15": phase_zamba, "16": phase_encdec}
         for name in args.only.split(","):
             fn = phases[name]
             fn() if name == "1" else fn(args.seed)
+        write_analysis()
         log(f"== phases {args.only} passed in {time.monotonic() - t0:.1f} s")
         return 0
     phase_environment()
@@ -5404,13 +5618,10 @@ def main() -> int:
     serving = phase_serving(args.seed)
     parity = phase_parity(args.seed)
     training = phase_training(args.seed)
-    flash_rows = phase_flash_kernels(args.seed)
-    flash_serving = phase_serving(args.seed, flash=True)
-    flash_parity = phase_parity(args.seed, flash=True)
+    flash_rows, flash_serving, flash_parity = phase_flash(args.seed)
     unfused = phase_unfused(args.seed)
     training_7b = phase_training_7b(args.seed)
-    finetune = {"cli": phase_finetune_cli(args.seed),
-                "llama_7b": phase_finetune_7b(args.seed)}
+    finetune = phase_finetune(args.seed)
     paged = {"serving": phase_paged(args.seed, serving),
              "parity": phase_paged_parity(args.seed)}
     dense = phase_dense_variants(args.seed)
@@ -5430,6 +5641,7 @@ def main() -> int:
         f"{flash_serving['prefill_ms_total']:.1f} ms, launches a prefill "
         f"int8_matmul {7 * num_layers() + 1} / {7 * num_layers() + 1}, "
         f"flash_attention 0 / {num_layers()}")
+    write_analysis()
     log(f"== all phases passed in {time.monotonic() - t0:.1f} s")
     print(json.dumps(kernels_json(rows, step, step_by, max_abs, max_rel,
                                   serving, parity, training, flash_rows,

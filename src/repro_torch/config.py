@@ -197,3 +197,21 @@ class ShapeCell:
     seq_len: int
     global_batch: int
     kind: str                        # train | prefill | decode
+
+
+SHAPE_CELLS: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+)
+
+# Archs for which long_500k runs (sub-quadratic decode); all others skip it.
+LONG_CONTEXT_ARCHS = ("xlstm-125m", "zamba2-2.7b")
+
+
+def cells_for_arch(arch_name: str):
+    """The shape cells that apply to a given architecture."""
+    return tuple(cell for cell in SHAPE_CELLS
+                 if cell.name != "long_500k"
+                 or arch_name in LONG_CONTEXT_ARCHS)

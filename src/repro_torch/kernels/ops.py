@@ -24,11 +24,14 @@
   the standalone kernels of the unfused update, chained by
   :func:`unfused_qgalore_update` in the per-leaf order the fused kernel
   replaced, and the one-pass INT8 quantizer.
+* :func:`int8_matmul` — ``x @ deq(W)`` on a QTensor outside the model's
+  layers (the reference's direct op).
 
 On a CUDA tensor each op launches its kernel; on a CPU tensor it runs the
 JAX package's CPU path: dequantize, then one float32 matmul
 (``ref.deq_matmul``, ``ref.deq_matmul_t`` and their batched forms), and
-the other kernels' plain versions.
+the other kernels' plain versions. Inside ``profile.recording()`` each
+call is counted under its op name (``kernels/profile.py``).
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_update as _fused
 from repro_torch.kernels import int4_matmul as _i4mm
 from repro_torch.kernels import int8_matmul as _i8mm
-from repro_torch.kernels import ref
+from repro_torch.kernels import profile, ref
 from repro_torch.kernels import sr_requant as _sr
 
 
@@ -54,10 +57,45 @@ def _check_weight(qt: QTensor, ndim: int = 2) -> None:
         raise ValueError(f"need a {ndim}-D weight, got {qt.shape}")
 
 
-def _fwd(x2: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def _ran(kernel: str, t: torch.Tensor) -> str:
+    """The ``LAUNCHES`` name of what a call on ``t`` runs: ``kernel`` on
+    the card, its plain version on the CPU."""
+    return kernel + ("_ref" if t.device.type == "cpu" else "")
+
+
+def _record_i8(op: str, x2: torch.Tensor, qt: QTensor,
+               transposed: bool) -> None:
+    """Count one INT8 matmul call (``kernels/profile.py``). The 2-D sites
+    take the reference's count (``repro/kernels/ops.py:191, 212``: the
+    forward's roles in both directions); the expert-batched ones take
+    ``profile.batched_cost``."""
+    K, N = qt.q.shape[-2:]
+    M, item = x2.shape[-2], x2.element_size()
+    cpu = x2.device.type == "cpu"
+    name = ("deq_" if cpu else "int8_") + "matmul" \
+        + ("_t" if transposed else "")
+    if x2.ndim == 3:
+        E = x2.shape[0]
+        flops, nbytes = profile.batched_cost(E, M, K, N, item, transposed,
+                                             qt.block)
+        profile.record(op.replace("quantized_dense", "quantized_dense_"
+                                  "batched"), nbytes=nbytes, flops=flops,
+                       kernel=name + "_batched",
+                       meta={"shape": [E, M, K, N]})
+        return
+    flops, nbytes = profile.int8_matmul_cost(M, K, N, item, qt.block)
+    profile.record(op, nbytes=nbytes, flops=flops, kernel=name,
+                   meta={"shape": [M, K, N]})
+
+
+def _fwd(x2: torch.Tensor, qt: QTensor, op: str = "quantized_dense/fwd"
+         ) -> torch.Tensor:
     """x2 (M, K) @ deq(qt)[:, :orig] → (M, orig) float32; with an expert
-    axis, x2 (E, M, K) against qt (E, K, N), all experts in one call."""
+    axis, x2 (E, M, K) against qt (E, K, N), all experts in one call.
+    ``op``: the name a recording counts the call under."""
     batched = x2.ndim == 3
+    if profile.enabled():
+        _record_i8(op, x2, qt, transposed=False)
     if x2.device.type == "cpu":
         fn = ref.deq_matmul_batched if batched else ref.deq_matmul
         return fn(x2, qt.q, qt.scale, qt.block, qt.orig_last)
@@ -69,6 +107,8 @@ def _dx(g2: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """g2 (M, orig) @ deq(qt)[:, :orig]^T → (M, K) float32 (the forward of
     :func:`quantized_dense_t` too); with an expert axis as :func:`_fwd`."""
     batched = g2.ndim == 3
+    if profile.enabled():
+        _record_i8("quantized_dense/dx", g2, qt, transposed=True)
     if g2.device.type == "cpu":
         fn = ref.deq_matmul_t_batched if batched else ref.deq_matmul_t
         return fn(g2, qt.q, qt.scale, qt.block)
@@ -129,6 +169,17 @@ class _QDenseT(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = torch.matmul(g.to(torch.float32).T, x2.to(torch.float32))
         return dx, dw, None, None
+
+
+def int8_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """``x (..., K) @ deq(qt (K, N))`` → ``(..., orig_last)`` float32, the
+    reference's direct op (``repro/kernels/ops.py:135``): no gradient, and
+    counted as ``int8_matmul``, not as a model layer's
+    ``quantized_dense/fwd``."""
+    _check_weight(qt)
+    lead, K = x.shape[:-1], x.shape[-1]
+    return _fwd(x.reshape(-1, K), qt, "int8_matmul").reshape(
+        *lead, qt.orig_last)
 
 
 def quantized_dense(x: torch.Tensor, w, dtype: torch.dtype = torch.bfloat16
@@ -221,6 +272,19 @@ def fused_qgalore_update(param: QTensor, low_g: torch.Tensor,
     n_pad = q2.shape[-1]
     r_pad = proj.q.shape[-1] * 2
     r = low_g.shape[-1] if side == "right" else low_g.shape[-2]
+    if profile.enabled():
+        # the reference's count (repro/kernels/ops.py:558): the triple
+        # padded on the rank alone, P unpadded
+        low_n = q2.shape[0] * r_pad if side == "right" \
+            else r_pad * low_g.shape[1]
+        profile.record(
+            "fused_qgalore_update",
+            nbytes=profile.fused_update_bytes(
+                low_n, proj.q.numel(), proj.scale.numel(), q2.numel(),
+                ws.numel(), q2.numel()),
+            flops=4 * q2.shape[0] * n_pad * r_pad,
+            kernel=_ran("fused_qgalore_update", q2),
+            meta={"shape": [q2.shape[0], n_pad], "rank": r_pad})
     low, m_, v_ = (t.to(torch.float32) for t in (low_g, m32, v32))
     pq, ps, pz = proj.q, proj.scale, proj.zero
     if side == "right":
@@ -254,6 +318,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """``q (B, S, H, d)``, ``k (B, S, KH, d)``, ``v (B, S, KH, dv)`` →
     ``(B, S, H, dv)`` in q's type (``repro/kernels/ops.py:472``). GQA is
     native: the kv heads are not repeated."""
+    if profile.enabled():
+        B, S, H, d = q.shape
+        KH, dv = k.shape[2], v.shape[3]
+        flops, nbytes = profile.flash_cost(B, S, H, KH, d, dv, causal,
+                                           q.element_size())
+        profile.record("flash_attention", nbytes=nbytes, flops=flops,
+                       kernel=_ran("flash_attention", q),
+                       meta={"shape": [B, S, H, KH, d, dv],
+                             "causal": causal})
     return _flash.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal)
 
@@ -268,6 +341,13 @@ def int4_project(g: torch.Tensor, qt: QTensor) -> torch.Tensor:
         raise TypeError("need an INT4 QTensor projection")
     lead, K = g.shape[:-1], g.shape[-1]
     g2 = g.reshape(-1, K).contiguous()
+    if profile.enabled():
+        flops, nbytes = profile.int4_matmul_cost(
+            g2.shape[0], K, qt.q.shape[-1] * 2, qt.block, g.element_size(),
+            qt.orig_last)
+        profile.record("int4_project", nbytes=nbytes, flops=flops,
+                       kernel=_ran("int4_matmul", g),
+                       meta={"shape": [g2.shape[0], K, qt.orig_last]})
     out = _i4mm.int4_matmul(g2, qt.q, qt.scale, qt.zero, qt.block)
     return out[:, : qt.orig_last].reshape(*lead, qt.orig_last)
 
@@ -286,6 +366,12 @@ def sr_requant_update(qt: QTensor, update: torch.Tensor,
     upd = update.to(torch.float32).reshape(q2.shape[0], -1)
     if upd.shape[1] != C:
         upd = F.pad(upd, (0, C - upd.shape[1]))
+    if profile.enabled():
+        profile.record("sr_requant_update",
+                       nbytes=profile.sr_requant_bytes(q2.shape[0], C,
+                                                       qt.block),
+                       kernel=_ran("sr_requant", q2),
+                       meta={"shape": [q2.shape[0], C]})
     q_new, s_new = _sr.sr_requant(q2.contiguous(), s2.contiguous(),
                                   upd.contiguous(),
                                   u01.reshape(q2.shape).contiguous(),
@@ -301,6 +387,11 @@ def quantize_int8(x: torch.Tensor, block: int = 256) -> QTensor:
     x2 = x.to(torch.float32).reshape(-1, orig_last)
     if orig_last % block:
         x2 = F.pad(x2, (0, -orig_last % block))
+    if profile.enabled():
+        profile.record("quantize_int8",
+                       nbytes=profile.blockwise_quant_bytes(*x2.shape, block),
+                       kernel=_ran("blockwise_quant", x2),
+                       meta={"shape": list(x2.shape)})
     q, s = _bq.blockwise_quant(x2.contiguous(), block)
     return QTensor(q.reshape(*x.shape[:-1], x2.shape[-1]),
                    s.reshape(*x.shape[:-1], x2.shape[-1] // block), None, 8,

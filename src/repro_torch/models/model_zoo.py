@@ -157,3 +157,15 @@ def count_params(cfg: ModelConfig) -> int:
         return math.prod(t.shape)
 
     return total(params)
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """Parameters a token reads (the MoE: only its top-k and the shared
+    experts), the counterpart of ``repro/models/model_zoo.py:68``."""
+    total = count_params(cfg)
+    if cfg.moe is None or not cfg.moe.num_experts:
+        return total
+    mc = cfg.moe
+    per_expert = 3 * cfg.d_model * mc.expert_ff       # wi, wg, wd
+    n_moe_layers = cfg.num_layers - mc.first_dense_layers
+    return total - n_moe_layers * (mc.num_experts - mc.top_k) * per_expert

@@ -1019,3 +1019,75 @@ def test_head_at_vocab_256206(cuda, M):
                                     qt.scale, 256)
     assert torch.isfinite(dx).all()
     assert _rel(dx.float(), want_dx) <= 5e-3
+
+
+def _leaves(t) -> list:
+    """A parameter tree's tensors in key order (a QTensor's codes and
+    scales)."""
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in _leaves(t[k])]
+    if hasattr(t, "q"):
+        return [t.q, t.scale]
+    return [t] if isinstance(t, torch.Tensor) else []
+
+
+def test_recording_leaves_outputs_bit_equal(cuda):
+    """``profile.recording()`` counts and changes nothing: two steps of the
+    llama-60m smoke on the card (a refresh and a steady step) and one call
+    of each other recorded op, run with and without a recording from the
+    same state and inputs, give bit-equal outputs and equal launches; the
+    recorded rows count those launches."""
+    from repro_torch.config import QGaLoreConfig, TrainConfig
+    from repro_torch.core.optimizers import preset
+    from repro_torch.kernels import profile
+    from repro_torch.models import model_zoo
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import Trainer
+
+    qcfg = preset("qgalore", QGaLoreConfig(rank=8, min_dim=32,
+                                           update_interval=4))
+    tcfg = TrainConfig(seed=0, global_batch=4, seq_len=32, steps=2,
+                       learning_rate=1e-2, warmup_steps=1, log_every=0)
+    g = torch.Generator(device=cuda).manual_seed(27)
+    w = quant.quantize_blockwise(torch.randn((512, 300), generator=g,
+                                             device=cuda) * 0.02, 8,
+                                 symmetric=True)
+    P = projector.quantize_projection(
+        torch.linalg.qr(torch.randn((300, 64), generator=g,
+                                    device=cuda))[0], 4, 256)
+    grad = torch.randn((512, 300), generator=g, device=cuda) * 1e-2
+    u01 = torch.rand(w.q.shape, generator=g, device=cuda)
+    q, kv = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+             for s in ((2, 130, 8, 64), (2, 130, 2, 64)))
+
+    def run():
+        bundle = model_zoo.build_arch("llama-60m", smoke=True,
+                                      device=cuda.type, dtype=torch.float32)
+        tr = Trainer(bundle, tcfg, qcfg,
+                     state=step_lib.init_state(bundle, qcfg, seed=0))
+        losses = [h["loss"] for h in tr.run()]
+        new, m_new, v_new = ops.unfused_qgalore_update(
+            w, grad, torch.zeros((512, 64), device=cuda),
+            torch.zeros((512, 64), device=cuda), P, 1, 1e-3, u01,
+            gscale=0.25)
+        outs = [new.q, new.scale, m_new, v_new,
+                ops.flash_attention(q, kv, kv),
+                ops.quantize_int8(grad).q]
+        torch.cuda.synchronize()
+        return losses, outs + _leaves(tr.state.params)
+
+    LAUNCHES.clear()
+    plain_losses, plain = run()
+    plain_launches = {k: n for k, n in LAUNCHES.items() if n}
+    LAUNCHES.clear()
+    profile.reset()
+    with profile.recording():
+        losses, outs = run()
+    launches = {k: n for k, n in LAUNCHES.items() if n}
+    assert losses == plain_losses
+    assert launches == plain_launches
+    assert len(outs) == len(plain)
+    for a, b in zip(outs, plain):
+        assert torch.equal(a, b)
+    assert profile.launches_by_kernel(profile.snapshot()) == launches
+    profile.reset()

@@ -59,7 +59,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.configs.qwen3_moe_30b_a3b, "
             "repro_torch.configs.deepseek_v3_671b, "
             "repro_torch.models.xlstm, repro_torch.models.xlstm_model, "
-            "repro_torch.configs.xlstm_125m; "
+            "repro_torch.configs.xlstm_125m, repro_torch.kernels.profile, "
+            "repro_torch.analysis.analytic, repro_torch.analysis.roofline, "
+            "repro_torch.analysis.report; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Probe of how one prompt's prefill depends on the rows that share its
-dispatch, on one NVIDIA GPU.
+"""Probe of how one prompt's prefill, or one request's decode step,
+depends on the rows that share its dispatch, on one NVIDIA GPU.
 
     PYTHONPATH=<tree>/src python3 tools/batch_probe.py \
-        [--arch llama-1b] [--prompt 64] [--rows 1,2,4,8] [--dtype bf16]
+        [--arch llama-1b] [--prompt 64] [--rows 1,2,4,8] [--dtype bf16] \
+        [--decode]
 
 Builds the architecture at full width and depth on the card (INT8
 weights drawn from ``--seed``), then prefills the same prompt as the only
@@ -11,11 +12,20 @@ row of a dispatch and as every row of dispatches of 2, 4 and 8 rows
 (``engine.build_prefill``). Every operation of each prefill is recorded
 in order: each ATen operation (through a ``TorchDispatchMode``) and each
 launch of the port's kernels (``int8_matmul``, ``int8_matmul_t``), keeping
-the first row's slice of every output whose leading axis is the batch (B)
-or the flattened tokens (B x prompt). Each dispatch of B rows is then held
+the first row's block of every output whose leading axis is a multiple
+of the batch (B, the flattened tokens B x prompt, B x heads); outputs of
+other shapes fall out of the comparison. Each dispatch of B rows is then held
 against the one-row dispatch operation by operation, bit for bit, and the
 first operation whose output differs is named, with the first difference
 of every other operation that differs and the last logits' difference.
+
+With ``--decode`` (rows 1,4 unless given) the probe holds a decode step
+instead: request 0 (a ``--prompt``-token prompt) and the other requests
+(prompts of other lengths and tokens) are each prefilled alone, as the
+slot scheduler admits them, and written into a slot pool; request 0's
+decode step alone (one slot) is then held against the same step as row 0
+of a pool of 4 slots, operation by operation, as ``chip_smoke.py``'s
+``batch_dependence`` holds the logits alone.
 
 The ``repro_torch`` imported is the one ``PYTHONPATH`` names, so the same
 probe compares two checkouts in one run.
@@ -48,13 +58,13 @@ class Recorder(TorchDispatchMode):
         self.rows, self.seq, self.log = rows, seq, []
 
     def row0(self, t):
-        if not isinstance(t, torch.Tensor) or t.dim() == 0:
+        """The first row's block of a batch-major output: its leading
+        axis is the rows times something (the tokens of a row, the heads
+        of a flattened ``bmm``), so the first 1/rows of it."""
+        if not isinstance(t, torch.Tensor) or t.dim() == 0 \
+                or t.shape[0] % self.rows:
             return None
-        if t.shape[0] == self.rows * self.seq:
-            return t[: self.seq].detach().clone()
-        if t.shape[0] == self.rows:
-            return t[:1].detach().clone()
-        return None
+        return t[: t.shape[0] // self.rows].detach().clone()
 
     def note(self, name, out):
         self.log.append((name, self.row0(out)))
@@ -93,6 +103,41 @@ def run(bundle, params, prompt, rows: int, window: int):
     return rec.log, logits[:1].float()
 
 
+def run_decode(bundle, params, prompts, rows: int, window: int, dtype):
+    """Request 0's decode step as row 0 of ``rows`` slots: the first
+    ``rows`` prompts each prefilled alone into a fresh pool, then one
+    decode step of every slot, its operations recorded."""
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.serve import engine
+    from repro_torch.serve.scheduler import init_pool, insert_requests
+    prefill = engine.build_prefill(bundle, window)
+    outs = [prefill(params, {"tokens": p}) for p in prompts[:rows]]
+    toks = torch.stack([lg[:, -1].argmax(-1) for lg, _ in outs]) \
+        .to(torch.int32)
+    pool = init_pool(bundle, rows, window, dtype, "cuda")
+    for i, (_, st) in enumerate(outs):
+        insert_requests(pool, [i], st)
+    rec = Recorder(rows, 1)
+    kernels = {n: getattr(ti8, n) for n in ("int8_matmul", "int8_matmul_t")}
+
+    def wrap(n):
+        def call(*a, **k):
+            out = kernels[n](*a, **k)
+            rec.note(f"{n} K={a[1].shape[0]} N={a[1].shape[1]}", out)
+            return out
+        return call
+
+    for n in kernels:
+        setattr(ti8, n, wrap(n))
+    try:
+        with rec:
+            logits, _ = engine.build_decode(bundle)(params, pool, toks)
+    finally:
+        for n, f in kernels.items():
+            setattr(ti8, n, f)
+    return rec.log, logits[:1].float()
+
+
 def compare(ref_log, log) -> dict:
     """The first operation whose first-row output differs, and the first
     difference of each operation name."""
@@ -122,11 +167,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="llama-1b")
     ap.add_argument("--prompt", type=int, default=64)
-    ap.add_argument("--rows", default="1,2,4,8")
+    ap.add_argument("--rows", default=None,
+                    help="rows of the dispatches (default 1,2,4,8; with "
+                         "--decode 1,4)")
     ap.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth (0: the config's)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--decode", action="store_true",
+                    help="probe request 0's decode step, not a prefill")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("batch_probe: no CUDA device", file=sys.stderr)
@@ -148,13 +197,29 @@ def main() -> int:
     prompt = torch.from_numpy(rng.integers(
         1, cfg.vocab_size, size=(1, args.prompt)).astype(np.int32)).cuda()
     window = args.prompt + 8
-    rows = [int(r) for r in args.rows.split(",")]
-    ref_log, ref_logits = run(bundle, params, prompt, rows[0], window)
+    rows = [int(r) for r in (args.rows or ("1,4" if args.decode
+                                           else "1,2,4,8")).split(",")]
+    if args.decode:
+        # request 0, then prompts of other lengths and tokens
+        lens = [args.prompt] + [max(8, args.prompt + d) for d in
+                                (-16, 16, -32, 32, -8, 8)][:max(rows) - 1]
+        prompts = [prompt] + [torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, size=(1, n)).astype(np.int32)).cuda()
+            for n in lens[1:]]
+        window = max(lens) + 8
+
+        def probe(b):
+            return run_decode(bundle, params, prompts, b, window, dtype)
+    else:
+        def probe(b):
+            return run(bundle, params, prompt, b, window)
+    ref_log, ref_logits = probe(rows[0])
     out = {"card": card, "arch": args.arch, "layers": cfg.num_layers,
            "dtype": args.dtype, "prompt": args.prompt,
+           "mode": "decode" if args.decode else "prefill",
            "ops_recorded": len(ref_log), "against_rows": rows[0], "runs": {}}
     for b in rows[1:]:
-        log, logits = run(bundle, params, prompt, b, window)
+        log, logits = probe(b)
         res = compare(ref_log, log)
         res["logits_max_abs_diff"] = (logits - ref_logits).abs().max().item()
         res["argmax_equal"] = bool(logits.argmax(-1).eq(
