@@ -307,6 +307,31 @@ Phases (any failure exits non-zero):
    profiled; then every distinct problem of the three training kernels
    (the head's (1024, 256206) among them) against its plain version, at
    phase 5's bars.
+17. Data-parallel training: llama-1b at full width and 4 of its 24
+   layers, trained by two ranks on ``cuda:0`` over gloo (NCCL refuses two
+   ranks a card; the ranks are spawned after the kernels are built), 8 x
+   256 a step (4 rows a rank), rank 512, bf16, ``compress_dp_grads``.
+   (a) One refresh step (every layer masked, exact SVD; the stacked
+   leaves refreshed distributed) and 3 steady steps, against one process
+   on the same global batch and card: step 0's loss (the ranks' mean)
+   within 1e-5 relative and every later loss within 1e-3, the
+   distributed refresh's similarities within 1e-3 and its INT4
+   projections, each column signed as the one process's, over one
+   quantum apart in under 2% of entries, each rank's launches a step
+   equal to the one process's (step 0's fused updates: the distributed
+   layers'); (b) ZeRO with ZeRO-2, the same steps in the same ranks: W
+   codes equal to (a)'s in at least 0.9999, the state a rank smaller,
+   each rank's peak, and its steady steps' peak, below (a)'s (each step's
+   peak and the memory as it starts are printed, and the save's peak);
+   (c) (b)'s state after step 2, saved by rank 0, restored into the
+   parent while the ranks run their last step, whose step-3 loss is
+   (b)'s within 1e-6. Each step's ms a rank, the collectives'
+   calls, MB and ms beside ``qgalore.dp_payload_bytes``, the refresh's
+   subspace seconds a rank, a ``roofline`` line for (a)'s steady step,
+   and rank 0's M = 1024 problems of the three training kernels, taken
+   from the steady steps, against their plain versions at phase 5's bars
+   with the fused update's stress rows. A rank that fails fails the
+   phase.
 
 Every bound printed is ``analysis.roofline.kernel_bound`` on the counts
 of ``kernels/profile.py`` at the H100's rates (phase 1 fails on a card
@@ -326,7 +351,7 @@ and written with the kernel tables to ``build/analysis.json``
 (``python -m repro_torch.analysis.report build/analysis.json``).
 
 ``python3 chip_smoke.py --only 12`` (or ``1,12``, ``2`` to ``9``, ``11``
-to ``16``) runs those phases alone for development and prints no
+to ``17``) runs those phases alone for development and prints no
 kernels line and no result.
 
 The last three lines are the kernels JSON (all seven kernels;
@@ -338,7 +363,8 @@ matmuls phase 11's, 12's and 13's (the expert grid axis counted apart),
 ``int8_matmul_t`` the tied head's rows; the three training kernels
 phase 14's, 15's and 16's launches, ``int8_matmul`` their serving runs
 and the sLSTM gates' f32-x rows, ``flash_attention`` phase 15c's and
-16c's prefills and their d = 80 and d = 64 rows),
+16c's prefills and their d = 80 and d = 64 rows; the three training
+kernels phase 17's launches in both ranks and its M = 1024 rows),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository's ``src/``
 beside it, the script exits non-zero and prints no result.
@@ -358,12 +384,23 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 from pathlib import Path
 
-import numpy as np
-import torch
+# This process writes the bytecode of what it imports under the checkout's
+# build/ (the installed packages may carry none): phase 17's spawned
+# ranks, which inherit the variable, then read it there and start without
+# compiling torch's modules again.
+sys.pycache_prefix = os.environ.setdefault(
+    "PYTHONPYCACHEPREFIX",
+    str(Path(__file__).resolve().parent / "build" / "pycache"))
+sys.dont_write_bytecode = False
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
 
 TOL = 2e-2
 RESUME_TOL = 1e-6    # a resumed step's loss against the first run's
@@ -1411,7 +1448,8 @@ class ProblemRecorder:
     the copies nor the weights they were views of count in the run's
     device memory; the calls of each problem; and the subspace seconds
     and calls of each step (``step``, set by the caller before each).
-    With ``record`` false it times the subspace calls alone."""
+    Problems are recorded and counted from step ``count_from`` on. With
+    ``record`` false it times the subspace calls alone."""
 
     def __init__(self, record: bool = True):
         self.i, self.t, self.f = {}, {}, {}
@@ -1419,6 +1457,7 @@ class ProblemRecorder:
         self.sub_s, self.sub_n = Counter(), Counter()
         self.step = -1
         self.record = record
+        self.count_from = -1    # the first step whose calls are counted
 
     def __enter__(self):
         from repro_torch.core import projector
@@ -1431,25 +1470,28 @@ class ProblemRecorder:
 
         def rec_i(x, q, scale, block=256):
             key = (x.shape[0], q.shape[0], q.shape[1], x.dtype)
-            self.calls["i", key] += 1
-            if key not in self.i:
-                self.i[key] = host((x, q, scale))
+            if self.step >= self.count_from:
+                self.calls["i", key] += 1
+                if key not in self.i:
+                    self.i[key] = host((x, q, scale))
             return k_i(x, q, scale, block)
 
         def rec_t(g, q, scale, block=256):
             key = (g.shape[0], q.shape[0], q.shape[1], g.dtype)
-            self.calls["t", key] += 1
-            if key not in self.t:
-                self.t[key] = host((g, q, scale))
+            if self.step >= self.count_from:
+                self.calls["t", key] += 1
+                if key not in self.t:
+                    self.t[key] = host((g, q, scale))
             return k_t(g, q, scale, block)
 
         def rec_f(*args, **kw):
             q = args[6]
             key = (q.shape[0], q.shape[1], args[3].shape[-1] * 2,
                    kw["side"])
-            self.calls["f", key] += 1
-            if key not in self.f:
-                self.f[key] = (host(args[:9]), args[9:], kw)
+            if self.step >= self.count_from:
+                self.calls["f", key] += 1
+                if key not in self.f:
+                    self.f[key] = (host(args[:9]), args[9:], kw)
             return k_f(*args, **kw)
 
         def timed_sub(*a, **k):
@@ -5563,6 +5605,531 @@ def phase_finetune(seed: int) -> dict:
             "llama_7b": phase_finetune_7b(seed)}
 
 
+DP_ARCH = "llama-1b"
+DP_LAYERS = 4          # of 24: splits over 2 ranks, and keeps the phase short
+DP_WORLD = 2           # ranks, both on cuda:0 (gloo: NCCL refuses two a card)
+DP_STEPS = 4           # step 0 refreshes every layer (exact SVD), 1-3 steady
+DP_SAVE_AFTER = 2      # 17c: rank 0 saves 17b's state after this step
+DP_WAIT_S = 300.0      # rank 0's longest wait for the parent's 17c
+DP_LOSS_BAND = 1e-3    # the reference's band (test_dp_compress_parity)
+DP_STEP0_TOL = 1e-5    # step 0 (relative): each row's forward is the one
+                       # process's, only the ranks' mean sums otherwise
+DP_NAMES = TRAIN_KERNELS + PLAIN_NAMES
+
+
+def dp_config():
+    from repro_torch.config import replace
+    from repro_torch.models import model_zoo
+    return replace(model_zoo.get_config(DP_ARCH), num_layers=DP_LAYERS)
+
+
+def dp_trainer(bundle, seed: int, group=None, zero: bool = False,
+               checkpoint_dir: str = ""):
+    from repro_torch.config import QGaLoreConfig, TrainConfig
+    from repro_torch.core.optimizers import preset
+    from repro_torch.train.trainer import Trainer
+    qcfg = preset("qgalore", QGaLoreConfig(rank=512, compress_dp_grads=True))
+    tcfg = TrainConfig(seed=seed, global_batch=8, seq_len=256,
+                       steps=DP_STEPS, learning_rate=1e-3, warmup_steps=2,
+                       grad_clip=1.0, log_every=0,
+                       checkpoint_dir=checkpoint_dir, async_checkpoint=False)
+    return Trainer(bundle, tcfg, qcfg, group=group, zero_shard=zero)
+
+
+def dp_run(tr, comm=None, rec=None, save_dir: str = "", saved=None) -> dict:
+    """``tr``'s steps, each with its loss, host ms (less a save made in its
+    hook), its launches of ``DP_NAMES``, its collectives (calls, bytes,
+    s), its subspace seconds, the device memory allocated as it starts and
+    its peak; the similarities the controller was fed, and the
+    projections' codes after step 0. With ``save_dir`` the state after
+    step ``DP_SAVE_AFTER`` is saved there (rank 0 writes; its peak is
+    apart from the steps') and ``saved``, an event, is set after it."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.train.checkpoint import CheckpointManager
+    snaps, colls, saves, sims, proj = {}, {}, {}, {}, {}
+    peaks, resident = {}, {}
+    observe = tr.controller.observe
+
+    def seen(step, masks, s, r):
+        sims.update({k: np.asarray(v).copy() for k, v in s.items()})
+        return observe(step, masks, s, r)
+
+    def hook(step):
+        torch.cuda.synchronize()
+        # the peak since the last hook: the trainer's set-up before step
+        # 0, else the step before this one
+        peaks[step - 1] = torch.cuda.max_memory_allocated() / 2 ** 30
+        resident[step] = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        snaps[step] = Counter(LAUNCHES)
+        if comm is not None:
+            colls[step] = {k: list(v) for k, v in comm.stats.items()}
+            comm.reset_stats()
+        if rec is not None:
+            rec.step = step
+        if step == 1 and tr.zero is None:
+            proj.update({i: P.map(lambda t: t.cpu()) for i, P in
+                         enumerate(tr.state.opt.proj) if P is not None})
+        if save_dir and step == DP_SAVE_AFTER + 1:
+            t = time.perf_counter()
+            tr.mgr = CheckpointManager(save_dir, async_save=False)
+            tr.save(DP_SAVE_AFTER)
+            tr.mgr = None
+            saves[step] = time.perf_counter() - t
+            if saved is not None:
+                saved.set()
+            comm.reset_stats()
+            torch.cuda.synchronize()
+            peaks["save"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+
+    tr.controller.observe = seen
+    tr.fault_hook = hook
+    try:
+        hist = tr.run(DP_STEPS)
+    finally:
+        tr.fault_hook = None
+        tr.controller.observe = observe
+    hook(DP_STEPS)
+    rows = []
+    for h in hist:
+        s = h["step"]
+        rows.append({
+            "step": s, "loss": h["loss"], "grad_norm": h["grad_norm"],
+            "ms": (h["dt"] - saves.get(s, 0.0)) * 1e3,
+            "save_s": saves.get(s),
+            "launches": {n: snaps[s + 1][n] - snaps[s][n] for n in DP_NAMES},
+            "collectives": colls.get(s + 1, {}),
+            "peak_gib": peaks[s], "resident_gib": resident[s],
+            "subspace_s": None if rec is None else rec.sub_s.get(s, 0.0)})
+    return {"rows": rows, "sims": sims, "proj": proj,
+            "setup_peak_gib": peaks[-1], "save_peak_gib": peaks.get("save")}
+
+
+def dp_proj_agreement(got: dict, want: dict) -> tuple:
+    """Two refreshes' INT4 projections (by leaf): the share of codes that
+    differ as stored; with each column of ``got`` given the sign of
+    ``want``'s (a singular vector's sign is the solver's choice), the
+    share of entries more than one of ``want``'s quanta apart, and the
+    smallest column |cos|; the smallest subspace overlap ``|P_got^T
+    P_want|_F^2 / r`` of a layer."""
+    from repro_torch.core import quant
+    raw = diff = 0.0
+    cos_min = overlap_min = 1.0
+    for i, w in want.items():
+        g = got[i]
+        raw = max(raw, float((g.q != w.q).float().mean()))
+        pg = quant.dequantize(g, torch.float32)
+        pw = quant.dequantize(w, torch.float32)
+        r = pw.shape[-1]
+        quantum = w.scale.repeat_interleave(w.block, dim=-1)[..., :r]
+        pg, pw, quantum = (t.reshape((-1,) + tuple(t.shape[-2:]))
+                           for t in (pg, pw, quantum))
+        dots = (pg * pw).sum(-2)
+        norms = pg.norm(dim=-2) * pw.norm(dim=-2)
+        cos_min = min(cos_min, float((dots.abs() / norms).min()))
+        signed = pg * torch.where(dots < 0, -1.0, 1.0).unsqueeze(-2)
+        diff = max(diff, float(((signed - pw).abs() > quantum)
+                               .float().mean()))
+        ov = (pg.transpose(-1, -2) @ pw).pow(2).sum((-2, -1)) / (
+            pg.norm(dim=-2).pow(2).mean(-1) * pw.norm(dim=-2).pow(2).mean(-1)
+            * r)
+        overlap_min = min(overlap_min, float(ov.min()))
+    return raw, diff, cos_min, overlap_min
+
+
+def dp_warm_up() -> dict:
+    """A new process's first calls, each on a few elements and timed: an
+    ``abs`` on the meta device (the trainer's first, quantizing its
+    layout, imports ``torch._dynamo``, ~900 modules), then on the card the
+    CUDA context, a matmul, the QR of the trainer's first projections and
+    the SVD of the exact refresh."""
+    secs, t = {}, time.monotonic()
+    for name, fn in (
+            ("meta", lambda: torch.empty(8, device="meta").abs()),
+            ("context", lambda: torch.ones(8, device="cuda")),
+            ("matmul", lambda: torch.ones(8, 8, device="cuda",
+                                          dtype=torch.bfloat16) @
+             torch.ones(8, 8, device="cuda", dtype=torch.bfloat16)),
+            ("qr", lambda: torch.linalg.qr(torch.randn(2, 8, 4,
+                                                       device="cuda"))),
+            ("svd", lambda: torch.linalg.svd(torch.randn(8, 4, device="cuda"),
+                                             full_matrices=False))):
+        fn()
+        torch.cuda.synchronize()
+        secs[name] = time.monotonic() - t
+        t = time.monotonic()
+    return secs
+
+
+def dp_rank(comm, seed: int, save_dir: str, go, saved, restored) -> dict:
+    """One rank of phase 17: 17a (compressed data parallelism), then 17b
+    (ZeRO with ZeRO-2) in the same group; rank 0 records 17a's kernel
+    problems, sets ``saved`` once 17b's checkpoint is written, and checks
+    the problems after the runs once the parent has set ``restored`` (its
+    17c is done, so nothing else runs on the card while they are timed).
+    The rank starts while the parent runs the one-process steps, makes its
+    first calls then (``dp_warm_up``, on a few elements: their seconds are
+    a new process's set-up, not the work's), and trains once ``go`` is
+    set."""
+    import torch.distributed as dist
+    from repro_torch.core import qgalore
+    from repro_torch.core.quant import QTensor
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import model_zoo
+    from repro_torch.train import trainer  # noqa: F401 — import before go
+    t_entered = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    t_warm = time.monotonic()
+    warm = dp_warm_up()
+    warm_end = time.monotonic()
+    go.wait()
+    t_start = time.monotonic()
+    comm.timed = True
+    cfg = dp_config()
+    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
+    out = {"rank": comm.rank, "backend": str(dist.get_backend()),
+           "warm_up_s": warm, "seconds": {"start": t_start,
+                                          "entered": t_entered,
+                                          "warm_up": warm_end - t_warm,
+                                          "warm_up_end": warm_end}}
+    LAUNCHES.clear()
+    codes_a = None
+    for tag, zero in (("17a", False), ("17b", True)):
+        t_run = time.monotonic()
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        tr = dp_trainer(bundle, seed, comm, zero)
+        t_init = time.monotonic() - t_run
+        rec = ProblemRecorder(record=tag == "17a" and comm.rank == 0)
+        # a step's launches, and the problems checked, from the steady
+        # steps: step 0 runs the fused update on the distributed layers
+        # too, at the first Adam step, whose direction is +-1
+        rec.count_from = 1
+        with rec:
+            run = dp_run(tr, comm, rec, save_dir if zero else "",
+                         saved if zero and comm.rank == 0 else None)
+        torch.cuda.synchronize()
+        run["resident_gib"] = resident
+        run["peak_gib"] = max([r["peak_gib"] for r in run["rows"]]
+                              + [run["setup_peak_gib"]]
+                              + [run["save_peak_gib"] or 0.0])
+        run["init_s"] = t_init
+        run["opt_bytes"] = tr.opt_state_bytes()
+        run["payload_bytes"] = qgalore.dp_payload_bytes(tr.specs)
+        run["dist_refresh_units"] = sum(tr.specs[i].nbatch
+                                        for i in tr._step.dist_refresh)
+        run["zero2_leaves"] = len(tr._step.zero2_dims)
+        # on the host: nothing of 17a stays on the card while 17b runs
+        codes = [leaf.q.cpu() for _, leaf in qgalore.flatten(tr.state.params)
+                 if isinstance(leaf, QTensor)]
+        if codes_a is None:
+            codes_a = codes
+        else:
+            same = sum(int((a == b).sum()) for a, b in zip(codes_a, codes))
+            run["codes_equal_17a"] = same / sum(c.numel() for c in codes)
+        del codes
+        if comm.rank or zero:
+            run.pop("proj")
+        out[tag] = run
+        if rec.record:
+            out["recorder"] = rec
+        del tr
+        out["seconds"][tag] = time.monotonic() - t_run
+    out["launches"] = dict(LAUNCHES)
+    if comm.rank == 0:
+        rec = out.pop("recorder")
+        restored.wait(DP_WAIT_S)
+        t = time.monotonic()
+        out["checks"] = rec.check(DP_STEPS - 1, DP_STEPS - 1, seed)
+        out["seconds"]["checks"] = time.monotonic() - t
+    out["wall_s"] = time.monotonic() - t_start
+    return out
+
+
+def dp_restore(bundle, seed: int, save_dir: str) -> dict:
+    """17c: a new one-process trainer restores the checkpoint in
+    ``save_dir`` and runs to the end: the step it restored at, the
+    restore's seconds, its first step's loss and the whole seconds."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    tr = dp_trainer(bundle, seed, checkpoint_dir=save_dir)
+    start = tr.maybe_restore()
+    restore_s = time.monotonic() - t
+    tr.mgr = None
+    hist = tr.run(DP_STEPS)
+    del tr
+    return {"start": start, "restore_s": restore_s, "loss": hist[0]["loss"],
+            "s": time.monotonic() - t}
+
+
+def phase_data_parallel(seed: int) -> dict:
+    """Phase 17: llama-1b at full width and 4 of its 24 layers trained
+    data-parallel by two ranks on cuda:0 over gloo (8 x 256 a step, rank
+    512, bf16, compressed): 17a against one process on the same batch,
+    17b (ZeRO + ZeRO-2) against 17a, 17c a checkpoint of 17b restored
+    into one process."""
+    from repro_torch.config import ShapeCell
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import model_zoo
+    t_phase = time.monotonic()
+    cfg = dp_config()
+    log(f"== phase 17: {DP_ARCH} at {DP_LAYERS} of "
+        f"{model_zoo.get_config(DP_ARCH).num_layers} layers, full width, "
+        f"trained data-parallel by {DP_WORLD} ranks on cuda:0 over gloo "
+        "(8 x 256 a step, rank 512, bf16, compress_dp_grads)")
+    log("card:", nvidia_smi_line())
+    # the ranks start (processes, imports, the group, their first calls
+    # on the card) while this process runs the same steps on the same
+    # global batch alone; they wait for ``go`` before they train
+    save_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    ctx = mp.get_context("spawn")
+    go, saved, restored = ctx.Event(), ctx.Event(), ctx.Event()
+    got: list = []
+
+    def ranks_run():
+        try:
+            got.append(run_ranks(dp_rank, DP_WORLD, seed, save_dir, go,
+                                 saved, restored, backend="gloo"))
+        except BaseException as e:     # noqa: BLE001 — raised below
+            got.append(e)
+
+    t_spawn = time.monotonic()
+    ranks_thread = threading.Thread(target=ranks_run)
+    ranks_thread.start()
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
+        t = time.monotonic()
+        tr = dp_trainer(bundle, seed)
+        LAUNCHES.clear()
+        one = dp_run(tr)
+        del tr
+        one_s = time.monotonic() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    except BaseException:
+        go.set()
+        ranks_thread.join()
+        raise
+    go.set()
+    t_go = time.monotonic()
+    c17 = None
+    try:
+        # 17c: 17b's checkpoint, restored into this process as soon as rank
+        # 0 has written it, while the ranks finish
+        while not saved.wait(1.0) and ranks_thread.is_alive():
+            pass
+        if saved.is_set():
+            c17 = dp_restore(bundle, seed, save_dir)
+    finally:
+        restored.set()
+        ranks_thread.join()
+        shutil.rmtree(save_dir, ignore_errors=True)
+    if isinstance(got[0], BaseException):
+        raise got[0]
+    ranks = got[0]
+    ranks_s = time.monotonic() - t_go
+    if c17 is None:
+        raise AssertionError("phase 17: 17b's checkpoint was not written")
+    for r in ranks:
+        for k in ("start", "entered", "warm_up_end"):
+            r["seconds"][k] -= t_go
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in one["rows"]:
+        log(f"  one process step {r['step']}: loss {r['loss']:.6f} "
+            f"{r['ms']:.1f} ms launches {r['launches']}")
+    problems = []
+    res = {"card": card(), "world": DP_WORLD, "layers": DP_LAYERS,
+           "backend": ranks[0]["backend"], "ranks_s": ranks_s,
+           "one_process": one["rows"]}
+    for tag in ("17a", "17b"):
+        runs = [r[tag] for r in ranks]
+        for k in range(DP_STEPS):
+            losses = {r["rows"][k]["loss"] for r in runs}
+            if len(losses) != 1:
+                problems.append(f"{tag} step {k}: ranks' losses {losses}")
+        for r, got in enumerate(runs):
+            for row in got["rows"]:
+                c = {op: (int(v[0]), int(v[1]), v[2])
+                     for op, v in row["collectives"].items()}
+                log(f"  {tag} rank {r} step {row['step']}: loss "
+                    f"{row['loss']:.6f} {row['ms']:.1f} ms"
+                    + (f" (+ save {row['save_s']:.2f} s)"
+                       if row["save_s"] else "")
+                    + f", subspace {row['subspace_s']:.3f} s, memory "
+                    f"{row['resident_gib']:.3f} GiB at its start, peak "
+                    f"{row['peak_gib']:.3f} GiB, collectives "
+                    + ", ".join(f"{op} {n} calls {b / 2**20:.2f} MiB "
+                                f"{s * 1e3:.1f} ms"
+                                for op, (n, b, s) in c.items())
+                    + f"; launches {row['launches']}")
+    a, b = ranks[0]["17a"], ranks[0]["17b"]
+    # 17a against the one process
+    rel0 = abs(a["rows"][0]["loss"] - one["rows"][0]["loss"]) \
+        / abs(one["rows"][0]["loss"])
+    if not rel0 <= DP_STEP0_TOL:
+        problems.append(f"17a step 0: loss {a['rows'][0]['loss']} vs one "
+                        f"process {one['rows'][0]['loss']} (rel {rel0:.2e})")
+    for ra, ro in zip(a["rows"], one["rows"]):
+        if not np.isfinite(ra["loss"]) or abs(ra["loss"] - ro["loss"]) > \
+                DP_LOSS_BAND * max(1.0, abs(ro["loss"])):
+            problems.append(f"17a step {ra['step']}: loss {ra['loss']} vs "
+                            f"one process {ro['loss']}")
+    sims_err = max(float(np.abs(a["sims"][k] - one["sims"][k]).max())
+                   for k in one["sims"])
+    if set(a["sims"]) != set(one["sims"]) or sims_err > 1e-3:
+        problems.append(f"17a sims differ from the one process by "
+                        f"{sims_err}")
+    p_raw, p_diff, p_cos, p_overlap = dp_proj_agreement(a["proj"],
+                                                        one["proj"])
+    log(f"  17a P against the one process: raw INT4 codes differing "
+        f"{p_raw:.4f}; each column signed as the one process's: entries "
+        f"over one quantum apart {p_diff:.4f}, smallest column |cos| "
+        f"{p_cos:.4f}; "
+        f"smallest subspace overlap {p_overlap:.4f}")
+    if p_diff >= 0.02:
+        problems.append(f"17a INT4 P (columns signed alike) over one "
+                        f"quantum apart in {p_diff:.4f}")
+    units = a["dist_refresh_units"]
+    for ra, ro in zip(a["rows"], one["rows"]):
+        want = dict(ro["launches"])
+        if ra["step"] == 0:   # distributed layers update as steady ones
+            want["fused_qgalore_update"] = units
+        for r in ranks:
+            got = r["17a"]["rows"][ra["step"]]["launches"]
+            if got != want:
+                problems.append(f"17a rank {r['rank']} step {ra['step']} "
+                                f"launches {got} != {want}")
+    # 17b against 17a
+    for rb, ra in zip(b["rows"], a["rows"]):
+        if abs(rb["loss"] - ra["loss"]) > DP_LOSS_BAND * abs(ra["loss"]):
+            problems.append(f"17b step {rb['step']}: loss {rb['loss']} vs "
+                            f"17a {ra['loss']}")
+    equal = min(r["17b"]["codes_equal_17a"] for r in ranks)
+    if equal < 0.9999:
+        problems.append(f"17b W codes equal to 17a's in {equal:.6f}")
+    whole, held = b["opt_bytes"]
+    if not held < whole or a["opt_bytes"][1] != whole:
+        problems.append(f"17b state bytes {b['opt_bytes']} vs 17a "
+                        f"{a['opt_bytes']}")
+    # ZeRO holds less a rank: its peak, and its steady steps', below 17a's
+    steady_peak = lambda run: max(row["peak_gib"] for row in run["rows"][1:])
+    for r in ranks:
+        if not (r["17b"]["peak_gib"] < r["17a"]["peak_gib"] and
+                steady_peak(r["17b"]) < steady_peak(r["17a"])):
+            problems.append(
+                f"17b rank {r['rank']} peak {r['17b']['peak_gib']:.4f} GiB "
+                f"(steady {steady_peak(r['17b']):.4f}) not below 17a's "
+                f"{r['17a']['peak_gib']:.4f} ({steady_peak(r['17a']):.4f})")
+    # 17c: the checkpoint after 17b's step 2 restored into one process
+    want = b["rows"][DP_SAVE_AFTER + 1]["loss"]
+    rel_c = abs(c17["loss"] - want) / abs(want)
+    if c17["start"] != DP_SAVE_AFTER + 1 or rel_c > RESUME_TOL:
+        problems.append(f"17c: restored at {c17['start']}, step-3 loss "
+                        f"{c17['loss']} vs 17b's {want} (rel {rel_c:.2e})")
+    steady = lambda run: statistics.median(
+        max(r[run]["rows"][k]["ms"] for r in ranks)
+        for k in range(1, DP_STEPS))
+    coll = lambda r, k, op: r["17a"]["rows"][k]["collectives"].get(
+        op, [0, 0, 0.0])
+    res.update({
+        "losses_17a": [r["loss"] for r in a["rows"]],
+        "losses_one_process": [r["loss"] for r in one["rows"]],
+        "losses_17b": [r["loss"] for r in b["rows"]],
+        "step0_rel_diff": rel0, "sims_max_abs_diff": sims_err,
+        "int4_codes_differing_raw": p_raw,
+        "int4_codes_differing_signed": p_diff, "p_column_cos_min": p_cos,
+        "p_subspace_overlap_min": p_overlap,
+        "codes_equal_17b_17a": equal,
+        "steady_step_ms_17a": steady("17a"),
+        "steady_step_ms_17b": steady("17b"),
+        "steady_step_ms_one_process": statistics.median(
+            r["ms"] for r in one["rows"][1:]),
+        "refresh_step_s": [r["17a"]["rows"][0]["ms"] / 1e3 for r in ranks],
+        "refresh_subspace_s": [r["17a"]["rows"][0]["subspace_s"]
+                               for r in ranks],
+        "one_process_refresh_s": one["rows"][0]["ms"] / 1e3,
+        "steady_collectives": {op: coll(ranks[0], 1, op) for op in
+                               ("all_reduce", "reduce_scatter",
+                                "all_gather")},
+        "zero2_steady_collectives": b["rows"][1]["collectives"],
+        "payload_bytes": a["payload_bytes"],
+        "opt_bytes_17a": a["opt_bytes"], "opt_bytes_17b": b["opt_bytes"],
+        "peak_gib_17a": [r["17a"]["peak_gib"] for r in ranks],
+        "peak_gib_17b": [r["17b"]["peak_gib"] for r in ranks],
+        "memory_gib": {tag: {k: [r[tag][k] for r in ranks] for k in (
+            "resident_gib", "setup_peak_gib", "save_peak_gib")}
+            for tag in ("17a", "17b")},
+        "init_s": {tag: [r[tag]["init_s"] for r in ranks]
+                   for tag in ("17a", "17b")},
+        "zero2_leaves": b["zero2_leaves"], "dist_refresh_units": units,
+        "restore_s": c17["restore_s"], "restored_step3_rel_diff": rel_c,
+        "warm_up_s": [r["warm_up_s"] for r in ranks],
+        "seconds": {"one_process": one_s, "ranks": ranks_s,
+                    "restore_and_step": c17["s"], **{
+                        f"rank0_{k}": v
+                        for k, v in ranks[0]["seconds"].items()}},
+        "launches": {n: sum(r["launches"].get(n, 0) for r in ranks)
+                     for n in TRAIN_KERNELS},
+        "train_kernels": ranks[0]["checks"]})
+    ar = res["steady_collectives"]["all_reduce"]
+    log(f"  17a: step-0 loss {a['rows'][0]['loss']:.6f} (mean of ranks) vs "
+        f"{one['rows'][0]['loss']:.6f} one process (rel {rel0:.2e}); sims "
+        f"max diff {sims_err:.2e}; INT4 P over one quantum apart "
+        f"{p_diff:.4f} (columns signed alike); "
+        f"{units} layers refreshed distributed")
+    log(f"  17a steady step {res['steady_step_ms_17a']:.1f} ms a rank vs "
+        f"{res['steady_step_ms_one_process']:.1f} ms one process; all-reduce "
+        f"{int(ar[0])} calls {ar[1] / 2**20:.2f} MiB ({ar[2] * 1e3:.1f} ms) a "
+        f"steady step beside dp_payload_bytes {a['payload_bytes'] / 2**20:.2f}"
+        f" MiB; refresh step {res['refresh_step_s']} s, subspace "
+        f"{res['refresh_subspace_s']} s a rank (one process "
+        f"{res['one_process_refresh_s']:.2f} s)")
+    log(f"  17b: W codes equal to 17a's {equal:.6f}; optimizer state a rank "
+        f"{b['opt_bytes'][1] / 2**20:.1f} MiB vs "
+        f"{a['opt_bytes'][1] / 2**20:.1f}"
+        f" MiB ({a['opt_bytes'][1] / b['opt_bytes'][1]:.2f}x); peak "
+        f"{res['peak_gib_17b']} GiB a rank (17a {res['peak_gib_17a']}); "
+        f"steady step {res['steady_step_ms_17b']:.1f} ms")
+    for tag in ("17a", "17b"):
+        m = res["memory_gib"][tag]
+        log(f"  {tag} memory a rank: {m['resident_gib']} GiB allocated "
+            f"before the trainer, set-up peak {m['setup_peak_gib']} GiB, "
+            f"save peak {m['save_peak_gib']} GiB; trainer built in "
+            f"{res['init_s'][tag]} s")
+    log(f"  17c: restored at step {c17['start']} in "
+        f"{c17['restore_s']:.2f} s (beside the ranks' last step); step-3 "
+        f"loss {c17['loss']:.6f} vs 17b's {want:.6f} (rel {rel_c:.2e})")
+    res["roofline"] = step_roofline(
+        "17a", cfg, ShapeCell("train", 256, 8, "train"),
+        res["steady_step_ms_17a"], rank=512)
+    res["wall_s"] = time.monotonic() - t_phase
+    sec = res["seconds"]
+    warm = ", ".join(f"{k} {v:.2f}" for k, v in ranks[0]["warm_up_s"].items())
+    log(f"  phase 17: {res['wall_s']:.1f} s: the one process {one_s:.1f} s, "
+        f"the two ranks {ranks_s:.1f} s after it (spawned "
+        f"{t_go - t_spawn:.1f} s before; rank 0 started and imported "
+        f"{sec['rank0_entered'] + t_go - t_spawn:.1f} s after the spawn; its "
+        f"first calls {sec['rank0_warm_up']:.1f} s ({warm}), done "
+        f"{abs(sec['rank0_warm_up_end']):.1f} s "
+        f"{'after' if sec['rank0_warm_up_end'] > 0 else 'before'} it; 17a "
+        f"{sec['rank0_17a']:.1f} s, 17b {sec['rank0_17b']:.1f} s, "
+        f"kernel checks {sec['rank0_checks']:.1f} s), 17c {c17['s']:.1f} s "
+        "of it in this process")
+    if problems:
+        raise AssertionError("phase 17: " + "; ".join(problems))
+    return res
+
+
 def write_analysis() -> None:
     """Every timed step's roofline as one table, and the run's rooflines
     and recorded kernel tables written to ``build/analysis.json``
@@ -5606,7 +6173,8 @@ def main() -> int:
                   "7": phase_unfused, "8": phase_training_7b,
                   "9": phase_finetune, "11": phase_dense_variants,
                   "12": phase_moe, "13": phase_mla, "14": phase_xlstm,
-                  "15": phase_zamba, "16": phase_encdec}
+                  "15": phase_zamba, "16": phase_encdec,
+                  "17": phase_data_parallel}
         for name in args.only.split(","):
             fn = phases[name]
             fn() if name == "1" else fn(args.seed)
@@ -5630,6 +6198,7 @@ def main() -> int:
     xl = phase_xlstm(args.seed)
     zb = phase_zamba(args.seed)
     ed = phase_encdec(args.seed)
+    dp = phase_data_parallel(args.seed)
     log(f"  serving, route off / flash route: tokens/s "
         f"{serving['tokens_per_s']:.1f} / {flash_serving['tokens_per_s']:.1f}"
         f", mean TTFT {serving['mean_ttft_s']:.3f} / "
@@ -5647,7 +6216,7 @@ def main() -> int:
                                   serving, parity, training, flash_rows,
                                   flash_serving, flash_parity, unfused,
                                   training_7b, finetune, paged, dense,
-                                  moe, mla, xl, zb, ed)))
+                                  moe, mla, xl, zb, ed, dp)))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5658,7 +6227,7 @@ def main() -> int:
 def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                  training, flash_rows, flash_serving, flash_parity,
                  unfused, training_7b, finetune, paged, dense, moe,
-                 mla, xl, zb, ed) -> dict:
+                 mla, xl, zb, ed, dp) -> dict:
     """The ``kernels`` line: every kernel with its launches on the main
     paths, errors against its plain version, and times beside its bound;
     the three training kernels also carry their LLaMA-7B rows
@@ -5720,6 +6289,15 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
     zf = zb["flash"]
     es_, et_ = ed["serving"]["launches"], ed["training"]["launches"]
     ef = ed["flash"]
+    dpl, dpk = dp["launches"], dp["train_kernels"]
+    dp_info = {k: dp[k] for k in (
+        "card", "world", "layers", "backend", "wall_s", "ranks_s",
+        "steady_step_ms_17a", "steady_step_ms_17b",
+        "steady_step_ms_one_process", "refresh_step_s",
+        "refresh_subspace_s", "payload_bytes", "steady_collectives",
+        "opt_bytes_17a", "opt_bytes_17b", "peak_gib_17b",
+        "codes_equal_17b_17a", "step0_rel_diff",
+        "restored_step3_rel_diff")}
 
     def xl_paths(name):
         return {"xlstm_serving": xs_.get(name, 0),
@@ -5766,13 +6344,15 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         + dl["int8_matmul"] + sum(
             moe_paths["int8_matmul"][k] for k in (
                 "moe_serving", "moe_training", "mla_serving",
-                "mla_training")) + sum(xl_paths("int8_matmul").values()),
+                "mla_training")) + sum(xl_paths("int8_matmul").values())
+        + dpl["int8_matmul"],
         "launches_by_path": {"serving": serving["launches"].get(
             "int8_matmul", 0), "training": tl.get("int8_matmul", 0),
             "training_7b": l7.get("int8_matmul", 0),
             **ft_paths("int8_matmul"), "paged_serving": ps["launches"],
             "dense_variants_serving": dl["int8_matmul"],
-            **moe_paths["int8_matmul"], **xl_paths("int8_matmul")},
+            **moe_paths["int8_matmul"], **xl_paths("int8_matmul"),
+            "dp_training": dpl["int8_matmul"]},
         "max_abs_err": max([max_abs, serving["check_max_abs_err"],
                             ps["check_max_abs_err"],
                             moe["serving"]["check_max_abs_err"],
@@ -5786,6 +6366,7 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                            + [r["max_abs_err"]
                               for r in i8_7b["per_shape"]
                               + i8f["per_shape"]
+                              + dpk["int8_matmul"]["per_shape"]
                               + mk["int8_matmul_batched"]
                               + lk["int8_matmul_batched"]]
                            + [r["check_max_abs_err"]
@@ -5838,6 +6419,10 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                        "pair of events; library: cuBLAS bf16 on the same "
                        "weights dequantized")}},
         "paged_serving": dict(paged["serving"], parity=paged["parity"]),
+        "data_parallel": dict(dp_info, **dpk["int8_matmul"], timed_as=(
+            "the int8_matmul calls of one rank's steady step of phase 17 "
+            "at M = 1024 (4 x 256 rows a rank), bf16 x, sum of per-shape "
+            "medians x launches")),
         "max_rel_err_7b": max(r["rel_err"] for r in i8_7b["per_shape"]
                               + i8f["per_shape"]),
         "llama_7b_finetune": dict(i8f, timed_as=(
@@ -5887,7 +6472,7 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         + moe_paths["int8_matmul_t"]["moe_training"]
         + moe_paths["int8_matmul_t"]["mla_training"]
         + xt_.get("int8_matmul_t", 0) + zt_.get("int8_matmul_t", 0)
-        + et_.get("int8_matmul_t", 0),
+        + et_.get("int8_matmul_t", 0) + dpl["int8_matmul_t"],
         "launches_by_path": {"training": tl.get("int8_matmul_t", 0),
                              "training_7b": l7.get("int8_matmul_t", 0),
                              **ft_paths("int8_matmul_t"),
@@ -5897,9 +6482,11 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                                                        0),
                              "zamba_training": zt_.get("int8_matmul_t", 0),
                              "encdec_training": et_.get("int8_matmul_t",
-                                                        0)},
+                                                        0),
+                             "dp_training": dpl["int8_matmul_t"]},
         "max_abs_err": max(r["max_abs_err"] for r in tk["int8_matmul_t"]
                            + tk7["int8_matmul_t"] + tkf["int8_matmul_t"]
+                           + dpk["train_kernels"]["int8_matmul_t"]
                            + dense["tied_head"]
                            + mk["int8_matmul_t_batched"]
                            + lk["int8_matmul_t_batched"]),
@@ -5919,6 +6506,12 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
             "head_calls": dense["serving"]["gemma-7b"]["head_calls"],
             "launches_per_head_call":
                 dense["serving"]["gemma-7b"]["launches_per_head_call"]},
+        "data_parallel": {
+            "step_sums": dpk["train_kernel_step_sums"]["int8_matmul_t"],
+            "per_shape": dpk["train_kernels"]["int8_matmul_t"],
+            "timed_as": "the dL/dx calls of one rank's phase 17 step at "
+                        "M = 1024, bf16 g, sum of per-shape medians x "
+                        "launches"},
         "llama_7b_finetune": {"step_sums": sumsf["int8_matmul_t"],
                               "per_shape": tkf["int8_matmul_t"],
                               "timed_as": "the dL/dx calls of one LLaMA-7B "
@@ -5949,7 +6542,8 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         + lt_.get("fused_qgalore_update", 0)
         + xt_.get("fused_qgalore_update", 0)
         + zt_.get("fused_qgalore_update", 0)
-        + et_.get("fused_qgalore_update", 0),
+        + et_.get("fused_qgalore_update", 0)
+        + dpl["fused_qgalore_update"],
         "launches_by_path": {"training": tl.get("fused_qgalore_update", 0),
                              "training_7b": l7.get("fused_qgalore_update",
                                                    0),
@@ -5963,12 +6557,21 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
                              "zamba_training": zt_.get(
                                  "fused_qgalore_update", 0),
                              "encdec_training": et_.get(
-                                 "fused_qgalore_update", 0)},
+                                 "fused_qgalore_update", 0),
+                             "dp_training": dpl["fused_qgalore_update"]},
         "max_abs_err": max(r["max_abs_err"]
                            for r in tk["fused_qgalore_update"]
                            + tk7["fused_qgalore_update"]
                            + tkf["fused_qgalore_update"]
+                           + dpk["train_kernels"]["fused_qgalore_update"]
                            if r["on_path"]),
+        "data_parallel": {
+            "step_sums":
+                dpk["train_kernel_step_sums"]["fused_qgalore_update"],
+            "per_shape": dpk["train_kernels"]["fused_qgalore_update"],
+            "timed_as": "the updates of one rank's phase 17 steady step "
+                        "(ZeRO: on the gathered leaf), rank 512, sum of "
+                        "per-shape medians x launches"},
         "llama_7b_finetune": {"step_sums": sumsf["fused_qgalore_update"],
                               "per_shape": tkf["fused_qgalore_update"],
                               "timed_as": "the updates of one LLaMA-7B "

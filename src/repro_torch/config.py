@@ -2,8 +2,8 @@
 
 A copy of the model, Q-GaLore, training and shape-cell dataclasses of
 ``repro/config.py`` (the port imports nothing from ``repro``), without
-the fields of what is not ported (distributed training, remat, LoRA, the
-JAX package's execution switches but ``fused_update``). Every
+the fields of what is not ported (remat, LoRA, the JAX package's
+execution switches but ``fused_update``). Every
 ported architecture provides a module in ``repro_torch.configs`` exposing
 ``CONFIG`` (full size) and ``smoke_config()`` (reduced, CPU-runnable).
 """
@@ -166,6 +166,15 @@ class QGaLoreConfig:
     # kernel (kernels.ops.fused_qgalore_update); False runs the unfused
     # composition, the stage-by-stage chain's arithmetic
     fused_update: bool = True
+    # data-parallel training (``train/step.py`` with a process group):
+    # average the LOW-RANK gradient payload across ranks, not the
+    # full-rank one
+    compress_dp_grads: bool = False
+    # at refresh steps, reduce-scatter a stacked leaf's full-rank gradient
+    # over its layers, refresh each layer's P on the rank that owns it and
+    # all-gather the results (leaves whose layer count the world size
+    # divides; the rest refresh replicated)
+    dist_refresh: bool = True
 
 
 @dataclass(frozen=True)

@@ -56,9 +56,10 @@ from repro_torch.kernels import ops as kops
 Uniforms = Callable[[int, Optional[int], Tuple[int, ...]], torch.Tensor]
 Omegas = Callable[[int, int, Tuple[int, int]], torch.Tensor]
 
-# Test-only: ``fn(path, g (k, m, n), P_new (k, d, r)) -> P_new`` applied to
-# freshly computed projections before quantization (a parity harness uses
-# it to align singular-vector signs with another solver). None in use.
+# Test-only: ``fn(path, g (k, m, n), P_new (k, d, r), units) -> P_new``
+# applied to freshly computed projections before quantization (a parity
+# harness uses it to align singular-vector signs with another solver);
+# ``units`` are the global layer indices of the k rows. None in use.
 SUBSPACE_HOOK: Optional[Callable] = None
 
 
@@ -111,6 +112,11 @@ class LeafSpec:
     # the leaf's effective recipe (base config + group overrides); None
     # only for specs built by hand
     cfg: Optional[QGaLoreConfig] = None
+    # tensor-parallel annotation (``distributed.sharding.annotate_tp``):
+    # the matrix dim the model axis splits (0 = m, 1 = n) and its degree;
+    # the defaults describe a data-parallel or one-device run
+    shard_dim: Optional[int] = None
+    tp: int = 1
 
     @property
     def mat_shape(self) -> Tuple[int, int]:
@@ -258,29 +264,34 @@ def _unflat_batch(P, batch: Tuple[int, ...]):
     return P.map(fn) if isinstance(P, QTensor) else fn(P)
 
 
-def refresh_leaf(grad_full: torch.Tensor, P_old, mask, spec: LeafSpec,
-                 cfg: QGaLoreConfig,
-                 omegas: Optional[Callable[[int, Tuple[int, int]],
-                                           torch.Tensor]] = None):
-    """Recompute P for the masked layers of one leaf with one batched
-    decomposition (``cfg.subspace_method``; ``omegas(unit, (k, p))`` gives
-    the randomized method's test matrix of each layer).
+def refresh_slice(g: torch.Tensor, P_flat, mask, units: List[int],
+                  spec: LeafSpec, cfg: QGaLoreConfig,
+                  omegas: Optional[Callable[[int, Tuple[int, int]],
+                                            torch.Tensor]] = None):
+    """Recompute P for the masked rows of a flat slice of one leaf's
+    layers, with one batched decomposition (``cfg.subspace_method``).
 
-    Returns ``(P_new, sims, ratios)``: ``sims (nbatch,)`` float32 on the
-    host, ``-1`` where a layer was not refreshed; under
-    ``cfg.adaptive_rank`` ``ratios (nbatch, rank)`` is each refreshed
-    layer's explained-variance profile under its fresh (unquantized) P,
-    ``-1`` rows elsewhere, and None otherwise."""
-    b, nlead = spec.nbatch, len(spec.batch)
+    ``g (b, m, n)``: the slice's full-rank gradients; ``P_flat``: their
+    projections, leading dim ``b``; ``mask (b,)``; ``units``: the GLOBAL
+    index of each row within the leaf, so the randomized method's test
+    matrices (``omegas(unit, (k, p))``) and :data:`SUBSPACE_HOOK` see the
+    rows a whole-leaf refresh would give them (the distributed refresh
+    runs on a rank's own layers).
+
+    Returns ``(P_new_flat, sims, ratios)``: ``sims (b,)`` float32 on the
+    host, ``-1`` where a row was not refreshed; under ``cfg.adaptive_rank``
+    ``ratios (b, rank)`` is each refreshed row's explained-variance profile
+    under its fresh (unquantized) P, ``-1`` rows elsewhere, and None
+    otherwise. ``P_new_flat`` is ``P_flat`` itself when nothing is
+    masked."""
+    b = g.shape[0]
     m, n = spec.mat_shape
-    g = grad_full.reshape(b, m, n)
-    P_flat = _flat_batch(P_old, b, nlead)
     sel = [i for i in range(b) if bool(mask[i])]
     sims = np.full((b,), -1.0, np.float32)
     ratios = (np.full((b, spec.rank), -1.0, np.float32)
               if cfg.adaptive_rank else None)
     if not sel:
-        return P_old, sims, ratios
+        return P_flat, sims, ratios
     idx = torch.tensor(sel, device=g.device)
     g_sel = g if len(sel) == b else g[idx]
     omega = None
@@ -289,12 +300,13 @@ def refresh_leaf(grad_full: torch.Tensor, P_old, mask, spec: LeafSpec,
             raise ValueError(f"{spec.path}: the randomized subspace method "
                              "needs an omega source")
         shape = projector.omega_shape((m, n), spec.rank, spec.side)
-        omega = torch.stack([omegas(i, shape) for i in sel])
+        omega = torch.stack([omegas(units[i], shape) for i in sel])
     P_new = projector.compute_subspace(g_sel, spec.rank, spec.side,
                                        cfg.subspace_method, omega,
                                        cfg.subspace_iters)
     if SUBSPACE_HOOK is not None:
-        P_new = SUBSPACE_HOOK(spec.path, g_sel, P_new)
+        P_new = SUBSPACE_HOOK(spec.path, g_sel, P_new,
+                              [units[i] for i in sel])
     old_sel = (P_flat.map(lambda t: t[idx]) if isinstance(P_flat, QTensor)
                else P_flat[idx])
     sims[sel] = projector.subspace_similarity(
@@ -309,12 +321,27 @@ def refresh_leaf(grad_full: torch.Tensor, P_old, mask, spec: LeafSpec,
         out.q[idx] = fresh.q
         out.scale[idx] = fresh.scale
         out.zero[idx] = fresh.zero
-        out = out.map(lambda t: t.reshape(spec.batch + tuple(t.shape[1:])))
     else:
         out = P_flat.clone()
         out[idx] = fresh
-        out = out.reshape(spec.proj_shape)
     return out, sims, ratios
+
+
+def refresh_leaf(grad_full: torch.Tensor, P_old, mask, spec: LeafSpec,
+                 cfg: QGaLoreConfig,
+                 omegas: Optional[Callable[[int, Tuple[int, int]],
+                                           torch.Tensor]] = None):
+    """:func:`refresh_slice` over all of one leaf's layers; returns
+    ``(P_new, sims, ratios)`` with ``P_new`` shaped as ``P_old``."""
+    b, nlead = spec.nbatch, len(spec.batch)
+    m, n = spec.mat_shape
+    P_flat = _flat_batch(P_old, b, nlead)
+    out, sims, ratios = refresh_slice(grad_full.reshape(b, m, n), P_flat,
+                                      mask, list(range(b)), spec, cfg,
+                                      omegas)
+    if out is P_flat:
+        return P_old, sims, ratios
+    return _unflat_batch(out, spec.batch), sims, ratios
 
 
 # ---------------------------------------------------------------------------
@@ -502,7 +529,7 @@ def apply_updates(params, grads, state: QGaLoreState, cfg, lr: float,
                   refresh_masks: Optional[Dict[int, np.ndarray]] = None,
                   refresh: bool = False,
                   specs: Optional[List[LeafSpec]] = None,
-                  omegas: Optional[Omegas] = None):
+                  omegas: Optional[Omegas] = None, zero=None):
     """One optimizer step. ``cfg``: a ``QGaLoreConfig`` or a ``ParamRules``.
 
     ``grads``: a tree like ``params`` with one gradient per leaf, full-rank
@@ -511,6 +538,11 @@ def apply_updates(params, grads, state: QGaLoreState, cfg, lr: float,
     (consulted only when ``refresh``). ``uniforms(leaf_idx, layer, shape)``
     supplies every stochastic-rounding draw, ``omegas(leaf_idx, unit,
     (k, p))`` every randomized test matrix.
+
+    ``zero``: a ``distributed.zero.ZeroPartition`` when ``state`` holds
+    this rank's ZeRO slices: each leaf's state (and a ZeRO-2 slice of its
+    gradient) is gathered whole, updated as on one device, and cut back to
+    this rank's slices, one leaf at a time.
 
     Returns ``(new_params, new_state, {"sims": {path: (nbatch,)},
     "ratios": {path: (nbatch, rank)}})``; ratios only under
@@ -538,10 +570,14 @@ def apply_updates(params, grads, state: QGaLoreState, cfg, lr: float,
                                                                shape)
         leaf_omegas = None if omegas is None else \
             (lambda unit, shape, idx=idx: omegas(idx, unit, shape))
+        if zero is not None:
+            inner, P, grad = zero.gather(idx, inner, P, grad)
         np_, ni_, npr_, sims, ratios = update_leaf(
             param, grad, inner, P, spec, _eff_cfg(spec, cfg),
             _lr_for(spec, lr), count, mask, leaf_uniforms, do_refresh,
             leaf_omegas)
+        if zero is not None:
+            ni_, npr_ = zero.keep(idx, ni_, npr_)
         new_p.append(np_)
         new_i.append(ni_)
         new_pr.append(npr_)
@@ -558,18 +594,29 @@ def apply_updates(params, grads, state: QGaLoreState, cfg, lr: float,
 # ---------------------------------------------------------------------------
 
 def clip_by_global_norm(grads, max_norm: float,
-                        specs: Optional[List[LeafSpec]] = None):
+                        specs: Optional[List[LeafSpec]] = None,
+                        comm=None, sliced=()):
     """Clip a gradient tree to ``max_norm`` (no-op when falsy), scaling
     the tree's tensors in place (the products the reference rounds to
     each gradient's dtype), so a step holds one tree of full-rank
     gradients, not two. Returns ``(grads, norm)``; the norm stays a
     float32 tensor on the device. With ``specs``, frozen-group leaves
-    neither enter the norm nor get scaled."""
+    neither enter the norm nor get scaled.
+
+    ``sliced``: indices of leaves that hold only this rank's slice of the
+    reduced gradient (ZeRO-2): their squares are summed over ``comm``'s
+    ranks, then the replicated leaves are added once."""
     frozen = {i for i, s in enumerate(specs or []) if s.frozen}
     flat = flatten(grads)
-    norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
+    sq = lambda keep: sum(torch.sum(g.to(torch.float32) ** 2)
                           for i, (_, g) in enumerate(flat)
-                          if i not in frozen))
+                          if i not in frozen and keep(i))
+    if sliced:
+        part = sq(lambda i: i in sliced)
+        norm = torch.sqrt(sq(lambda i: i not in sliced)
+                          + comm.all_reduce_sum(part.reshape(1))[0])
+    else:
+        norm = torch.sqrt(sq(lambda i: True))
     if not max_norm:
         return grads, norm
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)

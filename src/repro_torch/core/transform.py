@@ -381,10 +381,10 @@ def qgalore_transform(cfg_or_rules, specs=None) -> GradientTransformation:
 
     def update(grads, state: QGaLoreState, params, *, lr: float, uniforms,
                omegas=None, refresh_masks=None, refresh: bool = False,
-               specs=None):
+               specs=None, zero=None):
         return qgalore.apply_updates(
             params, grads, state, rules, lr, uniforms,
             refresh_masks=refresh_masks, refresh=refresh,
-            specs=specs or _specs, omegas=omegas)
+            specs=specs or _specs, omegas=omegas, zero=zero)
 
     return GradientTransformation(init, update)

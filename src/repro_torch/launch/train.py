@@ -1,29 +1,44 @@
-"""Training launcher of the port: any ported ``--arch`` on one device (the
-counterpart of ``repro/launch/train.py``).
+"""Training launcher of the port: any ported ``--arch``, on one device or
+data-parallel (the counterpart of ``repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-60m \
         --smoke --steps 50 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-1b \
         --batch 8 --seq 256 --accum 2 --rank 512 --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama-60m \
+        --smoke --device cpu --devices 4 --mesh 4x1 --compress --zero
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+        --arch llama-1b --multihost --mesh 8x1 --compress --zero
 
 Without ``--device`` it runs on the card. For the encoder-decoder
 (``--arch seamless-m4t-medium``) ``--seq`` is the frames a row; its
-decoder takes ``max(seq // 4, 16)`` tokens, as in the JAX package. The flags of distributed
-training (``--mesh``, ``--tp``, ``--devices``, ``--compress``, ``--zero``,
-``--zero2``, ``--multihost``) are accepted by name and refused: the port
-trains on one device (ROADMAP queue 1 item 5). It closes with the
-reference's lines: the final loss and the SVDs used against a fixed
-interval's, and under ``--adaptive-rank`` the rank transitions and the
-optimizer state's size.
+decoder takes ``max(seq // 4, 16)`` tokens, as in the JAX package.
+
+Data parallelism: ``--devices N`` starts N ranks itself (processes of its
+own, joined through a file store), the CPU emulation of the reference's
+N host devices; ``--multihost`` joins the group ``torchrun`` describes
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``PORT``), one
+card per local rank. ``--mesh Dx1`` names the (D, 1) mesh (D the world;
+by default the world's), ``--compress`` averages the low-rank gradients
+and refreshes distributed, ``--zero`` partitions the optimizer state over
+the ranks and ``--zero2`` (default: as ``--zero``) reduce-scatters the
+gradients onto it. ``--backend`` names the process group's backend:
+``nccl`` by default on cards, ``gloo`` on the CPU and for ranks that
+share one card. ``--tp`` and a mesh whose model axis is above 1 are
+refused (ROADMAP queue 1 sub-slice 5b).
+
+It closes with the reference's lines (rank 0's in a data-parallel run):
+the final loss and the SVDs used against a fixed interval's, and under
+``--adaptive-rank`` the rank transitions and the optimizer state's size.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 from typing import List, Optional
 
-DISTRIBUTED_FLAGS = ("mesh", "tp", "devices", "compress", "zero", "zero2",
-                     "multihost")
+log = logging.getLogger("repro_torch.launch")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -55,26 +70,33 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must be "
                          "present); cpu runs the plain versions")
-    # distributed training: refused (see the module docstring)
-    ap.add_argument("--compress", action="store_true")
-    ap.add_argument("--zero", action="store_true")
-    ap.add_argument("--zero2", type=int, default=-1, choices=(-1, 0, 1))
-    ap.add_argument("--mesh", default="")
-    ap.add_argument("--tp", type=int, default=0)
-    ap.add_argument("--devices", type=int, default=0)
-    ap.add_argument("--multihost", action="store_true")
+    ap.add_argument("--compress", action="store_true",
+                    help="data parallelism: average the low-rank gradient "
+                         "payload and refresh distributed")
+    ap.add_argument("--zero", action="store_true",
+                    help="partition the optimizer state over the ranks "
+                         "(with --compress also turns on --zero2)")
+    ap.add_argument("--zero2", type=int, default=-1, choices=(-1, 0, 1),
+                    help="force the ZeRO-2 low-rank-gradient "
+                         "reduce-scatter on (1) or off (0); default -1 "
+                         "follows --zero")
+    ap.add_argument("--mesh", default="",
+                    help="Dx1 (data x model); default: the world's")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor parallelism: not ported (sub-slice 5b)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="start N data-parallel ranks in this machine")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group torchrun describes")
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="the process group's backend (default: nccl on "
+                         "cards, gloo on the CPU)")
     return ap
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    ap = parser()
-    args = ap.parse_args(argv)
-    given = [f"--{f}" for f in DISTRIBUTED_FLAGS
-             if getattr(args, f) != ap.get_default(f)]
-    if given:
-        ap.error(f"{', '.join(given)}: distributed training is not ported; "
-                 "the port trains on one device (ROADMAP queue 1 item 5)")
-
+def _train(args, comm=None) -> List[str]:
+    """Build the trainer (on this rank), train, and return the closing
+    lines."""
     import torch
 
     from repro_torch.config import QGaLoreConfig, ShapeCell, TrainConfig
@@ -86,12 +108,19 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     logging.basicConfig(level=logging.INFO)
     device = resolve_device(args.device)
+    if comm is not None and device.type == "cuda":
+        n = torch.cuda.device_count()
+        local = int(os.environ.get("LOCAL_RANK", comm.rank)) \
+            if args.multihost else comm.rank
+        device = torch.device("cuda", local % n)
+        torch.cuda.set_device(device)
     dtype = torch.float32 if args.smoke else torch.bfloat16
     bundle = model_zoo.build_arch(args.arch, smoke=args.smoke, device=device,
                                   dtype=dtype)
     ladder = tuple(int(x) for x in args.rank_ladder.split(",") if x)
     qcfg = preset(args.optimizer, QGaLoreConfig(
         rank=args.rank, min_dim=64 if args.smoke else 128,
+        compress_dp_grads=args.compress,
         adaptive_rank=args.adaptive_rank, rank_ladder=ladder,
         explained_ratio_threshold=args.rank_threshold,
         rank_patience=args.rank_patience, min_rank=args.min_rank))
@@ -104,20 +133,89 @@ def main(argv: Optional[List[str]] = None) -> int:
     # float weights (the baselines) in f32 on a smoke model, else bf16
     trainer = Trainer(bundle, tcfg, qcfg, cell=cell, accum=args.accum,
                       param_dtype=torch.float32 if args.smoke
-                      else torch.bfloat16)
+                      else torch.bfloat16, group=comm,
+                      zero_shard=args.zero and comm is not None,
+                      zero2=None if args.zero2 < 0 else bool(args.zero2))
+    if comm is not None:
+        whole, held = trainer.opt_state_bytes()
+        most = comm.all_reduce_max(held)
+        if comm.rank == 0:
+            log.info("optimizer state: %.1f MB global, %.1f MB max/rank "
+                     "(zero_shard=%s)", whole / 2**20, most / 2**20,
+                     trainer.zero_shard)
     trainer.maybe_restore()
     hist = trainer.run()
-    print(f"final loss {hist[-1]['loss']:.4f}; "
-          f"SVD used {trainer.controller.total_svd_count()} / "
-          f"{trainer.controller.baseline_svd_count(args.steps)} baseline")
+    lines = [f"final loss {hist[-1]['loss']:.4f}; "
+             f"SVD used {trainer.controller.total_svd_count()} / "
+             f"{trainer.controller.baseline_svd_count(args.steps)} baseline"]
     if args.adaptive_rank:
         for t in trainer.controller.rank_transition_summary():
-            print(f"rank transition: step {t['step']} {t['path']} "
-                  f"{t['old']} -> {t['new']}")
+            lines.append(f"rank transition: step {t['step']} {t['path']} "
+                         f"{t['old']} -> {t['new']}")
         bytes_now = qgalore.optimizer_state_bytes(
             trainer.state.params, trainer.rules, specs=trainer.specs)
-        print(f"optimizer state {bytes_now / 2**20:.2f} MB; "
-              f"DP payload {qgalore.dp_payload_bytes(trainer.specs)} B/step")
+        lines.append(f"optimizer state {bytes_now / 2**20:.2f} MB; "
+                     f"DP payload {qgalore.dp_payload_bytes(trainer.specs)} "
+                     "B/step")
+    return lines
+
+
+def _rank_main(comm, args) -> List[str]:
+    import torch
+    if args.device == "cpu":      # N ranks share the host's cores
+        torch.set_num_threads(1)
+    return _train(args, comm)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = parser()
+    args = ap.parse_args(argv)
+    from repro_torch.launch.mesh import TP_REFUSAL, parse_mesh
+    if args.tp:
+        ap.error(f"--tp {args.tp}: {TP_REFUSAL}")
+    mesh = None
+    if args.mesh:
+        try:
+            mesh = parse_mesh(args.mesh)
+        except (ValueError, NotImplementedError) as e:
+            ap.error(f"--mesh {args.mesh}: {e}")
+    if os.environ.get("WORLD_SIZE") and not args.multihost:
+        ap.error("WORLD_SIZE is set (torchrun): pass --multihost to join "
+                 "its process group")
+    if args.multihost and args.devices:
+        ap.error("--multihost and --devices both start the ranks: pass one")
+    world = args.devices or (int(os.environ.get("WORLD_SIZE", 0))
+                             if args.multihost else 1)
+    if args.multihost and not world:
+        ap.error("--multihost needs the environment torchrun sets "
+                 "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
+    if mesh is not None and mesh.shape["data"] != world:
+        raise SystemExit(f"--mesh {args.mesh} needs {mesh.size} devices, "
+                         f"have {world} (use --devices on CPU)")
+    distributed = mesh is not None or world > 1
+    if args.zero2 == 1:      # the trainer's refusal, before any rank starts
+        from repro_torch.distributed.zero import require_zero2
+        require_zero2(distributed, args.zero, args.compress)
+    backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
+    if not distributed:
+        lines = _train(args)
+    elif args.multihost:
+        import torch.distributed as dist
+
+        from repro_torch.distributed.comm import Comm
+        dist.init_process_group(backend, init_method="env://")
+        try:
+            comm = Comm()
+            lines = _train(args, comm)
+            if comm.rank:
+                lines = []
+        finally:
+            dist.destroy_process_group()
+    else:
+        from repro_torch.distributed.spawn import run_ranks
+        lines = run_ranks(_rank_main, world, args, backend=backend)[0]
+    for line in lines:
+        print(line)
     return 0
 
 

@@ -17,7 +17,8 @@ Top-k takes, among equal probabilities, the lower expert index first, as
 promises no order among ties).
 
 Expert parallelism (the reference's ``moe_apply_ep`` / ``moe_ep_sharded``)
-is not ported: it waits for distributed training, ROADMAP queue 1 item 5.
+is not ported: it waits for tensor and expert parallelism, ROADMAP queue 1
+sub-slice 5b.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from repro_torch.config import ModelConfig, MoEConfig
 from repro_torch.models import layers
 from repro_torch.models.layers import dense, dense_init
 
-EP_SLICE = "ROADMAP queue 1 item 5"
+EP_SLICE = "ROADMAP queue 1 sub-slice 5b"
 DROP_FREE_TK = 4096     # T·k up to which every token keeps its experts
 # experts an expert stack is drawn at a time in a by-layer draw: 32 of
 # deepseek-v3's (7168, 2048) matrices are 1.9 GB of float32

@@ -409,7 +409,11 @@ class PagedScheduler(Scheduler):
                  num_blocks: Optional[int] = None, prefill_chunk: int = 32,
                  pad_id: int = 0, temperature: float = 0.0, dtype=None,
                  generator: Optional[torch.Generator] = None, device=None,
-                 use_radix: bool = True, reserve_decode: bool = True):
+                 use_radix: bool = True, reserve_decode: bool = True,
+                 shardings=None):
+        if shardings is not None:
+            from repro_torch.serve.scheduler import SHARDED_SERVING
+            raise NotImplementedError(SHARDED_SERVING)
         if not engine.append_ok(bundle):
             raise ValueError(
                 f"{bundle.cfg.name}: paged serving requires chunk-append "

@@ -142,6 +142,11 @@ def _bucket(n: int, bucket: int) -> int:
     return max(bucket, -(-n // bucket) * bucket)
 
 
+# the reference's ``shardings=`` (a pool placed over a mesh)
+SHARDED_SERVING = ("sharded serving (serve/shard.py, the schedulers' "
+                   "shardings=) is not ported: ROADMAP queue 1 sub-slice 5c")
+
+
 class Scheduler:
     """Slot-based continuous-batching scheduler over a model bundle.
 
@@ -155,7 +160,10 @@ class Scheduler:
     def __init__(self, bundle: ModelBundle, params, *, num_slots: int,
                  max_len: int, pad_id: int = 0, temperature: float = 0.0,
                  prompt_bucket: int = 16, dtype=None,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 shardings=None):
+        if shardings is not None:
+            raise NotImplementedError(SHARDED_SERVING)
         if bundle.decode_extras:
             # a pool holds per-slot caches only; ``generate`` serves a
             # bundle whose decode needs state beside them

@@ -1,6 +1,7 @@
 """The training loop: adaptive subspace control, rank adaptation,
 checkpoint and resume, fault recovery, straggler detection (the
-counterpart of ``repro/train/trainer.py``, single device).
+counterpart of ``repro/train/trainer.py``), on one device or
+data-parallel over the ranks of a process group.
 
 Each step: the batch at ``(seed, step)``, the learning rate from the
 schedule, the controller's refresh masks; a refresh step hands its
@@ -15,6 +16,15 @@ the checkpoint of step N repeats the run from N + 1.
 ``run`` retries a failed step after restoring the last checkpoint, within
 a budget of ``max_failures``; a straggler monitor flags steps slower than
 ``factor`` times the running median.
+
+With a group of D ranks (every rank builds its own ``Trainer``), rank r
+takes rows ``[r·B/D, (r+1)·B/D)`` of each global batch and the step runs
+data-parallel (``train/step.py``). Every rank draws the same init, the
+same uniforms and omegas, and feeds its controller the same gathered
+similarities, so every rank takes the same refresh and rank decisions.
+``zero_shard`` keeps only this rank's ZeRO slices of the optimizer state
+(``distributed/zero.py``); a checkpoint holds the whole state, written by
+rank 0, and restores under any world size.
 """
 from __future__ import annotations
 
@@ -30,6 +40,10 @@ from repro_torch.config import ShapeCell, TrainConfig
 from repro_torch.core import adaptive, optimizers, qgalore
 from repro_torch.core.rules import as_rules, group_assignment
 from repro_torch.data.synthetic import batch_for_bundle
+from repro_torch.distributed.comm import as_comm
+from repro_torch.distributed.sharding import Mesh
+from repro_torch.distributed.zero import (ZeroPartition, require_zero2,
+                                          state_nbytes)
 from repro_torch.models import base
 from repro_torch.models.base import ModelBundle
 from repro_torch.train import checkpoint as ckpt_lib
@@ -66,14 +80,33 @@ class Trainer:
                  state: Optional[step_lib.TrainState] = None,
                  uniforms: Optional[step_lib.UniformSource] = None,
                  omegas: Optional[step_lib.NormalSource] = None,
-                 batches=None, eval_batches=None):
+                 batches=None, eval_batches=None, group=None,
+                 zero_shard: bool = False, zero2: Optional[bool] = None):
         """``qcfg``: a ``QGaLoreConfig`` or a ``ParamRules``. ``state``: a
-        starting TrainState (default: drawn from ``tcfg.seed``);
-        ``batches`` / ``eval_batches``: ``step -> batch`` (default: the
-        synthetic LM stream of ``cell`` at ``tcfg.seed`` / ``seed + 1``);
-        ``fault_hook(step)`` runs before each step and may raise."""
+        starting TrainState, whole (default: drawn from ``tcfg.seed``);
+        ``batches`` / ``eval_batches``: ``step -> batch`` of the global
+        batch (default: the synthetic LM stream of ``cell`` at
+        ``tcfg.seed`` / ``seed + 1``); ``fault_hook(step)`` runs before each
+        step and may raise.
+
+        ``group`` (a process group or ``distributed.comm.Comm``): train
+        data-parallel over its ranks, on the ``(D, 1)`` mesh. ``zero_shard``
+        partitions the optimizer state over them; ``zero2`` (default: as
+        ``zero_shard``) reduce-scatters the steady low-rank gradients onto
+        that partition, and forced on needs ``zero_shard`` and
+        ``compress_dp_grads``."""
         self.rules = as_rules(qcfg)
         self.qcfg = self.rules.base
+        self.comm = as_comm(group)
+        self.mesh = None if self.comm is None else Mesh(
+            (self.comm.world, 1), ("data", "model"))
+        self.zero_shard = zero_shard and self.comm is not None
+        self.zero2 = self.zero_shard if zero2 is None else zero2
+        compress = self.qcfg.compress_dp_grads and self.comm is not None
+        if zero2:
+            require_zero2(self.comm is not None, zero_shard,
+                          self.qcfg.compress_dp_grads)
+        self._compress = compress
         self.bundle, self.tcfg = bundle, tcfg
         self.param_dtype = param_dtype
         self.cell = cell or ShapeCell("train", tcfg.seq_len,
@@ -81,6 +114,11 @@ class Trainer:
         self.fault_hook = fault_hook
         self.stragglers = StragglerMonitor()
         self._accum = accum
+        if self.comm is not None and \
+                tcfg.global_batch % (self.comm.world * accum):
+            raise ValueError(
+                f"global batch {tcfg.global_batch} does not split into "
+                f"{self.comm.world} ranks of {accum} microbatches each")
         self._rank_overrides: Dict[str, int] = {}
         self._build_execution()
         self.controller = adaptive.SubspaceController(self._base_specs,
@@ -92,6 +130,9 @@ class Trainer:
                 async_save=tcfg.async_checkpoint)
         self.state = state or step_lib.init_state(
             bundle, self.rules, tcfg.seed, param_dtype, specs=self.specs)
+        if self.zero is not None:
+            self.state = step_lib.TrainState(
+                self.state.params, self.zero.shard(self.state.opt))
         self.uniforms = uniforms or step_lib.generator_uniforms(
             tcfg.seed + 17, bundle.device)
         self.omegas = omegas or step_lib.generator_normals(
@@ -102,6 +143,10 @@ class Trainer:
         cell, seed = self.cell, tcfg.seed
         self.batches = batches or (lambda s: batch_for_bundle(
             bundle, cell, s, seed))
+        self.rows = (0, tcfg.global_batch)
+        if self.comm is not None:
+            n = tcfg.global_batch // self.comm.world
+            self.rows = (self.comm.rank * n, (self.comm.rank + 1) * n)
         self.eval_batches = eval_batches or (lambda s: batch_for_bundle(
             bundle, cell, s, seed + 1))
         self.start_step = 0
@@ -117,8 +162,21 @@ class Trainer:
                                      self.param_dtype), self.rules)
         self.specs = qgalore.apply_rank_overrides(self._base_specs,
                                                   self._rank_overrides)
+        self.zero = None
+        zero2_dims = None
+        if self.zero_shard:
+            self.zero = ZeroPartition(self.specs, self.rules, self.mesh,
+                                      self.comm)
+            if self.zero2 and self._compress:
+                zero2_dims = self.zero.zero2_dims()
+            elif self.zero2:
+                log.info("zero2 inactive: compress_dp_grads is off (the "
+                         "reduce-scatter lives in the compressed "
+                         "data-parallel step); pass --compress / "
+                         "compress_dp_grads=True to enable it")
         self._step = step_lib.build_train_step(
-            self.bundle, self.rules, self.tcfg, self.specs, self._accum)
+            self.bundle, self.rules, self.tcfg, self.specs, self._accum,
+            group=self.comm, zero2_dims=zero2_dims, zero=self.zero)
 
     def _adaptive_rank_enabled(self) -> bool:
         return self.qcfg.adaptive_rank or any(
@@ -147,21 +205,49 @@ class Trainer:
         self.state = None                 # free the old state first
         self.state, meta = self.mgr.restore(None, template,
                                             self.bundle.device)
+        if self.zero is not None:         # any world keeps its own slices
+            self.state = step_lib.TrainState(
+                self.state.params, self.zero.shard(self.state.opt))
         if meta.get("controller"):
             self.controller.from_json(meta["controller"])
         self.start_step = int(meta["step"]) + 1
         log.info("restored checkpoint at step %d", meta["step"])
         return self.start_step
 
+    def whole_state(self) -> step_lib.TrainState:
+        """The state with the optimizer's ZeRO slices gathered (every rank
+        takes part)."""
+        if self.zero is None:
+            return self.state
+        return step_lib.TrainState(self.state.params,
+                                   self.zero.gather_state(self.state.opt))
+
     def save(self, step: int):
+        """Rank 0 writes the whole state; a data-parallel save returns on
+        every rank once the checkpoint is published."""
         if self.mgr is None:
             return
-        self.mgr.save(step, self.state,
-                      {"controller": self.controller.to_json(),
-                       "rules_fingerprint": self.rules.fingerprint(),
-                       "groups": group_assignment(self._base_specs),
-                       "rank_overrides": self.controller.current_ranks(),
-                       "mesh": None})
+        state = self.whole_state()
+        if self.comm is None or self.comm.rank == 0:
+            self.mgr.save(step, state,
+                          {"controller": self.controller.to_json(),
+                           "rules_fingerprint": self.rules.fingerprint(),
+                           "groups": group_assignment(self._base_specs),
+                           "rank_overrides": self.controller.current_ranks(),
+                           "mesh": None if self.mesh is None
+                           else dict(self.mesh.shape)})
+        if self.comm is not None:
+            self.mgr.wait()
+            self.comm.barrier()
+
+    def opt_state_bytes(self):
+        """``(whole, held)``: the bytes of the whole optimizer state and of
+        what this rank holds (its ZeRO slices, or everything)."""
+        held = state_nbytes(self.state.opt)
+        if self.zero is None:
+            return held, held
+        whole = state_nbytes(qgalore.state_template(self.specs, self.rules))
+        return whole, held
 
     # ------------------------------------------------------------------
     def _run_one(self, step: int) -> dict:
@@ -173,8 +259,12 @@ class Trainer:
             # every GaLore leaf takes the refresh path (False where not due)
             masks = {i: masks.get(i, np.zeros((s.nbatch,), bool))
                      for i, s in enumerate(self.specs) if s.galore}
+        batch = self.batches(step)
+        if self.comm is not None:
+            lo, hi = self.rows
+            batch = {k: v[lo:hi] for k, v in batch.items()}
         self.state, metrics, opt_metrics = self._step(
-            self.state, self.batches(step),
+            self.state, batch,
             optimizers.lr_at(step, self.tcfg), step, self.uniforms, masks,
             self.omegas)
         if masks:
@@ -191,7 +281,7 @@ class Trainer:
         """Apply the controller's shrink decisions: truncate each leaf's
         low-rank state (8-bit moments, INT4 P; deterministic), then swap in
         the rank-overridden specs and rebuild the step."""
-        opt = self.state.opt
+        opt = self.whole_state().opt
         inner, proj = list(opt.inner), list(opt.proj)
         for idx, old, new in decisions:
             spec = self.specs[idx]
@@ -204,6 +294,9 @@ class Trainer:
             self.state.params, qgalore.QGaLoreState(inner, proj, opt.count))
         self._build_execution()
         self.controller.update_specs(self.specs)
+        if self.zero is not None:     # re-split under the shrunk shapes
+            self.state = step_lib.TrainState(
+                self.state.params, self.zero.shard(self.state.opt))
 
     def run(self, steps: Optional[int] = None, max_failures: int = 3
             ) -> List[Dict[str, float]]:

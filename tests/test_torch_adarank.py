@@ -173,7 +173,7 @@ def test_randomized_refresh_matches_jax(monkeypatch):
                                    specs=jspecs)
     fresh = {}
 
-    def capture(path, g, P_new):
+    def capture(path, g, P_new, units):
         fresh[path] = P_new.clone()
         return P_new
     monkeypatch.setattr(qgalore, "SUBSPACE_HOOK", capture)

@@ -306,6 +306,35 @@ def test_training_steps_go_through_the_kernels(cuda):
     assert n_cpu.get("int8_matmul", 0) == 0
 
 
+def test_two_ranks_on_one_card(cuda, tmp_path):
+    """Two ranks on cuda:0 over gloo (NCCL refuses two ranks a card), one
+    steady llama-60m smoke step, compressed data-parallel: the mean of
+    the ranks' losses against the one-process step on the same 4 rows,
+    the same weights after it, and the kernels launched in each rank."""
+    import numpy as np
+
+    import torch_dp_ranks as ranks
+    from repro_torch.distributed.spawn import run_ranks
+    one = ranks.steady_step(None, "cuda")
+    two = run_ranks(ranks.steady_step, 2, "cuda", backend="gloo",
+                    rendezvous_dir=str(tmp_path))
+    assert two[0]["loss"] == two[1]["loss"]
+    assert abs(two[0]["loss"] - one["loss"]) <= 1e-5 * abs(one["loss"])
+    same = sum(int((two[0]["codes"][k] == one["codes"][k]).sum())
+               for k in one["codes"])
+    assert same / sum(v.size for v in one["codes"].values()) >= 0.9999
+    for k in one["codes"]:
+        np.testing.assert_array_equal(two[0]["codes"][k], two[1]["codes"][k])
+    per_step = 7 * 2 + 1
+    for r in two:
+        assert r["launches"]["int8_matmul"] == 2 * per_step - 1
+        assert r["launches"]["int8_matmul_t"] == per_step
+        assert r["launches"]["fused_qgalore_update"] == per_step
+        for name in ("int8_matmul_ref", "int8_matmul_t_ref",
+                     "fused_qgalore_update_ref", "deq_matmul"):
+            assert r["launches"].get(name, 0) == 0, name
+
+
 def test_finetune_run_on_the_card(cuda, tmp_path):
     """``launch.finetune.run`` at llama-60m smoke size on the card: the
     four contracts hold (``run`` raises otherwise), the report says

@@ -61,7 +61,10 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.models.xlstm, repro_torch.models.xlstm_model, "
             "repro_torch.configs.xlstm_125m, repro_torch.kernels.profile, "
             "repro_torch.analysis.analytic, repro_torch.analysis.roofline, "
-            "repro_torch.analysis.report; "
+            "repro_torch.analysis.report, "
+            "repro_torch.distributed.sharding, repro_torch.distributed.comm, "
+            "repro_torch.distributed.zero, repro_torch.distributed.spawn, "
+            "repro_torch.launch.mesh; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('clean')")

@@ -1,9 +1,12 @@
 """The port's training launcher (``repro_torch.launch.train``) against the
 JAX package's CLI (``repro.launch.train``), both called in-process: the
 same closing lines (SVD accounting; under ``--adaptive-rank`` the rank
-transitions and the optimizer state's size), the distributed flags refused
-by name, a resume through ``--checkpoint-dir``, and no silent fallback to
+transitions and the optimizer state's size), data-parallel runs on gloo
+ranks it starts itself (``--devices``), tensor parallelism refused by
+name, a resume through ``--checkpoint-dir``, and no silent fallback to
 the CPU."""
+import contextlib
+import io
 import re
 import shutil
 import sys
@@ -46,16 +49,60 @@ def test_launcher_matches_reference_cli(capsys, monkeypatch):
     assert abs(port["loss"] - ref["loss"]) < 0.5
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x1"], ["--tp", "2"],
-                                  ["--devices", "2"], ["--compress"],
-                                  ["--zero"], ["--zero2", "1"],
-                                  ["--multihost"]])
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--mesh", "2x2"],
+                                  ["--mesh", "1x2"],
+                                  ["--devices", "2", "--tp", "2"]])
 def test_distributed_flags_refused(capsys, flag):
+    """Tensor parallelism (a model axis above 1) stays refused by name,
+    pointing at its sub-slice."""
     with pytest.raises(SystemExit) as e:
         train.main(ARGS + ["--device", "cpu"] + flag)
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert flag[0] in err and "ROADMAP queue 1 item 5" in err
+    assert flag[-2] in err and "ROADMAP queue 1 sub-slice 5b" in err
+
+
+def test_multihost_needs_torchrun(capsys, monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit) as e:
+        train.main(ARGS + ["--device", "cpu", "--multihost"])
+    assert e.value.code == 2 and "torchrun" in capsys.readouterr().err
+
+
+DP = ["--devices", "2", "--mesh", "2x1", "--compress"]
+
+
+@pytest.fixture(scope="module")
+def one_process():
+    """The one-process run's closing lines."""
+    cap = io.StringIO()
+    with contextlib.redirect_stdout(cap):
+        assert train.main(ARGS + ["--device", "cpu"]) == 0
+    return _closing(cap.getvalue())
+
+
+@pytest.mark.parametrize("flags", [DP, DP + ["--zero"],
+                                   DP + ["--zero", "--zero2", "1"],
+                                   DP + ["--zero", "--zero2", "0"]],
+                         ids=["compress", "zero", "zero2", "zero-no-zero2"])
+def test_data_parallel_launch(capsys, one_process, flags):
+    """Two gloo ranks train llama-60m smoke and close with the one-process
+    run's SVD accounting, optimizer state and payload."""
+    one = one_process
+    assert train.main(ARGS + ["--device", "cpu"] + flags) == 0
+    dp = _closing(capsys.readouterr().out)
+    assert dp["svd"] == one["svd"] and int(dp["svd"][0]) > 0
+    assert dp["state"] == one["state"]
+    assert dp["transitions"] == one["transitions"] == []
+    assert abs(dp["loss"] - one["loss"]) < 1e-2
+
+
+def test_zero2_without_zero_refused():
+    """As the reference's trainer refuses it: an explicit ZeRO-2 that
+    cannot take effect."""
+    with pytest.raises(ValueError, match="zero2=True requires a mesh, "
+                       "zero_shard=True, and compress_dp_grads=True"):
+        train.main(ARGS + ["--device", "cpu"] + DP + ["--zero2", "1"])
 
 
 def test_launcher_resumes_from_checkpoint(capsys, caplog, tmp_path):

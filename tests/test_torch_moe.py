@@ -248,7 +248,7 @@ def test_combine_is_deterministic_and_ties_take_the_lower_expert(models):
     w, e, _ = moe._route(flat["router"], x.reshape(-1, 64), cfg.moe)
     assert (e == torch.tensor([0, 1])).all()
     assert torch.allclose(w, torch.full_like(w, 0.5))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1 sub-slice 5b"):
         moe.moe_ep_sharded(tl, x, cfg)
 
 

@@ -111,7 +111,7 @@ def jax_batches(jbundle, cell, seed):
     return batch
 
 
-def align_signs_to_jax(path, g, P_new):
+def align_signs_to_jax(path, g, P_new, units=None):
     """Flip each fresh singular vector to the sign the JAX package's SVD
     gives for the same gradient (test-only ``SUBSPACE_HOOK``)."""
     side = projector.galore_side(tuple(g.shape))
