@@ -157,9 +157,9 @@ Phases (any failure exits non-zero):
    tokens).
 11. The dense variants. (a) mistral-nemo-12b, yi-9b, qwen3-32b (qk-norm),
    gemma-7b (GeGLU, head_dim 256, the tied head) and internvl2-2b (the
-   VLM backbone) at full width and depth (qwen3-32b at 16 of its 64
-   layers, the one cut that keeps the script inside its time limit),
-   bf16, one at a time: weights
+   VLM backbone) at full width and 8 layers each (of 40, 48, 64, 28 and
+   24: ``SERVE_DEPTH``, the cut that keeps the script inside its time
+   limit on a slow host), bf16, one at a time: weights
    drawn from ``--seed`` and quantized on the card one layer of a group
    at a time (``init_params(by_layer=True)``; the drawn tree's
    parameters must equal ``model_zoo.count_params``), then 8 requests
@@ -181,15 +181,15 @@ Phases (any failure exits non-zero):
    ``int8_matmul_t`` at M = 1, 8, 16 and 2048, against its plain version
    (2e-2 of max|plain|) and timed beside it, cuBLAS bf16 and the bound.
    The phase's wall time is printed.
-12. The mixture of experts. (a) qwen3-moe-30b-a3b at full width and
-   depth (48 layers, 128 experts top-8, expert_ff 768), bf16, its INT8
+12. The mixture of experts. (a) qwen3-moe-30b-a3b at full width and 12
+   of its 48 layers (128 experts top-8, expert_ff 768), bf16, its INT8
    weights drawn on the card one layer at a time, 8 requests (64-512
    prompt tokens, 16 greedy new) through ``make_scheduler("auto")``,
    which must give the slot scheduler (4 slots): every request
    completes, every prefill is one row at its prompt's exact length, and
-   every prefill and decode dispatch launches ``int8_matmul`` 241 times
+   every prefill and decode dispatch launches ``int8_matmul`` 61 times
    (wq, wk, wv, wo and the router a layer, the head) and
-   ``int8_matmul_batched`` 144 times (the three expert stacks a layer),
+   ``int8_matmul_batched`` 36 times (the three expert stacks a layer),
    with no plain version; every distinct problem of both is then held
    against its plain version with phase 2's bars. Printed: tokens/s,
    mean TTFT, the median decode dispatch, a profiled decode step's device
@@ -251,12 +251,12 @@ Phases (any failure exits non-zero):
    (c) 4 Q-GaLore steps at full width and depth (rank 256, 4 x 512
    tokens, a refresh at step 0), every step's launches held to what the
    code implies, finite losses, one more steady step profiled.
-15. The SSM hybrid. (a) zamba2-2.7b at full width and depth (54 layers:
-   9 superblocks of 5 Mamba2 blocks and a site of the shared attention
-   block), bf16, drawn one superblock at a time, phase 11a's traffic
+15. The SSM hybrid. (a) zamba2-2.7b at full width and 3 of its 9
+   superblocks (18 of 54 layers: a superblock is 5 Mamba2 blocks and a
+   site of the shared attention block), bf16, drawn one superblock at a time, phase 11a's traffic
    through ``make_scheduler("auto")`` (the slot scheduler, 4 slots, one
    unpadded request a prefill): a prefill and a decode dispatch each
-   launch ``int8_matmul`` 208 times (2 a Mamba2 block, 13 a site, the
+   launch ``int8_matmul`` 70 times (2 a Mamba2 block, 13 a site, the
    head), with no plain version; the pool's SSM states must be float32
    and its conv windows, K and V bf16; the slot tokens must equal
    per-request ``generate``'s; 14a's decode-row probe; a decode step and
@@ -267,14 +267,14 @@ Phases (any failure exits non-zero):
    (two chunks of 256, the second padded) the card against the CPU
    (within the larger of 1e-4 and the measured amplification x 1e-4,
    equal greedy tokens). (c) The same prompts through a bundle built
-   with ``flash_attention=True``: 9 ``flash_attention`` launches a
+   with ``flash_attention=True``: 3 ``flash_attention`` launches a
    prefill, the logits within 0.1 of the einsum route's, every flash
    problem against its plain version; the d = 80 kernel at B 1, S 512,
    32 heads, bf16 and f32, against its plain version and timed beside
-   it, SDPA and the bound. (d) 4 Q-GaLore steps at full width and depth
+   it, SDPA and the bound. (d) 4 Q-GaLore steps at 15a's width and depth
    (rank 512, randomized subspace, 4 x 512 tokens, a refresh at step
    0), every step's launches held to what the code implies (a steady
-   step: 415 ``int8_matmul``, 208 ``int8_matmul_t``, 108
+   step: 139 ``int8_matmul``, 70 ``int8_matmul_t``, 42
    ``fused_qgalore_update``), finite losses, each step's peak, and the
    shared block's gradient norm nonzero at every step; one more steady
    step profiled.
@@ -332,6 +332,31 @@ Phases (any failure exits non-zero):
    from the steady steps, against their plain versions at phase 5's bars
    with the fused update's stress rows. A rank that fails fails the
    phase.
+18. Tensor and expert parallelism, in phase 17's two ranks (no new
+   spawn), on the ``(1, 2)`` and ``(2, 1)`` meshes. (a) mistral-nemo-12b
+   at full width and 2 of its 40 layers, every matrix split over the
+   two ranks (column- and row-parallel INT8 matmuls, the d-split
+   embedding, the vocabulary-split head and its vocab-parallel loss), 8 x
+   256 a step, bf16, rank 1024, randomized subspace, 4 steps (step 0
+   refreshes, the stacked leaves over the combined front), against the
+   parent's run of the same steps alone (after 17c): every loss within
+   2e-3 relative, the similarities equal across ranks, each rank's
+   launches a step equal to the code's count, its INT8 bytes the sharded
+   leaves' half plus the replicated ones, the model group's bytes of a
+   steady step equal to ``qgalore.tp_payload_bytes``, and each rank's
+   refresh-step and steady-step peaks below the one process's; rank 0's
+   slice problems of the three training kernels against their plain
+   versions. (b) qwen3-moe-30b-a3b at full width and 2 layers,
+   expert-parallel (64 of the 128 experts a rank), 2 x 256 a rank, rank
+   128, randomized, 2 steps (a refresh and a steady one): at step 0's
+   inputs the EP layer against
+   ``moe_apply`` on the rank's tokens (bf16 at the batched kernels' bar,
+   f32 within 1e-5), the fused updates a steady step equal to the owned
+   units, the data group's bytes the non-expert leaves'
+   ``dp_payload_bytes`` (and the loss, metrics and clip norm) plus the
+   all-to-all's counted from E, C and d, finite losses; rank 0 times the
+   batched pair at the run's expert problems. Each step's ms, the
+   collectives and a ``roofline`` line for each.
 
 Every bound printed is ``analysis.roofline.kernel_bound`` on the counts
 of ``kernels/profile.py`` at the H100's rates (phase 1 fails on a card
@@ -351,8 +376,9 @@ and written with the kernel tables to ``build/analysis.json``
 (``python -m repro_torch.analysis.report build/analysis.json``).
 
 ``python3 chip_smoke.py --only 12`` (or ``1,12``, ``2`` to ``9``, ``11``
-to ``17``) runs those phases alone for development and prints no
-kernels line and no result.
+to ``18``) runs those phases alone for development and prints no
+kernels line and no result; ``--only 18`` spawns phase 17's ranks for
+phase 18 alone.
 
 The last three lines are the kernels JSON (all seven kernels;
 ``int8_matmul``'s and ``int8_matmul_t``'s training step, flash's prefill
@@ -364,7 +390,8 @@ matmuls phase 11's, 12's and 13's (the expert grid axis counted apart),
 phase 14's, 15's and 16's launches, ``int8_matmul`` their serving runs
 and the sLSTM gates' f32-x rows, ``flash_attention`` phase 15c's and
 16c's prefills and their d = 80 and d = 64 rows; the three training
-kernels phase 17's launches in both ranks and its M = 1024 rows),
+kernels phase 17's launches in both ranks and its M = 1024 rows, and
+phase 18's launches, 18a's slice rows and 18b's expert rows),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository's ``src/``
 beside it, the script exits non-zero and prints no result.
@@ -1517,11 +1544,13 @@ class ProblemRecorder:
          projector.compute_subspace) = self._saved
         return False
 
-    def check(self, steps: int, steady_steps: int, seed: int) -> dict:
+    def check(self, steps: int, steady_steps: int, seed: int,
+              plain_reps: int = 20) -> dict:
         """Every recorded problem against its plain version on the card
-        (``check_i8_problems``, ``check_train_kernels``), with each
-        problem's launches in one step: the matmuls run at every step,
-        the fused update at the steady ones."""
+        (``check_i8_problems``, ``check_train_kernels``; the plain
+        versions timed over ``plain_reps`` calls), with each problem's
+        launches in one step: the matmuls run at every step, the fused
+        update at the steady ones."""
         mult = {"int8_matmul": {}, "int8_matmul_t": {},
                 "fused_qgalore_update": {}}
         for (kind, key), n in self.calls.items():
@@ -1533,11 +1562,12 @@ class ProblemRecorder:
                 mult["fused_qgalore_update"][key] = n // steady_steps
         card = lambda ts: [t.cuda() for t in ts]
         out = {"int8_matmul": check_i8_problems(
-            {k: card(v) for k, v in self.i.items()}, mult["int8_matmul"])}
+            {k: card(v) for k, v in self.i.items()}, mult["int8_matmul"],
+            plain_reps)}
         out.update(check_train_kernels(
             {k: card(v) for k, v in self.t.items()},
             {k: (card(a), rest, kw) for k, (a, rest, kw) in self.f.items()},
-            mult, seed))
+            mult, seed, plain_reps))
         return out
 
 
@@ -1672,11 +1702,12 @@ def phase_training_7b(seed: int) -> dict:
     return result
 
 
-def check_i8_problems(probs, mult: dict) -> dict:
+def check_i8_problems(probs, mult: dict, plain_reps: int = 20) -> dict:
     """``int8_matmul`` against its plain version at every distinct problem
     of a training run, on the run's own inputs (``i8_tol``), timed beside
-    the plain version, cuBLAS bf16 on the weight dequantized beforehand,
-    and the bound; with the sums over one step's calls (``mult``)."""
+    the plain version (median of ``plain_reps``), cuBLAS bf16 on the
+    weight dequantized beforehand, and the bound; with the sums over one
+    step's calls (``mult``)."""
     from repro_torch.analysis.roofline import kernel_bound
     from repro_torch.kernels import profile as kprof
     from repro_torch.core import quant
@@ -1696,7 +1727,8 @@ def check_i8_problems(probs, mult: dict) -> dict:
                "design": i8_design(M, K, N, dt),
                "ms": time_ms(lambda: ti8.int8_matmul(x, q, scale), flush),
                "plain_ms": time_ms(
-                   lambda: ref.int8_matmul_ref(x, q, scale, 256), flush),
+                   lambda: ref.int8_matmul_ref(x, q, scale, 256), flush,
+                   reps=plain_reps),
                "library_ms": time_ms(lambda: torch.matmul(x_lib, w_lib),
                                      flush),
                "max_abs_err": abs_err, "rel_err": rel,
@@ -1852,7 +1884,8 @@ def fused_gate(M, N, args, count, lr, kw) -> dict:
             "rel_errs": rels, "ok": ok, "plain_codes": qp}
 
 
-def check_train_kernels(probs_t, probs_f, mult: dict, seed: int) -> dict:
+def check_train_kernels(probs_t, probs_f, mult: dict, seed: int,
+                        plain_reps: int = 20) -> dict:
     """Each new kernel against its plain version on the training run's own
     inputs, at every distinct problem it was launched with, then timed at
     those problems (CUDA events, cold L2) beside the plain version, one
@@ -1903,7 +1936,7 @@ def check_train_kernels(probs_t, probs_f, mult: dict, seed: int) -> dict:
                                  flush),
                    "plain_ms": time_ms(
                        lambda: ref.int8_matmul_t_ref(g, q, scale, 256),
-                       flush),
+                       flush, reps=plain_reps),
                    "library_ms": lib_ms, "max_abs_err": abs_err,
                    "rel_err": rel, "hi_only_rel": hi_only}
             row["bound_ms"], row["bound_by"] = kernel_bound(
@@ -1932,7 +1965,7 @@ def check_train_kernels(probs_t, probs_f, mult: dict, seed: int) -> dict:
                "ms": time_ms(lambda: tfu.fused_qgalore_update(
                    *args, count, lr, **kw), flush),
                "plain_ms": time_ms(lambda: ref.fused_qgalore_update_ref(
-                   *args, count, lr, **kw), flush),
+                   *args, count, lr, **kw), flush, reps=plain_reps),
                "library_ms": None, **gate}
         # every operand read once, every output written once (the
         # kernel's, padded), against the back-projection's 2 m n r
@@ -3023,10 +3056,32 @@ def phase_paged_parity(seed: int) -> dict:
 
 DENSE_ARCHS = ("mistral-nemo-12b", "yi-9b", "qwen3-32b", "gemma-7b",
                "internvl2-2b")
-# the one cut of 11a, which keeps all sixteen phases inside the time limit:
-# qwen3-32b served at 16 of its 64 layers (its launch checks count per
-# layer; 11b and 11c are not cut)
-DENSE_DEPTH = {"qwen3-32b": 16}
+# the depth of the full-width runs of phases 11a, 12a and 15a/15c/15d,
+# every width as published: these runs are host-bound, so
+# their time follows the layer count, and at full depth the script came
+# within a few percent of its time limit on a fast host and past it on a
+# slow one. Every launch check counts per layer; 11b-13b's f32 parity and
+# the kernel rows are not cut. Phase 14 stays at full depth: at one group
+# of xlstm-125m's two, 14a's bf16 decode against the forward read 0.115
+# of max|logits| at one step, over its 0.1 bar (0.093 at full depth).
+SERVE_DEPTH = {"mistral-nemo-12b": 8, "yi-9b": 8, "qwen3-32b": 8,
+               "gemma-7b": 8, "internvl2-2b": 8, "qwen3-moe-30b-a3b": 12,
+               "zamba2-2.7b": 18}
+
+
+def served_config(arch: str):
+    """``arch``'s published config at ``SERVE_DEPTH``'s depth."""
+    from repro_torch.config import replace
+    from repro_torch.models import model_zoo
+    return replace(model_zoo.get_config(arch),
+                   num_layers=SERVE_DEPTH[arch])
+
+
+def depth_cut(arch: str) -> str:
+    """How ``served_config`` cuts ``arch``, as printed."""
+    from repro_torch.models import model_zoo
+    return (f"{arch} at {SERVE_DEPTH[arch]} of "
+            f"{model_zoo.get_config(arch).num_layers} layers")
 DENSE_SLOTS, DENSE_REQS, DENSE_NEW = 4, 8, 16
 DENSE_PROMPT = (64, 512)
 DENSE_WINDOW = DENSE_PROMPT[1] + DENSE_NEW
@@ -3116,12 +3171,9 @@ def serve_dense(arch: str, seed: int) -> dict:
     runtime), every dispatch's launches held to the architecture's count;
     then the decode-against-forward check and every distinct
     ``int8_matmul`` problem against its plain version."""
-    from repro_torch.config import replace
     from repro_torch.models import model_zoo
     from repro_torch.serve.params import quantize_leaf
-    cfg = model_zoo.get_config(arch)
-    if arch in DENSE_DEPTH:
-        cfg = replace(cfg, num_layers=DENSE_DEPTH[arch])
+    cfg = served_config(arch)
     bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3340,11 +3392,9 @@ def phase_dense_variants(seed: int) -> dict:
     """Phase 11: the dense variants at full width (11a, 11b's bf16 half),
     their f32 card-against-CPU parity at 2 layers (11b) and the tied head
     as a kernel problem (11c)."""
-    from repro_torch.models import model_zoo
-    cut = ", ".join(f"{a} at {n} of {model_zoo.get_config(a).num_layers} "
-                    f"layers" for a, n in DENSE_DEPTH.items())
-    log(f"== phase 11: the dense variants at full width and depth ({cut} "
-        f"in 11a) through the paged scheduler (4 slots, 8 requests, prompts "
+    cut = ", ".join(depth_cut(a) for a in DENSE_ARCHS)
+    log(f"== phase 11: the dense variants at full width ({cut} in 11a) "
+        f"through the paged scheduler (4 slots, 8 requests, prompts "
         f"64-512, 16 new)")
     card = nvidia_smi_line()
     log("card:", card)
@@ -3360,10 +3410,10 @@ def phase_dense_variants(seed: int) -> dict:
     parity = {a: f32_parity_dense(a, seed) for a in DENSE_ARCHS}
     tied = tied_head_rows(seed)
     wall = time.monotonic() - t0
-    log(f"  phase 11 in {wall:.1f} s (cut: {cut} in 11a; every other "
-        f"architecture at its full depth)")
+    log(f"  phase 11 in {wall:.1f} s (cut: {cut} in 11a)")
     return {"serving": serve, "f32_parity": parity, "tied_head": tied,
-            "wall_s": wall, "card": card, "cuts": {"serving": DENSE_DEPTH}}
+            "wall_s": wall, "card": card,
+            "cuts": {"serving": {a: SERVE_DEPTH[a] for a in DENSE_ARCHS}}}
 
 
 # ---------------------------------------------------------------------------
@@ -3460,10 +3510,18 @@ class BatchedRecorder:
     """Records, while installed, the distinct problems (E, M, K, N, dtype)
     the two batched wrappers are launched with: ``i`` for
     ``int8_matmul_batched``, and ``t`` for ``int8_matmul_t_batched`` with
-    each problem's first inputs, copied to the host."""
+    each problem's first inputs, copied to the host; ``counts``, the calls
+    of each ``(wrapper, K, N)`` from step ``count_from`` on (``dp_run``
+    sets ``step``)."""
 
     def __init__(self):
         self.i, self.t = set(), {}
+        self.step = self.count_from = -1
+        self.counts = Counter()
+
+    def _count(self, name, q):
+        if self.step >= self.count_from:
+            self.counts[(name, q.shape[1], q.shape[2])] += 1
 
     def __enter__(self):
         from repro_torch.kernels import int8_matmul as ti8
@@ -3473,12 +3531,14 @@ class BatchedRecorder:
         def rec_i(x, q, scale, block=256):
             self.i.add((q.shape[0], x.shape[1], q.shape[1], q.shape[2],
                         x.dtype))
+            self._count("int8_matmul_batched", q)
             return k_i(x, q, scale, block)
 
         def rec_t(g, q, scale, block=256):
             key = (q.shape[0], g.shape[1], q.shape[1], q.shape[2], g.dtype)
             if key not in self.t:
                 self.t[key] = [t.to("cpu", copy=True) for t in (g, q, scale)]
+            self._count("int8_matmul_t_batched", q)
             return k_t(g, q, scale, block)
 
         ti8.int8_matmul_batched, ti8.int8_matmul_t_batched = rec_i, rec_t
@@ -3514,10 +3574,11 @@ def padded_share(routed: list, E: int, decode_c: int) -> dict:
 
 def serve_moe(seed: int, cfg=None, want_by=None, tag: str = "12a") -> dict:
     """Phase 12a and 12b's bf16 half: qwen3-moe-30b-a3b at full width and
-    depth through ``make_scheduler(backend="auto")`` (the slot scheduler),
-    every prefill one unpadded request, every prefill and decode dispatch
-    held to ``moe_launches``; then the decode-against-forward check and
-    every distinct 2-D and batched problem against its plain version.
+    ``SERVE_DEPTH``'s depth through ``make_scheduler(backend="auto")``
+    (the slot scheduler), every prefill one unpadded request, every
+    prefill and decode dispatch held to ``moe_launches``; then the
+    decode-against-forward check and every distinct 2-D and batched
+    problem against its plain version.
     Phase 13a passes deepseek-v3's ``cfg`` and ``want_by``, the launches
     of a prefill (``_prefill``) and of a decode dispatch (``_step``)."""
     from repro_torch.config import ShapeCell
@@ -3527,7 +3588,7 @@ def serve_moe(seed: int, cfg=None, want_by=None, tag: str = "12a") -> dict:
     from repro_torch.serve.params import quantize_leaf
     from repro_torch.serve.scheduler import Request, Scheduler, \
         make_scheduler
-    cfg = cfg or model_zoo.get_config(MOE_ARCH)
+    cfg = cfg or served_config(MOE_ARCH)
     if want_by is None:
         want_by = {"_prefill": moe_launches(cfg), "_step": moe_launches(cfg)}
     bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
@@ -3954,15 +4015,17 @@ def train_moe(seed: int, cfg=None, want=None, tag: str = "12c") -> dict:
 
 
 def phase_moe(seed: int) -> dict:
-    """Phase 12: qwen3-moe-30b-a3b served at full width and depth (12a),
-    its answers (12b: bf16 decode against the forward inside 12a; f32 card
-    against CPU at 2 layers), the batched kernels at the expert problems
-    and a 2-layer full-width training run (12c)."""
-    log(f"== phase 12: {MOE_ARCH} (48 layers, 128 experts top-8) through "
-        f"the slot scheduler ({DENSE_SLOTS} slots, {DENSE_REQS} requests, "
-        f"prompts {DENSE_PROMPT[0]}-{DENSE_PROMPT[1]}, {DENSE_NEW} new)")
+    """Phase 12: qwen3-moe-30b-a3b served at full width and 12 of its 48
+    layers (12a), its answers (12b: bf16 decode against the forward inside
+    12a; f32 card against CPU at 2 layers), the batched kernels at the
+    expert problems and a 2-layer full-width training run (12c)."""
+    log(f"== phase 12: {MOE_ARCH} (128 experts top-8) through the slot "
+        f"scheduler ({DENSE_SLOTS} slots, {DENSE_REQS} requests, prompts "
+        f"{DENSE_PROMPT[0]}-{DENSE_PROMPT[1]}, {DENSE_NEW} new)")
     card = nvidia_smi_line()
     log("card:", card)
+    log(f"  cuts: 12a {depth_cut(MOE_ARCH)}; 12b's f32 parity and 12c's "
+        f"training 2 layers; every width as published")
     t0 = time.monotonic()
     serve = serve_moe(seed)
     log(f"  12a {MOE_ARCH}: {serve['tokens_per_s']:.1f} tok/s, mean TTFT "
@@ -3977,7 +4040,8 @@ def phase_moe(seed: int) -> dict:
     wall = time.monotonic() - t0
     log(f"  phase 12 in {wall:.1f} s")
     return {"serving": serve, "f32_parity": parity, "kernels": kernels,
-            "training": training, "wall_s": wall, "card": card}
+            "training": training, "wall_s": wall, "card": card,
+            "cuts": {"serving": SERVE_DEPTH[MOE_ARCH]}}
 
 
 # ---------------------------------------------------------------------------
@@ -4623,7 +4687,7 @@ def slstm_gate_rows(seed: int) -> list:
 def train_full(cfg, seed: int, *, tag: str, rank: int, batch: tuple,
                steps: int, fwd: int, method=None, norm_keys: tuple = (),
                check_problems: bool = False) -> dict:
-    """Phases 14c, 15d and 16d: ``cfg`` at full width and depth, the
+    """Phases 14c, 15d and 16d: ``cfg`` (full width), the
     ``qgalore`` preset at ``rank`` (``method``: the subspace method, None
     for the default), ``batch`` (B, S), ``steps`` steps (a refresh at step
     0). Each step's launches are held to what the code implies from
@@ -4723,7 +4787,8 @@ def train_full(cfg, seed: int, *, tag: str, rank: int, batch: tuple,
            "launches_per_steady_step": rows[-1]["launches"],
            "launches_want": want}
     shown = [{n: "%.4g" % v for n, v in d.items()} for d in norms]
-    log(f"  training {cfg.name} at full width and depth, rank {rank} "
+    log(f"  training {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"rank {rank} "
         f"({qcfg.subspace_method}), {B} x {S}: {units} GaLore units; "
         f"losses {[round(x, 4) for x in out['losses']]} (ln V = "
         f"{math.log(cfg.vocab_size):.2f})"
@@ -4833,12 +4898,12 @@ def zamba_launches(cfg) -> dict:
 
 
 def serve_zamba(seed: int) -> dict:
-    """Phase 15a and 15b's bf16 half: zamba2-2.7b at full width and depth
-    through ``serve_recurrent``, drawn one superblock at a time; the pool's
+    """Phase 15a and 15b's bf16 half: zamba2-2.7b at full width and
+    ``SERVE_DEPTH``'s depth through ``serve_recurrent``, drawn one superblock at a time; the pool's
     conv windows, K and V bf16 and its SSM states float32; a prefill's SSD
     chunk loops timed apart from the rest."""
-    from repro_torch.models import model_zoo, ssm
-    cfg = model_zoo.get_config(ZAMBA_ARCH)
+    from repro_torch.models import ssm
+    cfg = served_config(ZAMBA_ARCH)
     sc, hc = cfg.ssm, cfg.hybrid
     d_inner = sc.expand * cfg.d_model
     return serve_recurrent(
@@ -4872,7 +4937,7 @@ def zamba_flash(seed: int) -> dict:
     from repro_torch.models import model_zoo
     from repro_torch.serve import engine
     from repro_torch.serve.params import quantize_leaf
-    cfg = model_zoo.get_config(ZAMBA_ARCH)
+    cfg = served_config(ZAMBA_ARCH)
     sites = cfg.num_layers // cfg.hybrid.attn_every
     bundles = {route: model_zoo.build(cfg, device="cuda",
                                       dtype=torch.bfloat16,
@@ -4962,22 +5027,22 @@ def zamba_flash(seed: int) -> dict:
 
 
 def phase_zamba(seed: int) -> dict:
-    """Phase 15: zamba2-2.7b served at full width and depth (15a), its
-    answers (15b: slot tokens against ``generate`` and the bf16 decode
-    against the forward inside 15a; f32 card against CPU at one
-    superblock), the flash route at head_dim 80 (15c) and training at
-    full width and depth (15d)."""
+    """Phase 15: zamba2-2.7b served at full width and 3 of its 9
+    superblocks (15a), its answers (15b: slot tokens against ``generate``
+    and the bf16 decode against the forward inside 15a; f32 card against
+    CPU at one superblock), the flash route at head_dim 80 (15c) and
+    training at the same width and depth (15d)."""
     from repro_torch.config import replace
-    from repro_torch.models import model_zoo
-    full = model_zoo.get_config(ZAMBA_ARCH)
+    full = served_config(ZAMBA_ARCH)
     log(f"== phase 15: {ZAMBA_ARCH} (Mamba2 and a shared attention block) "
         f"through the slot scheduler ({DENSE_SLOTS} slots, {DENSE_REQS} "
         f"requests, prompts {DENSE_PROMPT[0]}-{DENSE_PROMPT[1]}, {DENSE_NEW} "
         f"new), the flash route, and trained")
     card = nvidia_smi_line()
     log("card:", card)
-    log(f"  cuts: 15a, 15c and 15d none (all {full.num_layers} layers at "
-        f"full width); 15b {ZAMBA_PARITY_LAYERS} layers, one superblock "
+    log(f"  cuts: 15a, 15c and 15d {depth_cut(ZAMBA_ARCH)} ("
+        f"{full.num_layers // full.hybrid.attn_every} superblocks, full "
+        f"width); 15b {ZAMBA_PARITY_LAYERS} layers, one superblock "
         f"(the CPU's plain matmuls), a {ZAMBA_PARITY_PROMPT}-token prompt "
         f"(two chunks of {full.ssm.chunk_size}, the second padded)")
     t0 = time.monotonic()
@@ -5012,7 +5077,8 @@ def phase_zamba(seed: int) -> dict:
     return {"serving": serve, "f32_parity": parity, "flash": flash,
             "training": training, "wall_s": wall, "split_s": split,
             "card": card,
-            "cuts": {"parity": {"layers": ZAMBA_PARITY_LAYERS,
+            "cuts": {"serving": full.num_layers,
+                     "parity": {"layers": ZAMBA_PARITY_LAYERS,
                                 "prompt": ZAMBA_PARITY_PROMPT}}}
 
 
@@ -5636,9 +5702,10 @@ def dp_trainer(bundle, seed: int, group=None, zero: bool = False,
     return Trainer(bundle, tcfg, qcfg, group=group, zero_shard=zero)
 
 
-def dp_run(tr, comm=None, rec=None, save_dir: str = "", saved=None) -> dict:
-    """``tr``'s steps, each with its loss, host ms (less a save made in its
-    hook), its launches of ``DP_NAMES``, its collectives (calls, bytes,
+def dp_run(tr, comm=None, rec=None, save_dir: str = "", saved=None,
+           steps: int = DP_STEPS) -> dict:
+    """``tr``'s ``steps`` steps, each with its loss, host ms (less a save
+    made in its hook), its launches of ``DP_NAMES``, its collectives (calls, bytes,
     s), its subspace seconds, the device memory allocated as it starts and
     its peak; the similarities the controller was fed, and the
     projections' codes after step 0. With ``save_dir`` the state after
@@ -5647,6 +5714,7 @@ def dp_run(tr, comm=None, rec=None, save_dir: str = "", saved=None) -> dict:
     from repro_torch.kernels import LAUNCHES
     from repro_torch.train.checkpoint import CheckpointManager
     snaps, colls, saves, sims, proj = {}, {}, {}, {}, {}
+    sub_s = getattr(rec, "sub_s", None)
     peaks, resident = {}, {}
     observe = tr.controller.observe
 
@@ -5686,11 +5754,11 @@ def dp_run(tr, comm=None, rec=None, save_dir: str = "", saved=None) -> dict:
     tr.controller.observe = seen
     tr.fault_hook = hook
     try:
-        hist = tr.run(DP_STEPS)
+        hist = tr.run(steps)
     finally:
         tr.fault_hook = None
         tr.controller.observe = observe
-    hook(DP_STEPS)
+    hook(steps)
     rows = []
     for h in hist:
         s = h["step"]
@@ -5701,7 +5769,7 @@ def dp_run(tr, comm=None, rec=None, save_dir: str = "", saved=None) -> dict:
             "launches": {n: snaps[s + 1][n] - snaps[s][n] for n in DP_NAMES},
             "collectives": colls.get(s + 1, {}),
             "peak_gib": peaks[s], "resident_gib": resident[s],
-            "subspace_s": None if rec is None else rec.sub_s.get(s, 0.0)})
+            "subspace_s": None if sub_s is None else sub_s.get(s, 0.0)})
     return {"rows": rows, "sims": sims, "proj": proj,
             "setup_peak_gib": peaks[-1], "save_peak_gib": peaks.get("save")}
 
@@ -5739,14 +5807,17 @@ def dp_proj_agreement(got: dict, want: dict) -> tuple:
 
 
 def dp_warm_up() -> dict:
-    """A new process's first calls, each on a few elements and timed: an
-    ``abs`` on the meta device (the trainer's first, quantizing its
-    layout, imports ``torch._dynamo``, ~900 modules), then on the card the
-    CUDA context, a matmul, the QR of the trainer's first projections and
-    the SVD of the exact refresh."""
+    """A new process's first calls, each on a few elements and timed: the
+    quantization of a layout on the meta device (the trainer's first; it
+    gives the layout from the shape alone, so no meta ``abs`` imports
+    ``torch._dynamo``, ~900 modules), then on the card the CUDA context,
+    a matmul, the QR of the trainer's first projections and the SVD of
+    the exact refresh."""
+    from repro_torch.core import quant
     secs, t = {}, time.monotonic()
     for name, fn in (
-            ("meta", lambda: torch.empty(8, device="meta").abs()),
+            ("meta", lambda: quant.quantize_blockwise(
+                torch.empty(8, 256, device="meta"), symmetric=True)),
             ("context", lambda: torch.ones(8, device="cuda")),
             ("matmul", lambda: torch.ones(8, 8, device="cuda",
                                           dtype=torch.bfloat16) @
@@ -5762,7 +5833,8 @@ def dp_warm_up() -> dict:
     return secs
 
 
-def dp_rank(comm, seed: int, save_dir: str, go, saved, restored) -> dict:
+def dp_rank(comm, seed: int, save_dir: str, go, saved, built, restored,
+            phases=("17", "18")) -> dict:
     """One rank of phase 17: 17a (compressed data parallelism), then 17b
     (ZeRO with ZeRO-2) in the same group; rank 0 records 17a's kernel
     problems, sets ``saved`` once 17b's checkpoint is written, and checks
@@ -5771,7 +5843,12 @@ def dp_rank(comm, seed: int, save_dir: str, go, saved, restored) -> dict:
     The rank starts while the parent runs the one-process steps, makes its
     first calls then (``dp_warm_up``, on a few elements: their seconds are
     a new process's set-up, not the work's), and trains once ``go`` is
-    set."""
+    set. After 17b the rank builds 18a's trainer (``tp_build``) while the
+    parent runs 18a alone, and releases ``built`` (the parent times its
+    steps once both ranks have); then phase 18 (``tp_rank``, ``ep_rank``)
+    in the same group, once the parent's run is done (``restored``) and
+    rank 0 has checked phase 17's problems. ``phases`` names the phases
+    to run."""
     import torch.distributed as dist
     from repro_torch.core import qgalore
     from repro_torch.core.quant import QTensor
@@ -5797,7 +5874,8 @@ def dp_rank(comm, seed: int, save_dir: str, go, saved, restored) -> dict:
                                           "warm_up_end": warm_end}}
     LAUNCHES.clear()
     codes_a = None
-    for tag, zero in (("17a", False), ("17b", True)):
+    for tag, zero in (("17a", False), ("17b", True)) if "17" in phases \
+            else ():
         t_run = time.monotonic()
         gc.collect()
         torch.cuda.empty_cache()
@@ -5841,13 +5919,29 @@ def dp_rank(comm, seed: int, save_dir: str, go, saved, restored) -> dict:
         del tr
         out["seconds"][tag] = time.monotonic() - t_run
     out["launches"] = dict(LAUNCHES)
-    if comm.rank == 0:
+    if "18" in phases:
+        t = time.monotonic()
+        tp_built = tp_build(comm, seed)
+        out["seconds"]["18a_build"] = time.monotonic() - t
+    built.release()
+    restored.wait(DP_WAIT_S)
+    if "17" in phases and comm.rank == 0:
         rec = out.pop("recorder")
-        restored.wait(DP_WAIT_S)
         t = time.monotonic()
         out["checks"] = rec.check(DP_STEPS - 1, DP_STEPS - 1, seed)
         out["seconds"]["checks"] = time.monotonic() - t
     out["wall_s"] = time.monotonic() - t_start
+    if "18" in phases:
+        comm.barrier()     # rank 0's phase 17 checks are done
+        t = time.monotonic()
+        comm.reset_stats()
+        out["18a"] = tp_rank(comm, seed, tp_built)
+        del tp_built
+        out["seconds"]["18a"] = time.monotonic() - t
+        comm.reset_stats()
+        out["18b"] = ep_rank(comm, seed)
+        out["18b"]["rank"] = comm.rank
+        out["seconds"]["18b"] = time.monotonic() - t - out["seconds"]["18a"]
     return out
 
 
@@ -5868,22 +5962,30 @@ def dp_restore(bundle, seed: int, save_dir: str) -> dict:
             "s": time.monotonic() - t}
 
 
-def phase_data_parallel(seed: int) -> dict:
+def phase_data_parallel(seed: int, phases=("17", "18")) -> dict:
     """Phase 17: llama-1b at full width and 4 of its 24 layers trained
     data-parallel by two ranks on cuda:0 over gloo (8 x 256 a step, rank
     512, bf16, compressed): 17a against one process on the same batch,
     17b (ZeRO + ZeRO-2) against 17a, 17c a checkpoint of 17b restored
-    into one process."""
-    from repro_torch.config import ShapeCell
+    into one process. Phase 18 in the same two ranks (``tp_rank``,
+    ``ep_rank``): 18a tensor-parallel mistral-nemo-12b against this
+    process's run of the same steps (``tp_one_process``, after 17c, while
+    the ranks finish 17b and build their trainers: its steps start once
+    both have; with ``--only 18`` while they start), 18b expert-parallel
+    qwen3-moe-30b-a3b."""
     from repro_torch.distributed.spawn import run_ranks
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import model_zoo
     t_phase = time.monotonic()
+    run17 = "17" in phases
     cfg = dp_config()
-    log(f"== phase 17: {DP_ARCH} at {DP_LAYERS} of "
-        f"{model_zoo.get_config(DP_ARCH).num_layers} layers, full width, "
-        f"trained data-parallel by {DP_WORLD} ranks on cuda:0 over gloo "
-        "(8 x 256 a step, rank 512, bf16, compress_dp_grads)")
+    if run17:
+        log(f"== phase 17: {DP_ARCH} at {DP_LAYERS} of "
+            f"{model_zoo.get_config(DP_ARCH).num_layers} layers, full width, "
+            f"trained data-parallel by {DP_WORLD} ranks on cuda:0 over gloo "
+            "(8 x 256 a step, rank 512, bf16, compress_dp_grads)")
+    else:
+        log("== phase 17's two ranks, for phase 18 alone")
     log("card:", nvidia_smi_line())
     # the ranks start (processes, imports, the group, their first calls
     # on the card) while this process runs the same steps on the same
@@ -5891,45 +5993,59 @@ def phase_data_parallel(seed: int) -> dict:
     save_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     ctx = mp.get_context("spawn")
     go, saved, restored = ctx.Event(), ctx.Event(), ctx.Event()
+    built = ctx.Semaphore(0)
     got: list = []
 
     def ranks_run():
         try:
             got.append(run_ranks(dp_rank, DP_WORLD, seed, save_dir, go,
-                                 saved, restored, backend="gloo"))
+                                 saved, built, restored, tuple(phases),
+                                 backend="gloo"))
         except BaseException as e:     # noqa: BLE001 — raised below
             got.append(e)
+
+    def ranks_built():
+        """Until both ranks have built 18a's trainer (or ended)."""
+        n = 0
+        while n < DP_WORLD and ranks_thread.is_alive():
+            n += built.acquire(timeout=1.0)
 
     t_spawn = time.monotonic()
     ranks_thread = threading.Thread(target=ranks_run)
     ranks_thread.start()
+    one = one18 = c17 = None
+    one_s = 0.0
     try:
         gc.collect()
         torch.cuda.empty_cache()
-        bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
-        t = time.monotonic()
-        tr = dp_trainer(bundle, seed)
-        LAUNCHES.clear()
-        one = dp_run(tr)
-        del tr
-        one_s = time.monotonic() - t
-        gc.collect()
-        torch.cuda.empty_cache()
-    except BaseException:
+        if run17:
+            bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16)
+            t = time.monotonic()
+            tr = dp_trainer(bundle, seed)
+            LAUNCHES.clear()
+            one = dp_run(tr)
+            del tr
+            one_s = time.monotonic() - t
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            t18 = time.monotonic()
+            one18 = tp_one_process(seed)
         go.set()
-        ranks_thread.join()
-        raise
-    go.set()
-    t_go = time.monotonic()
-    c17 = None
-    try:
-        # 17c: 17b's checkpoint, restored into this process as soon as rank
-        # 0 has written it, while the ranks finish
-        while not saved.wait(1.0) and ranks_thread.is_alive():
-            pass
-        if saved.is_set():
-            c17 = dp_restore(bundle, seed, save_dir)
+        t_go = time.monotonic()
+        if run17:
+            # 17c: 17b's checkpoint, restored into this process as soon as
+            # rank 0 has written it, while the ranks finish
+            while not saved.wait(1.0) and ranks_thread.is_alive():
+                pass
+            if saved.is_set():
+                c17 = dp_restore(bundle, seed, save_dir)
+            del bundle
+            if "18" in phases:
+                t18 = time.monotonic()
+                one18 = tp_one_process(seed, ranks_built)
     finally:
+        go.set()
         restored.set()
         ranks_thread.join()
         shutil.rmtree(save_dir, ignore_errors=True)
@@ -5937,8 +6053,24 @@ def phase_data_parallel(seed: int) -> dict:
         raise got[0]
     ranks = got[0]
     ranks_s = time.monotonic() - t_go
+    res = {}
+    if run17:
+        res = dp_result(seed, cfg, ranks, one, one_s, c17, ranks_s, t_go,
+                        t_spawn, t_phase)
+    if "18" in phases:
+        res["parallel"] = parallel_result(ranks, one18, t18)
+    return res
+
+
+def dp_result(seed, cfg, ranks, one, one_s, c17, ranks_s, t_go, t_spawn,
+              t_phase) -> dict:
+    """Phase 17's gates and lines from the ranks' runs, the one process's
+    and 17c's. ``ranks_s``: from ``go`` until the ranks were done with
+    phase 18 too; phase 17's own end on the ranks is their ``wall_s``."""
+    from repro_torch.config import ShapeCell
     if c17 is None:
         raise AssertionError("phase 17: 17b's checkpoint was not written")
+    ranks_s = max(r["wall_s"] for r in ranks)
     for r in ranks:
         for k in ("start", "entered", "warm_up_end"):
             r["seconds"][k] -= t_go
@@ -6112,7 +6244,7 @@ def phase_data_parallel(seed: int) -> dict:
     res["roofline"] = step_roofline(
         "17a", cfg, ShapeCell("train", 256, 8, "train"),
         res["steady_step_ms_17a"], rank=512)
-    res["wall_s"] = time.monotonic() - t_phase
+    res["wall_s"] = t_go - t_phase + ranks_s
     sec = res["seconds"]
     warm = ", ".join(f"{k} {v:.2f}" for k, v in ranks[0]["warm_up_s"].items())
     log(f"  phase 17: {res['wall_s']:.1f} s: the one process {one_s:.1f} s, "
@@ -6128,6 +6260,569 @@ def phase_data_parallel(seed: int) -> dict:
     if problems:
         raise AssertionError("phase 17: " + "; ".join(problems))
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: tensor and expert parallelism, in phase 17's two ranks
+# ---------------------------------------------------------------------------
+
+TP_ARCH = "mistral-nemo-12b"
+TP_LAYERS = 2          # of 40: the layer stack splits over the 2 ranks, so
+                       # the combined-front refresh runs
+TP_RANK = 1024         # the llama-7b row of benchmarks/table2_memory.py
+TP_STEPS = 4           # step 0 refreshes (randomized), 1-3 steady
+TP_LOSS_BAND = 2e-3    # the reference's trajectory band
+                       # (tests/test_golden.py:41-42)
+# 12c's layers and rank; 2 x 256 a rank: T·k = 4096, drop-free. 2 steps
+# (a refresh and a steady one), the one cut phase 18 allows: the script
+# took 1238.7 s on a slow host with 3 (PERF.md §6)
+EP_LAYERS, EP_STEPS, EP_ROWS = 2, 2, 2
+
+
+def tp_config():
+    from repro_torch.config import replace
+    from repro_torch.models import model_zoo
+    return replace(model_zoo.get_config(TP_ARCH), num_layers=TP_LAYERS)
+
+
+def tp_trainer(bundle, seed: int, group=None):
+    """18a's trainer: 8 x 256 a step, bf16, rank 1024, the randomized
+    subspace, compressed (the distributed refresh's combined front)."""
+    from repro_torch.config import QGaLoreConfig, TrainConfig
+    from repro_torch.core.optimizers import preset
+    from repro_torch.train.trainer import Trainer
+    qcfg = preset("qgalore", QGaLoreConfig(
+        rank=TP_RANK, subspace_method="randomized", compress_dp_grads=True))
+    tcfg = TrainConfig(seed=seed, global_batch=8, seq_len=256,
+                       steps=TP_STEPS, learning_rate=1e-3, warmup_steps=2,
+                       grad_clip=1.0, log_every=0)
+    return Trainer(bundle, tcfg, qcfg, group=group)
+
+
+def int8_bytes(params) -> int:
+    """The bytes of every INT8 weight's codes and scales in a tree."""
+    from repro_torch.core import qgalore
+    from repro_torch.core.quant import QTensor
+    return sum(t.numel() * t.element_size()
+               for _, x in qgalore.flatten(params) if isinstance(x, QTensor)
+               for t in (x.q, x.scale))
+
+
+def tp_one_process(seed: int, before_steps=None) -> dict:
+    """18a's one process: the same steps on the same global batch; its
+    trainer is built, then ``before_steps()`` (waiting for the ranks'
+    builds, which share the card) runs before the timed steps."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import model_zoo
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.monotonic()
+    bundle = model_zoo.build(tp_config(), device="cuda", dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    tr = tp_trainer(bundle, seed)
+    if before_steps is not None:
+        t_wait = time.monotonic()
+        before_steps()
+        t_wait = time.monotonic() - t_wait
+    LAUNCHES.clear()
+    one = dp_run(tr, steps=TP_STEPS)
+    del tr, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    one["s"] = time.monotonic() - t
+    one["wait_s"] = t_wait if before_steps is not None else 0.0
+    return one
+
+
+def tp_build(comm, seed: int) -> dict:
+    """18a's trainer on this rank: mistral-nemo-12b at full width and 2
+    layers on the (1, 2) mesh, its model group the two ranks; each leaf
+    is cut to the rank's slice as it is drawn."""
+    from repro_torch.distributed.comm import mesh_comms
+    from repro_torch.models import model_zoo
+    t0 = time.monotonic()
+    groups = mesh_comms(comm, (1, 2))
+    bundle = model_zoo.build(tp_config(), device="cuda",
+                             dtype=torch.bfloat16, tp_group=groups.model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = tp_trainer(bundle, seed, groups)
+    torch.cuda.synchronize()
+    out = {"groups": groups, "trainer": tr, "init_s": time.monotonic() - t0,
+           "init_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    # the draw's transients back to the card: the parent's one-process
+    # run of 18a (a 38.9 GiB peak) runs beside the built trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["resident_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+    return out
+
+
+def tp_rank(comm, seed: int, built: dict) -> dict:
+    """18a on this rank, on the trainer ``tp_build`` made; rank 0 records
+    the slice problems of the last steady step (the host copies of a
+    problem's first inputs would slow the step they are taken in, and the
+    other rank waits for it: the earlier steady steps stay clean for the
+    median) and holds them against their plain versions after the
+    run."""
+    from repro_torch.core import qgalore
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.train import step as step_lib
+    t0 = time.monotonic()
+    groups, tr = built.pop("groups"), built.pop("trainer")
+    bundle, cfg = tr.bundle, tp_config()
+    whole = step_lib.abstract_params(bundle, tr.rules, tr.param_dtype)
+    flat_w = dict(qgalore.flatten(whole))
+    want_bytes = sum(
+        int8_bytes({"w": flat_w[k]}) // (s.tp if s.shard_dim is not None
+                                         else 1)
+        for (k, _), s in zip(qgalore.flatten(whole), tr.specs))
+    rec = ProblemRecorder(record=comm.rank == 0)
+    rec.count_from = TP_STEPS - 1
+    LAUNCHES.clear()
+    with rec:
+        run = dp_run(tr, groups.model, rec, steps=TP_STEPS)
+    run.pop("proj")
+    run.update({
+        "init_s": built["init_s"], "init_peak_gib": built["init_peak_gib"],
+        "built_resident_gib": built["resident_gib"],
+        "int8_bytes": int8_bytes(tr.state.params),
+        "int8_bytes_want": want_bytes,
+        "int8_bytes_whole": int8_bytes(whole),
+        "payload_bytes": qgalore.tp_payload_bytes(cfg, tr.specs, 8, 256),
+        "sharded": sum(s.shard_dim is not None for s in tr.specs),
+        "units": sum(s.nbatch for s in tr.local_specs if s.galore),
+        "dist_refresh": len(tr._step.dist_refresh),
+        "launches": dict(LAUNCHES)})
+    del tr, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    run["run_s"] = time.monotonic() - t0
+    if comm.rank == 0:
+        t = time.monotonic()
+        # the plain versions at these slices take up to ~0.1 s a call: the
+        # median of 3 (the kernels and cuBLAS still of 20)
+        run["checks"] = rec.check(1, 1, seed, plain_reps=3)
+        run["checks_s"] = time.monotonic() - t
+    comm.barrier()        # nothing else on the card while rank 0 times
+    run["wall_s"] = time.monotonic() - t0
+    return run
+
+
+def ep_layer_check(tr, comm, cfg) -> dict:
+    """18b at step 0's inputs: the input of layer 0's MoE on this rank's
+    rows, through ``moe_apply_ep`` (the rank's 64 experts, the exchange)
+    and through ``moe_apply`` on the whole layer (every expert, gathered),
+    in bf16 and in f32: both drop-free, so they compute one function."""
+    from repro_torch.core import qgalore
+    from repro_torch.core.quant import QTensor
+    from repro_torch.models import attention, moe
+    from repro_torch.models.base import layer_params
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.transformer import Q_CHUNK
+    batch = tr.batches(0)
+    lo, hi = tr.rows
+    batch = {k: v[lo:hi] for k, v in batch.items()}
+    bundle = tr.bundle
+    params = tr.state.params
+    with torch.no_grad():
+        carry, ctx = bundle.embed(params, batch)
+        lp = layer_params(params[bundle.seg_key(0)], 0)
+        h = carry["h"]
+        x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
+        h = h + attention.gqa_apply(lp["attn"], x, cfg,
+                                    positions=ctx["positions"],
+                                    q_chunk=Q_CHUNK, dtype=torch.bfloat16)
+        x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
+        local = lp["moe"]
+        whole = dict(local)
+        for k, v in local.items():
+            if k.startswith("experts_"):
+                got = comm.all_gather_many([(v.q, 0), (v.scale, 0)])
+                whole[k] = QTensor(got[0], got[1], None, v.bits, v.block,
+                                   v.orig_last, v.dtype)
+        out = {}
+        E_loc = cfg.moe.num_experts // comm.world
+        T = x.shape[0] * x.shape[1]
+        for dt in (torch.bfloat16, torch.float32):
+            xd = x.to(dt)
+            got, _ = moe.moe_apply_ep(local, xd, cfg, comm, dtype=dt)
+            want, _ = moe.moe_apply(whole, xd, cfg, dtype=dt)
+            peak = max(want.abs().max().item(), 1e-30)
+            rel = (got - want).abs().max().item() / peak
+            tol = 1e-5 if dt == torch.float32 else max(
+                batched_tol(E_loc, comm.world * T, K, N, dt)
+                for K, N in ((cfg.d_model, cfg.moe.expert_ff),
+                             (cfg.moe.expert_ff, cfg.d_model)))
+            out[str(dt).replace("torch.", "")] = {
+                "rel_err": rel, "tol": tol, "ok": rel <= tol}
+            del got, want
+        del whole, x, h, carry
+    log(f"  18b rank {comm.rank}: moe_apply_ep against moe_apply on the "
+        f"rank's {T} tokens at step 0's inputs: "
+        + ", ".join(f"{k} rel err {v['rel_err']:.2e} (bar {v['tol']:.0e})"
+                    for k, v in out.items()))
+    return out
+
+
+def ep_batched_rows(probs: dict, seed: int, mult: dict) -> list:
+    """The batched pair at 18b's expert problems (E 64 a rank, M = 2·T),
+    each on fresh seeded inputs against its plain version and timed (cold
+    L2, median of 20) beside one ``torch.bmm`` on the bf16 stack
+    dequantized beforehand, and the bound; ``mult``: the launches of each
+    ``(wrapper, K, N)`` counted in the run's steady step."""
+    from repro_torch.analysis.roofline import kernel_bound
+    from repro_torch.core import quant
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.kernels import profile as kprof
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 24)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for (E, M, K, N, dt) in sorted(probs, key=lambda k: k[:4]):
+        if dt != torch.bfloat16:
+            continue
+        q, sc = random_stack(E, K, N, gen)
+        w_lib = torch.cat([quant.dequantize(quant.QTensor(
+            q[e: e + EXPERT_CHUNK], sc[e: e + EXPERT_CHUNK], None, 8, 256, N,
+            "float32"), torch.bfloat16) for e in range(0, E, EXPERT_CHUNK)])
+        for name, transposed in (("int8_matmul_batched", False),
+                                 ("int8_matmul_t_batched", True)):
+            rows_in = torch.randn((E, M, N if transposed else K),
+                                  generator=gen, device=dev).to(dt)
+            fn = ti8.int8_matmul_t_batched if transposed \
+                else ti8.int8_matmul_batched
+            got = fn(rows_in, q, sc)
+            want = plain_batched(rows_in, q, sc, transposed)
+            abs_err = (got - want).abs().max().item()
+            rel = abs_err / max(want.abs().max().item(), 1e-30)
+            tol = F32_X_TOL if transposed else batched_tol(E, M, K, N, dt)
+            lib = (lambda: torch.bmm(rows_in, w_lib.transpose(1, 2))) \
+                if transposed else (lambda: torch.bmm(rows_in, w_lib))
+            row = {"kernel": name, "E": E, "M": M, "K": K, "N": N,
+                   "x": "bfloat16", "max_abs_err": abs_err,
+                   "rel_err": rel, "tol": tol,
+                   "ok": rel <= tol,
+                   "ms": time_ms(lambda: fn(rows_in, q, sc), flush),
+                   "plain_ms": time_ms(lambda: plain_batched(
+                       rows_in, q, sc, transposed), flush, reps=3),
+                   "library_ms": time_ms(lib, flush),
+                   "launches_per_step": mult.get((name, K, N), 0)}
+            row["bound_ms"], row["bound_by"] = kernel_bound(
+                *kprof.batched_cost(E, M, K, N, 2, transposed, 256))
+            rows.append(row)
+            log(f"  18b {name} E={E} M={M} K={K} N={N} bf16 "
+                f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
+                f"library_ms={row['library_ms']:.4f} bound_ms="
+                f"{row['bound_ms']:.4f} ({row['bound_by']}) rel_err={rel:.2e}"
+                f" {'ok' if row['ok'] else 'FAIL'}; "
+                f"{row['launches_per_step']} launches a step")
+            del rows_in, got, want
+        del q, sc, w_lib
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ep_rank(comm, seed: int) -> dict:
+    """18b on this rank: qwen3-moe-30b-a3b at full width and 2 layers, its
+    experts split over the two ranks (64 a rank), 2 x 256 tokens a rank,
+    rank 128, randomized, ``EP_STEPS`` steps; rank 0 then times the
+    batched pair at the run's expert problems."""
+    from repro_torch.config import (QGaLoreConfig, TrainConfig, replace)
+    from repro_torch.core import qgalore
+    from repro_torch.core.optimizers import preset
+    from repro_torch.distributed import tp as tp_lib
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import model_zoo
+    from repro_torch.train.trainer import Trainer
+    t0 = time.monotonic()
+    cfg = replace(model_zoo.get_config(MOE_ARCH), num_layers=EP_LAYERS)
+    bundle = model_zoo.build(cfg, device="cuda", dtype=torch.bfloat16,
+                             ep_group=comm)
+    qcfg = preset("qgalore", QGaLoreConfig(
+        rank=MOE_RANK, subspace_method="randomized", compress_dp_grads=True))
+    tcfg = TrainConfig(seed=seed, global_batch=EP_ROWS * comm.world,
+                       seq_len=256, steps=EP_STEPS, learning_rate=1e-3,
+                       warmup_steps=1, grad_clip=1.0, log_every=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(bundle, tcfg, qcfg, group=comm)
+    init_s = time.monotonic() - t0
+    layer = ep_layer_check(tr, comm, cfg)
+    comm.reset_stats()
+    LAUNCHES.clear()
+    brec = BatchedRecorder()
+    brec.count_from = EP_STEPS - 1          # the steady step alone
+    with brec:
+        run = dp_run(tr, comm, brec, steps=EP_STEPS)
+    run.pop("proj")
+    T = EP_ROWS * 256
+    C = T                                   # drop-free: every token kept
+    experts = {i for i, s in enumerate(tr.local_specs)
+               if tp_lib.is_expert(s.path)}
+    run.update({
+        "init_s": init_s, "layer_check": layer,
+        "units": sum(s.nbatch for s in tr.local_specs if s.galore),
+        "expert_units": sum(tr.local_specs[i].nbatch for i in experts),
+        "experts_a_rank": tr.local_specs[min(experts)].shape[-3],
+        "payload_bytes": qgalore.dp_payload_bytes(
+            [s for i, s in enumerate(tr.local_specs) if i not in experts]),
+        "a2a_bytes_want": 6 * EP_LAYERS * cfg.moe.num_experts * C
+        * cfg.d_model * 2,
+        "launches": dict(LAUNCHES),
+        # the batched calls of the steady step by (wrapper, K, N), and
+        # what a layer implies: the forward and the recompute run wi, wg
+        # (d -> ff) and wd (ff -> d), the backward's dL/dx each once
+        "batched_launches": dict(brec.counts),
+        "batched_want": {
+            ("int8_matmul_batched", cfg.d_model, cfg.moe.expert_ff):
+            4 * EP_LAYERS,
+            ("int8_matmul_batched", cfg.moe.expert_ff, cfg.d_model):
+            2 * EP_LAYERS,
+            ("int8_matmul_t_batched", cfg.d_model, cfg.moe.expert_ff):
+            2 * EP_LAYERS,
+            ("int8_matmul_t_batched", cfg.moe.expert_ff, cfg.d_model):
+            EP_LAYERS}})
+    steady = run["rows"][-1]["launches"]
+    del tr, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    if comm.rank == 0:
+        t = time.monotonic()
+        E = cfg.moe.num_experts // comm.world
+        run["batched"] = ep_batched_rows(
+            {k for k in brec.i if k[0] == E}, seed, run["batched_launches"])
+        run["checks_s"] = time.monotonic() - t
+    run["steady_launches"] = steady
+    comm.barrier()
+    run["wall_s"] = time.monotonic() - t0
+    return run
+
+
+def parallel_result(ranks: list, one: dict, t18: float) -> dict:
+    """Phase 18's gates and lines; its seconds from the start of this
+    process's one-process run of 18a."""
+    from repro_torch.config import replace
+    from repro_torch.models import model_zoo
+    log(f"== phase 18: {TP_ARCH} at {TP_LAYERS} of "
+        f"{model_zoo.get_config(TP_ARCH).num_layers} layers tensor-parallel "
+        f"on the (1, 2) mesh (18a), {MOE_ARCH} at {EP_LAYERS} layers "
+        "expert-parallel on the (2, 1) mesh (18b), in phase 17's ranks on "
+        "cuda:0 over gloo")
+    log("card:", nvidia_smi_line())
+    for r in one["rows"]:
+        log(f"  18a one process step {r['step']}: loss {r['loss']:.6f} "
+            f"{r['ms']:.1f} ms, peak {r['peak_gib']:.3f} GiB, launches "
+            f"{r['launches']}")
+    for r in ranks:
+        for tag in ("18a", "18b"):
+            for row in r[tag]["rows"]:
+                c = {op: (int(v[0]), int(v[1]), v[2])
+                     for op, v in row["collectives"].items()}
+                log(f"  {tag} rank {r['rank']} step {row['step']}: loss "
+                    f"{row['loss']:.6f} {row['ms']:.1f} ms, subspace "
+                    f"{row['subspace_s'] or 0.0:.3f} s, peak "
+                    f"{row['peak_gib']:.3f} GiB, collectives "
+                    + ", ".join(f"{op} {n} calls {b / 2**20:.2f} MiB "
+                                f"{s * 1e3:.1f} ms"
+                                for op, (n, b, s) in c.items())
+                    + f"; launches {row['launches']}")
+    tp, p_tp = evaluate_tp(ranks, one, tp_config())
+    ep, p_ep = evaluate_ep(ranks, replace(model_zoo.get_config(MOE_ARCH),
+                                          num_layers=EP_LAYERS))
+    res = {"card": card(), "tp": tp, "ep": ep,
+           "one_process_s": one["s"],
+           "ranks_s": {tag: [r["seconds"][tag] for r in ranks]
+                       for tag in ("18a", "18b")},
+           "wall_s": time.monotonic() - t18}
+    log(f"  phase 18: {res['wall_s']:.1f} s: the one process's 18a "
+        f"{one['s']:.1f} s (of it {one['wait_s']:.1f} s waiting for the "
+        f"ranks' 18a trainers, built beside it in {tp['init_s']} s, peak "
+        f"{tp['init_peak_gib']} GiB, then {tp['built_resident_gib']} GiB "
+        "held), then the ranks' 18a "
+        f"{res['ranks_s']['18a']} s (rank 0's checks {tp['checks_s']:.1f} s)"
+        f" and 18b {res['ranks_s']['18b']} s (trainer {ep['init_s']} s, rank "
+        f"0's batched rows {ep['checks_s']:.1f} s)")
+    if p_tp or p_ep:
+        raise AssertionError("phase 18: " + "; ".join(p_tp + p_ep))
+    return res
+
+
+def evaluate_tp(ranks: list, one: dict, cfg) -> tuple:
+    """18a's gates and lines from the ranks' runs and the one process's."""
+    problems = []
+    runs = [r["18a"] for r in ranks]
+    a, o = runs[0], one
+    for k in range(TP_STEPS):
+        losses = {r["rows"][k]["loss"] for r in runs}
+        if len(losses) != 1:
+            problems.append(f"18a step {k}: ranks' losses {losses}")
+    for ra, ro in zip(a["rows"], o["rows"]):
+        rel = abs(ra["loss"] - ro["loss"]) / abs(ro["loss"])
+        ra["rel_to_one"] = rel
+        if not np.isfinite(ra["loss"]) or rel > TP_LOSS_BAND:
+            problems.append(f"18a step {ra['step']}: loss {ra['loss']} vs "
+                            f"one process {ro['loss']} (rel {rel:.2e})")
+    if any(set(r["sims"]) != set(a["sims"]) or any(
+            not np.array_equal(r["sims"][k], a["sims"][k])
+            for k in a["sims"]) for r in runs[1:]):
+        problems.append("18a: the ranks' similarities differ")
+    if set(a["sims"]) != set(o["sims"]):
+        problems.append("18a: refreshed leaves differ from the one process's")
+    sims_err = max(float(np.abs(a["sims"][k] - o["sims"][k]).max())
+                   for k in o["sims"])
+    for r in runs:
+        for row, ro in zip(r["rows"], o["rows"]):
+            want = {n: ro["launches"][n] for n in ("int8_matmul",
+                                                   "int8_matmul_t")}
+            want["fused_qgalore_update"] = r["units"]
+            got = {n: row["launches"][n] for n in want}
+            plain = {n: c for n, c in row["launches"].items()
+                     if n not in TRAIN_KERNELS and c}
+            if got != want or plain:
+                problems.append(f"18a step {row['step']} launches {got} != "
+                                f"{want} (plain {plain})")
+        if r["int8_bytes"] != r["int8_bytes_want"]:
+            problems.append(f"18a INT8 bytes a rank {r['int8_bytes']} != "
+                            f"{r['int8_bytes_want']}")
+        for row in r["rows"][1:]:
+            moved = int(sum(v[1] for v in row["collectives"].values()))
+            if moved != r["payload_bytes"]:
+                problems.append(f"18a step {row['step']}: the model group "
+                                f"moved {moved} B, tp_payload_bytes "
+                                f"{r['payload_bytes']}")
+        for k, label in ((0, "refresh"), (1, "steady")):
+            if not r["rows"][k]["peak_gib"] < o["rows"][k]["peak_gib"]:
+                problems.append(
+                    f"18a {label} step peak {r['rows'][k]['peak_gib']:.3f} "
+                    f"GiB not below the one process's "
+                    f"{o['rows'][k]['peak_gib']:.3f}")
+    steady = statistics.median(max(r["rows"][k]["ms"] for r in runs)
+                               for k in range(1, TP_STEPS))
+    one_steady = statistics.median(r["ms"] for r in o["rows"][1:])
+    coll = a["rows"][1]["collectives"]
+    res = {"losses": [r["loss"] for r in a["rows"]],
+           "losses_one_process": [r["loss"] for r in o["rows"]],
+           "rel_to_one": [r["rel_to_one"] for r in a["rows"]],
+           "sims_max_abs_diff_one": sims_err,
+           "steady_step_ms": steady, "steady_step_ms_one_process": one_steady,
+           "refresh_step_s": [r["rows"][0]["ms"] / 1e3 for r in runs],
+           "refresh_step_s_one_process": o["rows"][0]["ms"] / 1e3,
+           "steady_collectives": coll, "payload_bytes": a["payload_bytes"],
+           "int8_bytes": [r["int8_bytes"] for r in runs],
+           "int8_bytes_whole": a["int8_bytes_whole"],
+           "peak_gib": {k: [r["rows"][i]["peak_gib"] for r in runs]
+                        for k, i in (("refresh", 0), ("steady", 1))},
+           "peak_gib_one_process": {"refresh": o["rows"][0]["peak_gib"],
+                                    "steady": o["rows"][1]["peak_gib"]},
+           "launches": {n: sum(r["launches"].get(n, 0) for r in runs)
+                        for n in TRAIN_KERNELS},
+           "launches_per_step": a["rows"][1]["launches"],
+           "init_s": [r["init_s"] for r in runs],
+           "init_peak_gib": [r["init_peak_gib"] for r in runs],
+           "built_resident_gib": [r["built_resident_gib"] for r in runs],
+           "wall_s": [r["wall_s"] for r in runs],
+           "checks_s": a.get("checks_s"), "train_kernels": a["checks"]}
+    log(f"  18a: losses {[round(x, 6) for x in res['losses']]} against the "
+        f"one process's {[round(x, 6) for x in res['losses_one_process']]} "
+        f"(rel {[f'{x:.2e}' for x in res['rel_to_one']]}, band "
+        f"{TP_LOSS_BAND:.0e}); sims equal across ranks, max "
+        f"{sims_err:.2e} from the one process's")
+    log(f"  18a steady step {steady:.1f} ms a rank vs {one_steady:.1f} ms one "
+        f"process; refresh step {res['refresh_step_s']} s a rank (one "
+        f"process {res['refresh_step_s_one_process']:.2f} s); the model "
+        "group a steady step: " + ", ".join(
+            f"{op} {int(n)} calls {b / 2**20:.2f} MiB {t * 1e3:.1f} ms"
+            for op, (n, b, t) in coll.items())
+        + f" (tp_payload_bytes {a['payload_bytes'] / 2**20:.2f} MiB); INT8 "
+        f"weights {res['int8_bytes']} B a rank of {a['int8_bytes_whole']} "
+        f"whole; peaks {res['peak_gib']} GiB a rank vs "
+        f"{res['peak_gib_one_process']} one process; launches a steady step "
+        f"{ {n: res['launches_per_step'][n] for n in TRAIN_KERNELS} }")
+    from repro_torch.config import ShapeCell
+    res["roofline"] = step_roofline("18a", cfg, ShapeCell("train", 256, 8,
+                                                          "train"),
+                                    steady, rank=TP_RANK)
+    return res, problems
+
+
+def evaluate_ep(ranks: list, cfg) -> tuple:
+    """18b's gates and lines."""
+    problems = []
+    runs = [r["18b"] for r in ranks]
+    for r in runs:
+        if r["batched_launches"] != r["batched_want"]:
+            problems.append(f"18b rank {r['rank']}: batched launches a "
+                            f"steady step {r['batched_launches']}, want "
+                            f"{r['batched_want']}")
+        for dt, c in r["layer_check"].items():
+            if not c["ok"]:
+                problems.append(f"18b rank {r['rank']} {dt}: moe_apply_ep "
+                                f"vs moe_apply rel {c['rel_err']:.2e}")
+        for row in r["rows"]:
+            if not np.isfinite(row["loss"]):
+                problems.append(f"18b step {row['step']}: loss {row['loss']}")
+        for row in r["rows"][1:]:
+            f = row["launches"]["fused_qgalore_update"]
+            if f != r["units"]:
+                problems.append(f"18b step {row['step']}: "
+                                f"{f} fused updates, {r['units']} owned units")
+            c = row["collectives"]
+            a2a = int(c.get("all_to_all", [0, 0])[1])
+            ar = int(c.get("all_reduce", [0, 0])[1])
+            metric_bytes = ar - r["payload_bytes"]
+            if a2a != r["a2a_bytes_want"] or not 0 < metric_bytes <= 64:
+                problems.append(
+                    f"18b step {row['step']}: all-to-all {a2a} B (want "
+                    f"{r['a2a_bytes_want']}), all-reduce {ar} B against "
+                    f"dp_payload_bytes {r['payload_bytes']} of the non-expert "
+                    "leaves (the rest: the loss, metrics and clip norm)")
+    a = runs[0]
+    for bad in [b for b in a["batched"] if not b["ok"]]:
+        problems.append(f"18b {bad['kernel']} {bad}")
+    steady = statistics.median(max(r["rows"][k]["ms"] for r in runs)
+                               for k in range(1, EP_STEPS))
+    coll = a["rows"][1]["collectives"]
+    res = {"losses": [[row["loss"] for row in r["rows"]] for r in runs],
+           "steady_step_ms": steady,
+           "refresh_step_s": [r["rows"][0]["ms"] / 1e3 for r in runs],
+           "experts_a_rank": a["experts_a_rank"], "units": a["units"],
+           "expert_units": a["expert_units"],
+           "layer_check": [r["layer_check"] for r in runs],
+           "steady_collectives": coll, "payload_bytes": a["payload_bytes"],
+           "a2a_bytes_want": a["a2a_bytes_want"],
+           "peak_gib": [max(row["peak_gib"] for row in r["rows"])
+                        for r in runs],
+           "launches": {n: sum(r["launches"].get(n, 0) for r in runs)
+                        for n in TRAIN_KERNELS + ("int8_matmul_batched",
+                                                  "int8_matmul_t_batched")},
+           "launches_per_step": a["steady_launches"],
+           "batched_launches_per_step": [
+               {f"{n} ({K}, {N})": c for (n, K, N), c in
+                sorted(r["batched_launches"].items())} for r in runs],
+           "init_s": [r["init_s"] for r in runs],
+           "wall_s": [r["wall_s"] for r in runs],
+           "checks_s": a.get("checks_s"), "batched": a["batched"]}
+    log(f"  18b: {a['experts_a_rank']} experts a rank; losses "
+        f"{res['losses']}; steady step {steady:.1f} ms a rank, refresh step "
+        f"{res['refresh_step_s']} s; the data group a steady step: "
+        + ", ".join(f"{op} {int(n)} calls {b / 2**20:.2f} MiB "
+                    f"{t * 1e3:.1f} ms" for op, (n, b, t) in coll.items())
+        + f" (all-to-all want {a['a2a_bytes_want'] / 2**20:.2f} MiB; "
+        f"dp_payload_bytes of the non-expert leaves "
+        f"{a['payload_bytes'] / 2**20:.2f} MiB); fused updates a steady step "
+        f"{a['steady_launches']['fused_qgalore_update']} = {a['units']} "
+        f"owned units ({a['expert_units']} (layer, expert) problems); "
+        f"batched launches a steady step {res['batched_launches_per_step']} "
+        f"(want {sorted(a['batched_want'].values())}); peak "
+        f"{res['peak_gib']} GiB a rank")
+    from repro_torch.config import ShapeCell
+    res["roofline"] = step_roofline(
+        "18b", cfg, ShapeCell("train", 256, EP_ROWS * len(ranks), "train"),
+        steady, rank=MOE_RANK)
+    return res, problems
 
 
 def write_analysis() -> None:
@@ -6173,11 +6868,16 @@ def main() -> int:
                   "7": phase_unfused, "8": phase_training_7b,
                   "9": phase_finetune, "11": phase_dense_variants,
                   "12": phase_moe, "13": phase_mla, "14": phase_xlstm,
-                  "15": phase_zamba, "16": phase_encdec,
-                  "17": phase_data_parallel}
-        for name in args.only.split(","):
+                  "15": phase_zamba, "16": phase_encdec}
+        names = args.only.split(",")
+        for name in names:
+            if name in ("17", "18"):
+                continue
             fn = phases[name]
             fn() if name == "1" else fn(args.seed)
+        ranked = tuple(n for n in names if n in ("17", "18"))
+        if ranked:          # phase 18 runs in phase 17's ranks
+            phase_data_parallel(args.seed, ranked)
         write_analysis()
         log(f"== phases {args.only} passed in {time.monotonic() - t0:.1f} s")
         return 0
@@ -6730,7 +7430,55 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "xlstm_training": xl["training"],
         "zamba_training": zb["training"],
         "encdec_training": ed["training"]}
+    add_parallel(kernels, dp["parallel"])
     return kernels
+
+
+def add_parallel(kernels: dict, par: dict) -> None:
+    """Phase 18's part of the kernels line: each training kernel's
+    launches in both ranks of 18a and 18b (the batched pair counted apart
+    as ``*_batched``), 18a's slice problems and 18b's expert problems
+    timed beside their plain versions, cuBLAS and the bound, and the
+    phase's summary."""
+    tp, ep = par["tp"], par["ep"]
+    tk = tp["train_kernels"]
+    by_name = {k["name"]: k for k in kernels["kernels"]}
+    for name in TRAIN_KERNELS:
+        k = by_name[name]
+        t_l, e_l = tp["launches"].get(name, 0), ep["launches"].get(name, 0)
+        e_b = ep["launches"].get(name + "_batched", 0)
+        k["launches"] += t_l + e_l + e_b
+        k["launches_by_path"].update(tp_training=t_l,
+                                     ep_training=e_l + e_b,
+                                     ep_training_batched=e_b)
+        if name == "int8_matmul":
+            rows, sums = tk["int8_matmul"]["per_shape"], \
+                tk["int8_matmul"]["step_sums"]
+        else:
+            rows = tk["train_kernels"][name]
+            sums = tk["train_kernel_step_sums"][name]
+        k["tensor_parallel"] = {
+            "per_shape": rows, "step_sums": sums,
+            "timed_as": f"one rank's steady step of phase 18a ({TP_ARCH}, "
+                        f"{TP_LAYERS} layers, the (1, 2) mesh, 8 x 256, "
+                        f"rank {TP_RANK}), sum of per-shape medians x "
+                        "launches"}
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            r["max_abs_err"] for r in rows if r.get("on_path", True)])
+        if name != "fused_qgalore_update":
+            ex = [r for r in ep["batched"] if r["kernel"] == name + "_batched"]
+            k["expert_parallel"] = {
+                "per_shape": ex,
+                "timed_as": "18b's expert problems (E 64 a rank, M = 2 x 512 "
+                            "rows), fresh seeded inputs, per-call median of "
+                            "20 after an L2 flush; library: one torch.bmm on "
+                            "the bf16 stack dequantized beforehand"}
+            k["max_abs_err"] = max([k["max_abs_err"]]
+                                   + [r["max_abs_err"] for r in ex])
+    kernels["parallel"] = {
+        "card": par["card"], "wall_s": par["wall_s"],
+        "tp": {k: v for k, v in tp.items() if k != "train_kernels"},
+        "ep": {k: v for k, v in ep.items() if k != "batched"}}
 
 
 if __name__ == "__main__":

@@ -19,7 +19,9 @@ leaves them to XLA):
   reproduce), as the stochastic rounding's uniforms are.
 
 Singular vectors keep the solvers' column signs; nothing canonicalises
-them.
+them (but :func:`sharded_subspace`'s eigenvectors, as the reference's).
+The tensor-parallel shard helpers place P and the low-rank state on a
+weight's shards (the table below).
 """
 from __future__ import annotations
 
@@ -156,6 +158,189 @@ def explained_ratio(G: torch.Tensor, P: torch.Tensor, side: str
     total = (Gf * Gf).sum(dim=(-2, -1))
     return torch.cumsum(energies, dim=-1) \
         / torch.clamp_min(total, 1e-30)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel shard helpers (``repro/core/projector.py:179-340``)
+#
+# A TP-sharded weight splits one of its two matrix dims over the model group
+# (``shard_dim``: 0 = row m, 1 = col n). Where that shard lands on the
+# GaLore state follows from the side:
+#
+#   side   shard_dim   P (d, r)             low-rank / moments
+#   right  0 (m)       replicated           sharded on m  (local project)
+#   right  1 (n)       sliced on d = n      replicated    (psum on low)
+#   left   0 (m)       sliced on d = m      replicated    (psum on low)
+#   left   1 (n)       replicated           sharded on n  (local project)
+#
+# ``quantize_projection`` blocks along the r axis only, so slicing P on its
+# d axis commutes bit-exactly with INT4 quantization: a shard's codes and
+# scales are row slices of the replicated quantization's.
+# ---------------------------------------------------------------------------
+
+def proj_dim_sharded(side: str, shard_dim: Optional[int]) -> bool:
+    """True when a weight shard on matrix dim ``shard_dim`` lands on the
+    projection dim d (the rows of P): the projected-away dim is n for
+    "right" and m for "left". False: the shard lands on the low-rank
+    moments' surviving dim, and P stays replicated."""
+    if shard_dim is None:
+        return False
+    return (side == "right") == (shard_dim == 1)
+
+
+def _slice_dim(x: torch.Tensor, axis: int, index: int, world: int
+               ) -> torch.Tensor:
+    size = x.shape[axis] // world
+    return x.narrow(axis, index * size, size)
+
+
+def shard_matrix(G: torch.Tensor, shard_dim: int, index: int,
+                 world: int) -> torch.Tensor:
+    """The TP rank-``index`` slice of a (batch..., m, n) weight or
+    gradient (a view)."""
+    return _slice_dim(G, G.ndim - 2 + shard_dim, index, world)
+
+
+def shard_projection(P, side: str, shard_dim: Optional[int], index: int,
+                     world: int):
+    """Rank ``index``'s slice of a projection, consistent with the
+    weight's shard dim: P whole where the shard lands on the surviving dim
+    (``not proj_dim_sharded``); otherwise the d axis (dim -2 of P, codes
+    and per-block scales and zeros alike) sliced, bit-exact against the
+    replicated quantization because INT4 blocks run along r."""
+    if not proj_dim_sharded(side, shard_dim):
+        return P
+    slice_d = lambda x: _slice_dim(x, x.ndim - 2, index, world)
+    if isinstance(P, QTensor):
+        return P.map(slice_d)
+    return slice_d(P)
+
+
+def reassemble_projection(shards, side: str, shard_dim: Optional[int]):
+    """Inverse of :func:`shard_projection`: the ranks' slices concatenated
+    on d (codes and scales). With a surviving-dim shard every entry is the
+    whole P already."""
+    if not proj_dim_sharded(side, shard_dim):
+        return shards[0]
+    cat = lambda xs: torch.cat(xs, dim=xs[0].ndim - 2)
+    if isinstance(shards[0], QTensor):
+        p0 = shards[0]
+        return QTensor(cat([s.q for s in shards]),
+                       cat([s.scale for s in shards]),
+                       None if p0.zero is None
+                       else cat([s.zero for s in shards]),
+                       p0.bits, p0.block, p0.orig_last, p0.dtype)
+    return cat(list(shards))
+
+
+def project_sharded(G: torch.Tensor, P, side: str,
+                    shard_dim: Optional[int], psum) -> torch.Tensor:
+    """The low-rank projection from a rank's shards: the local product,
+    and one ``psum`` of it only where the shard dim is the contracted
+    (projected-away) one. ``psum``: any reducer over the model group
+    (``Comm.all_reduce_sum``, or ``sum`` over a host-side list in tests).
+    No full-rank tensor crosses the group."""
+    low = project(G.to(torch.float32), maybe_dequantize(P), side)
+    if proj_dim_sharded(side, shard_dim):
+        return psum(low)
+    return low
+
+
+def explained_ratio_sharded(G: torch.Tensor, P, side: str,
+                            shard_dim: Optional[int], psum) -> torch.Tensor:
+    """:func:`explained_ratio` of the whole gradient from a rank's shards.
+    A contracted-dim shard sums the low-rank product before squaring; a
+    surviving-dim shard's per-direction energies are sums of squares over
+    the sharded axis, so the partials sum directly. The Frobenius mass
+    sums in both cases. What crosses the group is (r,)-sized, and the
+    low-rank product in the contracted case."""
+    Gf = G.to(torch.float32)
+    low = project(Gf, maybe_dequantize(P), side)
+    axis = -2 if side == "right" else -1
+    total = psum((Gf * Gf).sum(dim=(-2, -1)))
+    if proj_dim_sharded(side, shard_dim):
+        low = psum(low)
+        energies = (low * low).sum(dim=axis)
+    else:
+        energies = psum((low * low).sum(dim=axis))
+    return torch.cumsum(energies, dim=-1) \
+        / torch.clamp_min(total, 1e-30)[..., None]
+
+
+def randomized_sharded(G_shard: torch.Tensor, rank: int, side: str,
+                       shard_dim: int, omega: torch.Tensor, index: int,
+                       psum, gather, iters: int = 2) -> torch.Tensor:
+    """:func:`compute_subspace`'s randomized method for a weight sharded on
+    the surviving dim (``not proj_dim_sharded``: P is replicated), from
+    rank ``index``'s shard alone. The range ``A`` (``G`` left, ``G^T``
+    right) is split on its columns, the dim the range finder contracts:
+    each product with ``A`` is the rank's partial product summed over the
+    group (``psum``, on ``(d, p)`` blocks), and the small ``B = Q^T A`` is
+    gathered along its columns (``gather``) for the one SVD. ``omega``:
+    the whole ``(..., k, p)`` test matrix; the rank takes its rows. The
+    one-device method's operations, up to the order of each sum; no
+    full-rank tensor crosses the group."""
+    if proj_dim_sharded(side, shard_dim):
+        raise ValueError("randomized_sharded takes a shard on the surviving "
+                         "dim (P replicated)")
+    A = (G_shard if side == "left" else G_shard.transpose(-1, -2)) \
+        .to(torch.float32)                                # (d, k/t)
+    k_loc = A.shape[-1]
+    om = omega.to(torch.float32).narrow(-2, index * k_loc, k_loc)
+    Y = psum(torch.matmul(A, om))
+    for _ in range(iters):
+        Y = torch.linalg.qr(Y)[0]
+        Y = psum(torch.matmul(A, torch.matmul(A.transpose(-1, -2), Y)))
+    Q = torch.linalg.qr(Y)[0]
+    B = gather(torch.matmul(Q.transpose(-1, -2), A))      # (p, k)
+    Ub = torch.linalg.svd(B, full_matrices=False)[0]
+    return torch.matmul(Q, Ub)[..., :rank]
+
+
+def _canonical_signs(W: torch.Tensor) -> torch.Tensor:
+    """A deterministic sign per column: its largest-|entry| coordinate made
+    positive (ties to the lowest index, as ``argmax``)."""
+    pick = torch.gather(W, -2, W.abs().argmax(dim=-2, keepdim=True))
+    return W * torch.where(pick >= 0, 1.0, -1.0)
+
+
+def sharded_subspace(G_shard: torch.Tensor, rank: int, side: str,
+                     shard_dim: int, psum, eps: float = 1e-12
+                     ) -> torch.Tensor:
+    """The exact top-``rank`` subspace of the whole gradient from a rank's
+    shard, without gathering it: the Gram matrix over the unsharded matrix
+    dim (one psum of a (d, d) block), its eigendecomposition (replicated:
+    every rank gets the same factors from the same summed Gram), and this
+    rank's piece of P:
+
+    * surviving-dim shard: the Gram dim is the projection dim, and the
+      top eigenvectors (signs canonicalised) are the whole P;
+    * contracted-dim shard: the Gram dim is the surviving one, and the
+      rank's slice of P is ``G_shard^T U_r / sigma_r`` (right) or
+      ``G_shard V_r / sigma_r`` (left).
+
+    Eigen and SVD numerics differ at float32 noise: compare subspaces
+    (:func:`subspace_similarity`), not entries. The training step's
+    distributed refresh re-tiles stacked leaves over their layers instead
+    and runs the per-layer decomposition; this is the per-matrix
+    alternative."""
+    Gf = G_shard.to(torch.float32)
+    sliced = proj_dim_sharded(side, shard_dim)
+    if (side == "right") == (not sliced):
+        C = psum(torch.einsum("...mn,...mk->...nk", Gf, Gf))   # G^T G
+    else:
+        C = psum(torch.einsum("...mn,...kn->...mk", Gf, Gf))   # G G^T
+    lam, W = torch.linalg.eigh(C)                # ascending
+    lam = lam.flip(-1)[..., :rank]
+    W = _canonical_signs(W.flip(-1)[..., :rank])
+    if not sliced:
+        return W
+    inv_sigma = torch.rsqrt(torch.clamp_min(lam, eps))
+    if side == "right":
+        return torch.einsum("...mn,...mr->...nr", Gf, W) \
+            * inv_sigma[..., None, :]
+    return torch.einsum("...mn,...nr->...mr", Gf, W) \
+        * inv_sigma[..., None, :]
 
 
 def quantize_projection(P: torch.Tensor, bits: int, block: int) -> QTensor:

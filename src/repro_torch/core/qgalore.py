@@ -128,11 +128,17 @@ class LeafSpec:
 
     @property
     def low_shape(self) -> Tuple[int, ...]:
-        return self.batch + projector.lowrank_shape(self.mat_shape, self.rank)
+        """The low-rank gradient's and moments' shape, by ``side`` (a
+        tensor-parallel rank's spec keeps the whole leaf's side on its
+        slice's shape)."""
+        m, n = self.mat_shape
+        return self.batch + ((m, self.rank) if self.side == "right"
+                             else (self.rank, n))
 
     @property
     def proj_shape(self) -> Tuple[int, ...]:
-        return self.batch + (projector.proj_dim(self.mat_shape), self.rank)
+        m, n = self.mat_shape
+        return self.batch + (n if self.side == "right" else m, self.rank)
 
 
 def _is_embedding_path(path: str) -> bool:
@@ -207,6 +213,18 @@ def init_projection(spec: LeafSpec, cfg: QGaLoreConfig, seed: int,
     return _quantize_p(P, cfg)
 
 
+def init_leaf(spec: LeafSpec, cfg, seed: int, i: int, dev) -> tuple:
+    """``(moments, P)`` of leaf ``i`` as :func:`init` makes them."""
+    eff = _eff_cfg(spec, cfg)
+    hyper = AdamHyper.from_config(eff)
+    if spec.frozen:
+        return None, None
+    if spec.galore:
+        return (adam8bit.init_state(spec.low_shape, hyper, dev),
+                init_projection(spec, eff, seed, i, dev))
+    return adam8bit.init_state(spec.shape, hyper, dev), None
+
+
 def init(params, cfg, seed: int = 0,
          specs: Optional[List[LeafSpec]] = None) -> QGaLoreState:
     """Zero moments and a random orthonormal ``P`` per GaLore leaf
@@ -214,18 +232,9 @@ def init(params, cfg, seed: int = 0,
     specs = specs or leaf_specs(params, cfg)
     inner, proj = [], []
     for i, ((_, leaf), spec) in enumerate(zip(flatten(params), specs)):
-        dev = leaf_device(leaf)
-        eff = _eff_cfg(spec, cfg)
-        hyper = AdamHyper.from_config(eff)
-        if spec.frozen:
-            inner.append(None)
-            proj.append(None)
-        elif spec.galore:
-            inner.append(adam8bit.init_state(spec.low_shape, hyper, dev))
-            proj.append(init_projection(spec, eff, seed, i, dev))
-        else:
-            inner.append(adam8bit.init_state(spec.shape, hyper, dev))
-            proj.append(None)
+        st, P = init_leaf(spec, cfg, seed, i, leaf_device(leaf))
+        inner.append(st)
+        proj.append(P)
     return QGaLoreState(inner, proj, 0)
 
 
@@ -267,7 +276,9 @@ def _unflat_batch(P, batch: Tuple[int, ...]):
 def refresh_slice(g: torch.Tensor, P_flat, mask, units: List[int],
                   spec: LeafSpec, cfg: QGaLoreConfig,
                   omegas: Optional[Callable[[int, Tuple[int, int]],
-                                            torch.Tensor]] = None):
+                                            torch.Tensor]] = None,
+                  ratio_of: Optional[Callable] = None,
+                  subspace_of: Optional[Callable] = None):
     """Recompute P for the masked rows of a flat slice of one leaf's
     layers, with one batched decomposition (``cfg.subspace_method``).
 
@@ -282,8 +293,10 @@ def refresh_slice(g: torch.Tensor, P_flat, mask, units: List[int],
     host, ``-1`` where a row was not refreshed; under ``cfg.adaptive_rank``
     ``ratios (b, rank)`` is each refreshed row's explained-variance profile
     under its fresh (unquantized) P, ``-1`` rows elsewhere, and None
-    otherwise. ``P_new_flat`` is ``P_flat`` itself when nothing is
-    masked."""
+    otherwise. Where the caller holds only a shard of ``g`` (the
+    tensor-parallel refresh), ``subspace_of(g_sel, omega)`` computes the
+    fresh P and ``ratio_of(sel, P_fresh)`` the profiles.
+    ``P_new_flat`` is ``P_flat`` itself when nothing is masked."""
     b = g.shape[0]
     m, n = spec.mat_shape
     sel = [i for i in range(b) if bool(mask[i])]
@@ -301,9 +314,10 @@ def refresh_slice(g: torch.Tensor, P_flat, mask, units: List[int],
                              "needs an omega source")
         shape = projector.omega_shape((m, n), spec.rank, spec.side)
         omega = torch.stack([omegas(units[i], shape) for i in sel])
-    P_new = projector.compute_subspace(g_sel, spec.rank, spec.side,
-                                       cfg.subspace_method, omega,
-                                       cfg.subspace_iters)
+    P_new = projector.compute_subspace(
+        g_sel, spec.rank, spec.side, cfg.subspace_method, omega,
+        cfg.subspace_iters) if subspace_of is None \
+        else subspace_of(g_sel, omega)
     if SUBSPACE_HOOK is not None:
         P_new = SUBSPACE_HOOK(spec.path, g_sel, P_new,
                               [units[i] for i in sel])
@@ -312,8 +326,9 @@ def refresh_slice(g: torch.Tensor, P_flat, mask, units: List[int],
     sims[sel] = projector.subspace_similarity(
         projector.maybe_dequantize(old_sel), P_new).cpu().numpy()
     if ratios is not None:
-        ratios[sel] = projector.explained_ratio(
-            g_sel, P_new, spec.side).cpu().numpy()
+        ratios[sel] = (projector.explained_ratio(g_sel, P_new, spec.side)
+                       if ratio_of is None else ratio_of(sel, P_new)) \
+            .cpu().numpy()
     del g_sel
     fresh = _quantize_p(P_new, cfg)
     if isinstance(P_flat, QTensor):
@@ -330,15 +345,16 @@ def refresh_slice(g: torch.Tensor, P_flat, mask, units: List[int],
 def refresh_leaf(grad_full: torch.Tensor, P_old, mask, spec: LeafSpec,
                  cfg: QGaLoreConfig,
                  omegas: Optional[Callable[[int, Tuple[int, int]],
-                                           torch.Tensor]] = None):
+                                           torch.Tensor]] = None,
+                 ratio_of: Optional[Callable] = None,
+                 subspace_of: Optional[Callable] = None):
     """:func:`refresh_slice` over all of one leaf's layers; returns
     ``(P_new, sims, ratios)`` with ``P_new`` shaped as ``P_old``."""
     b, nlead = spec.nbatch, len(spec.batch)
-    m, n = spec.mat_shape
     P_flat = _flat_batch(P_old, b, nlead)
-    out, sims, ratios = refresh_slice(grad_full.reshape(b, m, n), P_flat,
-                                      mask, list(range(b)), spec, cfg,
-                                      omegas)
+    out, sims, ratios = refresh_slice(
+        grad_full.reshape((b,) + tuple(grad_full.shape[-2:])), P_flat, mask,
+        list(range(b)), spec, cfg, omegas, ratio_of, subspace_of)
     if out is P_flat:
         return P_old, sims, ratios
     return _unflat_batch(out, spec.batch), sims, ratios
@@ -595,7 +611,7 @@ def apply_updates(params, grads, state: QGaLoreState, cfg, lr: float,
 
 def clip_by_global_norm(grads, max_norm: float,
                         specs: Optional[List[LeafSpec]] = None,
-                        comm=None, sliced=()):
+                        comm=None, sliced=(), model=None, model_sliced=()):
     """Clip a gradient tree to ``max_norm`` (no-op when falsy), scaling
     the tree's tensors in place (the products the reference rounds to
     each gradient's dtype), so a step holds one tree of full-rank
@@ -604,17 +620,30 @@ def clip_by_global_norm(grads, max_norm: float,
     neither enter the norm nor get scaled.
 
     ``sliced``: indices of leaves that hold only this rank's slice of the
-    reduced gradient (ZeRO-2): their squares are summed over ``comm``'s
-    ranks, then the replicated leaves are added once."""
+    reduced gradient (ZeRO-2, an expert stack's owned experts): their
+    squares are summed over ``comm``'s ranks, then the replicated leaves
+    are added once. ``model_sliced``: leaves that hold this rank's
+    tensor-parallel slice, summed over ``model``'s ranks (a leaf in both
+    sets over both)."""
     frozen = {i for i, s in enumerate(specs or []) if s.frozen}
     flat = flatten(grads)
-    sq = lambda keep: sum(torch.sum(g.to(torch.float32) ** 2)
-                          for i, (_, g) in enumerate(flat)
-                          if i not in frozen and keep(i))
-    if sliced:
-        part = sq(lambda i: i in sliced)
-        norm = torch.sqrt(sq(lambda i: i not in sliced)
-                          + comm.all_reduce_sum(part.reshape(1))[0])
+    sq = lambda keep: sum((torch.sum(g.to(torch.float32) ** 2)
+                           for i, (_, g) in enumerate(flat)
+                           if i not in frozen and keep(i)),
+                          torch.zeros((), device=flat[0][1].device))
+    if sliced or model_sliced:
+        over = lambda c, t: c.all_reduce_sum(t.reshape(1))[0]
+        total = sq(lambda i: i not in sliced and i not in model_sliced)
+        if sliced:
+            total = total + over(comm, sq(lambda i: i in sliced
+                                          and i not in model_sliced))
+        if model_sliced:
+            both = sq(lambda i: i in sliced and i in model_sliced)
+            if sliced:
+                both = over(comm, both)
+            total = total + over(model, sq(lambda i: i in model_sliced
+                                           and i not in sliced) + both)
+        norm = torch.sqrt(total)
     else:
         norm = torch.sqrt(sq(lambda i: True))
     if not max_norm:
@@ -688,6 +717,45 @@ def dp_payload_bytes(specs: List[LeafSpec]) -> int:
     reference's accounting; the port runs on one device)."""
     return 4 * sum(int(np.prod(s.low_shape if s.galore else s.shape))
                    for s in specs if not s.frozen)
+
+
+def tp_payload_bytes(cfg, specs: List[LeafSpec], rows: int, seq: int,
+                     act_bytes: int = 2) -> int:
+    """Bytes a rank puts into the model group's collectives in one steady
+    tensor-parallel step (``distributed/tp.py``, ``train/step.py``), by
+    the tensor each collective takes: ``rows`` sequences of ``seq`` tokens
+    a data rank, ``act_bytes`` the activations' item size, ``specs`` the
+    whole leaves' planned specs (``tp.plan_specs``), ``cfg`` the model's.
+
+    * each sharded attention or FFN unit of each layer: its float32 output
+      summed in the forward and again in the recompute, and its input's
+      float32 gradient summed in the backward (3 × tokens·d·4);
+    * a d-split embedding: its all-gather (tokens·d/t·act_bytes);
+    * a vocabulary-split head: its input's gradient (tokens·d·4) and the
+      loss's row max, sum of exponentials, target logit (float32) and
+      argmax (int64) over the ``seq - 1`` scored positions;
+    * the low-rank gradients of the leaves sharded on their contracted dim
+      (float32, summed in one all-reduce), and the clip norm's float32
+      partial sum."""
+    tokens = rows * seq
+    d = cfg.d_model
+    total = 0
+    sliced = False
+    for s in specs:
+        if s.shard_dim is None:
+            continue
+        name = s.path.rsplit("['", 1)[-1].rstrip("']")
+        if name in ("wo", "wd"):
+            total += 3 * s.nbatch * tokens * d * 4
+        elif name == "embedding":
+            total += tokens * (d // s.tp) * act_bytes
+        elif name == "head":
+            total += tokens * d * 4 + rows * (seq - 1) * (3 * 4 + 8)
+        if s.galore and projector.proj_dim_sharded(s.side, s.shard_dim):
+            total += 4 * int(np.prod(s.low_shape))
+        else:
+            sliced = True
+    return total + (4 if sliced else 0)
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,10 @@ def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
     kernels turn a division by a Python scalar into a product with its
     reciprocal, which rounds twice; dividing by a 0-d tensor filled on
     ``a``'s device (no host copy) keeps the reference's rounding, and the
-    kernels', on the card too."""
+    kernels', on the card too. A ``meta`` tensor gives its layout alone
+    (the meta division's decomposition imports ``torch._dynamo``)."""
+    if a.is_meta:
+        return torch.empty_like(a)
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
@@ -176,6 +179,22 @@ def _block_view(x: torch.Tensor, block: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], x.shape[-1] // block, block)
 
 
+def _meta_qtensor(shape: Tuple[int, ...], bits: int, block: int,
+                  symmetric: bool, dtype: str) -> QTensor:
+    """The layout :func:`quantize_blockwise` gives a tensor of ``shape``,
+    on the ``meta`` device, from the shape alone: meta reductions run
+    Python decompositions (a first one imports ``torch._dynamo``)."""
+    lead, last = shape[:-1], shape[-1]
+    padded = last + (-last) % block
+    q = torch.empty(lead + ((padded // 2,) if bits == 4 else (padded,)),
+                    dtype=torch.int8 if bits == 8 else torch.uint8,
+                    device="meta")
+    scale = torch.empty(lead + (padded // block,), dtype=torch.float32,
+                        device="meta")
+    return QTensor(q, scale, None if symmetric else torch.empty_like(scale),
+                   bits, block, last, dtype)
+
+
 def quantize_blockwise(x: torch.Tensor, bits: int = 8,
                        block: int = DEFAULT_BLOCK, symmetric: bool = False,
                        uniforms: Optional[torch.Tensor] = None) -> QTensor:
@@ -189,6 +208,8 @@ def quantize_blockwise(x: torch.Tensor, bits: int = 8,
         raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
     orig_last = x.shape[-1]
     dtype = dtype_name(x.dtype)
+    if x.is_meta:
+        return _meta_qtensor(tuple(x.shape), bits, block, symmetric, dtype)
     xf = _pad_last(x.to(torch.float32), block)
     xb = _block_view(xf, block)
     qmin, qmax = _qrange(bits)

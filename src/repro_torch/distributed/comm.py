@@ -1,16 +1,19 @@
 """Collectives on a ``torch.distributed`` process group (the counterpart
-of the reference's ``jax.lax.pmean`` / ``psum_scatter`` and
-``compat.all_gather_tiled``): the mean all-reduce, a reduce-scatter and an
-all-gather along any dim, a barrier.
+of the reference's ``jax.lax.pmean`` / ``psum`` / ``psum_scatter`` /
+``all_to_all`` and ``compat.all_gather_tiled``): the sum, mean, max and
+min all-reduce, a reduce-scatter and an all-gather along any dim, an
+all-to-all along dim 0, a barrier; and the groups of a 2-D ``(data,
+model)`` mesh (:func:`mesh_comms`).
 
 ``reduce_scatter_tensor`` and ``all_gather_into_tensor`` work on dim 0,
 so a collective along another dim moves it first. Tensors go to the
 group's backend where they lie: NCCL for ranks on cards of their own, and
 gloo for CPU ranks and for two ranks that share one card (NCCL refuses
 two ranks on one device). Gloo takes CUDA tensors in each collective used
-here (all-reduce, reduce-scatter, all-gather; checked on an H100 with
-torch 2.11, PERF.md) and copies them through the host itself. The caller
-names the backend when it creates the group; nothing here switches it.
+here (all-reduce, reduce-scatter, all-gather, all-to-all; checked on an
+H100 with torch 2.11 by ``tools/gloo_probe.py``, PERF.md) and copies them
+through the host itself. The caller names the backend when it creates the
+group; nothing here switches it.
 
 Every call is counted in :attr:`Comm.stats` (calls and bytes of the
 tensor each rank puts in, by collective); with ``timed`` the device is
@@ -19,7 +22,7 @@ synchronized around each call and its wall time added too.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -65,6 +68,15 @@ class Comm:
         if self.world > 1:
             self._run("all_reduce", lambda x: dist.all_reduce(
                 x, group=self.group), t)
+        return t
+
+    def all_reduce_op(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """``t`` reduced over the ranks by ``op`` ("max" or "min"), in
+        place; counted under ``all_reduce_<op>``."""
+        if self.world > 1:
+            red = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
+            self._run(f"all_reduce_{op}", lambda x: dist.all_reduce(
+                x, op=red, group=self.group), t)
         return t
 
     def all_reduce_mean(self, t: torch.Tensor) -> torch.Tensor:
@@ -131,6 +143,23 @@ class Comm:
             at += n
         return whole
 
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The all-to-all along dim 0 (``lax.all_to_all`` tiled, split and
+        concatenated on axis 0): ``t``'s dim 0 is cut into ``world`` equal
+        parts, part ``j`` goes to rank ``j``, and the result holds the part
+        each rank sent here, in rank order (a new tensor). Equal parts make
+        it its own inverse."""
+        if self.world == 1:
+            return t.clone()
+        if t.shape[0] % self.world:
+            raise ValueError(f"dim 0 of {tuple(t.shape)} does not split "
+                             f"over {self.world} ranks")
+        x = t.contiguous()
+        out = torch.empty_like(x)
+        self._run("all_to_all", lambda o, i: dist.all_to_all_single(
+            o, i, group=self.group), out, x)
+        return out
+
     def barrier(self) -> None:
         if self.world > 1:
             dist.barrier(group=self.group)
@@ -141,3 +170,43 @@ def as_comm(group) -> Optional[Comm]:
     if group is None or isinstance(group, Comm):
         return group
     return Comm(group)
+
+
+class MeshComms(NamedTuple):
+    """The groups of a ``(D, t)`` ``("data", "model")`` mesh, as seen by
+    one rank: ``world`` (all D·t ranks), ``data`` (the D ranks of this
+    rank's model index: gradients are averaged over it) and ``model``
+    (the t ranks of this rank's data index: a tensor-parallel layer's
+    collectives run on it)."""
+    world: Comm
+    data: Comm
+    model: Comm
+    shape: tuple
+
+    @property
+    def tp(self) -> int:
+        return self.shape[1]
+
+
+def mesh_comms(world: Comm, shape: Sequence[int]) -> MeshComms:
+    """The data and model groups of the ``shape = (D, t)`` mesh over
+    ``world``'s ranks, laid out ``rank = d·t + m`` (the model axis
+    fastest, as ``jax.make_mesh((D, t))`` orders devices). Every rank
+    creates every group, in the same order (``dist.new_group`` is
+    collective); each keeps its own two."""
+    D, t = (int(x) for x in shape)
+    if D * t != world.world:
+        raise ValueError(f"a ({D}, {t}) mesh needs {D * t} ranks, the group "
+                         f"has {world.world}")
+    d_idx, m_idx = divmod(world.rank, t)
+    data = model = None
+    for m in range(t):
+        g = dist.new_group([d * t + m for d in range(D)])
+        if m == m_idx:
+            data = g
+    for d in range(D):
+        g = dist.new_group([d * t + m for m in range(t)])
+        if d == d_idx:
+            model = g
+    return MeshComms(world, Comm(data, world.timed),
+                     Comm(model, world.timed), (D, t))

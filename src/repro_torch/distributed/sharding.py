@@ -21,8 +21,11 @@ is the name). The rules give the reference's partition for every leaf:
 * :func:`data_sharding`: a batch's rows over the data-parallel axes.
 
 The port executes the data-parallel part of these rules (the ``data``
-axis: ``train/step.py``, ``distributed/zero.py``); the tensor- and
-expert-parallel ones (``model``, ``ep``) are ported as rules only.
+axis: ``train/step.py``, ``distributed/zero.py``) and the
+tensor-parallel one (``tp`` on the ``model`` axis, through
+``annotate_tp``: ``distributed/tp.py``, which adds the whole-block rule).
+Expert parallelism runs on the data axis (``models/moe.py``
+``moe_apply_ep``), as the reference's trainer does.
 """
 from __future__ import annotations
 

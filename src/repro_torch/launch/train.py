@@ -7,6 +7,8 @@ data-parallel (the counterpart of ``repro/launch/train.py``).
         --batch 8 --seq 256 --accum 2 --rank 512 --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-60m \
         --smoke --device cpu --devices 4 --mesh 4x1 --compress --zero
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama-60m \
+        --device cpu --devices 4 --tp 2 --compress --zero
     PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
         --arch llama-1b --multihost --mesh 8x1 --compress --zero
 
@@ -18,14 +20,15 @@ Data parallelism: ``--devices N`` starts N ranks itself (processes of its
 own, joined through a file store), the CPU emulation of the reference's
 N host devices; ``--multihost`` joins the group ``torchrun`` describes
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``PORT``), one
-card per local rank. ``--mesh Dx1`` names the (D, 1) mesh (D the world;
-by default the world's), ``--compress`` averages the low-rank gradients
-and refreshes distributed, ``--zero`` partitions the optimizer state over
-the ranks and ``--zero2`` (default: as ``--zero``) reduce-scatters the
+card per local rank. ``--mesh DxM`` names the (D, M) mesh (D·M the
+world; by default the world's (N, 1)), ``--tp t`` the (N/t, t) one: t
+tensor-parallel ranks a data shard (``distributed/tp.py``; the dense GQA
+families). ``--compress`` averages the low-rank gradients and refreshes
+distributed, ``--zero`` partitions the optimizer state over the data
+ranks and ``--zero2`` (default: as ``--zero``) reduce-scatters the
 gradients onto it. ``--backend`` names the process group's backend:
 ``nccl`` by default on cards, ``gloo`` on the CPU and for ranks that
-share one card. ``--tp`` and a mesh whose model axis is above 1 are
-refused (ROADMAP queue 1 sub-slice 5b).
+share one card.
 
 It closes with the reference's lines (rank 0's in a data-parallel run):
 the final loss and the SVDs used against a fixed interval's, and under
@@ -81,9 +84,9 @@ def parser() -> argparse.ArgumentParser:
                          "reduce-scatter on (1) or off (0); default -1 "
                          "follows --zero")
     ap.add_argument("--mesh", default="",
-                    help="Dx1 (data x model); default: the world's")
+                    help="DxM (data x model); default: the world's Nx1")
     ap.add_argument("--tp", type=int, default=0,
-                    help="tensor parallelism: not ported (sub-slice 5b)")
+                    help="tensor-parallel degree t: the (N/t, t) mesh")
     ap.add_argument("--devices", type=int, default=0,
                     help="start N data-parallel ranks in this machine")
     ap.add_argument("--multihost", action="store_true",
@@ -103,6 +106,7 @@ def _train(args, comm=None) -> List[str]:
     from repro_torch.core import qgalore
     from repro_torch.core.optimizers import preset
     from repro_torch.device import resolve_device
+    from repro_torch.distributed.comm import mesh_comms
     from repro_torch.models import model_zoo
     from repro_torch.train.trainer import Trainer
 
@@ -115,8 +119,13 @@ def _train(args, comm=None) -> List[str]:
         device = torch.device("cuda", local % n)
         torch.cuda.set_device(device)
     dtype = torch.float32 if args.smoke else torch.bfloat16
-    bundle = model_zoo.build_arch(args.arch, smoke=args.smoke, device=device,
-                                  dtype=dtype)
+    groups = None
+    if comm is not None:
+        groups = mesh_comms(comm, (comm.world // args.model_ranks,
+                                   args.model_ranks))
+    bundle = model_zoo.build_arch(
+        args.arch, smoke=args.smoke, device=device, dtype=dtype,
+        tp_group=None if args.model_ranks == 1 else groups.model)
     ladder = tuple(int(x) for x in args.rank_ladder.split(",") if x)
     qcfg = preset(args.optimizer, QGaLoreConfig(
         rank=args.rank, min_dim=64 if args.smoke else 128,
@@ -133,7 +142,7 @@ def _train(args, comm=None) -> List[str]:
     # float weights (the baselines) in f32 on a smoke model, else bf16
     trainer = Trainer(bundle, tcfg, qcfg, cell=cell, accum=args.accum,
                       param_dtype=torch.float32 if args.smoke
-                      else torch.bfloat16, group=comm,
+                      else torch.bfloat16, group=groups,
                       zero_shard=args.zero and comm is not None,
                       zero2=None if args.zero2 < 0 else bool(args.zero2))
     if comm is not None:
@@ -153,7 +162,7 @@ def _train(args, comm=None) -> List[str]:
             lines.append(f"rank transition: step {t['step']} {t['path']} "
                          f"{t['old']} -> {t['new']}")
         bytes_now = qgalore.optimizer_state_bytes(
-            trainer.state.params, trainer.rules, specs=trainer.specs)
+            trainer.whole_state().params, trainer.rules, specs=trainer.specs)
         lines.append(f"optimizer state {bytes_now / 2**20:.2f} MB; "
                      f"DP payload {qgalore.dp_payload_bytes(trainer.specs)} "
                      "B/step")
@@ -170,14 +179,12 @@ def _rank_main(comm, args) -> List[str]:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
-    from repro_torch.launch.mesh import TP_REFUSAL, parse_mesh
-    if args.tp:
-        ap.error(f"--tp {args.tp}: {TP_REFUSAL}")
+    from repro_torch.launch.mesh import make_tp_mesh, parse_mesh
     mesh = None
     if args.mesh:
         try:
             mesh = parse_mesh(args.mesh)
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             ap.error(f"--mesh {args.mesh}: {e}")
     if os.environ.get("WORLD_SIZE") and not args.multihost:
         ap.error("WORLD_SIZE is set (torchrun): pass --multihost to join "
@@ -189,9 +196,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.multihost and not world:
         ap.error("--multihost needs the environment torchrun sets "
                  "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
-    if mesh is not None and mesh.shape["data"] != world:
-        raise SystemExit(f"--mesh {args.mesh} needs {mesh.size} devices, "
-                         f"have {world} (use --devices on CPU)")
+    if args.tp:
+        try:
+            tp_mesh = make_tp_mesh(args.tp, world)
+        except ValueError as e:
+            ap.error(f"--tp {args.tp}: {e}")
+        if mesh is not None and mesh.shape != tp_mesh.shape:
+            ap.error(f"--tp {args.tp} and --mesh {args.mesh} disagree")
+        mesh = tp_mesh
+    if mesh is not None and mesh.size != world:
+        ap.error(f"--mesh {args.mesh or mesh.shape} needs {mesh.size} "
+                 f"devices, have {world} (use --devices on CPU)")
+    args.model_ranks = 1 if mesh is None else mesh.shape["model"]
     distributed = mesh is not None or world > 1
     if args.zero2 == 1:      # the trainer's refusal, before any rank starts
         from repro_torch.distributed.zero import require_zero2

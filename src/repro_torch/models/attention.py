@@ -171,10 +171,11 @@ def _qk_norm(p, q, k, cfg: ModelConfig):
 
 def _qkv(p, x, cfg: ModelConfig, positions, dtype):
     B, S, _ = x.shape
-    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = dense(x, p["wq"], dtype).reshape(B, S, H, hd)
-    k = dense(x, p["wk"], dtype).reshape(B, S, KH, hd)
-    v = dense(x, p["wv"], dtype).reshape(B, S, KH, hd)
+    hd = cfg.resolved_head_dim
+    # -1: a tensor-parallel rank holds H/t query and KH/t KV heads
+    q = dense(x, p["wq"], dtype).reshape(B, S, -1, hd)
+    k = dense(x, p["wk"], dtype).reshape(B, S, -1, hd)
+    v = dense(x, p["wv"], dtype).reshape(B, S, -1, hd)
     q, k = _qk_norm(p, q, k, cfg)
     sin, cos = rope_angles(positions, hd, cfg.rope_theta)
     return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v

@@ -91,6 +91,12 @@ class ModelBundle:
     # stub adds its embeddings (a VLM's ``patch_embeds``, an
     # encoder-decoder's ``frames``) and sets the tokens' length
     input_specs: Callable = lm_input_specs
+    # the model group a tensor-parallel bundle's layers sum over, and the
+    # group whose ranks each hold a share of an MoE's experts
+    # (``distributed.comm.Comm``; ``model_zoo.build(tp_group=,
+    # ep_group=)``); None on one rank
+    tp: Optional[object] = None
+    ep: Optional[object] = None
 
     def seg_key(self, i: int) -> str:
         return f"seg{i}_{self.segments[i].name}"

@@ -40,10 +40,19 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
     return w.mul_(std)
 
 
+def draw(fn, shape, gen: torch.Generator, device="cpu") -> torch.Tensor:
+    """``fn(shape, generator=gen)`` in float32 on ``device`` (``fn``:
+    ``torch.randn`` or ``torch.rand``); on the ``meta`` device the layout
+    alone, without the draw, whose meta decomposition imports
+    ``torch._dynamo`` in a new process."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return fn(shape, generator=gen, dtype=torch.float32, device=device)
+
+
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                device="cpu") -> torch.Tensor:
-    return torch.randn((vocab, dim), generator=gen, dtype=torch.float32,
-                       device=device).mul_(0.02)
+    return draw(torch.randn, (vocab, dim), gen, device).mul_(0.02)
 
 
 def rmsnorm_init(dim: int, *, num: Optional[int] = None,

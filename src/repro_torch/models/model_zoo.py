@@ -92,9 +92,43 @@ def check_config(cfg: ModelConfig) -> None:
                          f"{cfg.ffn_activation!r}")
 
 
+TP_FOLLOW_UP = "ROADMAP queue 1, 5b follow-up: TP for the other families"
+
+
+def check_parallel(cfg: ModelConfig, tp_group=None, ep_group=None) -> None:
+    """Raise for a parallel layout the port does not have. Tensor
+    parallelism (a model group above one rank) covers the dense GQA
+    decoders (the LLaMA configs, mistral-nemo-12b, yi-9b, qwen3-32b,
+    internvl2-2b as text); gemma-7b's tied head (it contracts over the d
+    the rules split) and the MoE, MLA, xLSTM, hybrid and encoder-decoder
+    families are refused by name. Expert parallelism needs an MoE whose
+    experts the group divides."""
+    if tp_group is not None and tp_group.world > 1:
+        why = None
+        if cfg.family not in ("dense", "vlm") or cfg.moe is not None:
+            why = f"family {cfg.family}" + (" (MoE)" if cfg.moe else "")
+        elif cfg.attention != "gqa":
+            why = f"attention {cfg.attention}"
+        elif cfg.tie_embeddings:
+            why = "the tied head, which contracts over the d the rules split"
+        elif cfg.mtp_depth:
+            why = "multi-token prediction"
+        if why:
+            raise NotImplementedError(
+                f"{cfg.name}: tensor parallelism over {tp_group.world} ranks "
+                f"does not cover {why} ({TP_FOLLOW_UP})")
+    if ep_group is not None:
+        if cfg.moe is None:
+            raise ValueError(f"{cfg.name}: expert parallelism needs an MoE "
+                             "config")
+        if cfg.moe.num_experts % ep_group.world:
+            raise ValueError(f"{cfg.name}: {cfg.moe.num_experts} experts do "
+                             f"not split over {ep_group.world} ranks")
+
+
 def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
-          flash_attention: bool = False,
-          split_layers: int = 0) -> ModelBundle:
+          flash_attention: bool = False, split_layers: int = 0,
+          tp_group=None, ep_group=None) -> ModelBundle:
     """Bundle for ``cfg`` on ``device`` (default ``cuda``, which must be
     present). ``flash_attention`` routes prefill attention through the
     flash kernel (the JAX package's ``REPRO_FLASH_ATTENTION=1``), which
@@ -107,8 +141,13 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
     package refuses to split it. The hybrid (``zamba.build``) takes the
     flag for its sites' attention and the encoder-decoder
     (``encdec.build``) for its decoder's self-attention; as the JAX
-    package, both refuse a split."""
+    package, both refuse a split. ``tp_group`` / ``ep_group`` (a
+    ``Comm``): tensor or expert parallelism (:func:`check_parallel`,
+    ``transformer.build``)."""
     check_config(cfg)
+    check_parallel(cfg, tp_group, ep_group)
+    if tp_group is not None and tp_group.world == 1:
+        tp_group = None
     if split_layers and cfg.family in ("xlstm", "hybrid", "encdec"):
         raise ValueError(f"split_layers unsupported for family {cfg.family}")
     if cfg.family == "xlstm":
@@ -136,7 +175,8 @@ def build(cfg: ModelConfig, *, device=None, dtype=torch.bfloat16,
     from repro_torch.models import transformer
     return transformer.build(cfg, device=resolve_device(device), dtype=dtype,
                              flash_attention=flash_attention,
-                             split_layers=split_layers)
+                             split_layers=split_layers, tp_group=tp_group,
+                             ep_group=ep_group)
 
 
 def build_arch(arch_id: str, smoke: bool = False,

@@ -16,9 +16,11 @@ Top-k takes, among equal probabilities, the lower expert index first, as
 ``jax.lax.top_k`` does: it is a stable descending sort (``torch.topk``
 promises no order among ties).
 
-Expert parallelism (the reference's ``moe_apply_ep`` / ``moe_ep_sharded``)
-is not ported: it waits for tensor and expert parallelism, ROADMAP queue 1
-sub-slice 5b.
+Expert parallelism (:func:`moe_apply_ep`, :func:`moe_ep_sharded`): each
+of n ranks holds E/n experts' stacks; its tokens' send buffer ``(E, C,
+d)`` goes out in one all-to-all to ``(E/n, n·C, d)``, the three batched
+matmuls run on the local stacks (E/n on the kernels' expert grid axis),
+and the reverse all-to-all brings the results back to the same combine.
 """
 from __future__ import annotations
 
@@ -29,10 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, MoEConfig
+from repro_torch.core.quant import QTensor, true_div
+from repro_torch.distributed import tp as tp_lib
 from repro_torch.models import layers
 from repro_torch.models.layers import dense, dense_init
 
-EP_SLICE = "ROADMAP queue 1 sub-slice 5b"
 DROP_FREE_TK = 4096     # T·k up to which every token keeps its experts
 # experts an expert stack is drawn at a time in a by-layer draw: 32 of
 # deepseek-v3's (7168, 2048) matrices are 1.9 GB of float32
@@ -123,6 +126,22 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
               dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) → (out (B, S, d), aux_loss 0-d float32). ``capacity``
     overrides the factor-derived buffer (:func:`capacity_for`)."""
+    return _moe(p, x, cfg, capacity_factor, capacity, dtype, None)
+
+
+def _experts(p: dict, expert_in: torch.Tensor, dtype) -> torch.Tensor:
+    """The batched expert FFN on ``(E', C', d)`` buffers (INT8 stacks: one
+    launch a matrix)."""
+    h = F.silu(layers.dense_batched(expert_in, p["experts_wg"], dtype)) \
+        * layers.dense_batched(expert_in, p["experts_wi"], dtype)
+    return layers.dense_batched(h, p["experts_wd"], dtype)
+
+
+def _moe(p: dict, x: torch.Tensor, cfg: ModelConfig, capacity_factor,
+         capacity, dtype, comm):
+    """The MoE layer; ``comm`` (a ``Comm``) makes it expert-parallel: the
+    buffers of every expert are exchanged with their owners around the
+    expert FFN."""
     mc: MoEConfig = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -131,6 +150,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     dev = x.device
 
     weights, experts, aux = _route(p["router"], xt, mc)
+    # capacity from this rank's own tokens (``repro/models/moe.py:158``)
     C = capacity_for(T, mc, capacity_factor, capacity)
 
     # ---- sort-based dispatch (stable: the kept set is the reference's) ----
@@ -152,10 +172,20 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     buf = buf.index_put((slot,), xk)
     expert_in = buf[: E * C].reshape(E, C, d)
 
-    # ---- batched expert FFN (INT8 stacks: one launch a matrix) ----
-    h = F.silu(layers.dense_batched(expert_in, p["experts_wg"], dtype)) \
-        * layers.dense_batched(expert_in, p["experts_wi"], dtype)
-    expert_out = layers.dense_batched(h, p["experts_wd"], dtype)  # (E, C, d)
+    if comm is None:
+        expert_out = _experts(p, expert_in, dtype)               # (E, C, d)
+    else:
+        # (E, C, d) → (n, E/n, C, d) → this rank's E/n experts, every
+        # rank's C rows each: (E/n, n·C, d); and back after the FFN
+        n = comm.world
+        e_loc = E // n
+        recv = tp_lib.all_to_all(expert_in.contiguous(), comm)
+        recv = recv.reshape(n, e_loc, C, d).transpose(0, 1) \
+            .reshape(e_loc, n * C, d)
+        out_loc = _experts(p, recv, dtype)
+        out_loc = out_loc.reshape(e_loc, n, C, d).transpose(0, 1) \
+            .reshape(E, C, d)
+        expert_out = tp_lib.all_to_all(out_loc.contiguous(), comm)
 
     # ---- combine: no atomics, each token's sum in ascending expert order --
     out_flat = expert_out.reshape(E * C, d)
@@ -181,15 +211,48 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return out.reshape(B, S, d), aux
 
 
-def moe_apply_ep(*_a, **_k):
-    raise NotImplementedError(
-        f"expert-parallel MoE (moe_apply_ep) is not ported yet ({EP_SLICE})")
+def moe_apply_ep(p: dict, x: torch.Tensor, cfg: ModelConfig, comm, *,
+                 capacity_factor: float = 1.25, dtype=torch.bfloat16
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE on one rank of ``comm`` (the reference's
+    ``moe_apply_ep``): ``x`` this rank's tokens (B, S, d), ``p`` its
+    router (whole), shared experts (whole) and expert stacks (its E/n
+    experts, ``[rank·E/n, (rank+1)·E/n)``). Each rank routes its tokens
+    against all E experts, sends each expert's buffer to its owner in one
+    all-to-all, runs the FFN on its stacks, gets the results back in a
+    second, and combines them as :func:`moe_apply` does. The capacity
+    comes from this rank's tokens; the aux loss is this rank's. An expert
+    stack's gradient then lies on its owner alone."""
+    E = cfg.moe.num_experts
+    if E % comm.world:
+        raise ValueError(f"{E} experts do not split over {comm.world} ranks")
+    return _moe(p, x, cfg, capacity_factor, None, dtype, comm)
 
 
-def moe_ep_sharded(*_a, **_k):
-    raise NotImplementedError(
-        f"expert-parallel MoE (moe_ep_sharded) is not ported yet "
-        f"({EP_SLICE})")
+def expert_slice(p: dict, rank: int, world: int) -> dict:
+    """A rank's MoE leaves: its E/n experts of each stack (axis -3, after
+    any layer axis), the router and shared experts whole."""
+    def one(k, v):
+        if not k.startswith("experts_"):
+            return v
+        cut = lambda t: t.narrow(t.ndim - 3, rank * (t.shape[-3] // world),
+                                 t.shape[-3] // world)
+        return v.map(cut) if isinstance(v, QTensor) else cut(v)
+    return {k: one(k, v) for k, v in p.items()}
+
+
+def moe_ep_sharded(p: dict, x: torch.Tensor, cfg: ModelConfig, comm, *,
+                   capacity_factor: float = 1.25, dtype=torch.bfloat16
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top-level expert-parallel entry (the reference's
+    ``moe_ep_sharded``): ``p`` the whole layer (every expert), ``x`` this
+    rank's tokens; the rank keeps its experts' stacks
+    (:func:`expert_slice`), runs :func:`moe_apply_ep`, and averages the
+    aux loss over the ranks."""
+    out, aux = moe_apply_ep(expert_slice(p, comm.rank, comm.world), x, cfg,
+                            comm, capacity_factor=capacity_factor,
+                            dtype=dtype)
+    return out, true_div(tp_lib.reduce(aux, comm), comm.world)
 
 
 def moe_ref(p: dict, x: torch.Tensor, cfg: ModelConfig,

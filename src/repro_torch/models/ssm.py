@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import layers
 from repro_torch.models.layers import dense, dense_init, materialize, \
     rmsnorm, rmsnorm_init
 
@@ -148,18 +149,20 @@ def mamba2_init(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
         return t.reshape(lead + tuple(t.shape[1:])) if lead else t
 
     f32 = dict(dtype=torch.float32, device=device)
-    u = torch.rand(lead + (H,), generator=gen, **f32)
-    dt = torch.clamp(torch.exp(u * 3.5 - 4.6), 1e-4, 0.1)
+    u = layers.draw(torch.rand, lead + (H,), gen, device)
+    # on the meta device the layout alone (meta clamp decomposes)
+    dt_bias = torch.empty_like(u) if u.is_meta else torch.log(torch.expm1(
+        torch.clamp(torch.exp(u * 3.5 - 4.6), 1e-4, 0.1)))
     return {
         "in_proj": shaped(dense_init(gen, d, d_inner + conv_ch + H, num=num,
                                      device=device)),
-        "conv_w": torch.randn(lead + (sc.conv_kernel, conv_ch),
-                              generator=gen, **f32).mul_(0.1),
+        "conv_w": layers.draw(torch.randn, lead + (sc.conv_kernel, conv_ch),
+                              gen, device).mul_(0.1),
         "conv_b": torch.zeros(lead + (conv_ch,), **f32),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, H, **f32))
-        .expand(lead + (H,)).clone(),
+        "A_log": torch.empty_like(u) if u.is_meta else torch.log(
+            torch.linspace(1.0, 16.0, H, **f32)).expand(lead + (H,)).clone(),
         "D": torch.ones(lead + (H,), **f32),
-        "dt_bias": torch.log(torch.expm1(dt)),
+        "dt_bias": dt_bias,
         "ssm_norm": shaped(rmsnorm_init(d_inner, num=num, device=device)),
         "out_proj": shaped(dense_init(gen, d_inner, d,
                                       scale=1.0 / math.sqrt(d_inner),

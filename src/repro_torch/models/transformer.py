@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant import QTensor
+from repro_torch.distributed import tp as tp_lib
 from repro_torch.models import attention, layers, moe as moe_lib
 from repro_torch.models.base import ModelBundle, SegmentDef, \
     lm_input_specs
@@ -30,34 +31,59 @@ def _map_leaves(tree, fn, keys: tuple):
     return fn(keys, tree)
 
 
-def _ffn(lp, carry, x, cfg: ModelConfig, dtype, capacity=None):
-    """The block's FFN on x: the dense FFN, or the MoE layer, whose aux
-    loss the carry accumulates (``capacity``: decode's drop-free buffer,
-    whose aux is not kept)."""
+def _split(w, whole: int, tp) -> bool:
+    """Whether a row-parallel weight is this tensor-parallel rank's slice
+    (its rows fewer than the whole leaf's): its unit then runs between
+    ``tp_lib.copy`` and ``tp_lib.reduce`` (``distributed/tp.py``)."""
+    return tp is not None and w.shape[-2] != whole
+
+
+def _ffn(lp, carry, x, cfg: ModelConfig, dtype, capacity=None, tp=None,
+         ep=None):
+    """The block's FFN on x: the dense FFN (column- and row-parallel
+    under ``tp`` where its leaves are this rank's slices), or the MoE
+    layer (expert-parallel over ``ep``), whose aux loss the carry
+    accumulates (``capacity``: decode's drop-free buffer, whose aux is
+    not kept)."""
     if "moe" not in lp:
+        if _split(lp["ffn"]["wd"], cfg.d_ff, tp):
+            f = ffn_apply(lp["ffn"], tp_lib.copy(x, tp), cfg.ffn_activation,
+                          dtype)
+            return tp_lib.reduce(f, tp), carry
         return ffn_apply(lp["ffn"], x, cfg.ffn_activation, dtype), carry
-    f, aux = moe_lib.moe_apply(lp["moe"], x, cfg, dtype=dtype,
-                               capacity=capacity)
+    if ep is not None:
+        f, aux = moe_lib.moe_apply_ep(lp["moe"], x, cfg, ep, dtype=dtype)
+    else:
+        f, aux = moe_lib.moe_apply(lp["moe"], x, cfg, dtype=dtype,
+                                   capacity=capacity)
     if capacity is None:
         carry = {**carry, "aux": carry["aux"] + aux}
     return f, carry
 
 
 def block_apply(lp, carry, ctx, cfg: ModelConfig, *, dtype,
-                flash: bool = False):
+                flash: bool = False, tp=None, ep=None):
+    """One block of the full-sequence forward; under ``tp`` (the model
+    group) a unit whose leaves are this rank's slices runs on its heads
+    or FFN columns and sums its output over the group."""
     h = carry["h"]
     x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
     if cfg.attention == "mla":
         a = attention.mla_apply(lp["attn"], x, cfg,
                                 positions=ctx["positions"], q_chunk=Q_CHUNK,
                                 dtype=dtype)
+    elif _split(lp["attn"]["wo"], cfg.num_heads * cfg.resolved_head_dim,
+                tp):
+        a = tp_lib.reduce(attention.gqa_apply(
+            lp["attn"], tp_lib.copy(x, tp), cfg, positions=ctx["positions"],
+            q_chunk=Q_CHUNK, dtype=dtype, flash=flash), tp)
     else:
         a = attention.gqa_apply(lp["attn"], x, cfg,
                                 positions=ctx["positions"], q_chunk=Q_CHUNK,
                                 dtype=dtype, flash=flash)
     h = h + a
     x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
-    f, carry = _ffn(lp, carry, x, cfg, dtype)
+    f, carry = _ffn(lp, carry, x, cfg, dtype, tp=tp, ep=ep)
     return {**carry, "h": h + f}
 
 
@@ -128,14 +154,30 @@ def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
     return tuple((s, None) for s in shapes)
 
 
-def _head_logits(params, h, cfg: ModelConfig, dtype):
+def _head_split(params, cfg: ModelConfig, tp) -> bool:
+    """Whether the head is this tensor-parallel rank's vocabulary slice."""
+    return tp is not None and "head" in params and \
+        params["head"].shape[-1] != cfg.vocab_size
+
+
+def _head_logits(params, h, cfg: ModelConfig, dtype, tp=None):
+    """The logits; a vocabulary-split head (``tp``) gives this rank's
+    columns, its input read through ``tp_lib.copy``."""
     h = rmsnorm(h, params["final_norm"], cfg.rmsnorm_eps)
     if cfg.tie_embeddings:
         # h @ E^T: the embedding's INT8 blocks streamed transposed
         logits = dense_t(h, params["embedding"], dtype)
     else:
+        if _head_split(params, cfg, tp):
+            h = tp_lib.copy(h, tp)
         logits = dense(h, params["head"], dtype)
     return softcap(logits, cfg.logit_softcap)
+
+
+def _not_served(*_a, **_k):
+    raise NotImplementedError(
+        "a bundle built with tp_group or ep_group trains only: sharded "
+        "serving is ROADMAP queue 1 sub-slice 5c")
 
 
 def _empty_stack(leaf, n: int, rows=None):
@@ -212,7 +254,8 @@ def _draw_by_layer(draw, n: int, fin):
 
 def build(cfg: ModelConfig, *, device: torch.device,
           dtype=torch.bfloat16, flash_attention: bool = False,
-          split_layers: int = 0) -> ModelBundle:
+          split_layers: int = 0, tp_group=None, ep_group=None
+          ) -> ModelBundle:
     """LM bundle (families ``dense``, ``vlm`` and ``moe``; GQA or MLA
     attention). ``device`` is
     where ``init_params`` puts the weights by default and where the engine
@@ -244,6 +287,16 @@ def build(cfg: ModelConfig, *, device: torch.device,
     1 adds multi-token prediction to the loss (``mtp_block``, a dense
     block of FFN width ``moe.dense_ff or d_ff``, ``mtp_norm``,
     ``mtp_proj``; training only).
+
+    ``tp_group`` (a ``Comm`` over the model group): the bundle computes
+    on this rank's slices of the weights (``distributed/tp.py``; each
+    attention or FFN unit whose leaves are slices runs between
+    ``tp_lib.copy`` and ``tp_lib.reduce``, a d-split embedding is
+    all-gathered, a vocabulary-split head takes the vocab-parallel loss).
+    ``ep_group``: every MoE layer runs expert-parallel over its ranks
+    (``moe.moe_apply_ep``, the reference's ``ep_axis``), each holding
+    E/n experts' stacks. Either makes a training bundle: its serving
+    entries raise (sharded serving is sub-slice 5c).
 
     ``cfg.tie_embeddings`` drops the ``head`` leaf: the logits are
     ``h @ E^T`` through ``layers.dense_t``. ``cfg.embed_scale`` (gemma) scales
@@ -363,6 +416,9 @@ def build(cfg: ModelConfig, *, device: torch.device,
 
     def embed_tokens(params, tokens):
         h = layers.embed_lookup(params["embedding"], tokens, dtype)
+        if tp_group is not None and \
+                params["embedding"].shape[-1] != cfg.d_model:
+            h = tp_lib.gather_last(h, tp_group)     # this rank's columns
         if cfg.embed_scale:
             # the factor rounded to the activation dtype, as the JAX
             # package's weakly typed scalar is
@@ -400,8 +456,13 @@ def build(cfg: ModelConfig, *, device: torch.device,
         labels = batch["labels"]
         if is_vlm:
             h = h[:, h.shape[1] - labels.shape[1]:]
-        logits = _head_logits(params, h, cfg, dtype)
-        loss, metrics = layers.cross_entropy(logits[:, :-1], labels[:, 1:])
+        logits = _head_logits(params, h, cfg, dtype, tp_group)
+        if _head_split(params, cfg, tp_group):
+            loss, metrics = tp_lib.vocab_parallel_cross_entropy(
+                logits[:, :-1], labels[:, 1:], tp_group)
+        else:
+            loss, metrics = layers.cross_entropy(logits[:, :-1],
+                                                 labels[:, 1:])
         if cfg.mtp_depth:
             emb_next = embed_tokens(params, labels)
             hm = torch.cat([h[:, :-1], emb_next[:, 1:]], dim=-1)
@@ -422,18 +483,21 @@ def build(cfg: ModelConfig, *, device: torch.device,
         return loss + carry["aux"], {**metrics, "ce_loss": loss,
                                      "aux_loss": carry["aux"]}
 
+    sharded = tp_group is not None or ep_group is not None
     segments = tuple(SegmentDef(
         name=name, n_layers=n,
         apply=functools.partial(block_apply, cfg=cfg, dtype=dtype,
-                                flash=flash_attention),
-        prefill=functools.partial(block_prefill, cfg=cfg, dtype=dtype,
-                                  flash=flash_attention),
-        decode=functools.partial(block_decode, cfg=cfg, dtype=dtype),
+                                flash=flash_attention, tp=tp_group,
+                                ep=ep_group if is_moe else None),
+        prefill=_not_served if sharded else functools.partial(
+            block_prefill, cfg=cfg, dtype=dtype, flash=flash_attention),
+        decode=_not_served if sharded else functools.partial(
+            block_decode, cfg=cfg, dtype=dtype),
         cache_shapes=functools.partial(_cache_shapes, cfg),
         # routing capacity depends on the tokens routed together, so a
         # chunked prompt would not drop what the whole prompt drops; MLA's
         # absorbed decode sums in another order than its prefill
-        append=(None if is_moe or cfg.attention == "mla" else
+        append=(None if is_moe or cfg.attention == "mla" or sharded else
                 functools.partial(block_append, cfg=cfg, dtype=dtype)))
         for name, n, is_moe, _ in segs)
 
@@ -447,8 +511,9 @@ def build(cfg: ModelConfig, *, device: torch.device,
 
     return ModelBundle(cfg=cfg, device=torch.device(device), dtype=dtype,
                        init_params=init_params, embed=embed,
-                       segments=segments, head_logits=head_logits,
+                       segments=segments,
+                       head_logits=_not_served if sharded else head_logits,
                        head_loss=head_loss,
                        flash_attention=flash_attention,
                        ragged_prefill_ok=mc is None,
-                       input_specs=input_specs)
+                       input_specs=input_specs, tp=tp_group, ep=ep_group)

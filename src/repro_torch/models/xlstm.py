@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.quant import true_div
+from repro_torch.models import layers
 from repro_torch.models.layers import dense, dense_init, ffn_apply, \
     ffn_init, materialize, rmsnorm, rmsnorm_init
 
@@ -303,8 +304,7 @@ def slstm_block_init(gen: torch.Generator, cfg: ModelConfig,
     d, H = cfg.d_model, cfg.num_heads
     dh = d // H
     n = _num(lead)
-    r = torch.randn(lead + (4, H, dh, dh), generator=gen,
-                    dtype=torch.float32, device=device)
+    r = layers.draw(torch.randn, lead + (4, H, dh, dh), gen, device)
     return {
         "norm": _lead(rmsnorm_init(d, num=n, device=device), lead),
         "w_gates": _lead(dense_init(gen, d, 4 * d, num=n, device=device),

@@ -43,8 +43,7 @@ from repro_torch.models.transformer import Q_CHUNK, _draw_by_layer, \
 def _lora_init(gen: torch.Generator, in_dim: int, out_dim: int, rank: int,
                lead: tuple, device) -> dict:
     """A LoRA pair: ``A`` normal / sqrt(in), ``B`` zeros."""
-    a = torch.randn(lead + (in_dim, rank), generator=gen,
-                    dtype=torch.float32, device=device)
+    a = layers.draw(torch.randn, lead + (in_dim, rank), gen, device)
     return {"A": a.div_(math.sqrt(in_dim)),
             "B": torch.zeros(lead + (rank, out_dim), dtype=torch.float32,
                              device=device)}

@@ -91,13 +91,15 @@ def project_leaf(g: torch.Tensor, P, side: Optional[str] = None):
                              projector.maybe_dequantize(P), side)
 
 
-def _project_tree(g, P):
+def _project_tree(g, P, side=None):
     """:func:`project_leaf` over a subtree (a non-segment entry such as
     ``mtp_block``), leaf by leaf, as the reference's
-    ``_project_cotangents``."""
+    ``_project_cotangents``; ``side`` a like tree of sides, or None."""
     if isinstance(g, dict) and P is not None:
-        return {k: _project_tree(v, P.get(k)) for k, v in g.items()}
-    return project_leaf(g, P)
+        return {k: _project_tree(v, P.get(k)) if side is None
+                else _project_tree(v, P.get(k), side.get(k))
+                for k, v in g.items()}
+    return project_leaf(g, P, side)
 
 
 def _grads(out, inputs: List[torch.Tensor], grad_out):
@@ -121,12 +123,15 @@ def _float_keys(carry) -> List[str]:
 
 
 def fused_value_and_grad(bundle: ModelBundle, params, batch,
-                         proj_trees: Dict[str, Any], acc=None):
+                         proj_trees: Dict[str, Any], acc=None, sides=None):
     """Loss and gradients with the per-layer recompute backward.
 
     ``proj_trees``: ``{params key: tree like params[key] with P or None per
     leaf}``; cotangents of leaves with a P leave low-rank. ``{}`` gives
-    full-rank gradients everywhere (refresh steps).
+    full-rank gradients everywhere (refresh steps). ``sides``: ``{params
+    key: a like tree of each leaf's side}`` where a leaf's side is not its
+    shape's (a tensor-parallel rank's slice keeps the whole leaf's side);
+    None takes each from the gradient's shape.
 
     Returns ``((loss, metrics), grads)``: ``grads`` is a tree like
     ``params``, float32 w.r.t. the virtual (dequantized) weights. Each
@@ -187,6 +192,8 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
         stack = params[seg_keys[i]]
         P_tree = proj_trees.get(seg_keys[i])
         out = None if acc is None else _leaves(acc[seg_keys[i]])
+        side_list = _leaves(sides[seg_keys[i]]) if sides else \
+            [None] * len(_leaves(stack))
         fresh = acc is None
         keys = _float_keys(saved[i][0])
         for layer in reversed(range(seg.n_layers)):
@@ -205,8 +212,8 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
             add_ctx(got[n_own:])
             Ps = (_leaves(layer_params(P_tree, layer))
                   if P_tree is not None else [None] * len(leaves))
-            gl = [project_leaf(g, P) for g, P in zip(got[len(keys):n_own],
-                                                     Ps)]
+            gl = [project_leaf(g, P, s) for g, P, s in
+                  zip(got[len(keys):n_own], Ps, side_list)]
             del got, lp_v, leaves, c_in
             if out is None:
                 out = [torch.empty((seg.n_layers,) + tuple(g.shape),
@@ -253,7 +260,9 @@ def fused_value_and_grad(bundle: ModelBundle, params, batch,
     g_nonseg = _like(nonseg_v, g_ns)
     for k, P_sub in proj_trees.items():
         if k in g_nonseg and P_sub is not None:
-            g_nonseg[k] = _project_tree(g_nonseg[k], P_sub)
+            g_nonseg[k] = _project_tree(g_nonseg[k], P_sub) \
+                if sides is None else \
+                _project_tree(g_nonseg[k], P_sub, sides.get(k))
     if acc is not None:
         for k in g_nonseg:
             for a, g in zip(_leaves(acc[k]), _leaves(g_nonseg[k])):

@@ -24,7 +24,16 @@ same uniforms and omegas, and feeds its controller the same gathered
 similarities, so every rank takes the same refresh and rank decisions.
 ``zero_shard`` keeps only this rank's ZeRO slices of the optimizer state
 (``distributed/zero.py``); a checkpoint holds the whole state, written by
-rank 0, and restores under any world size.
+rank 0, and restores under any world size and mesh.
+
+On a ``(D, t)`` mesh (``mesh=``, or a ``MeshComms`` as ``group``) the
+bundle, built with ``tp_group`` (the model group), computes on this
+rank's slices (``distributed/tp.py``): data rank d takes rows
+``[d·B/D, (d+1)·B/D)``, the t ranks of a data rank the same rows. The
+controller keeps the whole leaves' specs (``tp.plan_specs``); the step and
+the optimizer state run on the rank's (``tp.local_specs``). A bundle
+built with ``ep_group`` (the data group) holds its E/D experts; the
+trainer keeps their state alone.
 """
 from __future__ import annotations
 
@@ -38,9 +47,12 @@ import torch
 
 from repro_torch.config import ShapeCell, TrainConfig
 from repro_torch.core import adaptive, optimizers, qgalore
+from repro_torch.core.adam8bit import Adam8bitState
+from repro_torch.core.quant import QTensor
 from repro_torch.core.rules import as_rules, group_assignment
 from repro_torch.data.synthetic import batch_for_bundle
-from repro_torch.distributed.comm import as_comm
+from repro_torch.distributed import tp as tp_lib
+from repro_torch.distributed.comm import MeshComms, as_comm, mesh_comms
 from repro_torch.distributed.sharding import Mesh
 from repro_torch.distributed.zero import (ZeroPartition, require_zero2,
                                           state_nbytes)
@@ -72,6 +84,18 @@ class StragglerMonitor:
         return False
 
 
+def _to(x, device):
+    """A weight, 8-bit moments or P (or None) on ``device`` (None: where
+    it is)."""
+    if x is None or device is None:
+        return x
+    if isinstance(x, Adam8bitState):
+        return Adam8bitState(_to(x.m, device), _to(x.v, device))
+    if isinstance(x, QTensor):
+        return x.map(lambda t: t.to(device))
+    return x.to(device)
+
+
 class Trainer:
     def __init__(self, bundle: ModelBundle, tcfg: TrainConfig, qcfg, *,
                  cell: Optional[ShapeCell] = None,
@@ -81,7 +105,8 @@ class Trainer:
                  uniforms: Optional[step_lib.UniformSource] = None,
                  omegas: Optional[step_lib.NormalSource] = None,
                  batches=None, eval_batches=None, group=None,
-                 zero_shard: bool = False, zero2: Optional[bool] = None):
+                 zero_shard: bool = False, zero2: Optional[bool] = None,
+                 mesh=None):
         """``qcfg``: a ``QGaLoreConfig`` or a ``ParamRules``. ``state``: a
         starting TrainState, whole (default: drawn from ``tcfg.seed``);
         ``batches`` / ``eval_batches``: ``step -> batch`` of the global
@@ -90,14 +115,25 @@ class Trainer:
         step and may raise.
 
         ``group`` (a process group or ``distributed.comm.Comm``): train
-        data-parallel over its ranks, on the ``(D, 1)`` mesh. ``zero_shard``
-        partitions the optimizer state over them; ``zero2`` (default: as
+        data-parallel over its ranks, on the ``(D, 1)`` mesh, or with
+        ``mesh=(D, t)`` on that mesh (``group`` then spans all D·t ranks;
+        a ``MeshComms`` carries its mesh). ``zero_shard`` partitions the
+        optimizer state over the data group; ``zero2`` (default: as
         ``zero_shard``) reduce-scatters the steady low-rank gradients onto
         that partition, and forced on needs ``zero_shard`` and
         ``compress_dp_grads``."""
         self.rules = as_rules(qcfg)
         self.qcfg = self.rules.base
-        self.comm = as_comm(group)
+        self.groups = group if isinstance(group, MeshComms) else None
+        if self.groups is None and mesh is not None:
+            self.groups = mesh_comms(as_comm(group), mesh)
+        self.comm = self.groups.data if self.groups is not None \
+            else as_comm(group)
+        self.tp = bundle.tp
+        if self.tp is not None and (self.groups is None or
+                                    self.groups.model.world != self.tp.world):
+            raise ValueError("a tensor-parallel bundle needs the (D, t) mesh "
+                             "whose model group it was built with (mesh=)")
         self.mesh = None if self.comm is None else Mesh(
             (self.comm.world, 1), ("data", "model"))
         self.zero_shard = zero_shard and self.comm is not None
@@ -128,11 +164,11 @@ class Trainer:
             self.mgr = ckpt_lib.CheckpointManager(
                 tcfg.checkpoint_dir, max_to_keep=tcfg.keep_checkpoints,
                 async_save=tcfg.async_checkpoint)
-        self.state = state or step_lib.init_state(
-            bundle, self.rules, tcfg.seed, param_dtype, specs=self.specs)
-        if self.zero is not None:
-            self.state = step_lib.TrainState(
-                self.state.params, self.zero.shard(self.state.opt))
+        # a fresh state is cut leaf by leaf as it is drawn
+        self.state = self._shard(state) if state is not None \
+            else self._zero_shard(step_lib.init_state(
+                bundle, self.rules, tcfg.seed, param_dtype,
+                specs=self.specs, cut=self._cut))
         self.uniforms = uniforms or step_lib.generator_uniforms(
             tcfg.seed + 17, bundle.device)
         self.omegas = omegas or step_lib.generator_normals(
@@ -160,13 +196,22 @@ class Trainer:
         self._base_specs = qgalore.leaf_specs(
             step_lib.abstract_params(self.bundle, self.rules,
                                      self.param_dtype), self.rules)
+        if self.tp is not None:
+            self._base_specs = tp_lib.plan_specs(
+                self._base_specs, self.tp.world, self.bundle.cfg,
+                self.qcfg.quant_block)
         self.specs = qgalore.apply_rank_overrides(self._base_specs,
                                                   self._rank_overrides)
+        # this rank's: its tensor-parallel slices and its experts
+        self.local_specs = tp_lib.local_specs(self.specs)
+        if self.bundle.ep is not None:
+            self.local_specs = tp_lib.expert_specs(self.local_specs,
+                                                   self.bundle.ep.world)
         self.zero = None
         zero2_dims = None
         if self.zero_shard:
-            self.zero = ZeroPartition(self.specs, self.rules, self.mesh,
-                                      self.comm)
+            self.zero = ZeroPartition(self.local_specs, self.rules,
+                                      self.mesh, self.comm)
             if self.zero2 and self._compress:
                 zero2_dims = self.zero.zero2_dims()
             elif self.zero2:
@@ -175,8 +220,45 @@ class Trainer:
                          "data-parallel step); pass --compress / "
                          "compress_dp_grads=True to enable it")
         self._step = step_lib.build_train_step(
-            self.bundle, self.rules, self.tcfg, self.specs, self._accum,
-            group=self.comm, zero2_dims=zero2_dims, zero=self.zero)
+            self.bundle, self.rules, self.tcfg, self.local_specs,
+            self._accum, group=self.groups or self.comm,
+            zero2_dims=zero2_dims, zero=self.zero)
+
+    def _cut(self, i: int, x):
+        """This rank's part of leaf ``i``'s weight, or of its ``(moments,
+        P)`` pair: its tensor-parallel slice, then its experts."""
+        spec, pair = self.specs[i], type(x) is tuple
+        if self.tp is not None:
+            x = tp_lib.shard_opt_leaf(spec, *x, self.tp.rank) if pair \
+                else tp_lib.shard_leaf(x, spec, self.tp.rank)
+        ep = self.bundle.ep
+        if ep is not None:
+            x = tuple(tp_lib.expert_cut(spec, y, ep.rank, ep.world)
+                      for y in x) if pair \
+                else tp_lib.expert_cut(spec, x, ep.rank, ep.world)
+        return x
+
+    def _zero_shard(self, state: step_lib.TrainState
+                    ) -> step_lib.TrainState:
+        if self.zero is None:
+            return state
+        return step_lib.TrainState(state.params, self.zero.shard(state.opt))
+
+    def _shard(self, state: step_lib.TrainState, device=None
+               ) -> step_lib.TrainState:
+        """This rank's part of a whole state, leaf by leaf (:meth:`_cut`,
+        each part then moved to ``device`` where given), and its ZeRO
+        slices."""
+        flat = qgalore.flatten(state.params)
+        params, inner, proj = [], [], []
+        for i, (_, leaf) in enumerate(flat):
+            params.append(_to(self._cut(i, leaf), device))
+            st, P = self._cut(i, (state.opt.inner[i], state.opt.proj[i]))
+            inner.append(_to(st, device))
+            proj.append(_to(P, device))
+        return self._zero_shard(step_lib.TrainState(
+            qgalore.unflatten([k for k, _ in flat], params),
+            qgalore.QGaLoreState(inner, proj, state.opt.count)))
 
     def _adaptive_rank_enabled(self) -> bool:
         return self.qcfg.adaptive_rank or any(
@@ -203,11 +285,10 @@ class Trainer:
         template = step_lib.abstract_state(self.bundle, self.rules,
                                            self.param_dtype, self.specs)
         self.state = None                 # free the old state first
-        self.state, meta = self.mgr.restore(None, template,
-                                            self.bundle.device)
-        if self.zero is not None:         # any world keeps its own slices
-            self.state = step_lib.TrainState(
-                self.state.params, self.zero.shard(self.state.opt))
+        # on the host: the device takes this rank's part of each leaf
+        state, meta = self.mgr.restore(None, template, "cpu")
+        self.state = self._shard(state, self.bundle.device)
+        del state
         if meta.get("controller"):
             self.controller.from_json(meta["controller"])
         self.start_step = int(meta["step"]) + 1
@@ -215,12 +296,20 @@ class Trainer:
         return self.start_step
 
     def whole_state(self) -> step_lib.TrainState:
-        """The state with the optimizer's ZeRO slices gathered (every rank
-        takes part)."""
-        if self.zero is None:
-            return self.state
-        return step_lib.TrainState(self.state.params,
-                                   self.zero.gather_state(self.state.opt))
+        """The whole state: the optimizer's ZeRO slices, the experts and
+        the tensor-parallel slices gathered (every rank takes part)."""
+        state = self.state
+        if self.zero is not None:
+            state = step_lib.TrainState(state.params,
+                                        self.zero.gather_state(state.opt))
+        if self.bundle.ep is not None:
+            state = tp_lib.gather_experts(state, self.specs, self.bundle.ep)
+        if self.tp is not None:
+            spec_tp = tp_lib.local_specs(self.specs)
+            state = step_lib.TrainState(
+                tp_lib.gather_params(state.params, spec_tp, self.tp),
+                tp_lib.gather_opt(state.opt, spec_tp, self.tp))
+        return state
 
     def save(self, step: int):
         """Rank 0 writes the whole state; a data-parallel save returns on
@@ -228,23 +317,26 @@ class Trainer:
         if self.mgr is None:
             return
         state = self.whole_state()
-        if self.comm is None or self.comm.rank == 0:
+        world = self.groups.world if self.groups is not None else self.comm
+        if world is None or world.rank == 0:
             self.mgr.save(step, state,
                           {"controller": self.controller.to_json(),
                            "rules_fingerprint": self.rules.fingerprint(),
                            "groups": group_assignment(self._base_specs),
                            "rank_overrides": self.controller.current_ranks(),
                            "mesh": None if self.mesh is None
-                           else dict(self.mesh.shape)})
-        if self.comm is not None:
+                           else {"data": self.comm.world,
+                                 "model": 1 if self.tp is None
+                                 else self.tp.world}})
+        if world is not None:
             self.mgr.wait()
-            self.comm.barrier()
+            world.barrier()
 
     def opt_state_bytes(self):
         """``(whole, held)``: the bytes of the whole optimizer state and of
         what this rank holds (its ZeRO slices, or everything)."""
         held = state_nbytes(self.state.opt)
-        if self.zero is None:
+        if self.zero is None and self.tp is None and self.bundle.ep is None:
             return held, held
         whole = state_nbytes(qgalore.state_template(self.specs, self.rules))
         return whole, held
@@ -281,8 +373,8 @@ class Trainer:
         """Apply the controller's shrink decisions: truncate each leaf's
         low-rank state (8-bit moments, INT4 P; deterministic), then swap in
         the rank-overridden specs and rebuild the step."""
-        opt = self.whole_state().opt
-        inner, proj = list(opt.inner), list(opt.proj)
+        whole = self.whole_state()
+        inner, proj = list(whole.opt.inner), list(whole.opt.proj)
         for idx, old, new in decisions:
             spec = self.specs[idx]
             inner[idx], proj[idx] = qgalore.migrate_rank_state(
@@ -290,13 +382,12 @@ class Trainer:
             self._rank_overrides[spec.path] = new
             log.info("rank transition at step %d: %s %d -> %d", step,
                      spec.path, old, new)
-        self.state = step_lib.TrainState(
-            self.state.params, qgalore.QGaLoreState(inner, proj, opt.count))
+        whole = step_lib.TrainState(
+            whole.params, qgalore.QGaLoreState(inner, proj, whole.opt.count))
+        self.state = None
         self._build_execution()
         self.controller.update_specs(self.specs)
-        if self.zero is not None:     # re-split under the shrunk shapes
-            self.state = step_lib.TrainState(
-                self.state.params, self.zero.shard(self.state.opt))
+        self.state = self._shard(whole)   # re-split under the shrunk shapes
 
     def run(self, steps: Optional[int] = None, max_failures: int = 3
             ) -> List[Dict[str, float]]:

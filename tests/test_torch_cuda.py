@@ -1120,3 +1120,116 @@ def test_recording_leaves_outputs_bit_equal(cuda):
         assert torch.equal(a, b)
     assert profile.launches_by_kernel(profile.snapshot()) == launches
     profile.reset()
+
+
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism's shapes (chip_smoke.py phase 18)
+# ---------------------------------------------------------------------------
+
+# mistral-nemo-12b's slices a rank on the (1, 2) mesh, M = 8 x 256 tokens:
+# wq (5120, 2048), wk / wv (5120, 512), wo (2048, 5120), wi / wg (5120,
+# 7168), wd (7168, 5120), the head's vocabulary half (5120, 65536)
+TP_SLICES = [(5120, 2048), (5120, 512), (2048, 5120), (5120, 7168),
+             (7168, 5120), (5120, 65536)]
+
+
+@pytest.mark.parametrize("K,N", TP_SLICES)
+def test_int8_matmul_at_tp_slices(cuda, K, N):
+    """Both INT8 matmuls at the slices, bf16 rows: the forward within 2e-2
+    of max|plain| (one tensor-core pass), ``dL/dx`` within 1e-4 (bf16 g is
+    exact in its products)."""
+    M = 2048
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    qt = quant.quantize_blockwise(torch.randn((K, N), generator=g,
+                                              device=cuda) * 0.02, 8,
+                                  symmetric=True)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    go = torch.randn((M, N), generator=g, device=cuda).to(torch.bfloat16)
+    LAUNCHES.clear()
+    got = ti8.int8_matmul(x, qt.q, qt.scale)
+    got_t = ti8.int8_matmul_t(go, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert LAUNCHES["int8_matmul"] == LAUNCHES["int8_matmul_t"] == 1
+    assert _rel(got, ref.int8_matmul_ref(x, qt.q, qt.scale, 256)) <= 2e-2
+    assert _rel(got_t, ref.int8_matmul_t_ref(go, qt.q, qt.scale, 256)) \
+        <= 1e-4
+
+
+# the fused update at each slice's GaLore state, rank 1024: a slice on the
+# contracted dim takes its d-slice of P and the whole low-rank gradient,
+# one on the surviving dim the whole P and its slice of the gradient
+FUSED_TP = [(5120, 2048, 1024, "right"), (5120, 512, 1024, "right"),
+            (2048, 5120, 1024, "left"), (5120, 7168, 1024, "left"),
+            (7168, 5120, 1024, "right"), (5120, 65536, 1024, "left")]
+
+
+@pytest.mark.parametrize("m,n,r,side", FUSED_TP)
+def test_fused_update_at_tp_slices(cuda, m, n, r, side):
+    qt, qp, low, m32, v32, u01 = _fused_problem(cuda, m, n, r, side, m + n)
+    kw = dict(side=side, gscale=0.25, weight_decay=0.0)
+    LAUNCHES.clear()
+    got, mg, vg = ops.fused_qgalore_update(qt, low, m32, v32, qp, 3, 1e-2,
+                                           u01, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_qgalore_update"] == 1
+    cpu = lambda t: t.to("cpu")
+    want, mw, vw = ops.fused_qgalore_update(
+        qt.to("cpu"), cpu(low), cpu(m32), cpu(v32), qp.to("cpu"), 3, 1e-2,
+        cpu(u01), **kw)
+    quantum = want.scale.max().item()
+    dq = (quant.dequantize(got.to("cpu"), torch.float32)
+          - quant.dequantize(want, torch.float32)).abs().max().item()
+    assert dq <= quantum + 1e-6
+    assert (got.q.cpu() == want.q)[:, :n].float().mean().item() > 0.999
+    for a, b in ((got.scale, want.scale), (mg, mw), (vg, vw)):
+        assert _rel(a.cpu(), b) <= 1e-5
+
+
+@pytest.mark.parametrize("K,N", [(2048, 768), (768, 2048)])
+def test_batched_kernels_at_ep_experts(cuda, K, N):
+    """The batched pair at an expert-parallel rank's buffers: 64 of
+    qwen3-moe-30b-a3b's 128 experts, 2 ranks x 512 rows, bf16."""
+    E, M = 64, 1024
+    qt, x, gr = _batched_case(cuda, E, M, K, N, torch.bfloat16, K + 3)
+    LAUNCHES.clear()
+    got = ti8.int8_matmul_batched(x, qt.q, qt.scale)
+    got_t = ti8.int8_matmul_t_batched(gr, qt.q, qt.scale)
+    torch.cuda.synchronize()
+    assert LAUNCHES["int8_matmul_batched"] == 1
+    assert LAUNCHES["int8_matmul_t_batched"] == 1
+    want = ref.int8_matmul_batched_ref(x, qt.q, qt.scale, 256)
+    want_t = ref.int8_matmul_t_batched_ref(gr, qt.q, qt.scale, 256)
+    two_pass = ti8.plan(M, K, qt.q.shape[-1], E=E).path == 0
+    assert _rel(got, want) <= (1e-4 if two_pass else 2e-2)
+    assert _rel(got_t, want_t) <= 1e-4
+
+
+def test_tensor_and_expert_parallel_ranks_on_one_card(cuda, tmp_path):
+    """Two ranks on cuda:0 over gloo: the tensor-parallel test model on the
+    (1, 2) mesh and the MoE's smoke config expert-parallel, against one
+    process on the card (tensor-parallel: the trajectory within the
+    reference's band, 2e-3; expert-parallel: step 0 within 1e-3, where
+    only the per-rank aux loss differs, and finite losses after), every
+    kernel launched in both ranks and no plain version."""
+    import numpy as np
+
+    import torch_tp_ranks as tr
+    from repro_torch.distributed.spawn import run_ranks
+    one_tp = tr.card_run(None, "tp")
+    one_ep = tr.card_run(None, "ep")
+    two = run_ranks(tr.card_runs, 2, backend="gloo",
+                    rendezvous_dir=str(tmp_path))
+    for r in two:
+        np.testing.assert_allclose(r["tp"]["losses"], one_tp["losses"],
+                                   rtol=2e-3)
+        assert abs(r["ep"]["losses"][0] - one_ep["losses"][0]) <= \
+            1e-3 * one_ep["losses"][0]
+        assert np.isfinite(r["ep"]["losses"]).all()
+        for run in (r["tp"], r["ep"]):
+            assert run["launches"].get("fused_qgalore_update", 0) > 0
+            for name in ("int8_matmul_ref", "int8_matmul_t_ref",
+                         "fused_qgalore_update_ref", "deq_matmul",
+                         "deq_matmul_t", "deq_matmul_batched"):
+                assert run["launches"].get(name, 0) == 0, name
+    assert two[0]["tp"]["losses"] == two[1]["tp"]["losses"]
+    assert two[0]["ep"]["losses"] == two[1]["ep"]["losses"]

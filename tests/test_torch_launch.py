@@ -1,8 +1,9 @@
 """The port's training launcher (``repro_torch.launch.train``) against the
 JAX package's CLI (``repro.launch.train``), both called in-process: the
 same closing lines (SVD accounting; under ``--adaptive-rank`` the rank
-transitions and the optimizer state's size), data-parallel runs on gloo
-ranks it starts itself (``--devices``), tensor parallelism refused by
+transitions and the optimizer state's size), data-parallel and
+tensor-parallel runs on gloo ranks it starts itself (``--devices``,
+``--tp``, ``--mesh DxM``), meshes that do not fit the ranks refused by
 name, a resume through ``--checkpoint-dir``, and no silent fallback to
 the CPU."""
 import contextlib
@@ -51,15 +52,16 @@ def test_launcher_matches_reference_cli(capsys, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--mesh", "2x2"],
                                   ["--mesh", "1x2"],
-                                  ["--devices", "2", "--tp", "2"]])
+                                  ["--devices", "2", "--tp", "3"]])
 def test_distributed_flags_refused(capsys, flag):
-    """Tensor parallelism (a model axis above 1) stays refused by name,
-    pointing at its sub-slice."""
+    """A mesh that does not fit the ranks is refused by name: a
+    tensor-parallel degree that does not divide them, a mesh of another
+    size than the world."""
     with pytest.raises(SystemExit) as e:
         train.main(ARGS + ["--device", "cpu"] + flag)
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert flag[-2] in err and "ROADMAP queue 1 sub-slice 5b" in err
+    assert flag[-2] in err and ("divisor" in err or "needs" in err)
 
 
 def test_multihost_needs_torchrun(capsys, monkeypatch):
@@ -70,6 +72,7 @@ def test_multihost_needs_torchrun(capsys, monkeypatch):
 
 
 DP = ["--devices", "2", "--mesh", "2x1", "--compress"]
+TP = ["--devices", "2", "--compress"]
 
 
 @pytest.fixture(scope="module")
@@ -83,11 +86,15 @@ def one_process():
 
 @pytest.mark.parametrize("flags", [DP, DP + ["--zero"],
                                    DP + ["--zero", "--zero2", "1"],
-                                   DP + ["--zero", "--zero2", "0"]],
-                         ids=["compress", "zero", "zero2", "zero-no-zero2"])
+                                   DP + ["--zero", "--zero2", "0"],
+                                   TP + ["--tp", "2"], TP + ["--mesh", "1x2"]],
+                         ids=["compress", "zero", "zero2", "zero-no-zero2",
+                              "tp", "mesh-1x2"])
 def test_data_parallel_launch(capsys, one_process, flags):
     """Two gloo ranks train llama-60m smoke and close with the one-process
-    run's SVD accounting, optimizer state and payload."""
+    run's SVD accounting, optimizer state and payload: data-parallel, and
+    tensor-parallel on the (1, 2) mesh (at the smoke shapes only the head,
+    vocab 512, holds whole blocks a rank and shards)."""
     one = one_process
     assert train.main(ARGS + ["--device", "cpu"] + flags) == 0
     dp = _closing(capsys.readouterr().out)

@@ -248,8 +248,22 @@ def test_combine_is_deterministic_and_ties_take_the_lower_expert(models):
     w, e, _ = moe._route(flat["router"], x.reshape(-1, 64), cfg.moe)
     assert (e == torch.tensor([0, 1])).all()
     assert torch.allclose(w, torch.full_like(w, 0.5))
-    with pytest.raises(NotImplementedError, match="queue 1 sub-slice 5b"):
-        moe.moe_ep_sharded(tl, x, cfg)
+    # the expert-parallel entry on one shard (a one-rank gloo group)
+    # computes what the layer does
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.distributed.comm import Comm
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                                world_size=1, rank=0)
+        try:
+            c, c_aux = moe.moe_ep_sharded(tl, x, cfg, Comm(),
+                                          dtype=torch.float32)
+        finally:
+            dist.destroy_process_group()
+    _, aux = moe.moe_apply(tl, x, cfg, dtype=torch.float32)
+    assert torch.equal(c, a) and torch.equal(c_aux, aux)
 
 
 # ---------------------------------------------------------------------------

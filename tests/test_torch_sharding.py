@@ -156,14 +156,20 @@ def test_rules_match_reference(arch):
 
 
 def test_meshes_of_the_port():
-    """Data parallelism only: a model axis above 1 is refused by name."""
+    """Data and tensor parallelism: ``(D, t)`` meshes; a tensor-parallel
+    degree that does not divide the devices is refused, as the
+    reference's ``make_tp_mesh`` refuses it."""
     from repro_torch.launch import mesh
     m = mesh.make_dp_mesh(4)
     assert m.axis_names == AXES and m.shape == {"data": 4, "model": 1}
     assert mesh.parse_mesh("2x1").shape == {"data": 2, "model": 1}
-    for bad in (lambda: mesh.make_tp_mesh(2), lambda: mesh.parse_mesh("2x2"),
-                lambda: mesh.make_mesh((1, 2))):
-        with pytest.raises(NotImplementedError, match="sub-slice 5b"):
+    assert mesh.parse_mesh("2x2").shape == {"data": 2, "model": 2}
+    assert mesh.make_mesh((1, 2)).shape == {"data": 1, "model": 2}
+    assert mesh.make_tp_mesh(2, 8).shape == {"data": 4, "model": 2}
+    assert mesh.make_tp_mesh(2).shape == {"data": 1, "model": 2}
+    for bad in (lambda: mesh.make_tp_mesh(3, 4),
+                lambda: mesh.make_tp_mesh(0, 4)):
+        with pytest.raises(ValueError, match="positive divisor"):
             bad()
     with pytest.raises(ValueError, match="DxM"):
         mesh.parse_mesh("4")
