@@ -357,6 +357,24 @@ Phases (any failure exits non-zero):
    all-to-all's counted from E, C and d, finite losses; rank 0 times the
    batched pair at the run's expert problems. Each step's ms, the
    collectives and a ``roofline`` line for each.
+19. Sharded serving, in phase 17's two ranks (no new spawn), after the
+   parent's one-process runs of the same traffic (11a's: 4 slots, 8
+   requests of 64-512 tokens, 16 new, paged, bf16). (a) llama-1b at full
+   width and depth with the weights replicated, its block pool split on
+   the ``(1, 2)`` mesh (8 of each 16-token block a rank, the held-keys
+   attention combining the two ranks). (b) mistral-nemo-12b at full width
+   and 8 of 40 layers (11a's cut) tensor-parallel on ``(1, 2)``: every
+   matrix split, the cache on the rank's 4 of 8 kv heads, the head's
+   logits gathered. A rank's tokens/s, mean TTFT and median dispatch ms
+   beside the one process's, the share of bf16 greedy tokens equal to
+   its; gated: each decode dispatch's collectives on the model group
+   (calls and bytes) equal to the analytic count, pool bytes a rank half
+   the one process's, (b)'s INT8 bytes a rank the matrices' half (the
+   norm scales whole), ``int8_matmul`` launches a dispatch as one
+   process's; at f32 and 2 layers the tokens of (a)'s paged pool on
+   ``(1, 2)`` and of the slot pool on ``(2, 1)`` (the slots over data),
+   and of (b), equal to the one process's. Rank 0 holds every
+   ``int8_matmul`` problem of the phase against its plain version.
 
 Every bound printed is ``analysis.roofline.kernel_bound`` on the counts
 of ``kernels/profile.py`` at the H100's rates (phase 1 fails on a card
@@ -376,9 +394,9 @@ and written with the kernel tables to ``build/analysis.json``
 (``python -m repro_torch.analysis.report build/analysis.json``).
 
 ``python3 chip_smoke.py --only 12`` (or ``1,12``, ``2`` to ``9``, ``11``
-to ``18``) runs those phases alone for development and prints no
-kernels line and no result; ``--only 18`` spawns phase 17's ranks for
-phase 18 alone.
+to ``19``) runs those phases alone for development and prints no
+kernels line and no result; ``--only 18`` (or ``19``) spawns phase 17's
+ranks for that phase alone.
 
 The last three lines are the kernels JSON (all seven kernels;
 ``int8_matmul``'s and ``int8_matmul_t``'s training step, flash's prefill
@@ -391,7 +409,8 @@ phase 14's, 15's and 16's launches, ``int8_matmul`` their serving runs
 and the sLSTM gates' f32-x rows, ``flash_attention`` phase 15c's and
 16c's prefills and their d = 80 and d = 64 rows; the three training
 kernels phase 17's launches in both ranks and its M = 1024 rows, and
-phase 18's launches, 18a's slice rows and 18b's expert rows),
+phase 18's launches, 18a's slice rows and 18b's expert rows;
+``int8_matmul`` phase 19's launches and problems),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``. Without a CUDA device, or without the repository's ``src/``
 beside it, the script exits non-zero and prints no result.
@@ -972,7 +991,8 @@ def check_shapes(shapes, seed: int) -> dict:
         qt = quant.quantize_blockwise(
             torch.randn((K, N), generator=gen, device=dev) * 0.02,
             bits=8, symmetric=True)
-        for M, _, _, dt in sorted(s for s in shapes if s[1:3] == (K, N)):
+        for M, _, _, dt in sorted((s for s in shapes if s[1:3] == (K, N)),
+                                  key=lambda s: (s[0], str(s[3]))):
             x = torch.randn((M, K), generator=gen, device=dev).to(dt)
             abs_err, rel = check_against_plain(x, qt)
             max_abs, max_rel = max(max_abs, abs_err), max(max_rel, rel)
@@ -2696,7 +2716,8 @@ def first_divergence(got: dict, want: dict):
 
 def paged_run(bundle, params, reqs, *, slots: int, window: int,
               shapes: set, num_blocks=None, profile: bool = False,
-              per_call: int = 0, per_call_t: int = 0) -> dict:
+              per_call: int = 0, per_call_t: int = 0, sched_kw=None,
+              comm=None, roofline: bool = True) -> dict:
     """One run of ``reqs`` through ``make_scheduler(backend="auto")`` (the
     paged scheduler) on the card, bf16: every dispatch counted and timed
     (synchronised), its launches held to ``per_call`` of ``int8_matmul``
@@ -2704,7 +2725,11 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
     decode or append dispatch and twice those a fused one, the allocator's
     invariant after the run. With ``profile``, five decode-only steps
     with every slot in flight are then profiled as phase 3's are (prompts
-    cut to one chunk, so the first step prefills them all)."""
+    cut to one chunk, so the first step prefills them all). ``sched_kw``
+    goes to the scheduler (phase 19: ``shardings``, ``group``); with
+    ``comm`` each dispatch's collectives on it (calls, bytes, seconds by
+    op) are kept by dispatch kind; ``roofline`` False prints no roofline
+    line (a rank's share of a split model)."""
     from repro_torch.config import ShapeCell
     from repro_torch.kernels import LAUNCHES
     from repro_torch.serve.paged import PagedScheduler
@@ -2713,7 +2738,8 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
     sched = make_scheduler(bundle, params, backend="auto", num_slots=slots,
                            max_len=window, block_size=PAGED_BLOCK,
                            num_blocks=num_blocks, prefill_chunk=PAGED_CHUNK,
-                           dtype=torch.bfloat16, device="cuda")
+                           dtype=torch.bfloat16, device="cuda",
+                           **(sched_kw or {}))
     if type(sched) is not PagedScheduler:
         raise AssertionError(f"backend auto gave {type(sched).__name__}")
     # warm-up: first launches of the append and decode programs
@@ -2722,6 +2748,7 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
     sched.reset()
     ms = {"_step": [], "_append": [], "_fused": []}
     got_by = {n: [] for n in ms}
+    coll_by = {n: [] for n in ms}
     bad = []
 
     def timed(name, inner):
@@ -2730,11 +2757,16 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
 
         def run(*a):
             before = (LAUNCHES["int8_matmul"], LAUNCHES["int8_matmul_t"])
+            if comm is not None:
+                comm.reset_stats()
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = inner(*a)
             torch.cuda.synchronize()
             ms[name].append((time.perf_counter() - t) * 1e3)
+            if comm is not None:
+                coll_by[name].append({k: list(v) for k, v in
+                                      comm.stats.items()})
             got = (LAUNCHES["int8_matmul"] - before[0],
                    LAUNCHES["int8_matmul_t"] - before[1])
             got_by[name].append(got)
@@ -2825,6 +2857,7 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
            "median_append_ms": statistics.median(ms["_append"])
            if ms["_append"] else None,
            "dispatches": n_disp, "launches": counts,
+           "collectives_by_dispatch": coll_by if comm is not None else None,
            "launches_per_decode_dispatch": per_decode,
            "head_calls": head_calls[0],
            "launches_per_head_call": per_head,
@@ -2841,7 +2874,7 @@ def paged_run(bundle, params, reqs, *, slots: int, window: int,
     torch.cuda.empty_cache()
     if problems:
         raise AssertionError("paged serving: " + "; ".join(problems))
-    if out["median_decode_step_ms"]:
+    if out["median_decode_step_ms"] and roofline:
         out["roofline"] = step_roofline(
             f"paged {slots} slots", bundle.cfg,
             ShapeCell("serve", max(len(r.tokens) for r in reqs), slots,
@@ -5834,7 +5867,7 @@ def dp_warm_up() -> dict:
 
 
 def dp_rank(comm, seed: int, save_dir: str, go, saved, built, restored,
-            phases=("17", "18")) -> dict:
+            phases=("17", "18", "19"), ready19=None, go19=None) -> dict:
     """One rank of phase 17: 17a (compressed data parallelism), then 17b
     (ZeRO with ZeRO-2) in the same group; rank 0 records 17a's kernel
     problems, sets ``saved`` once 17b's checkpoint is written, and checks
@@ -5847,8 +5880,10 @@ def dp_rank(comm, seed: int, save_dir: str, go, saved, built, restored,
     parent runs 18a alone, and releases ``built`` (the parent times its
     steps once both ranks have); then phase 18 (``tp_rank``, ``ep_rank``)
     in the same group, once the parent's run is done (``restored``) and
-    rank 0 has checked phase 17's problems. ``phases`` names the phases
-    to run."""
+    rank 0 has checked phase 17's problems. Then phase 19
+    (``shard_rank``): the rank releases ``ready19`` and starts once the
+    parent's one-process runs are done (``go19``). ``phases`` names the
+    phases to run."""
     import torch.distributed as dist
     from repro_torch.core import qgalore
     from repro_torch.core.quant import QTensor
@@ -5942,6 +5977,14 @@ def dp_rank(comm, seed: int, save_dir: str, go, saved, built, restored,
         out["18b"] = ep_rank(comm, seed)
         out["18b"]["rank"] = comm.rank
         out["seconds"]["18b"] = time.monotonic() - t - out["seconds"]["18a"]
+    if "19" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ready19.release()
+        go19.wait(DP_WAIT_S)
+        t = time.monotonic()
+        out["19"] = shard_rank(comm, seed)
+        out["seconds"]["19"] = time.monotonic() - t
     return out
 
 
@@ -5962,7 +6005,7 @@ def dp_restore(bundle, seed: int, save_dir: str) -> dict:
             "s": time.monotonic() - t}
 
 
-def phase_data_parallel(seed: int, phases=("17", "18")) -> dict:
+def phase_data_parallel(seed: int, phases=("17", "18", "19")) -> dict:
     """Phase 17: llama-1b at full width and 4 of its 24 layers trained
     data-parallel by two ranks on cuda:0 over gloo (8 x 256 a step, rank
     512, bf16, compressed): 17a against one process on the same batch,
@@ -5972,7 +6015,9 @@ def phase_data_parallel(seed: int, phases=("17", "18")) -> dict:
     process's run of the same steps (``tp_one_process``, after 17c, while
     the ranks finish 17b and build their trainers: its steps start once
     both have; with ``--only 18`` while they start), 18b expert-parallel
-    qwen3-moe-30b-a3b."""
+    qwen3-moe-30b-a3b. Phase 19 in the same ranks (``shard_rank``), after
+    this process's one-process runs (``shard_one_process``), which start
+    once both ranks have left phase 18."""
     from repro_torch.distributed.spawn import run_ranks
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import model_zoo
@@ -5985,7 +6030,7 @@ def phase_data_parallel(seed: int, phases=("17", "18")) -> dict:
             f"trained data-parallel by {DP_WORLD} ranks on cuda:0 over gloo "
             "(8 x 256 a step, rank 512, bf16, compress_dp_grads)")
     else:
-        log("== phase 17's two ranks, for phase 18 alone")
+        log(f"== phase 17's two ranks, for phase(s) {', '.join(phases)} alone")
     log("card:", nvidia_smi_line())
     # the ranks start (processes, imports, the group, their first calls
     # on the card) while this process runs the same steps on the same
@@ -5993,27 +6038,32 @@ def phase_data_parallel(seed: int, phases=("17", "18")) -> dict:
     save_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     ctx = mp.get_context("spawn")
     go, saved, restored = ctx.Event(), ctx.Event(), ctx.Event()
-    built = ctx.Semaphore(0)
+    go19 = ctx.Event()
+    built, ready19 = ctx.Semaphore(0), ctx.Semaphore(0)
     got: list = []
 
     def ranks_run():
         try:
             got.append(run_ranks(dp_rank, DP_WORLD, seed, save_dir, go,
                                  saved, built, restored, tuple(phases),
-                                 backend="gloo"))
+                                 ready19, go19, backend="gloo"))
         except BaseException as e:     # noqa: BLE001 — raised below
             got.append(e)
 
-    def ranks_built():
-        """Until both ranks have built 18a's trainer (or ended)."""
+    def ranks_released(sem):
+        """Until both ranks have released ``sem`` (or ended)."""
         n = 0
         while n < DP_WORLD and ranks_thread.is_alive():
-            n += built.acquire(timeout=1.0)
+            n += sem.acquire(timeout=1.0)
+
+    def ranks_built():
+        """Until both ranks have built 18a's trainer (or ended)."""
+        ranks_released(built)
 
     t_spawn = time.monotonic()
     ranks_thread = threading.Thread(target=ranks_run)
     ranks_thread.start()
-    one = one18 = c17 = None
+    one = one18 = one19 = c17 = None
     one_s = 0.0
     try:
         gc.collect()
@@ -6028,7 +6078,7 @@ def phase_data_parallel(seed: int, phases=("17", "18")) -> dict:
             one_s = time.monotonic() - t
             gc.collect()
             torch.cuda.empty_cache()
-        else:
+        elif "18" in phases:
             t18 = time.monotonic()
             one18 = tp_one_process(seed)
         go.set()
@@ -6044,9 +6094,14 @@ def phase_data_parallel(seed: int, phases=("17", "18")) -> dict:
             if "18" in phases:
                 t18 = time.monotonic()
                 one18 = tp_one_process(seed, ranks_built)
+        restored.set()
+        if "19" in phases:
+            one19 = shard_one_process(seed, lambda: ranks_released(ready19))
+            go19.set()
     finally:
         go.set()
         restored.set()
+        go19.set()
         ranks_thread.join()
         shutil.rmtree(save_dir, ignore_errors=True)
     if isinstance(got[0], BaseException):
@@ -6059,6 +6114,8 @@ def phase_data_parallel(seed: int, phases=("17", "18")) -> dict:
                         t_spawn, t_phase)
     if "18" in phases:
         res["parallel"] = parallel_result(ranks, one18, t18)
+    if "19" in phases:
+        res["sharded"] = shard_result(ranks, one19, one19["t_start"])
     return res
 
 
@@ -6825,6 +6882,352 @@ def evaluate_ep(ranks: list, cfg) -> tuple:
     return res, problems
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: sharded serving, in phase 17's two ranks
+# ---------------------------------------------------------------------------
+
+SHARD_ARCH = "llama-1b"
+SHARD_LAYERS = 24      # full depth; the one cut allowed is 8 (PERF.md §4)
+SHARD_F32_LAYERS = 2   # the f32 token gates
+SHARD_TP_LAYERS = SERVE_DEPTH[TP_ARCH]   # 11a's cut: 8 of 40
+
+
+def shard_config(arch: str, layers: int):
+    from repro_torch.config import replace
+    from repro_torch.models import model_zoo
+    return replace(model_zoo.get_config(arch), num_layers=layers)
+
+
+def shard_blocks() -> int:
+    """The paged pool's blocks for 11a's slots and window (the default)."""
+    return DENSE_SLOTS * -(-DENSE_WINDOW // PAGED_BLOCK) + 1
+
+
+def shard_model(cfg, seed: int, dtype, tp_group=None):
+    """``cfg``'s bundle and INT8 weights drawn on the card from ``seed``
+    one layer of a group at a time, as 11a draws them: the same codes in
+    every process. With ``tp_group`` the bundle computes on the rank's
+    slices, which are cut from the whole draw; the whole tree's and the
+    rank's INT8 bytes are returned beside them, and those of the leaves
+    the plan keeps whole."""
+    from repro_torch.config import QGaLoreConfig
+    from repro_torch.core import qgalore
+    from repro_torch.distributed import tp
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.params import quantize_leaf
+    whole = model_zoo.build(cfg, device="cuda", dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    params = whole.init_params(gen, leaf_fn=lambda _, t: quantize_leaf(t),
+                               by_layer=True)
+    info = {"int8_bytes_whole": int8_bytes(params)}
+    if tp_group is None:
+        return whole, params, info
+    # what the plan leaves whole on every rank: the stacked norm scales,
+    # INT8 in a serving tree (quantize_leaf); every matrix splits
+    specs = tp.plan_specs(qgalore.leaf_specs(params, QGaLoreConfig()),
+                          tp_group.world, cfg)
+    info["int8_bytes_replicated"] = sum(
+        int8_bytes({"w": x}) for (_, x), sp in zip(
+            qgalore.flatten(params), specs) if sp.shard_dim is None)
+    local = tp.serving_params(params, cfg, (1, tp_group.world),
+                              tp_group.rank)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    info["int8_bytes"] = int8_bytes(local)
+    return (model_zoo.build(cfg, device="cuda", dtype=dtype,
+                            tp_group=tp_group), local, info)
+
+
+def shard_tokens(bundle, params, reqs, shapes: set, backend: str = "auto",
+                 **kw) -> dict:
+    """``reqs`` through ``make_scheduler`` at f32 on the card: the tokens,
+    every ``int8_matmul`` problem recorded into ``shapes``."""
+    from repro_torch.kernels import int8_matmul as ti8
+    from repro_torch.serve.scheduler import make_scheduler
+    kernel = ti8.int8_matmul
+
+    def recording(x, q, scale, block=256):
+        shapes.add((x.shape[0], q.shape[0], q.shape[1], x.dtype))
+        return kernel(x, q, scale, block)
+
+    sched = make_scheduler(bundle, params, backend=backend,
+                           num_slots=DENSE_SLOTS, max_len=DENSE_WINDOW,
+                           block_size=PAGED_BLOCK, prefill_chunk=PAGED_CHUNK,
+                           dtype=torch.float32, device="cuda", **kw)
+    ti8.int8_matmul = recording
+    try:
+        return {c.rid: c.tokens for c in sched.run(reqs)}
+    finally:
+        ti8.int8_matmul = kernel
+
+
+def shard_one_process(seed: int, before=None) -> dict:
+    """Phase 19's one process: 19a's llama-1b and 19b's mistral-nemo-12b
+    through the paged scheduler alone at bf16 (timed, ``paged_run``), and
+    the f32 token references at 2 layers (19a paged and slot, 19b paged).
+    ``before()`` waits until the ranks have left phase 18, so nothing else
+    runs on the card while this times."""
+    if before is not None:
+        before()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    out = {"t_start": t0}
+    for tag, arch, layers in (("19a", SHARD_ARCH, SHARD_LAYERS),
+                              ("19b", TP_ARCH, SHARD_TP_LAYERS)):
+        cfg = shard_config(arch, layers)
+        bundle, params, info = shard_model(cfg, seed, torch.bfloat16)
+        reqs = dense_requests(seed, cfg.vocab_size)
+        torch.cuda.reset_peak_memory_stats()
+        run = paged_run(bundle, params, reqs, slots=DENSE_SLOTS,
+                        window=DENSE_WINDOW, shapes=set(),
+                        num_blocks=shard_blocks(),
+                        per_call=7 * layers + 1, roofline=False)
+        out[tag] = {**run, **info}
+        del bundle, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        f32 = shard_config(arch, SHARD_F32_LAYERS)
+        bundle, params, _ = shard_model(f32, seed, torch.float32)
+        out[tag]["f32_paged"] = shard_tokens(bundle, params, reqs, set())
+        if tag == "19a":
+            out[tag]["f32_slot"] = shard_tokens(bundle, params, reqs, set(),
+                                                backend="slot")
+        del bundle, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["s"] = time.monotonic() - t0
+    return out
+
+
+def shard_rank(comm, seed: int) -> dict:
+    """Phase 19 on this rank. 19a: llama-1b with the weights replicated,
+    its paged pool split on the ``(1, 2)`` mesh (8 of each 16-token block
+    a rank), bf16, 11a's traffic; then the f32 token gates at 2 layers:
+    the paged pool on ``(1, 2)``, the slot pool on ``(2, 1)`` (the slots
+    over data). 19b: mistral-nemo-12b tensor-parallel on ``(1, 2)``, the
+    same traffic, bf16; then its f32 gate at 2 layers. Rank 0 then holds
+    every ``int8_matmul`` problem of the phase against its plain
+    version."""
+    from repro_torch.distributed.comm import mesh_comms
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import shard
+    t0 = time.monotonic()
+    groups = mesh_comms(comm, (1, 2))
+    by_data = mesh_comms(comm, (2, 1))
+    mesh = make_mesh((1, 2))
+    out = {"rank": comm.rank, "seconds": {}}
+    shapes: set = set()
+    launches = Counter()
+    for tag, arch, layers in (("19a", SHARD_ARCH, SHARD_LAYERS),
+                              ("19b", TP_ARCH, SHARD_TP_LAYERS)):
+        t = time.monotonic()
+        tp_group = groups.model if tag == "19b" else None
+        cfg = shard_config(arch, layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bundle, params, info = shard_model(cfg, seed, torch.bfloat16,
+                                           tp_group)
+        kw = {} if tp_group is not None else {
+            "shardings": shard.paged_pool_sharding(
+                bundle, shard_blocks(), PAGED_BLOCK, mesh),
+            "group": groups}
+        groups.model.reset_stats()
+        run = paged_run(bundle, params, dense_requests(seed, cfg.vocab_size),
+                        slots=DENSE_SLOTS, window=DENSE_WINDOW, shapes=shapes,
+                        num_blocks=shard_blocks(), per_call=7 * layers + 1,
+                        sched_kw=kw, comm=groups.model, roofline=False)
+        launches.update(run["launches"])
+        out[tag] = {**run, **info,
+                    "rank_peak_gib": torch.cuda.max_memory_allocated()
+                    / 2 ** 30}
+        del bundle, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        f32 = shard_config(arch, SHARD_F32_LAYERS)
+        bundle, params, _ = shard_model(f32, seed, torch.float32, tp_group)
+        reqs = dense_requests(seed, f32.vocab_size)
+        if tag == "19a":
+            out[tag]["f32_paged"] = shard_tokens(
+                bundle, params, reqs, shapes,
+                shardings=shard.paged_pool_sharding(
+                    bundle, shard_blocks(), PAGED_BLOCK, mesh,
+                    torch.float32), group=groups)
+            out[tag]["f32_slot"] = shard_tokens(
+                bundle, params, reqs, shapes, backend="slot",
+                shardings=shard.pool_sharding(
+                    bundle, DENSE_SLOTS, DENSE_WINDOW,
+                    make_mesh((2, 1)), torch.float32), group=by_data)
+        else:
+            out[tag]["f32_paged"] = shard_tokens(bundle, params, reqs,
+                                                 shapes)
+        del bundle, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["seconds"][tag] = time.monotonic() - t
+    out["launches"] = dict(launches)
+    comm.barrier()
+    if comm.rank == 0:
+        t = time.monotonic()
+        out["check"] = check_shapes(shapes, seed)
+        out["seconds"]["check"] = time.monotonic() - t
+    comm.barrier()         # nothing else on the card while rank 0 checks
+    out["wall_s"] = time.monotonic() - t0
+    return out
+
+
+def shard_analytic(cfg, tag: str, B: int) -> dict:
+    """A decode dispatch's collectives on the model group, from the
+    shapes: 19a's held-keys combine, one max and one sum all-reduce a
+    layer of (B, H, 1) and (B, H, 1 + hd) float32; 19b's two float32
+    all-reduces a layer of (B, 1, d) (attention, FFN) and two
+    all-gathers, the embedding's d/2 columns and the head's V/2 logits in
+    bf16."""
+    L, H, hd, d = (cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim,
+                   cfg.d_model)
+    if tag == "19a":
+        return {"all_reduce_max": (L, L * B * H * 4),
+                "all_reduce": (L, L * B * H * (1 + hd) * 4)}
+    return {"all_reduce": (2 * L, 2 * L * B * d * 4),
+            "all_gather": (2, B * (d // 2) * 2 + B * (cfg.vocab_size // 2)
+                           * 2)}
+
+
+def shard_result(ranks: list, one: dict, t19: float) -> dict:
+    """Phase 19's gates and lines."""
+    problems, res = [], {"card": card()}
+    log(f"== phase 19: sharded serving in phase 17's ranks on cuda:0 over "
+        f"gloo: {SHARD_ARCH} at {SHARD_LAYERS} of 24 layers with the "
+        f"weights replicated and the paged pool split on (1, 2) (19a), "
+        f"{depth_cut(TP_ARCH)} tensor-parallel on (1, 2) (19b); 11a's "
+        f"traffic ({DENSE_SLOTS} slots, {DENSE_REQS} requests of "
+        f"{DENSE_PROMPT[0]}-{DENSE_PROMPT[1]} tokens, {DENSE_NEW} new)")
+    log("card:", nvidia_smi_line())
+    for tag, arch, layers in (("19a", SHARD_ARCH, SHARD_LAYERS),
+                              ("19b", TP_ARCH, SHARD_TP_LAYERS)):
+        cfg = shard_config(arch, layers)
+        o = one[tag]
+        want = shard_analytic(cfg, tag, DENSE_SLOTS)
+        rows = []
+        for r in ranks:
+            run = r["19"][tag]
+            share, first = first_divergence(run["tokens_by_rid"],
+                                            o["tokens_by_rid"])
+            steps = run["collectives_by_dispatch"]["_step"]
+            if not steps:
+                problems.append(f"{tag} rank {r['rank']}: no decode-only "
+                                "dispatch")
+                steps = [{}]
+            per = {}
+            for op, (calls, nbytes) in want.items():
+                got = {tuple(v.get(op, [0, 0])[:2]) for v in steps}
+                per[op] = {"calls": calls, "bytes": nbytes,
+                           "measured": sorted(got),
+                           "median_ms": statistics.median(
+                               v.get(op, [0, 0, 0.0])[2] * 1e3
+                               for v in steps)}
+                if got != {(calls, nbytes)}:
+                    problems.append(f"{tag} rank {r['rank']} {op} a decode "
+                                    f"dispatch {sorted(got)}, analytic "
+                                    f"{(calls, nbytes)}")
+            extra = set().union(*map(set, steps)) - set(want)
+            if extra:
+                problems.append(f"{tag} rank {r['rank']}: collectives {extra}"
+                                " beyond the analytic ones")
+            if run["pool_bytes"] * 2 != o["pool_bytes"]:
+                problems.append(f"{tag} rank {r['rank']} pool "
+                                f"{run['pool_bytes']} B, one process "
+                                f"{o['pool_bytes']} B")
+            rep = run.get("int8_bytes_replicated", 0)
+            if tag == "19b" and (run["int8_bytes"] - rep) * 2 != \
+                    o["int8_bytes_whole"] - rep:
+                problems.append(f"19b rank {r['rank']} INT8 "
+                                f"{run['int8_bytes']} B ({rep} B whole on "
+                                f"every rank) of {o['int8_bytes_whole']}")
+            for kind in ("f32_paged", "f32_slot"):
+                if kind in o and run[kind] != o[kind]:
+                    problems.append(f"{tag} rank {r['rank']} {kind} tokens "
+                                    "differ from the one process's")
+            row = {"rank": r["rank"], "tokens_per_s": run["tokens_per_s"],
+                   "mean_ttft_s": run["mean_ttft_s"],
+                   "median_decode_ms": run["median_decode_step_ms"],
+                   "median_append_ms": run["median_append_ms"],
+                   "median_fused_ms": run["median_fused_ms"],
+                   "dispatches": run["dispatches"],
+                   "launches_per_decode_dispatch":
+                       run["launches_per_decode_dispatch"],
+                   "pool_bytes": run["pool_bytes"],
+                   "peak_gib": run["rank_peak_gib"],
+                   "bf16_tokens_equal_share": share,
+                   "first_divergence": first, "collectives_a_decode": per,
+                   "f32_tokens_equal": all(run[k] == o[k] for k in
+                                           ("f32_paged", "f32_slot")
+                                           if k in o)}
+            if tag == "19b":
+                row.update(int8_bytes=run["int8_bytes"],
+                           int8_bytes_whole=o["int8_bytes_whole"],
+                           int8_bytes_replicated=rep)
+            rows.append(row)
+            log(f"  {tag} rank {r['rank']}: {run['tokens_per_s']:.1f} tok/s "
+                f"(one process {o['tokens_per_s']:.1f}), mean TTFT "
+                f"{run['mean_ttft_s']:.3f} s ({o['mean_ttft_s']:.3f}), "
+                f"median decode dispatch {run['median_decode_step_ms']:.2f} "
+                f"ms ({o['median_decode_step_ms']:.2f}), pool "
+                f"{run['pool_bytes'] / 2**20:.2f} MiB ({o['pool_bytes'] / 2**20:.2f}), "
+                f"peak {run['rank_peak_gib']:.2f} GiB, bf16 tokens equal "
+                f"{share:.3f} (first divergence {first}), f32 tokens "
+                f"equal {row['f32_tokens_equal']}; model group a decode "
+                "dispatch: " + ", ".join(
+                    f"{op} {v['measured']} calls/bytes (analytic "
+                    f"{v['calls']}, {v['bytes']}), {v['median_ms']:.2f} ms"
+                    for op, v in per.items())
+                + (f"; INT8 {run['int8_bytes']} B of "
+                   f"{o['int8_bytes_whole']} (the matrices' half and the "
+                   f"{rep} B of norm scales whole)" if tag == "19b" else "")
+                + f"; launches a decode dispatch "
+                f"{run['launches_per_decode_dispatch']}")
+        res[tag] = {"layers": layers, "ranks": rows,
+                    "one_process": {k: o[k] for k in (
+                        "tokens_per_s", "mean_ttft_s",
+                        "median_decode_step_ms", "median_append_ms",
+                        "median_fused_ms", "pool_bytes", "dispatches",
+                        "peak_gib")},
+                    "analytic_collectives_a_decode": want}
+    c = ranks[0]["19"]["check"]
+    res.update(check=c, launches=dict(sum(
+        (Counter(r["19"]["launches"]) for r in ranks), Counter())),
+        one_process_s=one["s"],
+        ranks_s=[r["19"]["wall_s"] for r in ranks],
+        wall_s=time.monotonic() - t19)
+    log(f"  phase 19: {res['wall_s']:.1f} s: the one process "
+        f"{one['s']:.1f} s, then the ranks {res['ranks_s']} s (19a "
+        f"{[r['19']['seconds']['19a'] for r in ranks]}, 19b "
+        f"{[r['19']['seconds']['19b'] for r in ranks]}, rank 0's "
+        f"{c['checked_problems']} int8_matmul problems "
+        f"{ranks[0]['19']['seconds']['check']:.1f} s); int8_matmul "
+        f"launches in both ranks' bf16 runs {res['launches']}")
+    if problems:
+        raise AssertionError("phase 19: " + "; ".join(problems))
+    return res
+
+
+def add_sharded(kernels: dict, sh: dict) -> None:
+    """Phase 19's part of the kernels line: ``int8_matmul``'s launches in
+    both ranks' bf16 runs and the phase's problems against the plain
+    version, and the phase's summary."""
+    k = next(k for k in kernels["kernels"] if k["name"] == "int8_matmul")
+    n = sh["launches"].get("int8_matmul", 0)
+    k["launches"] += n
+    k["launches_by_path"]["sharded_serving"] = n
+    k["sharded_serving"] = sh["check"]
+    k["max_abs_err"] = max(k["max_abs_err"], sh["check"]["check_max_abs_err"])
+    kernels["sharded_serving"] = {t: sh[t] for t in (
+        "card", "wall_s", "19a", "19b")}
+
+
 def write_analysis() -> None:
     """Every timed step's roofline as one table, and the run's rooflines
     and recorded kernel tables written to ``build/analysis.json``
@@ -6871,12 +7274,12 @@ def main() -> int:
                   "15": phase_zamba, "16": phase_encdec}
         names = args.only.split(",")
         for name in names:
-            if name in ("17", "18"):
+            if name in ("17", "18", "19"):
                 continue
             fn = phases[name]
             fn() if name == "1" else fn(args.seed)
-        ranked = tuple(n for n in names if n in ("17", "18"))
-        if ranked:          # phase 18 runs in phase 17's ranks
+        ranked = tuple(n for n in names if n in ("17", "18", "19"))
+        if ranked:          # phases 18 and 19 run in phase 17's ranks
             phase_data_parallel(args.seed, ranked)
         write_analysis()
         log(f"== phases {args.only} passed in {time.monotonic() - t0:.1f} s")
@@ -7431,6 +7834,7 @@ def kernels_json(rows, step, step_by, max_abs, max_rel, serving, parity,
         "zamba_training": zb["training"],
         "encdec_training": ed["training"]}
     add_parallel(kernels, dp["parallel"])
+    add_sharded(kernels, dp["sharded"])
     return kernels
 
 

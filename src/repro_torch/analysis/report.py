@@ -10,8 +10,8 @@ a row is ``{"name": ..., **Roofline.row()}``, a snapshot
 ``kernels.profile.snapshot()`` and ``device_ms`` the device milliseconds
 by kernel (``profile.device_ms``). ``chip_smoke.py`` writes one to
 ``build/analysis.json``. With ``--base`` the steps present in both files
-are compared. The reference's ``dryrun_table`` reads XLA dry-run
-artifacts and has no counterpart.
+are compared. ``--dryrun DIR`` prints the dry run's artifacts
+(``launch/dryrun.py``) as :func:`dryrun_table` and their rooflines.
 """
 from __future__ import annotations
 
@@ -108,11 +108,48 @@ def compare(base_rows: List[Dict], new_rows: List[Dict]) -> str:
     return "\n".join(lines)
 
 
+def dryrun_table(directory: str) -> str:
+    """The dry run's artifacts in ``directory`` (one mesh's), as a
+    markdown table: analytic FLOPs and bytes a chip, the analytic
+    collective bytes a rank, the argument bytes a rank."""
+    lines = [
+        "| arch × cell | kind | FLOPs/chip (analytic) | bytes/chip "
+        "(analytic) | collective GB/rank (analytic) | argument GiB/rank | "
+        "status |",
+        "|---|---|---|---|---|---|---|",
+    ]
+    for key, art in roofline.load_artifacts(directory).items():
+        if not art.get("ok"):
+            lines.append(f"| {key} | — | — | — | — | — | FAILED: "
+                         f"{str(art.get('error', ''))[-40:]} |")
+            continue
+        cost = art.get("cost_analysis", {})
+        coll = (art.get("collectives") or {}).get("total") or {}
+        arg = art.get("memory_analysis", {}).get("argument_size_in_bytes", 0)
+        lines.append(
+            f"| {key} | {art.get('kind', '?')} "
+            f"| {cost.get('flops', 0):.2e} "
+            f"| {cost.get('bytes accessed', 0):.2e} "
+            f"| {(coll.get('bytes') or 0) / 1e9:.2f} "
+            f"| {arg / 2 ** 30:.2f} | ok |")
+    return "\n".join(lines)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("rows", help="JSON with 'roofline' and/or 'kernels'")
+    ap.add_argument("rows", nargs="?",
+                    help="JSON with 'roofline' and/or 'kernels'")
     ap.add_argument("--base", help="a second such file to compare against")
+    ap.add_argument("--dryrun", help="a directory of one mesh's dry-run "
+                    "artifacts (launch/dryrun.py)")
     args = ap.parse_args(argv)
+    if args.dryrun:
+        print("## Dry run\n")
+        print(dryrun_table(args.dryrun))
+        print("\n## Roofline of the dry run\n")
+        print(roofline.table(args.dryrun))
+    if not args.rows:
+        return 0
     with open(args.rows) as f:
         doc = json.load(f)
     if doc.get("roofline"):

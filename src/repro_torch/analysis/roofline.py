@@ -9,13 +9,16 @@
 type, and the HBM rate. :func:`kernel_bound` is a kernel's least time from
 its bytes and FLOPs; :class:`Roofline` is a whole step's, built from
 ``analysis.analytic`` and set against a measured time (``mfu``,
-``share``). The reference's ``from_artifact`` reads XLA dry-run artifacts
-and has no counterpart.
+``share``). :func:`from_artifact`, :func:`load_artifacts` and :func:`table`
+read the dry run's artifacts (``launch/dryrun.py``) a chip, their
+collective term at the card's NVLink rate (:data:`NVLINK_BW`).
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.config import ModelConfig, ShapeCell
 
@@ -25,6 +28,9 @@ PEAKS: Dict[str, float] = {
     "f32": 67e12, "hbm": 3.35e12,
 }
 CARDS: Dict[str, Dict[str, float]] = {"NVIDIA H100 80GB HBM3": PEAKS}
+# NVIDIA H100 SXM: NVLink 900 GB/s a card, both directions together; a
+# collective's bytes a rank leave at one direction's half
+NVLINK_BW = 450e9
 
 
 def peaks(device_name: str) -> Dict[str, float]:
@@ -101,12 +107,17 @@ class Roofline:
 
     @property
     def mfu(self) -> float:
-        """Model FLOPs over (bf16 peak × measured time)."""
+        """Model FLOPs over (bf16 peak × measured time); 0 unmeasured (a
+        dry run's)."""
+        if not self.measured_s:
+            return 0.0
         return self.model_flops / (self.peak_flops * self.measured_s)
 
     @property
     def share(self) -> float:
-        """The bound's share of the measured time."""
+        """The bound's share of the measured time; 0 unmeasured."""
+        if not self.measured_s:
+            return 0.0
         return self.bound_s / self.measured_s
 
     def row(self) -> Dict[str, float]:
@@ -127,3 +138,61 @@ def serving_mfu(cfg: ModelConfig, tokens_per_s: float,
     from repro_torch.analysis import analytic
     one = analytic.model_flops(cfg, ShapeCell("token", 1, 1, "decode"))
     return tokens_per_s * one / peaks["bf16"]
+
+
+# ---------------------------------------------------------------------------
+# The dry run's artifacts
+# ---------------------------------------------------------------------------
+
+def from_artifact(art: Dict, peaks: Dict[str, float] = PEAKS
+                  ) -> Optional[Roofline]:
+    """A chip's roofline from a dry-run artifact (``launch/dryrun.py``):
+    its analytic FLOPs at the bf16 rate, its analytic bytes at the HBM
+    rate and its collective bytes at :data:`NVLINK_BW`; the model FLOPs a
+    chip; nothing measured. None for a failed cell."""
+    if not art.get("ok"):
+        return None
+    cost = art.get("cost_analysis") or {}
+    flops = float(cost.get("flops", 0.0))
+    nbytes = float(cost.get("bytes accessed", 0.0))
+    coll = float(((art.get("collectives") or {}).get("total") or {})
+                 .get("bytes") or 0.0)
+    chips = int(art.get("chips") or 1)
+    return Roofline(compute_s=flops / peaks["bf16"],
+                    memory_s=nbytes / peaks["hbm"],
+                    collective_s=coll / NVLINK_BW,
+                    model_flops=float(art.get("model_flops", 0.0)) / chips,
+                    measured_s=0.0, flops=flops, nbytes=nbytes,
+                    peak_flops=peaks["bf16"])
+
+
+def load_artifacts(directory: str) -> Dict[str, Dict]:
+    """``{name: artifact}`` of the ``*.json`` in ``directory``, by name."""
+    out = {}
+    if not os.path.isdir(directory):
+        return out
+    for name in sorted(os.listdir(directory)):
+        if name.endswith(".json"):
+            with open(os.path.join(directory, name)) as f:
+                out[name[:-5]] = json.load(f)
+    return out
+
+
+def table(directory: str) -> str:
+    """The artifacts' rooflines a chip, as a markdown table."""
+    lines = [
+        "| arch × cell | compute (s) | memory (s) | collective (s) | "
+        "dominant | useful FLOPs ratio | MFU bound |",
+        "|---|---|---|---|---|---|---|",
+    ]
+    for key, art in load_artifacts(directory).items():
+        r = from_artifact(art)
+        if r is None:
+            lines.append(f"| {key} | FAILED: "
+                         f"{str(art.get('error', '?'))[-60:]} | | | | | |")
+            continue
+        lines.append(
+            f"| {key} | {r.compute_s:.4f} | {r.memory_s:.4f} | "
+            f"{r.collective_s:.4f} | **{r.dominant}** | "
+            f"{r.useful_flops_ratio:.2f} | {r.mfu_bound:.1%} |")
+    return "\n".join(lines)

@@ -218,6 +218,20 @@ def plan_specs(specs: List[LeafSpec], t: int, cfg, block: int = 256
             for i, s in enumerate(ann)]
 
 
+def attn_split(cfg, t: int, block: int = 256) -> bool:
+    """Whether :func:`plan_specs` splits a GQA attention unit of ``cfg``
+    (``wq``, ``wk``, ``wv``, ``wo``) over t ranks: each rank then computes
+    and caches its H/t query and KH/t kv heads."""
+    if t <= 1:
+        return False
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    shapes = {"wq": (d, cfg.num_heads * hd), "wk": (d, cfg.num_kv_heads * hd),
+              "wv": (d, cfg.num_kv_heads * hd), "wo": (cfg.num_heads * hd, d)}
+    specs = [LeafSpec(f"['block']['attn']['{n}']", s, False, "", 0, ())
+             for n, s in shapes.items()]
+    return plan_specs(specs, t, cfg, block)[-1].shard_dim is not None
+
+
 def local_specs(specs: List[LeafSpec]) -> List[LeafSpec]:
     """A rank's specs: each sharded leaf's slice shape, the whole leaf's
     side and rank (so ``low_shape`` and ``proj_shape`` are the rank's
@@ -291,6 +305,16 @@ def shard_params(params, specs: List[LeafSpec], mesh, model_rank: int):
                              f"the mesh has {t}")
         out.append(shard_leaf(leaf, spec, model_rank))
     return qgalore.unflatten([k for k, _ in flat], out)
+
+
+def serving_params(params, cfg, mesh, model_rank: int):
+    """This model rank's slices of a serving tree (the whole INT8 weights,
+    ``serve.params.quantize_leaf``'s), by :func:`plan_specs` at the
+    mesh's model size, as a ``tp_group`` bundle computes on them."""
+    from repro_torch.config import QGaLoreConfig
+    specs = plan_specs(qgalore.leaf_specs(params, QGaLoreConfig()),
+                       int(mesh[1]), cfg)
+    return shard_params(params, specs, mesh, model_rank)
 
 
 def gather_params(params, specs: List[LeafSpec], comm: Comm):

@@ -18,7 +18,7 @@ routes the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,6 +29,77 @@ from repro_torch.models.layers import apply_rope, dense, dense_init, \
     rmsnorm, rmsnorm_init, rope_angles
 
 NEG_INF = -1e30
+NO_POS = 2 ** 30     # the position of a key slot this rank does not hold
+
+
+class HeldWindow(NamedTuple):
+    """One layer's K or V window as one rank holds it when the window is
+    split over ranks (``serve/shard.py``): ``local`` (R, W, KH, hd), the
+    rank's keys of R rows; ``rows`` (R,) the row of the batch each local
+    row belongs to; ``pos`` (R, W) the position of each local key in its
+    row's window (``NO_POS`` where this rank holds no key); ``comm`` the
+    ranks among which the keys are split (None: this rank holds them
+    all). ``fresh`` is what the last write wrote, every row's (B, C, KH,
+    hd) in ``local``'s dtype: each rank computes every row, so the pool's
+    write plan takes it from there (``serve/paged.py``)."""
+    local: torch.Tensor
+    rows: torch.Tensor
+    pos: torch.Tensor
+    comm: Any
+    fresh: Optional[torch.Tensor] = None
+
+
+def held_write(win: HeldWindow, positions, valid, new) -> HeldWindow:
+    """Write ``new`` (B, C, ...) at ``positions`` (B, C) where ``valid``
+    (B, C) into the keys of ``win`` this rank holds, IN PLACE (positions
+    held elsewhere write nothing here). Each local key takes the one
+    chunk column aimed at it, if any, through a gather: no index is
+    written twice, so the write is exact and free of collisions."""
+    p, ok = positions[win.rows], valid[win.rows]
+    hit = (win.pos[:, :, None] == p[:, None, :]) & ok[:, None, :]
+    C = p.shape[1]
+    src = (hit * torch.arange(C, device=p.device)).sum(-1)      # (R, W)
+    vals = new[win.rows].to(win.local.dtype)
+    tail = (1,) * (vals.ndim - 2)
+    got = vals.gather(1, src.view(src.shape + tail).expand(
+        src.shape + tuple(vals.shape[2:])))
+    win.local.copy_(torch.where(hit.any(-1).view(src.shape + tail), got,
+                                win.local))
+    return win._replace(fresh=new.to(win.local.dtype))
+
+
+def held_attention(q, k: HeldWindow, v: HeldWindow, allowed
+                   ) -> torch.Tensor:
+    """Attention of q (B, C, H, dh) over the keys split among ranks:
+    ``allowed`` (R, C, W) masks each local row's keys for each query.
+    Scores over the keys this rank holds, then the log-sum-exp combine
+    over ``k.comm``: one all-reduce of the row max M, then one of [l, o]
+    together, whose exponentials this rank takes against M (the partial
+    softmax ``l·e^(m−M)``, ``o·e^(m−M)`` without its rescale). A masked
+    key adds an exact 0, so a rank that holds no valid key of a row adds
+    exactly zero to it."""
+    B, C, H, dh = q.shape
+    R, _, KH, _ = k.local.shape
+    dv = v.local.shape[-1]
+    G = H // KH
+    rows = k.rows
+    qg = (q.to(torch.float32)[rows] / math.sqrt(dh)).reshape(R, C, KH, G, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.local.to(torch.float32))
+    s = torch.where(allowed[:, None, None], s,
+                    torch.full((), NEG_INF, device=q.device))
+    m = torch.full((B, KH, G, C), NEG_INF, device=q.device)
+    m[rows] = s.amax(dim=-1)
+    if k.comm is not None:
+        k.comm.all_reduce_op(m, "max")
+    e = torch.exp(s - m[rows][..., None])
+    lo = torch.zeros((B, KH, G, C, 1 + dv), device=q.device)
+    lo[rows] = torch.cat([e.sum(dim=-1, keepdim=True),
+                          torch.einsum("bhgqk,bkhd->bhgqd", e,
+                                       v.local.to(torch.float32))], dim=-1)
+    if k.comm is not None:
+        k.comm.all_reduce_sum(lo)
+    o = lo[..., 1:] / lo[..., :1]                        # (B, KH, G, C, dv)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, dv).to(q.dtype)
 
 
 def _attend_dense(q, k, v, *, causal: bool, q_offset: int):
@@ -91,7 +162,12 @@ def append_attention(q, k_cache, v_cache, q_positions) -> torch.Tensor:
     :func:`_attend_dense` op for op (the same einsums, max, exp, sum and
     ``e / z``) with the causal mask taken against absolute positions:
     masked keys add an exact 0 to the sums. Never the flash kernel: the
-    queries are offset (``_flash_eligible``)."""
+    queries are offset (``_flash_eligible``). A :class:`HeldWindow` cache
+    (a window split over ranks) goes through :func:`held_attention`."""
+    if isinstance(k_cache, HeldWindow):
+        allowed = k_cache.pos[:, None, :] <= \
+            q_positions[k_cache.rows][:, :, None]
+        return held_attention(q, k_cache, v_cache, allowed)
     B, C, H, dh = q.shape
     KH = k_cache.shape[2]
     dv = v_cache.shape[-1]
@@ -114,7 +190,11 @@ def append_attention(q, k_cache, v_cache, q_positions) -> torch.Tensor:
 
 def decode_attention(q, k_cache, v_cache, length) -> torch.Tensor:
     """Single-token decode: q (B,1,H,dh) against a (B,S,KH,dh) cache with
-    ``length`` (B,) valid positions per row."""
+    ``length`` (B,) valid positions per row; a :class:`HeldWindow` cache
+    through :func:`held_attention`."""
+    if isinstance(k_cache, HeldWindow):
+        allowed = k_cache.pos < length[k_cache.rows][:, None]
+        return held_attention(q, k_cache, v_cache, allowed[:, None])
     B, _, H, dh = q.shape
     KH = k_cache.shape[2]
     G = H // KH
@@ -209,21 +289,29 @@ def gqa_decode(p, x, cfg: ModelConfig, *, cache: Tuple, length,
     Writes the new token's K/V at position ``length`` of each row IN PLACE
     in the cache tensors (rows with ``length >= Smax`` write nothing, as
     the JAX package's one-hot blend), then attends over ``length + 1``
-    positions."""
+    positions. A :class:`HeldWindow` cache (split over ranks) takes the
+    write where this rank holds the position (:func:`held_write`)."""
     k_cache, v_cache = cache
     B = x.shape[0]
-    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = dense(x, p["wq"], dtype).reshape(B, 1, H, hd)
-    k = dense(x, p["wk"], dtype).reshape(B, 1, KH, hd)
-    v = dense(x, p["wv"], dtype).reshape(B, 1, KH, hd)
+    hd = cfg.resolved_head_dim
+    # -1: a tensor-parallel rank holds H/t query and KH/t KV heads
+    q = dense(x, p["wq"], dtype).reshape(B, 1, -1, hd)
+    k = dense(x, p["wk"], dtype).reshape(B, 1, -1, hd)
+    v = dense(x, p["wv"], dtype).reshape(B, 1, -1, hd)
     q, k = _qk_norm(p, q, k, cfg)
     sin, cos = rope_angles(length[:, None].to(torch.float32), hd,
                            cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
-    rows = torch.arange(B, device=x.device)
-    _write_row(k_cache, rows, length, k[:, 0])
-    _write_row(v_cache, rows, length, v[:, 0])
+    if isinstance(k_cache, HeldWindow):
+        at = length[:, None]
+        ok = torch.ones(at.shape, dtype=torch.bool, device=x.device)
+        k_cache = held_write(k_cache, at, ok, k)
+        v_cache = held_write(v_cache, at, ok, v)
+    else:
+        rows = torch.arange(B, device=x.device)
+        _write_row(k_cache, rows, length, k[:, 0])
+        _write_row(v_cache, rows, length, v[:, 0])
     o = decode_attention(q, k_cache, v_cache, length + 1)
     return dense(o.reshape(B, 1, -1), p["wo"], dtype), (k_cache, v_cache)
 
@@ -238,9 +326,16 @@ def gqa_append(p, x, cfg: ModelConfig, *, cache: Tuple, positions, mask,
 
     The write is one ``index_put`` per cache at ``positions % Smax``: C
     consecutive positions stay distinct modulo Smax, so no two entries of
-    a row collide, and a masked entry writes back what its slot holds."""
+    a row collide, and a masked entry writes back what its slot holds. A
+    :class:`HeldWindow` cache takes :func:`held_write`."""
     k_cache, v_cache = cache
     B, C, _ = x.shape
+    if isinstance(k_cache, HeldWindow):
+        q, k, v = _qkv(p, x, cfg, positions, dtype)
+        k_cache = held_write(k_cache, positions, mask, k)
+        v_cache = held_write(v_cache, positions, mask, v)
+        o = append_attention(q, k_cache, v_cache, positions)
+        return dense(o.reshape(B, C, -1), p["wo"], dtype), (k_cache, v_cache)
     S = k_cache.shape[1]
     if C > S:
         raise ValueError(f"append chunk {C} wider than the cache ({S})")

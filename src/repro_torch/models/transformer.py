@@ -87,8 +87,19 @@ def block_apply(lp, carry, ctx, cfg: ModelConfig, *, dtype,
     return {**carry, "h": h + f}
 
 
+def _attn_cached(fn, lp, x, cfg: ModelConfig, tp, **kw):
+    """``fn`` (an attention entry that returns its cache) on x; under
+    ``tp`` a unit whose leaves are this rank's slices runs on its heads
+    between ``tp_lib.copy`` and ``tp_lib.reduce``, and its cache holds
+    the rank's kv heads."""
+    if _split(lp["attn"]["wo"], cfg.num_heads * cfg.resolved_head_dim, tp):
+        a, cache = fn(lp["attn"], tp_lib.copy(x, tp), cfg, **kw)
+        return tp_lib.reduce(a, tp), cache
+    return fn(lp["attn"], x, cfg, **kw)
+
+
 def block_prefill(lp, carry, ctx, cfg: ModelConfig, *, dtype,
-                  flash: bool = False):
+                  flash: bool = False, tp=None):
     h = carry["h"]
     x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
     if cfg.attention == "mla":
@@ -96,10 +107,9 @@ def block_prefill(lp, carry, ctx, cfg: ModelConfig, *, dtype,
                                          positions=ctx["positions"],
                                          q_chunk=Q_CHUNK, dtype=dtype)
     else:
-        a, cache = attention.gqa_prefill(lp["attn"], x, cfg,
-                                         positions=ctx["positions"],
-                                         q_chunk=Q_CHUNK, dtype=dtype,
-                                         flash=flash)
+        a, cache = _attn_cached(attention.gqa_prefill, lp, x, cfg, tp,
+                                positions=ctx["positions"], q_chunk=Q_CHUNK,
+                                dtype=dtype, flash=flash)
     if "max_len" in ctx:
         # grow the cache to the serving window along time (axis 1), whatever
         # its rank: GQA's (B, S, KH, hd), MLA's (B, S, rank)
@@ -108,48 +118,56 @@ def block_prefill(lp, carry, ctx, cfg: ModelConfig, *, dtype,
                       for c in cache)
     h = h + a
     x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
-    f, carry = _ffn(lp, carry, x, cfg, dtype)
+    f, carry = _ffn(lp, carry, x, cfg, dtype, tp=tp)
     return {**carry, "h": h + f}, cache
 
 
-def block_decode(lp, carry, cache, ctx, cfg: ModelConfig, *, dtype):
+def block_decode(lp, carry, cache, ctx, cfg: ModelConfig, *, dtype,
+                 tp=None):
     """One token per row; the cache slices are written in place. An MoE
     layer runs at the drop-free capacity B·S."""
     h = carry["h"]                              # (B, 1, D)
     x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
-    decode = attention.mla_decode if cfg.attention == "mla" \
-        else attention.gqa_decode
-    a, cache = decode(lp["attn"], x, cfg, cache=cache, length=ctx["length"],
-                      dtype=dtype)
+    if cfg.attention == "mla":
+        a, cache = attention.mla_decode(lp["attn"], x, cfg, cache=cache,
+                                        length=ctx["length"], dtype=dtype)
+    else:
+        a, cache = _attn_cached(attention.gqa_decode, lp, x, cfg, tp,
+                                cache=cache, length=ctx["length"],
+                                dtype=dtype)
     h = h + a
     x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
     f, carry = _ffn(lp, carry, x, cfg, dtype,
-                    capacity=x.shape[0] * x.shape[1])
+                    capacity=x.shape[0] * x.shape[1], tp=tp)
     return {**carry, "h": h + f}, cache
 
 
-def block_append(lp, carry, cache, ctx, cfg: ModelConfig, *, dtype):
+def block_append(lp, carry, cache, ctx, cfg: ModelConfig, *, dtype,
+                 tp=None):
     """Chunk-append (paged prefill): carry["h"] is a (B, C, D) chunk of
     prompt tokens at absolute ``ctx["positions"]``; the cache slices
     already hold every earlier position and are written in place."""
     h = carry["h"]
     x = rmsnorm(h, lp["attn_norm"], cfg.rmsnorm_eps)
-    a, cache = attention.gqa_append(lp["attn"], x, cfg, cache=cache,
-                                    positions=ctx["positions"],
-                                    mask=ctx["chunk_mask"], dtype=dtype)
+    a, cache = _attn_cached(attention.gqa_append, lp, x, cfg, tp,
+                            cache=cache, positions=ctx["positions"],
+                            mask=ctx["chunk_mask"], dtype=dtype)
     h = h + a
     x = rmsnorm(h, lp["ffn_norm"], cfg.rmsnorm_eps)
-    f = ffn_apply(lp["ffn"], x, cfg.ffn_activation, dtype)
+    f, carry = _ffn(lp, carry, x, cfg, dtype, tp=tp)
     return {**carry, "h": h + f}, cache
 
 
-def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
+def _cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                  kv_heads: int = 0):
     """The K/V (or MLA's latent and rope key) windows, in the pool's
-    dtype."""
+    dtype; ``kv_heads``: a tensor-parallel rank's share of the kv heads
+    (default: all of them)."""
     if cfg.attention == "mla":
         shapes = attention.mla_cache_shapes(cfg, batch, max_len)
     else:
-        shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        shape = (batch, max_len, kv_heads or cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
         shapes = (shape, shape)
     return tuple((s, None) for s in shapes)
 
@@ -176,8 +194,8 @@ def _head_logits(params, h, cfg: ModelConfig, dtype, tp=None):
 
 def _not_served(*_a, **_k):
     raise NotImplementedError(
-        "a bundle built with tp_group or ep_group trains only: sharded "
-        "serving is ROADMAP queue 1 sub-slice 5c")
+        "a bundle built with ep_group trains only: expert-parallel serving "
+        "is a ROADMAP queue 1, 5c follow-up (a tp_group bundle serves)")
 
 
 def _empty_stack(leaf, n: int, rows=None):
@@ -295,8 +313,13 @@ def build(cfg: ModelConfig, *, device: torch.device,
     all-gathered, a vocabulary-split head takes the vocab-parallel loss).
     ``ep_group``: every MoE layer runs expert-parallel over its ranks
     (``moe.moe_apply_ep``, the reference's ``ep_axis``), each holding
-    E/n experts' stacks. Either makes a training bundle: its serving
-    entries raise (sharded serving is sub-slice 5c).
+    E/n experts' stacks; it makes a training bundle, whose serving entries
+    raise (expert-parallel serving is a ROADMAP queue 1, 5c follow-up). A
+    ``tp_group`` bundle serves: prefill, decode and append run each split
+    unit on the rank's heads or FFN columns as the forward does, the
+    cache holds the rank's kv heads of a split attention unit
+    (``tp_lib.attn_split``), and a vocabulary-split head's logits are
+    gathered (``tp_lib.gather_last``) before sampling.
 
     ``cfg.tie_embeddings`` drops the ``head`` leaf: the logits are
     ``h @ E^T`` through ``layers.dense_t``. ``cfg.embed_scale`` (gemma) scales
@@ -440,7 +463,11 @@ def build(cfg: ModelConfig, *, device: torch.device,
         return carry, {"positions": positions}
 
     def head_logits(params, carry):
-        return _head_logits(params, carry["h"][:, -1:], cfg, dtype)
+        logits = _head_logits(params, carry["h"][:, -1:], cfg, dtype,
+                              tp_group)
+        if _head_split(params, cfg, tp_group):
+            logits = tp_lib.gather_last(logits, tp_group)
+        return logits
 
     def head_loss(params, carry, batch):
         """Next-token loss: logits[t] predicts labels[t + 1]; a VLM's
@@ -483,22 +510,28 @@ def build(cfg: ModelConfig, *, device: torch.device,
         return loss + carry["aux"], {**metrics, "ce_loss": loss,
                                      "aux_loss": carry["aux"]}
 
-    sharded = tp_group is not None or ep_group is not None
+    ep_only = ep_group is not None
+    t = tp_group.world if tp_group is not None else 1
+    kv_heads = cfg.num_kv_heads // t \
+        if cfg.attention == "gqa" and tp_lib.attn_split(cfg, t) else 0
     segments = tuple(SegmentDef(
         name=name, n_layers=n,
         apply=functools.partial(block_apply, cfg=cfg, dtype=dtype,
                                 flash=flash_attention, tp=tp_group,
                                 ep=ep_group if is_moe else None),
-        prefill=_not_served if sharded else functools.partial(
-            block_prefill, cfg=cfg, dtype=dtype, flash=flash_attention),
-        decode=_not_served if sharded else functools.partial(
-            block_decode, cfg=cfg, dtype=dtype),
-        cache_shapes=functools.partial(_cache_shapes, cfg),
+        prefill=_not_served if ep_only else functools.partial(
+            block_prefill, cfg=cfg, dtype=dtype, flash=flash_attention,
+            tp=tp_group),
+        decode=_not_served if ep_only else functools.partial(
+            block_decode, cfg=cfg, dtype=dtype, tp=tp_group),
+        cache_shapes=functools.partial(_cache_shapes, cfg,
+                                       kv_heads=kv_heads),
         # routing capacity depends on the tokens routed together, so a
         # chunked prompt would not drop what the whole prompt drops; MLA's
         # absorbed decode sums in another order than its prefill
-        append=(None if is_moe or cfg.attention == "mla" or sharded else
-                functools.partial(block_append, cfg=cfg, dtype=dtype)))
+        append=(None if is_moe or cfg.attention == "mla" or ep_only else
+                functools.partial(block_append, cfg=cfg, dtype=dtype,
+                                  tp=tp_group)))
         for name, n, is_moe, _ in segs)
 
     def input_specs(cell):
@@ -512,7 +545,7 @@ def build(cfg: ModelConfig, *, device: torch.device,
     return ModelBundle(cfg=cfg, device=torch.device(device), dtype=dtype,
                        init_params=init_params, embed=embed,
                        segments=segments,
-                       head_logits=_not_served if sharded else head_logits,
+                       head_logits=_not_served if ep_only else head_logits,
                        head_loss=head_loss,
                        flash_attention=flash_attention,
                        ragged_prefill_ok=mc is None,

@@ -249,6 +249,30 @@ def build_decode(bundle: ModelBundle, capture=None):
     return decode
 
 
+def abstract_decode_state(bundle: ModelBundle, batch: int, max_len: int,
+                          dtype=torch.bfloat16) -> DecodeState:
+    """The decode state's layout with nothing allocated: every leaf a
+    tensor on the ``meta`` device, of its shape and dtype (each segment
+    with a decode and a cache; the encoder-decoder's ``memory`` extra of
+    ``max(max_len // DEC_RATIO, 16)`` frames, as the JAX package's)."""
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    caches = {
+        bundle.seg_key(i): tuple(meta((seg.n_layers,) + tuple(shape),
+                                      dt or dtype)
+                                 for shape, dt in seg.cache_shapes(batch,
+                                                                   max_len))
+        for i, seg in enumerate(bundle.segments)
+        if seg.cache_shapes is not None and seg.decode is not None}
+    extras = {}
+    if "memory" in bundle.decode_extras:
+        from repro_torch.models.encdec import DEC_RATIO
+        extras["memory"] = meta(
+            (batch, max(max_len // DEC_RATIO, 16), bundle.cfg.d_model), dtype)
+    return DecodeState(caches, meta((batch,), torch.int32), extras)
+
+
 def sample(logits: torch.Tensor, temperature: float = 0.0,
            generator: Optional[torch.Generator] = None,
            noise: Optional[torch.Tensor] = None) -> torch.Tensor:

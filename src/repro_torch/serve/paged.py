@@ -61,8 +61,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.attention import HeldWindow
 from repro_torch.models.base import ModelBundle
-from repro_torch.serve import engine
+from repro_torch.serve import engine, shard
 from repro_torch.serve.engine import DecodeState
 from repro_torch.serve.radix import RadixCache
 from repro_torch.serve.scheduler import Completion, Request, Scheduler
@@ -172,8 +173,11 @@ def _gather_views(caches, tables, MB: int, block_size: int):
     """Per-slot contiguous views of the block pool: every leaf ``(L, NB,
     blk, …)`` with tables ``(S, MB)`` becomes a layer-indexable
     ``(L, S, MB·blk, …)`` whose layers are gathered when the engine's
-    layer loop reaches them."""
-    return {k: tuple(_LayerGather(leaf, tables, MB, block_size)
+    layer loop reaches them (a pool split over ranks: each layer's
+    ``HeldWindow`` of the rank's part, ``shard.PagedLeaf.view``)."""
+    return {k: tuple(leaf.view(tables, MB)
+                     if isinstance(leaf, shard.PagedLeaf)
+                     else _LayerGather(leaf, tables, MB, block_size)
                      for leaf in c) for k, c in caches.items()}
 
 
@@ -185,11 +189,19 @@ def _take_pos(leaf, pos):
     return leaf.gather(1, idx.expand(pos.shape + leaf.shape[2:]))
 
 
+def _fresh(leaf, pos):
+    """What a step wrote at ``pos`` (B, P) of an updated cache leaf: a
+    ``HeldWindow`` (a pool split over ranks) keeps every row's, whose
+    positions this rank may not hold."""
+    return leaf.fresh if isinstance(leaf, HeldWindow) else \
+        _take_pos(leaf, pos)
+
+
 def _capture_decode(new_cache, ctx):
     """Engine ``capture`` hook: keep only position ``length`` of each
     updated cache leaf, the one K/V this decode step wrote."""
     pos = ctx["length"][:, None]
-    return tuple(_take_pos(leaf, pos) for leaf in new_cache)
+    return tuple(_fresh(leaf, pos) for leaf in new_cache)
 
 
 def _capture_append(new_cache, ctx):
@@ -197,7 +209,7 @@ def _capture_append(new_cache, ctx):
     of each updated cache leaf, the C K/Vs this append chunk wrote (masked
     tail columns carry garbage; the write plan sends them to scratch)."""
     pos = ctx["positions"]
-    return tuple(_take_pos(leaf, pos) for leaf in new_cache)
+    return tuple(_fresh(leaf, pos) for leaf in new_cache)
 
 
 def _flatten_kv(captured):
@@ -225,11 +237,16 @@ def pool_write_kv(caches, phys, off, kvs):
     """Phase-2 pool write, in place: set K/V at (block ``phys``, offset
     ``off``); ``kvs`` leaves (L, N, …) against pool leaves (L, NB, blk,
     …). Entries bound for scratch may collide at block 0, whose content is
-    dead; every other target is written once. Returns ``caches``."""
+    dead; every other target is written once. A pool split over ranks
+    keeps the targets this rank holds (``shard.PagedLeaf.write``).
+    Returns ``caches``."""
     p, o = phys.long(), off.long()
     for key, leaves in caches.items():
         for big, kv in zip(leaves, kvs[key]):
-            big[:, p, o] = kv.to(big.dtype)
+            if isinstance(big, shard.PagedLeaf):
+                big.write(p, o, kv)
+            else:
+                big[:, p, o] = kv.to(big.dtype)
     return caches
 
 
@@ -402,6 +419,12 @@ class PagedScheduler(Scheduler):
     ``num_slots`` at the same ``num_blocks``. Runs on ``device`` (default
     ``cuda``, which must be present); sampling at ``temperature > 0`` draws
     from ``generator``.
+
+    ``shardings`` (``shard.paged_pool_sharding``'s partitions) with
+    ``group`` (the mesh's ``MeshComms``): this rank holds its slices of the
+    block pool, the blocks over ``data`` and the offsets within a block
+    over ``model`` (``serve/shard.py``), and every rank runs the same
+    scheduler, allocator and radix cache on the same requests.
     """
 
     def __init__(self, bundle: ModelBundle, params, *, num_slots: int,
@@ -410,10 +433,9 @@ class PagedScheduler(Scheduler):
                  pad_id: int = 0, temperature: float = 0.0, dtype=None,
                  generator: Optional[torch.Generator] = None, device=None,
                  use_radix: bool = True, reserve_decode: bool = True,
-                 shardings=None):
+                 shardings=None, group=None):
         if shardings is not None:
-            from repro_torch.serve.scheduler import SHARDED_SERVING
-            raise NotImplementedError(SHARDED_SERVING)
+            shard.check_bundle(bundle)
         if not engine.append_ok(bundle):
             raise ValueError(
                 f"{bundle.cfg.name}: paged serving requires chunk-append "
@@ -435,12 +457,18 @@ class PagedScheduler(Scheduler):
         self.generator = generator
         dtype = dtype if dtype is not None else torch.bfloat16
 
-        self.caches = {
-            bundle.seg_key(i): tuple(
-                torch.zeros((seg.n_layers,) + shape, dtype=dt or dtype,
-                            device=self.device)
-                for shape, dt in seg.cache_shapes(num_blocks, block_size))
-            for i, seg in enumerate(bundle.segments)}
+        if shardings is None:
+            self.caches = {
+                bundle.seg_key(i): tuple(
+                    torch.zeros((seg.n_layers,) + shape, dtype=dt or dtype,
+                                device=self.device)
+                    for shape, dt in seg.cache_shapes(num_blocks,
+                                                      block_size))
+                for i, seg in enumerate(bundle.segments)}
+        else:
+            self.caches = shard.placed_block_pool(
+                bundle, num_blocks, block_size, dtype, self.device,
+                shardings, group)
         # two-phase step: the step programs read the pool (gather) and
         # return fresh K/V + a write plan; pool_write_kv then writes them
         self._append = build_paged_append(bundle, block_size, self.MB,
@@ -468,7 +496,7 @@ class PagedScheduler(Scheduler):
         """Clear all serving state (a zeroed pool, no requests)."""
         for leaves in self.caches.values():
             for leaf in leaves:
-                leaf.zero_()
+                shard.local_tensor(leaf).zero_()
         self.alloc.reset()
         if self.radix is not None:
             self.radix.reset()
@@ -862,6 +890,8 @@ class PagedScheduler(Scheduler):
     # -- introspection -----------------------------------------------------
 
     def pool_bytes(self) -> int:
-        """Device bytes held by the block pool (capacity accounting)."""
-        return sum(leaf.numel() * leaf.element_size()
-                   for leaves in self.caches.values() for leaf in leaves)
+        """Device bytes this rank's block pool holds (capacity
+        accounting)."""
+        return sum(t.numel() * t.element_size()
+                   for leaves in self.caches.values() for t in
+                   map(shard.local_tensor, leaves))

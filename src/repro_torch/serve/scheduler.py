@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.base import ModelBundle
-from repro_torch.serve import engine
+from repro_torch.serve import engine, shard
 from repro_torch.serve.engine import DecodeState
 
 
@@ -104,13 +104,17 @@ def init_pool(bundle: ModelBundle, num_slots: int, max_len: int,
 def insert_requests(pool: DecodeState, slots, rows: DecodeState
                     ) -> DecodeState:
     """Write the B rows of a prefill state into pool slots ``slots`` (B,),
-    IN PLACE (cache tensors at dim 1, ``lengths`` at dim 0). Returns the
-    pool."""
+    IN PLACE (cache tensors at dim 1, ``lengths`` at dim 0; a pool split
+    over ranks keeps the part each rank holds, ``shard.SlotLeaf``).
+    Returns the pool."""
     idx = torch.as_tensor(slots, dtype=torch.long,
                           device=pool.lengths.device)
     for key, pool_leaves in pool.caches.items():
         for p, r in zip(pool_leaves, rows.caches[key]):
-            p[:, idx] = r.to(p.dtype)
+            if isinstance(p, shard.SlotLeaf):
+                p.insert(list(slots), r)
+            else:
+                p[:, idx] = r.to(p.dtype)
     pool.lengths[idx] = rows.lengths.to(pool.lengths.dtype)
     return pool
 
@@ -142,11 +146,6 @@ def _bucket(n: int, bucket: int) -> int:
     return max(bucket, -(-n // bucket) * bucket)
 
 
-# the reference's ``shardings=`` (a pool placed over a mesh)
-SHARDED_SERVING = ("sharded serving (serve/shard.py, the schedulers' "
-                   "shardings=) is not ported: ROADMAP queue 1 sub-slice 5c")
-
-
 class Scheduler:
     """Slot-based continuous-batching scheduler over a model bundle.
 
@@ -155,15 +154,22 @@ class Scheduler:
     multiple), :func:`insert_requests`, and the batched masked decode
     step. Runs on ``device`` (default ``cuda``, which must be present);
     sampling at ``temperature > 0`` draws from ``generator``.
+
+    ``shardings`` (``shard.pool_sharding``'s partitions) with ``group``
+    (the mesh's ``distributed.comm.MeshComms``): this rank holds its
+    slices of the pool (``serve/shard.py``) and computes every row; every
+    rank runs the same scheduler on the same requests, and at
+    ``temperature > 0`` needs a generator seeded alike. A bundle built
+    with ``tp_group`` serves on the rank's heads with or without them.
     """
 
     def __init__(self, bundle: ModelBundle, params, *, num_slots: int,
                  max_len: int, pad_id: int = 0, temperature: float = 0.0,
                  prompt_bucket: int = 16, dtype=None,
                  generator: Optional[torch.Generator] = None, device=None,
-                 shardings=None):
+                 shardings=None, group=None):
         if shardings is not None:
-            raise NotImplementedError(SHARDED_SERVING)
+            shard.check_bundle(bundle)
         if bundle.decode_extras:
             # a pool holds per-slot caches only; ``generate`` serves a
             # bundle whose decode needs state beside them
@@ -179,6 +185,7 @@ class Scheduler:
         self.temperature = temperature
         self.prompt_bucket = prompt_bucket
         self.generator = generator
+        self.shardings, self.group = shardings, group
         self.dtype = dtype if dtype is not None else torch.bfloat16
         self._prefill = engine.build_prefill(bundle, max_len, pad_id=None)
         self._step = build_decode_step(bundle, temperature, pad_id)
@@ -186,8 +193,13 @@ class Scheduler:
 
     def reset(self) -> None:
         """Clear all serving state (a fresh pool, no requests)."""
-        self.pool = init_pool(self.bundle, self.num_slots, self.max_len,
-                              self.dtype, self.device)
+        if self.shardings is None:
+            self.pool = init_pool(self.bundle, self.num_slots, self.max_len,
+                                  self.dtype, self.device)
+        else:
+            self.pool = shard.placed_slot_pool(
+                self.bundle, self.num_slots, self.max_len, self.dtype,
+                self.device, self.shardings, self.group)
         self.slots = [_Slot() for _ in range(self.num_slots)]
         self.cur_tokens = np.zeros((self.num_slots,), np.int32)
         self.active = np.zeros((self.num_slots,), bool)

@@ -177,10 +177,35 @@ def test_meshes_of_the_port():
 
 @pytest.mark.parametrize("backend", ["slot", "paged"])
 def test_sharded_serving_refused(backend):
-    from repro_torch.serve.scheduler import make_scheduler
+    """Sharded serving is ported (``serve/shard.py``): a scheduler given
+    the rules' partitions and the mesh's groups builds, holds a placed
+    pool and serves, here on the (1, 1) mesh, where nothing splits and the
+    tokens are the unsharded scheduler's. Multi-rank runs:
+    ``tests/test_torch_sharded_serve.py``."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.comm import MeshComms
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import shard
+    from repro_torch.serve.scheduler import Request, make_scheduler
     bundle = model_zoo.build_arch("llama-60m", smoke=True, device="cpu",
                                   dtype=torch.float32)
     params = bundle.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="sub-slice 5c"):
-        make_scheduler(bundle, params, backend=backend, num_slots=2,
-                       max_len=32, device="cpu", shardings={})
+    mesh = make_mesh((1, 1))
+    one = SimpleNamespace(rank=0, world=1)
+    parts = shard.pool_sharding(bundle, 2, 32, mesh, torch.float32) \
+        if backend == "slot" else \
+        shard.paged_pool_sharding(bundle, 9, 8, mesh, torch.float32)
+    kw = dict(backend=backend, num_slots=2, max_len=32, block_size=8,
+              prefill_chunk=8, dtype=torch.float32, device="cpu")
+    sched = make_scheduler(bundle, params, shardings=parts,
+                           group=MeshComms(one, one, one, (1, 1)), **kw)
+    plain = make_scheduler(bundle, params, **kw)
+    leaf = (sched.pool.caches if backend == "slot" else
+            sched.caches)["seg0_dense"][0]
+    assert isinstance(leaf, (shard.SlotLeaf, shard.PagedLeaf))
+    reqs = [Request(rid=i, tokens=[3 + i, 5, 7, 11][: 2 + i],
+                    max_new_tokens=3) for i in range(3)]
+    got = {c.rid: c.tokens for c in sched.run(reqs)}
+    assert got == {c.rid: c.tokens for c in plain.run(reqs)}
+    assert all(len(t) == 3 for t in got.values())
